@@ -1,0 +1,567 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. build    — compile the CUDA kernel library from ``csrc/`` with nvcc
+              (sm_90a) and print the card's name and power limit;
+2. kernels  — every kernel of the serving path (K4 bitplane_pack, K3
+              direct_conv_bn_binarize, K2 fused_matmul_bn_binarize) against
+              its plain PyTorch version on the card, bit-exact, at AlexNet's
+              batch-8 shapes and at edge cases, with thresholds that give
+              a mix of output bits (a share of 0.2 to 0.8 set);
+3. serve    — paper AlexNet (227x227x3, 1000 classes, numpy-seeded random
+              weights) behind ``InferenceServer``: mixed-size raw images in
+              mixed group sizes through buckets (1, 2, 4, 8), every row equal
+              to ``cross_check`` on the same padded batch, ``build_count``
+              flat, launch counts K4 = 1, K3 = 5, K2 = 2 per forward; then
+              a steady run of 64 images and the preprocess time per image
+              (copy and resize on the card);
+   profile  — one AlexNet forward at bucket 8: host wall time, device time
+              per kernel (torch.profiler) and the device's busy share;
+4. detect   — paper YOLOv2-Tiny at 416² for one batch of 2 through the
+              engine and ``detect_head``, cross-checked;
+5. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
+              warmed up, median) beside its plain version and its bound.
+
+The line before the last is the ``{"kernels": [...]}`` JSON; the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+repository's ``src/`` beside it, the script exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+from statistics import NormalDist
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# Fails without the repository's src/ beside the script.
+from repro_torch import workloads  # noqa: E402
+from repro_torch.core import bitplanes, packing  # noqa: E402
+from repro_torch.core.binary_conv import conv_out_size  # noqa: E402
+from repro_torch.kernels import bitplane_pack as k4  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import direct_conv_bn_binarize as k3  # noqa: E402
+from repro_torch.kernels import fused_conv_bn_binarize as k2  # noqa: E402
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and the dense
+# int8 tensor-core rate at which a ±1 product could run.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+
+BATCH = 8
+# (name, (N, H, W, C), kernel, stride, pad, O, pool, first layer): C is the
+# real input channel count; a first layer's input is 8 bit-planes of C.
+ALEXNET_CONVS = [
+    ("conv1", (BATCH, 227, 227, 3), 11, 4, 0, 96, (3, 2, (0, 0)), True),
+    ("conv2", (BATCH, 27, 27, 96), 5, 1, 2, 256, (3, 2, (0, 0)), False),
+    ("conv3", (BATCH, 13, 13, 256), 3, 1, 1, 384, None, False),
+    ("conv4", (BATCH, 13, 13, 384), 3, 1, 1, 384, None, False),
+    ("conv5", (BATCH, 13, 13, 384), 3, 1, 1, 256, (3, 2, (0, 0)), False),
+]
+CONV_EDGES = [
+    ("O=48", (BATCH, 27, 27, 96), 5, 1, 2, 48, (3, 2, (0, 0)), False),
+    ("C=40 pad bits", (BATCH, 27, 27, 40), 3, 1, 1, 64, None, False),
+    ("yolo conv6 pool pad (0,1)", (BATCH, 13, 13, 256), 3, 1, 1, 512,
+     (2, 1, (0, 1)), False),
+    ("batch 1", (1, 27, 27, 96), 5, 1, 2, 256, (3, 2, (0, 0)), False),
+]
+# (name, M, N, W): AlexNet's packed_dense nodes at batch 8.  Their inputs
+# (9216 and 4096 channels) fill every word, so K = 32·W bits.
+ALEXNET_DENSE = [("fc6", BATCH, 4096, 288), ("fc7", BATCH, 4096, 128)]
+DENSE_EDGES = [("N=48 weighted", 37, 48, 70), ("batch 1", 1, 4096, 288)]
+# Every threshold-and-pack case must give a mix of output bits: a kernel
+# that miscounts could otherwise still match on near-constant outputs.
+SET_SHARE = (0.2, 0.8)
+
+SOURCES = {
+    "bitplane_pack": ("src/repro_torch/kernels/csrc/bitplane_pack.cu",
+                      "src/repro/kernels/bitplane_pack.py:52"),
+    "direct_conv_bn_binarize": (
+        "src/repro_torch/kernels/csrc/direct_conv_bn_binarize.cu",
+        "src/repro/kernels/direct_conv_bn_binarize.py:101"),
+    "fused_matmul_bn_binarize": (
+        "src/repro_torch/kernels/csrc/fused_conv_bn_binarize.cu",
+        "src/repro/kernels/fused_conv_bn_binarize.py:85"),
+}
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+# --------------------------------------------------------------------------
+# Inputs and bounds
+# --------------------------------------------------------------------------
+
+def word_bits(channels: int) -> list[int]:
+    """Real (non-pad) bits in each packed word of ``channels`` channels."""
+    return [min(32, channels - 32 * i)
+            for i in range(packing.num_words(channels))]
+
+
+class Inputs:
+    """Seeded random kernel operands on one device."""
+
+    def __init__(self, device, seed: int = 0):
+        self.device = device
+        self.g = torch.Generator(device=device).manual_seed(seed)
+
+    def words(self, *shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                             device=self.device, generator=self.g)
+
+    def channel_words(self, lead, channels: int):
+        """(*lead, num_words(channels)) words of random bits, pad bits 0."""
+        bits = torch.randint(0, 2, tuple(lead) + (channels,),
+                             device=self.device, generator=self.g)
+        return packing.pack_bits(bits, axis=-1)
+
+    def epilogue(self, n: int, ww, bits, pool_positions: int = 1):
+        """Thresholds and sign flips of ``n`` channels that give a mix of
+        output bits.
+
+        The count ``sum ww·popcount(a ^ b)`` over words of ``bits`` random
+        real bits has mean ``sum ww·bits/2`` and variance
+        ``sum ww²·bits/4``.  A pooled bit is the OR of ``pool_positions``
+        conv bits, so each conv bit is centred on the probability q with
+        ``1 - (1 - q)^P = 1/2``, and each channel's threshold is spread
+        by one standard deviation around that centre."""
+        ww, bits = ww.double(), bits.double()
+        mean = float((ww * bits).sum()) / 2
+        sd = float((ww * ww * bits).sum()) ** .5 / 2
+        z = NormalDist().inv_cdf(1 - 0.5 ** (1 / pool_positions))
+        sgn = torch.randint(0, 2, (n,), device=self.device,
+                            generator=self.g).bool()
+        jitter = torch.rand(n, device=self.device, generator=self.g,
+                            dtype=torch.float64) * 2 - 1
+        # bit = (cnt <= t) ^ s: P(cnt <= t) = q for s = 0, 1 - q for s = 1.
+        centre = torch.where(sgn, -z, z)
+        thr = torch.round(mean + sd * (centre + jitter)).to(torch.int32)
+        return thr, sgn
+
+
+def conv_case(inp: Inputs, case):
+    """Operands and keyword arguments of one K3 call, and K_bits, the real
+    input bits behind one conv output (for the bound)."""
+    name, (n, h, w, c), k, st, pad, o, pool, first = case
+    planes = 8 if first else 1
+    x = inp.channel_words((n, h, w, planes), c).reshape(n, h, w, -1)
+    wp = inp.channel_words((o, k * k, planes), c).reshape(o, -1)
+    bits = torch.tensor(word_bits(c) * planes * k * k, device=inp.device)
+    cw = x.shape[-1]
+    ww = (bitplanes.plane_word_weights(cw // 8).repeat(k * k).to(inp.device)
+          if first else None)
+    thr, sgn = inp.epilogue(o, ww if first else torch.ones_like(bits), bits,
+                            pool[0] ** 2 if pool else 1)
+    kw = dict(kh=k, kw=k, stride=st, pad=pad, word_weights=ww, pool=pool)
+    return (x, wp, thr, sgn), kw, int(bits.sum())
+
+
+def dense_case(inp: Inputs, case):
+    name, m, n, w = case
+    a, b = inp.words(m, w), inp.words(n, w)
+    ww = None
+    if "weighted" in name:
+        ww = torch.randint(1, 129, (w,), dtype=torch.int32,
+                           device=inp.device, generator=inp.g)
+    thr, sgn = inp.epilogue(
+        n, ww if ww is not None else torch.ones(w, device=inp.device),
+        torch.full((w,), 32, device=inp.device))
+    return (a, b, thr, sgn, ww)
+
+
+def check_share(name: str, out, channels: int) -> float:
+    """Share of set bits over the real output channels of packed words;
+    fails outside ``SET_SHARE``."""
+    share = packing.unpack_bits(out, channels).float().mean().item()
+    if not SET_SHARE[0] <= share <= SET_SHARE[1]:
+        raise AssertionError(f"[kernels] {name}: {share:.3f} of output bits "
+                             f"set, outside {SET_SHARE}")
+    return share
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_cost(args, kw, out, k_bits: int) -> tuple[float, float]:
+    """Bytes each input read once + output written once; 2·M·N·K_bits ops
+    over the conv positions (each counted once), K_bits the real input
+    bits of one output: KH·KW·C, and KH·KW·8·C for a first layer."""
+    x, wp, thr, sgn = args
+    n, h, w, cw = x.shape
+    o = wp.shape[0]
+    oh = conv_out_size(h, kw["kh"], kw["stride"], kw["pad"])
+    ow = conv_out_size(w, kw["kw"], kw["stride"], kw["pad"])
+    nbytes = (x.numel() * 4 + wp.numel() * 4 + thr.numel() * 4 + sgn.numel()
+              + out.numel() * 4
+              + (kw["word_weights"].numel() * 4
+                 if kw["word_weights"] is not None else 0))
+    return nbytes, 2.0 * n * oh * ow * o * k_bits
+
+
+def dense_cost(args, out) -> tuple[float, float]:
+    a, b, thr, sgn, ww = args
+    m, w = a.shape
+    nbytes = (a.numel() + b.numel() + thr.numel() + out.numel()) * 4 \
+        + sgn.numel() + (ww.numel() * 4 if ww is not None else 0)
+    return nbytes, 2.0 * m * b.shape[0] * w * 32
+
+
+# --------------------------------------------------------------------------
+# Phases
+# --------------------------------------------------------------------------
+
+def phase_build() -> str:
+    t0 = time.perf_counter()
+    path, secs = build.build(verbose=True)
+    build.library()
+    log(f"[build] {path.name}: "
+        + (f"nvcc {secs:.3f} s" if secs else "already built")
+        + f", loaded in {time.perf_counter() - t0:.3f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    return smi
+
+
+def check_equal(name: str, got, want) -> int:
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = (got.long() - want.long()).abs().max().item() \
+            if got.shape == want.shape else "shape"
+        raise AssertionError(f"[kernels] {name}: kernel != plain ({diff})")
+    return int((got.long() - want.long()).abs().max().item())
+
+
+def phase_kernels(device) -> dict[str, int]:
+    """Every kernel against its plain version on the card, bit-exact.
+    Returns the max |kernel - plain| per kernel (0 when it passes)."""
+    inp = Inputs(device, seed=1)
+    err: dict[str, int] = {}
+
+    def note(name: str, e: int) -> None:
+        err[name] = max(err.get(name, 0), e)
+
+    for shape in [(BATCH, 227, 227, 3), (1, 227, 227, 3), (2, 5, 7, 40)]:
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=device,
+                          generator=inp.g)
+        note("bitplane_pack", check_equal(
+            f"bitplane_pack {shape}", k4.bitplane_pack(x),
+            k4.bitplane_pack_plain(x)))
+        log(f"[kernels] bitplane_pack {shape}: exact")
+    for case in ALEXNET_CONVS + CONV_EDGES:
+        args, kw, _ = conv_case(inp, case)
+        got = k3.direct_conv_bn_binarize(*args, **kw)
+        want = k3.direct_conv_bn_binarize_plain(*args, **kw)
+        note("direct_conv_bn_binarize", check_equal(case[0], got, want))
+        share = check_share(case[0], got, case[5])
+        log(f"[kernels] direct_conv_bn_binarize {case[0]} "
+            f"x{tuple(args[0].shape)} -> {tuple(got.shape)}: exact, "
+            f"{share:.3f} of output bits set")
+    for case in ALEXNET_DENSE + DENSE_EDGES:
+        args = dense_case(inp, case)
+        got = k2.fused_matmul_bn_binarize(*args)
+        want = k2.fused_matmul_bn_binarize_plain(*args)
+        note("fused_matmul_bn_binarize", check_equal(case[0], got, want))
+        share = check_share(case[0], got, case[2])
+        log(f"[kernels] fused_matmul_bn_binarize {case[0]} "
+            f"a{tuple(args[0].shape)} b{tuple(args[1].shape)}: exact, "
+            f"{share:.3f} of output bits set")
+    torch.cuda.synchronize()
+    return err
+
+
+def reset_launches() -> None:
+    k4.bitplane_pack.launches = 0
+    k3.direct_conv_bn_binarize.launches = 0
+    k2.fused_matmul_bn_binarize.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {"bitplane_pack": k4.bitplane_pack.launches,
+            "direct_conv_bn_binarize": k3.direct_conv_bn_binarize.launches,
+            "fused_matmul_bn_binarize": k2.fused_matmul_bn_binarize.launches}
+
+
+def phase_serve(rng: np.random.Generator):
+    """AlexNet behind InferenceServer.  Returns (the workload, launches in
+    the run, launches per forward, serving numbers)."""
+    t0 = time.perf_counter()
+    wl = workloads.get("alexnet_imagenet", seed=0)
+    server = wl.server(max_batch=8, buckets=(1, 2, 4, 8))
+    timings = server.compile_buckets()
+    log(f"[serve] alexnet_imagenet paper on {wl.engine.device} "
+        f"({wl.matmul_mode}), model {wl.model_bytes} B, set-up "
+        f"{time.perf_counter() - t0:.3f} s, bucket compile+first run "
+        + ", ".join(f"{b}: {s * 1e3:.1f} ms" for b, s in timings.items()))
+    builds = wl.engine.build_count
+    sizes = [(240, 320), (300, 300), (227, 227), (480, 360), (256, 341)]
+    groups = [1, 2, 3, 5, 7]          # buckets 1, 2, 4, 8, 8
+    imgs = [rng.integers(0, 256, (*sizes[i % len(sizes)], 3), dtype=np.uint8)
+            for i in range(sum(groups))]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    record: list[tuple[list, list]] = []
+    served = 0
+    for g in groups:
+        batch = imgs[served:served + g]
+        reqs = [server.submit(im) for im in batch]
+        server.drain()
+        served += g
+        bucket = server.scheduler.bucket_for(g)
+        record.append((reqs, batch + [np.zeros_like(batch[-1])]
+                       * (bucket - g)))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = server.metrics()
+
+    if not all(r.done and r.outcome == "served" for reqs, _ in record
+               for r in reqs):
+        raise AssertionError("[serve] a request was not served")
+    if metrics["served"] != len(imgs):
+        raise AssertionError(f"[serve] served {metrics['served']} of "
+                             f"{len(imgs)}")
+    if wl.engine.build_count != builds:
+        raise AssertionError("[serve] build_count moved while serving")
+    forwards = len(record)
+    per_forward = {k: v / forwards for k, v in launches.items()}
+    want = {"bitplane_pack": 1, "direct_conv_bn_binarize": 5,
+            "fused_matmul_bn_binarize": 2}
+    if per_forward != want:
+        raise AssertionError(f"[serve] launches per forward {per_forward}, "
+                             f"want {want}")
+    for reqs, padded in record:
+        x = torch.stack([wl.preprocess_hook(p) for p in padded])
+        ref = wl.engine.cross_check(x).cpu().numpy()
+        for r, expect in zip(reqs, ref):
+            if not np.array_equal(r.result, expect):
+                raise AssertionError("[serve] served row != cross_check")
+        if not np.isfinite(ref).all() or ref.shape[1:] != (5, 2):
+            raise AssertionError(f"[serve] bad rows {ref.shape}")
+    log(f"[serve] {len(imgs)} requests in groups {groups} through buckets "
+        f"{sorted({server.scheduler.bucket_for(g) for g in groups})}: all "
+        f"served, each row == cross_check; build_count flat at {builds}; "
+        f"launches {launches} over {forwards} forwards")
+    log(f"[serve] mixed run: served/s {metrics['throughput']:.3f}, p50 "
+        f"{metrics['p50_ms']:.3f} ms, p95 {metrics['p95_ms']:.3f} ms, peak "
+        f"device memory {peak} B")
+
+    # Steady traffic: 64 network-size images, 8 full batches.
+    steady = wl.server(max_batch=8, buckets=(1, 2, 4, 8))
+    frames = [rng.integers(0, 256, (227, 227, 3), dtype=np.uint8)
+              for _ in range(64)]
+    torch.cuda.synchronize()
+    for im in frames:
+        steady.submit(im)
+    steady.drain()
+    sm = steady.metrics()
+    if sm["served"] != len(frames) or wl.engine.build_count != builds:
+        raise AssertionError("[serve] steady run failed")
+    log(f"[serve] steady run, 64 requests of 227x227 at bucket 8: served/s "
+        f"{sm['throughput']:.3f}, p50 {sm['p50_ms']:.3f} ms, p95 "
+        f"{sm['p95_ms']:.3f} ms")
+    # The server's hook copies each image to the card and resizes it
+    # there; this is the wall time per image of that work alone.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for im in frames:
+        wl.preprocess_hook(im)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    log(f"[serve] preprocess alone (copy + resize on the card), 227x227 "
+        f"image: {pre_ms:.4f} ms per image")
+    numbers = dict(mixed=dict(served_per_s=metrics["throughput"],
+                              p50_ms=metrics["p50_ms"],
+                              p95_ms=metrics["p95_ms"],
+                              peak_bytes=peak),
+                   steady=dict(served_per_s=sm["throughput"],
+                               p50_ms=sm["p50_ms"], p95_ms=sm["p95_ms"],
+                               preprocess_ms=pre_ms))
+    return wl, launches, per_forward, numbers
+
+
+def phase_profile(wl) -> dict:
+    """Where one AlexNet forward at bucket 8 spends its time: host wall per
+    forward (no profiler), device time per kernel and the device's busy
+    share (torch.profiler over the same forwards)."""
+    exe = wl.engine.compile(BATCH)
+    x = torch.randint(0, 256, (BATCH, 227, 227, 3), dtype=torch.uint8,
+                      device=wl.engine.device)
+    reps = 20
+    for _ in range(3):
+        exe(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        exe(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            exe(x)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # Device-side events only (kernels, copies): a CPU op may report
+        # its kernels' time too, which would count them twice.
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
+            rows.append((us / reps / 1e3, e.count / reps, e.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    log(f"[profile] alexnet forward at batch {BATCH}: host wall "
+        f"{wall_ms:.4f} ms/forward (no profiler), device "
+        f"{device_ms:.4f} ms/forward, busy share "
+        f"{device_ms / wall_ms:.3f}")
+    for ms, n, key in rows[:12]:
+        log(f"[profile]   {ms:.4f} ms  x{n:g}  {key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                top=[dict(ms=ms, per_forward=n, kernel=key[:90])
+                     for ms, n, key in rows[:12]])
+
+
+def phase_detect(rng: np.random.Generator) -> None:
+    wl = workloads.get("yolov2_tiny_voc", seed=0)
+    x = torch.stack([
+        wl.preprocess_hook(rng.integers(0, 256, hw + (3,), dtype=np.uint8))
+        for hw in [(375, 500), (416, 416)]])
+    reset_launches()
+    rows = wl.engine(x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ref = wl.engine.cross_check(x)
+    if not torch.equal(rows, ref) or rows.shape != (2, 16, 6) \
+            or not torch.isfinite(rows).all():
+        raise AssertionError("[detect] yolov2_tiny_voc rows disagree")
+    if launches != {"bitplane_pack": 1, "direct_conv_bn_binarize": 8,
+                    "fused_matmul_bn_binarize": 0}:
+        raise AssertionError(f"[detect] launches {launches}")
+    log(f"[detect] yolov2_tiny_voc 416x416 batch 2: rows {tuple(rows.shape)}"
+        f" == cross_check, {int((rows[..., 4] > 0).sum())} detections, "
+        f"launches {launches}")
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_timing(device, launches: dict, per_forward: dict,
+                 errs: dict) -> list[dict]:
+    inp = Inputs(device, seed=2)
+    rows = {}
+
+    def add(name, shape, ms, plain_ms, nbytes, ops):
+        b, by = bound_ms(nbytes, ops)
+        r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                       t_bytes=0.0, t_ops=0.0, shapes=[]))
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += b
+        r["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
+        r["t_ops"] += ops / INT8_OPS_PER_S * 1e3
+        r["shapes"].append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b, bound_by=by))
+        log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
+
+    x = torch.randint(0, 256, (BATCH, 227, 227, 3), dtype=torch.uint8,
+                      device=device, generator=inp.g)
+    out = k4.bitplane_pack(x)
+    add("bitplane_pack", str(tuple(x.shape)),
+        time_ms(lambda: k4.bitplane_pack(x), 50),
+        time_ms(lambda: k4.bitplane_pack_plain(x), 10),
+        x.numel() + out.numel() * 4, 0.0)
+    for case in ALEXNET_CONVS:
+        args, kw, k_bits = conv_case(inp, case)
+        out = k3.direct_conv_bn_binarize(*args, **kw)
+        nbytes, ops = conv_cost(args, kw, out, k_bits)
+        add("direct_conv_bn_binarize", case[0],
+            time_ms(lambda: k3.direct_conv_bn_binarize(*args, **kw), 20),
+            time_ms(lambda: k3.direct_conv_bn_binarize_plain(*args, **kw),
+                    3),
+            nbytes, ops)
+    for case in ALEXNET_DENSE:
+        args = dense_case(inp, case)
+        out = k2.fused_matmul_bn_binarize(*args)
+        nbytes, ops = dense_cost(args, out)
+        add("fused_matmul_bn_binarize", case[0],
+            time_ms(lambda: k2.fused_matmul_bn_binarize(*args), 50),
+            time_ms(lambda: k2.fused_matmul_bn_binarize_plain(*args), 5),
+            nbytes, ops)
+
+    kernels = []
+    for name, r in rows.items():
+        src, replaces = SOURCES[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name],
+            launches_per_forward=per_forward[name],
+            max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"],
+            bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
+            library_ms=None, per_shape=r["shapes"]))
+    return kernels
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 1
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    smi = phase_build()
+    errs = phase_kernels(device)
+    rng = np.random.default_rng(0)
+    wl, launches, per_forward, numbers = phase_serve(rng)
+    numbers["profile"] = phase_profile(wl)
+    phase_detect(rng)
+    kernels = phase_timing(device, launches, per_forward, errs)
+    log(f"[serve] numbers {json.dumps(numbers)}")
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

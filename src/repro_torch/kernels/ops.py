@@ -1,0 +1,88 @@
+"""Execution-path dispatch for the PhoneBit kernels.
+
+Counterpart of ``repro.kernels.ops``: the single conv/dense dispatch
+surface the graph executor comes through.  Port backends and the JAX
+modes they pair with in conformance tests:
+
+====================  =====================  ===============================
+port backend          JAX mode               behaviour
+====================  =====================  ===============================
+``torch``             ``xla``                plain PyTorch (im2col + counts)
+``cuda_popcount``     ``vpu_popcount``       im2col + K2 (fused matmul)
+``cuda_direct``       ``vpu_direct``         K3 (direct conv)
+``cuda_direct_pool``  ``vpu_direct_pool``    K3 with the OR-pool epilogue
+====================  =====================  ===============================
+
+A ``cuda_*`` backend launches its kernel for a CUDA tensor and runs the
+kernel's plain version for a CPU tensor; nothing falls back from one to
+the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import binary_conv, layer_integration
+from repro_torch.kernels.bitplane_pack import bitplane_pack  # noqa: F401
+from repro_torch.kernels.direct_conv_bn_binarize import \
+    direct_conv_bn_binarize
+from repro_torch.kernels.fused_conv_bn_binarize import (
+    fused_matmul_bn_binarize as _fused_kernel, fused_matmul_bn_binarize_plain)
+
+#: Port backend name -> the reference's matching mode.
+JAX_MODE = {"torch": "xla", "cuda_popcount": "vpu_popcount",
+            "cuda_direct": "vpu_direct", "cuda_direct_pool": "vpu_direct_pool"}
+CONV_MODES = ("torch", "cuda_popcount", "cuda_direct")
+
+
+def fused_matmul_bn_binarize(a, b, p: layer_integration.IntegratedParams,
+                             word_weights=None,
+                             mode: str = "cuda_popcount") -> torch.Tensor:
+    """Integrated matmul+BN+sign+pack: (M, ceil(N/32)) int32."""
+    if mode == "cuda_popcount":
+        return _fused_kernel(a, b, p.threshold, p.sign_flip, word_weights)
+    if mode == "torch":
+        return fused_matmul_bn_binarize_plain(a, b, p.threshold, p.sign_flip,
+                                              word_weights)
+    raise ValueError(f"fused path not supported for mode {mode!r}")
+
+
+def fused_binary_dense(x_packed, w_packed,
+                       p: layer_integration.IntegratedParams,
+                       mode: str = "cuda_popcount") -> torch.Tensor:
+    """Integrated dense+BN+binarize on flattened packed input."""
+    flat = x_packed.reshape(x_packed.shape[0], -1)
+    return fused_matmul_bn_binarize(flat, w_packed, p, mode=mode)
+
+
+def fused_binary_conv2d(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                        p: layer_integration.IntegratedParams,
+                        kh: int, kw: int, stride: int = 1, pad: int = 0,
+                        word_weights=None, mode: str = "cuda_direct",
+                        pool: tuple[int, int, tuple[int, int]] | None = None
+                        ) -> torch.Tensor:
+    """Fused conv+BN+binarize(+OR-pool) dispatch — one call site for every
+    backend.  ``pool`` = ``(window, stride, (pad_lo, pad_hi))``: on
+    ``cuda_direct`` it rides the kernel's epilogue, on the im2col backends
+    it runs as a separate packed-domain OR-pool after the conv."""
+    if mode == "cuda_direct":
+        return direct_conv_bn_binarize(
+            x_packed, w_packed, p.threshold, p.sign_flip, kh=kh, kw=kw,
+            stride=stride, pad=pad, word_weights=word_weights, pool=pool)
+    if mode == "cuda_popcount":
+        flat, (n, oh, ow) = binary_conv.im2col_matmul(x_packed, kh, kw,
+                                                      stride, pad)
+        out = _fused_kernel(flat, w_packed, p.threshold, p.sign_flip,
+                            word_weights)
+        out = out.reshape(n, oh, ow, out.shape[-1])
+    elif mode == "torch":
+        out = binary_conv.binary_conv2d_fused(
+            x_packed, w_packed, p, kh, kw, stride, pad,
+            word_weights=word_weights)
+    else:
+        raise ValueError(
+            f"unknown conv mode {mode!r}; want one of {CONV_MODES}")
+    if pool is not None:
+        out = binary_conv.binary_or_maxpool(out, pool[0], pool[1],
+                                            pad=tuple(pool[2]))
+    return out

@@ -1,0 +1,155 @@
+"""Topological graph executor with per-node backend dispatch (DESIGN.md §4.5).
+
+Counterpart of ``repro.runtime.executor``.  Evaluates a
+:class:`~repro_torch.runtime.graph.Graph` in its deterministic schedule,
+eagerly: each node's work is queued on the current CUDA stream as it is
+reached, and nothing waits for the device.  Per-node backends (the table
+in :mod:`repro_torch.kernels.ops` pairs each with its JAX mode):
+
+* ``"torch"``            plain PyTorch xor+popcount (always available),
+* ``"cuda_popcount"``    im2col + the fused matmul kernel (K2),
+* ``"cuda_direct"``      the direct conv kernel (K3) — conv ops only,
+* ``"cuda_direct_pool"`` K3 with the OR-pool fused into its epilogue —
+                         ``packed_conv_pool`` nodes only.
+
+``bitplane_expand`` always goes through the bit-plane kernel (K4).  All
+backends are bit-exact with one another.  A mode string that does not
+apply to an op degrades along ``_FALLBACK``; an explicit per-node backend
+that does not apply is rejected.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from repro_torch.core import binary_conv, bnn_model, packing
+from repro_torch.kernels import ops as kops
+from repro_torch.runtime.graph import DISPATCHABLE_OPS, Graph
+
+BACKENDS = ("torch", "cuda_popcount", "cuda_direct", "cuda_direct_pool")
+
+# Graceful degradation when a single mode string hits an op it cannot run.
+_FALLBACK = {"cuda_direct_pool": "cuda_direct",
+             "cuda_direct": "cuda_popcount"}
+
+
+def valid_backends(op: str) -> tuple[str, ...]:
+    """The backends an op can dispatch to."""
+    if op == "packed_conv_pool":
+        return BACKENDS
+    if op == "packed_conv":
+        return ("torch", "cuda_popcount", "cuda_direct")
+    if op == "packed_dense":
+        return ("torch", "cuda_popcount")
+    return ()
+
+
+def resolve_backend(op: str, backend: str) -> str:
+    """Degrade a requested mode along _FALLBACK until the op supports it."""
+    requested = backend
+    while backend not in valid_backends(op):
+        if backend not in _FALLBACK:
+            raise ValueError(
+                f"backend {requested!r} unusable for op {op!r}; want one "
+                f"of {valid_backends(op)}")
+        backend = _FALLBACK[backend]
+    return backend
+
+
+def _pool_attrs(a: dict) -> tuple[int, int, tuple[int, int]] | None:
+    if "pool_window" not in a:
+        return None
+    return (a["pool_window"], a["pool_stride"],
+            tuple(a.get("pool_pad", (0, 0))))
+
+
+def _eval_packed_conv(a: dict, p: dict, x, backend: str):
+    k, s, pad = a["kernel"], a["stride"], a["pad"]
+    ww = p.get("word_weights")
+    pool = _pool_attrs(a)
+    if backend == "cuda_direct_pool":
+        # The pool rides the direct kernel's epilogue.
+        return kops.fused_binary_conv2d(
+            x, p["w_packed"], p["thresh"], k, k, s, pad, word_weights=ww,
+            mode="cuda_direct", pool=pool)
+    out = kops.fused_binary_conv2d(
+        x, p["w_packed"], p["thresh"], k, k, s, pad, word_weights=ww,
+        mode=backend)
+    if pool is not None:
+        out = binary_conv.binary_or_maxpool(out, pool[0], pool[1],
+                                            pad=pool[2])
+    return out
+
+
+def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
+              backend: str = "torch"):
+    """Evaluate one node given its already-computed input values."""
+    a, p = attrs, params
+    if node_op == "bitplane_expand":
+        return kops.bitplane_pack(inputs[0])
+    if node_op in ("packed_conv", "packed_conv_pool"):
+        return _eval_packed_conv(a, p, inputs[0], backend)
+    if node_op == "packed_dense":
+        return kops.fused_binary_dense(inputs[0], p["w_packed"], p["thresh"],
+                                       mode=backend)
+    if node_op == "or_pool":
+        return binary_conv.binary_or_maxpool(
+            inputs[0], a["window"], a["stride"],
+            pad=tuple(a.get("pad", (0, 0))))
+    if node_op == "unpack_pm1":
+        return packing.unpack_to_pm1(inputs[0], a["channels"],
+                                     dtype=torch.float32)
+    if node_op == "float_dense":
+        flat = inputs[0].reshape(inputs[0].shape[0], -1)
+        return flat @ p["w"] + p["b"]
+    if node_op == "float_conv":
+        return bnn_model.float_conv_nhwc(inputs[0], p["w"], p["b"],
+                                         a["stride"], a["pad"])
+    raise ValueError(f"cannot evaluate op {node_op!r}")
+
+
+class GraphExecutor:
+    """Topological evaluator with frozen per-node backends: serving calls
+    reuse the executor the engine built for their bucket."""
+
+    def __init__(self, graph: Graph,
+                 backends: str | Mapping[int, str] = "torch"):
+        graph.validate()
+        self.graph = graph
+        if isinstance(backends, str):
+            backends = {nid: resolve_backend(n.op, backends)
+                        for nid, n in graph.nodes.items()
+                        if n.op in DISPATCHABLE_OPS}
+        self.backends: dict[int, str] = {
+            nid: b for nid, b in backends.items()
+            if graph.nodes[nid].op in DISPATCHABLE_OPS}
+        for nid, b in self.backends.items():
+            op = graph.nodes[nid].op
+            if b not in BACKENDS:
+                raise ValueError(f"unknown backend {b!r} for node {nid}; "
+                                 f"want one of {BACKENDS}")
+            if b not in valid_backends(op):
+                raise ValueError(f"backend {b!r} does not apply to node "
+                                 f"{nid} ({op})")
+        self._schedule = graph.topo_order()
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.graph
+        env: dict[int, torch.Tensor] = {}
+        for nid in self._schedule:
+            node = g.nodes[nid]
+            if node.op == "input":
+                env[nid] = x
+                continue
+            env[nid] = eval_node(node.op, node.attrs, node.params,
+                                 [env[i] for i in node.inputs],
+                                 backend=self.backends.get(nid, "torch"))
+        return env[g.output_id]
+
+    def backend_report(self) -> list[dict]:
+        return [dict(node=nid, op=self.graph.nodes[nid].op,
+                     channels=self.graph.nodes[nid].attrs.get("channels"),
+                     backend=self.backends[nid])
+                for nid in self._schedule if nid in self.backends]

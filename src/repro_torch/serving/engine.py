@@ -1,0 +1,168 @@
+"""PhoneBitEngine: the paper's stand-alone BNN inference engine (Fig 2/3).
+
+Counterpart of ``repro.serving.engine``.  A trained model (latent float
+params) is converted offline — BN folded to integer thresholds, weights
+bit-packed, first layer bit-plane-expanded — and the engine serves the
+packed integer forward through the graph runtime: the artifact is lowered
+(:func:`~repro_torch.runtime.graph.lower_packed`), conv+pool pairs fuse
+(:func:`~repro_torch.runtime.passes.fuse_pool_epilogue`), and a
+:class:`~repro_torch.runtime.executor.GraphExecutor` runs it on the
+engine's device.  The flat :func:`~repro_torch.core.bnn_model.packed_forward`
+walk stays as the ``legacy_call`` / ``cross_check`` oracle.
+
+``matmul_mode`` is a port backend (``torch``, ``cuda_popcount``,
+``cuda_direct``, ``cuda_direct_pool``; default ``cuda_direct_pool``).
+
+Batched serving goes through the per-bucket executor cache:
+``compile(batch_size)`` builds an executor once per (bucket, mode).
+``build_count`` — executors built plus kernel-library loads — must stay
+flat while requests flow.
+
+    engine = PhoneBitEngine.from_artifact("model.npz", spec, (227, 227))
+    logits = engine(images_uint8)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import bnn_model, converter, layer_integration
+from repro_torch.kernels import build as _build
+from repro_torch.runtime import executor as _executor
+from repro_torch.runtime.graph import lower_packed
+from repro_torch.runtime.passes import fuse_pool_epilogue
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The port's entry points run on the card unless the caller asks for
+    the CPU; a CUDA device without a card is an error, not a fallback."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return device
+
+
+def _to_device(v, device: torch.device):
+    if isinstance(v, layer_integration.IntegratedParams):
+        return layer_integration.IntegratedParams(
+            *(_to_device(f, device) for f in v))
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+    if t.ndim == 0 and not t.is_floating_point():
+        return int(t)                       # layout metadata (c_per_pos)
+    return t.to(device).contiguous()
+
+
+@dataclasses.dataclass
+class PhoneBitEngine:
+    spec: Sequence[Any]
+    packed: list[dict]
+    input_hw: tuple[int, int]
+    matmul_mode: str = "cuda_direct_pool"
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        # cuDNN convolutions default to TF32 on the card, and the float
+        # head (YOLO's 1x1 float_conv) would then miss the 1e-4 parity
+        # tolerance; keep float32 products in full float32.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.packed = [{k: _to_device(v, self.device)
+                        for k, v in layer.items()} for layer in self.packed]
+        self._compiled: dict[tuple[int, str], _executor.GraphExecutor] = {}
+
+    # ---- construction ----------------------------------------------------
+    @classmethod
+    def from_trained(cls, params, spec, input_hw, **kw) -> "PhoneBitEngine":
+        """Offline conversion (Fig 2): fold + pack trained params."""
+        return cls(spec=spec, packed=converter.convert(params, spec,
+                                                       input_hw),
+                   input_hw=input_hw, **kw)
+
+    @classmethod
+    def from_artifact(cls, path: str, spec, input_hw,
+                      **kw) -> "PhoneBitEngine":
+        return cls(spec=spec, packed=converter.load_artifact(path),
+                   input_hw=input_hw, **kw)
+
+    def prepare(self) -> tuple[list[dict], list[dict]]:
+        """Split the packed artifact into tensors vs static metadata
+        (``c_per_pos``): ``(arrays, meta)``."""
+        meta = [{k: int(v) for k, v in layer.items() if k == "c_per_pos"}
+                for layer in self.packed]
+        arrays = [{k: v for k, v in layer.items() if k != "c_per_pos"}
+                  for layer in self.packed]
+        return arrays, meta
+
+    # ---- graph runtime path (default) ------------------------------------
+    @functools.cached_property
+    def _graph(self):
+        return fuse_pool_epilogue(
+            lower_packed(self.spec, self.packed, self.input_hw))
+
+    def compile(self, batch_size: int | None = None, *,
+                mode: str | None = None) -> _executor.GraphExecutor:
+        """The cached executor for one serving bucket, built on first
+        request.  ``mode`` overrides ``matmul_mode`` for this executor."""
+        mode = mode or self.matmul_mode
+        bs = batch_size if batch_size is not None else 1
+        if bs < 1:
+            raise ValueError(f"batch_size must be >= 1, got {bs}")
+        key = (bs, mode)
+        if key not in self._compiled:
+            self._compiled[key] = _executor.GraphExecutor(self._graph, mode)
+        return self._compiled[key]
+
+    @property
+    def build_count(self) -> int:
+        """Executors built plus kernel-library loads: the serve-time
+        no-rebuild hook (it must stay flat while requests flow)."""
+        return len(self._compiled) + _build.loads()
+
+    def _plan_shape(self, batch: int | None = None
+                    ) -> tuple[int, int, int, int]:
+        h, w = self.input_hw
+        c = next((l.c_in for l in self.spec
+                  if isinstance(l, (bnn_model.BConv, bnn_model.FloatConv))),
+                 3)
+        return (batch or 1, h, w, c)
+
+    def _input(self, x_uint8) -> torch.Tensor:
+        x = torch.as_tensor(x_uint8).to(self.device)
+        if tuple(x.shape[1:3]) != tuple(self.input_hw):
+            raise ValueError(f"input {tuple(x.shape)} does not match the "
+                             f"engine's {self.input_hw}")
+        return x.contiguous()
+
+    def __call__(self, x_uint8) -> torch.Tensor:
+        x = self._input(x_uint8)
+        return self.compile(x.shape[0])(x)
+
+    # ---- legacy flat path (cross-check oracle) ---------------------------
+    def legacy_call(self, x_uint8) -> torch.Tensor:
+        """The flat ``packed_forward`` walk (oracle), plain PyTorch."""
+        return bnn_model.packed_forward(self.packed, self.spec,
+                                        self._input(x_uint8))
+
+    def cross_check(self, x_uint8) -> torch.Tensor:
+        """Run the graph path and assert bit-exactness vs the flat path."""
+        got = self(x_uint8)
+        ref = self.legacy_call(x_uint8)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"graph path ({self.matmul_mode}) diverges from the flat "
+                f"oracle: max |diff| {(got - ref).abs().max().item()}")
+        return got
+
+    # ---- introspection ---------------------------------------------------
+    @property
+    def model_bytes(self) -> int:
+        return converter.model_bytes(self.packed)

@@ -1,0 +1,140 @@
+"""Request batching for serving.
+
+Counterpart of ``repro.serving.scheduler`` (plain Python + numpy).  Policy:
+assemble the largest batch available up to ``max_batch``, but never hold a
+request longer than ``max_wait_s``.  Batches are padded to the nearest
+bucket size so each batch hits an executor the engine already built;
+padding is zero-filled (shaped like the last real payload) and the padded
+tail of the results is discarded.
+
+A request may carry a ``deadline_s`` (seconds of queue residency it will
+tolerate); expired requests are shed — resolved ``shed`` with
+``result=None`` and counted in ``dropped``.
+
+Every time-dependent method takes an injectable ``now=`` (monotonic
+seconds) so policy is testable with a fake clock.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+from typing import Any
+
+import numpy as np
+
+#: The terminal request outcomes this slice produces.
+OUTCOMES = ("served", "shed")
+
+
+@dataclasses.dataclass
+class Request:
+    payload: Any
+    arrival_s: float = dataclasses.field(default_factory=time.monotonic)
+    deadline_s: float | None = None   # max queue residency; None = patient
+    id: int = dataclasses.field(
+        default_factory=itertools.count().__next__)
+    result: Any = None
+    done: bool = False
+    outcome: str | None = None        # one of OUTCOMES once done
+
+    def expired(self, now: float) -> bool:
+        return (self.deadline_s is not None
+                and (now - self.arrival_s) >= self.deadline_s)
+
+    def resolve(self, outcome: str, result: Any = None) -> "Request":
+        if outcome not in OUTCOMES:
+            raise ValueError(f"unknown outcome {outcome!r}")
+        self.result, self.done, self.outcome = result, True, outcome
+        return self
+
+
+def _zero_like(payload: Any) -> Any:
+    """A zero payload with the shape/dtype of a real one (batch padding)."""
+    return np.zeros_like(np.asarray(payload))
+
+
+def buckets_for(max_batch: int,
+                ladder: tuple[int, ...] = (1, 2, 4, 8, 16)) -> tuple[int, ...]:
+    """The power-of-two ladder below ``max_batch`` plus ``max_batch``."""
+    return tuple(sorted({b for b in ladder if b < max_batch} | {max_batch}))
+
+
+@dataclasses.dataclass
+class BatchScheduler:
+    max_batch: int = 8
+    max_wait_s: float = 0.005
+    buckets: tuple[int, ...] = (1, 2, 4, 8)
+
+    def __post_init__(self):
+        self._queue: deque[Request] = deque()
+        self.dropped = 0          # deadline-shed requests (overload stat)
+        if tuple(sorted(self.buckets)) != tuple(self.buckets):
+            raise ValueError(f"buckets {self.buckets} must be ascending")
+        if self.buckets[-1] < self.max_batch:
+            raise ValueError(f"largest bucket {self.buckets[-1]} < "
+                             f"max_batch {self.max_batch}")
+
+    def submit(self, payload: Any, deadline_s: float | None = None,
+               now: float | None = None) -> Request:
+        r = Request(payload, deadline_s=deadline_s)
+        if now is not None:
+            r.arrival_s = now
+        self._queue.append(r)
+        return r
+
+    def __len__(self) -> int:
+        return len(self._queue)
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+    def shed_expired(self, now: float | None = None) -> list[Request]:
+        """Pop every expired request (done, result=None); count them."""
+        if not self._queue:
+            return []
+        now = time.monotonic() if now is None else now
+        shed = [r.resolve("shed") for r in self._queue if r.expired(now)]
+        if shed:
+            self._queue = deque(r for r in self._queue if not r.done)
+            self.dropped += len(shed)
+        return shed
+
+    def ready(self, now: float | None = None) -> bool:
+        if not self._queue:
+            return False
+        if len(self._queue) >= self.max_batch:
+            return True
+        now = time.monotonic() if now is None else now
+        return (now - self._queue[0].arrival_s) >= self.max_wait_s
+
+    def next_batch(self, now: float | None = None,
+                   force: bool = False) -> list[Request] | None:
+        """Shed expired requests, then pop up to max_batch requests if the
+        policy says go (``force=True`` skips the wait policy)."""
+        now = time.monotonic() if now is None else now
+        self.shed_expired(now)
+        if not (self._queue if force else self.ready(now)):
+            return None
+        n = min(self.max_batch, len(self._queue))
+        return [self._queue.popleft() for _ in range(n)]
+
+    def padded_batch(self, now: float | None = None, force: bool = False
+                     ) -> tuple[list[Request], list[Any]] | None:
+        """Pop a batch and zero-pad its payloads to the bucket size: every
+        executed payload list is exactly a bucket size, and rows past
+        ``len(batch)`` are padding."""
+        batch = self.next_batch(now, force=force)
+        if batch is None:
+            return None
+        bucket = self.bucket_for(len(batch))
+        payloads = [r.payload for r in batch]
+        pad = bucket - len(batch)
+        if pad:
+            payloads = payloads + [_zero_like(payloads[-1])] * pad
+        return batch, payloads

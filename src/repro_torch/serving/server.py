@@ -1,0 +1,172 @@
+"""InferenceServer: batched image serving over a PhoneBitEngine (DESIGN.md §7).
+
+Counterpart of ``repro.serving.server`` for the serving core:
+
+* a :class:`~repro_torch.serving.scheduler.BatchScheduler` assembling
+  deadline-aware, bucket-padded batches;
+* the engine's per-bucket executor cache — ``compile_buckets()`` builds
+  one executor per bucket up front, so serving builds nothing;
+* async dispatch: torch launches return before the device finishes.  A
+  batch's kernels are queued, then the copy of its output into pinned host
+  memory, then an event; ``step()`` queues batch k+1 before it waits on
+  batch k's event (the one blocking point), so the device works on k+1
+  while the host scatters k;
+* ``metrics()``: p50/p95 latency, served, dropped, queue depth, throughput.
+
+The ``preprocess=`` hook runs per payload before a batch is staged; the
+workloads' hook returns a tensor on the engine's device, so on the card
+the resize runs there.  Fault injection, retry and degradation ladders,
+the request journal, tracing, placement and multiplexing are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.obs.metrics import ServingMetrics
+from repro_torch.serving.scheduler import BatchScheduler, Request
+
+
+class _InFlight:
+    """One dispatched batch: its requests, the host tensor its output is
+    being copied into, and the event that marks the copy done (None on the
+    CPU, where the work is already done)."""
+
+    __slots__ = ("batch", "host", "event")
+
+    def __init__(self, batch: list[Request], host: torch.Tensor,
+                 event: torch.cuda.Event | None):
+        self.batch = batch
+        self.host = host
+        self.event = event
+
+
+class InferenceServer:
+    """Batched image-inference front end.
+
+    engine:          anything with ``compile(bs, mode=) -> callable``,
+                     ``_plan_shape``, ``device`` and ``matmul_mode`` (a
+                     :class:`PhoneBitEngine` or a ``WorkloadEngine``).
+    buckets:         batch sizes the engine is compiled for; mixed-size
+                     traffic is zero-padded up to the nearest one.
+    preprocess:      optional per-payload transform: payload in,
+                     network-size uint8 image out (numpy or a tensor on
+                     any device; the batch is moved to the engine's).
+    clock:           injectable monotonic clock.
+    """
+
+    def __init__(self, engine, *, max_batch: int = 8,
+                 max_wait_s: float = 0.0,
+                 buckets: tuple[int, ...] = (1, 2, 4, 8),
+                 preprocess: Callable[[np.ndarray], Any] | None = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.engine = engine
+        self.preprocess = preprocess
+        self.scheduler = BatchScheduler(max_batch=max_batch,
+                                        max_wait_s=max_wait_s,
+                                        buckets=tuple(buckets))
+        self.clock = clock
+        self._pending: _InFlight | None = None
+        self._metrics = ServingMetrics(clock)
+
+    # ---- executor cache ---------------------------------------------------
+    def compile_buckets(self) -> dict[int, float]:
+        """Build (and run once) every bucket's executor; returns seconds
+        per bucket.  After this, serving builds nothing (``build_count``
+        stays flat)."""
+        timings: dict[int, float] = {}
+        for b in self.scheduler.buckets:
+            t0 = time.perf_counter()
+            exe = self.engine.compile(b)
+            x = torch.zeros(self.engine._plan_shape(b), dtype=torch.uint8,
+                            device=self.engine.device)
+            exe(x)
+            if self.engine.device.type == "cuda":
+                torch.cuda.synchronize(self.engine.device)
+            timings[b] = time.perf_counter() - t0
+        return timings
+
+    # ---- request lifecycle ------------------------------------------------
+    def submit(self, payload: Any, deadline_s: float | None = None,
+               now: float | None = None) -> Request:
+        # Arrival is stamped from the server's clock so latency samples
+        # stay in one clock domain when a fake clock is injected.
+        now = self.clock() if now is None else now
+        return self.scheduler.submit(payload, deadline_s=deadline_s, now=now)
+
+    def poll(self, request: Request) -> bool:
+        return request.done
+
+    # ---- dispatch / scatter ----------------------------------------------
+    def _dispatch(self, batch: list[Request],
+                  payloads: list[Any]) -> _InFlight:
+        if self.preprocess is not None:
+            x = torch.stack([torch.as_tensor(self.preprocess(np.asarray(p)))
+                             for p in payloads])
+        else:
+            x = torch.from_numpy(np.stack([np.asarray(p) for p in payloads]))
+        exe = self.engine.compile(len(payloads))
+        self._metrics.mark_dispatch()
+        if self.engine.device.type != "cuda":
+            return _InFlight(batch, exe(x.to(self.engine.device)), None)
+        if not x.is_cuda:                         # a host batch
+            x = x.pin_memory().to(self.engine.device, non_blocking=True)
+        out = exe(x)                              # queued: returns now
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _InFlight(batch, host, event)
+
+    def _scatter(self, flight: _InFlight) -> list[Request]:
+        if flight.event is not None:
+            flight.event.synchronize()            # the one blocking point
+        host = flight.host.numpy()
+        now = self.clock()
+        for i, r in enumerate(flight.batch):
+            r.resolve("served", host[i])
+        self._metrics.record([now - r.arrival_s for r in flight.batch])
+        return flight.batch
+
+    def step(self, now: float | None = None,
+             force: bool = False) -> list[Request]:
+        """One serving tick: dispatch the next batch (policy permitting),
+        then scatter the previously in-flight one.  Returns the requests
+        completed this tick."""
+        now = self.clock() if now is None else now
+        flight = None
+        got = self.scheduler.padded_batch(now, force=force)
+        if got is not None:
+            flight = self._dispatch(*got)
+        done: list[Request] = []
+        if self._pending is not None:
+            done = self._scatter(self._pending)
+        self._pending = flight
+        return done
+
+    def drain(self, now: float | None = None) -> list[Request]:
+        """Serve until the queue is empty and nothing is in flight (the
+        batch-wait policy is skipped: drain is a flush)."""
+        done: list[Request] = []
+        while len(self.scheduler) or self._pending is not None:
+            done += self.step(now, force=True)
+        return done
+
+    # ---- observability ----------------------------------------------------
+    @property
+    def queue_depth(self) -> int:
+        inflight = len(self._pending.batch) if self._pending else 0
+        return len(self.scheduler) + inflight
+
+    def metrics(self) -> dict:
+        """p50/p95 request latency (submit→scatter, ms), served/dropped
+        counts, live queue depth, and throughput over the busy window
+        (first dispatch → last scatter)."""
+        return self._metrics.snapshot(
+            dropped=self.scheduler.dropped, queue_depth=self.queue_depth,
+            mode=self.engine.matmul_mode,
+            buckets=list(self.scheduler.buckets))

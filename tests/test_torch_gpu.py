@@ -1,0 +1,147 @@
+"""The port's CUDA kernels on the card (``-m gpu``; skipped without one).
+
+This file imports neither jax nor the JAX package, so it runs on a
+machine with the card and PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Each kernel is held bit for bit against its plain PyTorch version (which
+``tests/test_torch_kernels.py`` holds against the JAX package on the CPU),
+and the tiny workloads on the card against the same port on the CPU.
+"""
+
+from statistics import NormalDist
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import workloads
+from repro_torch.core import bitplanes, packing
+from repro_torch.workloads import preprocess
+from repro_torch.kernels import bitplane_pack as k4
+from repro_torch.kernels import direct_conv_bn_binarize as k3
+from repro_torch.kernels import fused_conv_bn_binarize as k2
+
+pytestmark = pytest.mark.gpu
+
+RNG = np.random.default_rng(23)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def words(dev, *shape) -> torch.Tensor:
+    return torch.from_numpy(RNG.integers(-2 ** 31, 2 ** 31, shape,
+                                         dtype=np.int64).astype(np.int32)
+                            ).to(dev)
+
+
+def epilogue(dev, n: int, ww: torch.Tensor, pool_positions: int = 1):
+    """Thresholds and sign flips of ``n`` channels that give a mix of
+    output bits.  Over full random words the count ``sum ww·popcount``
+    has mean ``16·sum ww`` and variance ``8·sum ww²``.  A pooled bit ORs
+    ``pool_positions`` conv bits, so each conv bit is centred on the
+    probability q with ``1 - (1 - q)^P = 1/2``; each channel's threshold
+    is spread by one standard deviation around that centre."""
+    ww = ww.double()
+    mean, sd = 16.0 * float(ww.sum()), (8.0 * float((ww * ww).sum())) ** .5
+    z = NormalDist().inv_cdf(1 - 0.5 ** (1 / pool_positions))
+    sgn = RNG.integers(0, 2, n).astype(bool)
+    thr = np.round(mean + sd * (np.where(sgn, -z, z) + RNG.uniform(-1, 1, n)))
+    return (torch.from_numpy(thr.astype(np.int32)).to(dev),
+            torch.from_numpy(sgn).to(dev))
+
+
+def assert_mixed(out: torch.Tensor, channels: int) -> None:
+    """A near-constant output could hide a miscount: most bits must mix."""
+    share = packing.unpack_bits(out, channels).float().mean().item()
+    assert 0.2 <= share <= 0.8, share
+
+
+@pytest.mark.parametrize("shape", [(2, 31, 29, 3), (1, 7, 5, 40)])
+def test_bitplane_pack_on_card(cuda, shape):
+    x = torch.from_numpy(RNG.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    assert torch.equal(k4.bitplane_pack(x), k4.bitplane_pack_plain(x))
+
+
+@pytest.mark.parametrize("m,n,w,weighted", [(8, 4096, 288, False),
+                                            (13, 48, 7, True),
+                                            (1, 96, 30, False)])
+def test_fused_matmul_on_card(cuda, m, n, w, weighted):
+    ww = (torch.from_numpy(RNG.integers(1, 129, w).astype(np.int32)).to(cuda)
+          if weighted else None)
+    args = (words(cuda, m, w), words(cuda, n, w),
+            *epilogue(cuda, n, ww if weighted else torch.ones(w)), ww)
+    got = k2.fused_matmul_bn_binarize(*args)
+    assert torch.equal(got, k2.fused_matmul_bn_binarize_plain(*args))
+    assert_mixed(got, n)
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 9, 8, 2), 3, 1, 1, 64, None, False),
+    ((1, 13, 13, 3), 5, 1, 2, 48, (3, 2, (0, 0)), False),
+    ((2, 7, 7, 2), 3, 1, 1, 32, (2, 1, (0, 1)), False),
+    ((2, 35, 35, 8), 11, 4, 0, 96, (3, 2, (0, 0)), True),
+])
+def test_direct_conv_on_card(cuda, case):
+    (n, h, w, cw), k, st, pad, o, pool, first = case
+    ww = (bitplanes.plane_word_weights(cw // 8).repeat(k * k).to(cuda)
+          if first else None)
+    args = (words(cuda, n, h, w, cw), words(cuda, o, k * k * cw),
+            *epilogue(cuda, o, ww if first else torch.ones(k * k * cw),
+                      pool[0] ** 2 if pool else 1))
+    kw = dict(kh=k, kw=k, stride=st, pad=pad, word_weights=ww, pool=pool)
+    got = k3.direct_conv_bn_binarize(*args, **kw)
+    assert torch.equal(got, k3.direct_conv_bn_binarize_plain(*args, **kw))
+    assert_mixed(got, o)
+
+
+@pytest.mark.parametrize("transform", [
+    lambda x: preprocess.center_crop_resize(x, (227, 227)),
+    lambda x: preprocess.letterbox(x, (416, 416))])
+def test_preprocess_hook_on_card_matches_cpu(cuda, transform):
+    img = RNG.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+    got = preprocess.as_server_hook(transform, cuda)(img)
+    want = preprocess.as_server_hook(transform, "cpu")(img)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    # Float rounding may move a value near .5 across the rounding point.
+    assert (got.cpu().int() - want.int()).abs().max() <= 1
+
+
+@pytest.mark.parametrize("backend", ["cuda_direct_pool", "cuda_popcount"])
+@pytest.mark.parametrize("name", ["alexnet_imagenet", "vgg16_imagenet",
+                                  "yolov2_tiny_voc"])
+def test_tiny_workload_on_card_matches_cpu(cuda, name, backend):
+    params = workloads.checkpoint_params(
+        workloads.get(name, variant="tiny", device="cpu").spec, 5)
+    on_cpu = workloads.get(name, variant="tiny", device="cpu",
+                           matmul_mode="torch", params=params)
+    on_card = workloads.get(name, variant="tiny", matmul_mode=backend,
+                            params=params)
+    h, w = on_cpu.input_hw
+    x = torch.from_numpy(RNG.integers(0, 256, (3, h, w, 3), dtype=np.uint8))
+    want = on_cpu.engine.raw(x)
+    raw = on_card.engine.engine.cross_check(x.to(cuda))   # graph == flat
+    torch.testing.assert_close(raw.cpu(), want, rtol=0, atol=1e-4)
+    rows = on_card.postprocess(raw).cpu()
+    ref = on_cpu.postprocess(want)
+    idx = 0 if on_cpu.task == "classify" else 5
+    assert torch.equal(rows[..., idx], ref[..., idx])
+
+
+def test_tiny_alexnet_launch_counts(cuda):
+    wl = workloads.get("alexnet_imagenet", variant="tiny")
+    x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
+    wl.engine(x)
+    for fn in (k4.bitplane_pack, k3.direct_conv_bn_binarize,
+               k2.fused_matmul_bn_binarize):
+        fn.launches = 0
+    wl.engine(x)
+    torch.cuda.synchronize()
+    assert (k4.bitplane_pack.launches, k3.direct_conv_bn_binarize.launches,
+            k2.fused_matmul_bn_binarize.launches) == (1, 2, 2)
