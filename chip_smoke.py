@@ -8,23 +8,30 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each fatal on failure:
 
 1. build    — compile the CUDA kernel library from ``csrc/`` with nvcc
-              (sm_90a) and print the card's name and power limit;
-2. kernels  — every kernel of the serving path (K4 bitplane_pack, K3
-              direct_conv_bn_binarize, K2 fused_matmul_bn_binarize) against
-              its plain PyTorch version on the card, bit-exact, at AlexNet's
-              batch-8 shapes and at edge cases, with thresholds that give
-              a mix of output bits (a share of 0.2 to 0.8 set);
+              (sm_90a), print the card's name and power limit, and check
+              the region planner's shared-memory budget against the card's
+              opt-in limit per block;
+2. kernels  — every kernel of the serving paths (K4 bitplane_pack, K3
+              direct_conv_bn_binarize, K2 fused_matmul_bn_binarize, K5
+              chain_conv) against its plain PyTorch version on the card,
+              bit-exact, at AlexNet's batch-8 shapes and at edge cases, with
+              thresholds that give a mix of output bits (a share of 0.2 to
+              0.8 set); K5 at AlexNet's region (batch 8 and 1), a tiled
+              case and YOLOv2-Tiny's conv4-conv8 region;
 3. serve    — paper AlexNet (227x227x3, 1000 classes, numpy-seeded random
-              weights) behind ``InferenceServer``: mixed-size raw images in
-              mixed group sizes through buckets (1, 2, 4, 8), every row equal
-              to ``cross_check`` on the same padded batch, ``build_count``
-              flat, launch counts K4 = 1, K3 = 5, K2 = 2 per forward; then
-              a steady run of 64 images and the preprocess time per image
-              (copy and resize on the card);
-   profile  — one AlexNet forward at bucket 8: host wall time, device time
-              per kernel (torch.profiler) and the device's busy share;
+              weights) behind ``InferenceServer``, once per serving path:
+              ``cuda_direct_pool`` (launches per forward K4 1, K3 5, K2 2)
+              and ``cuda_chain`` (K4 1, K5 1, K2 2, no K3).  Each: mixed-size
+              raw images in mixed group sizes through buckets (1, 2, 4, 8),
+              every row equal to ``cross_check`` on the same padded batch,
+              ``build_count`` flat, the launch counts read around that run
+              alone; then a steady run of 64 images and the preprocess time
+              per image (copy and resize on the card);
+   profile  — one AlexNet forward at bucket 8 per path: host wall time,
+              device time per kernel (torch.profiler), the busy share;
 4. detect   — paper YOLOv2-Tiny at 416² for one batch of 2 through the
-              engine and ``detect_head``, cross-checked;
+              engine and ``detect_head`` on each path, cross-checked
+              (``cuda_chain``: K4 1, K3 1 for conv1, K5 2);
 5. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
               warmed up, median) beside its plain version and its bound.
 
@@ -56,8 +63,10 @@ from repro_torch.core import bitplanes, packing  # noqa: E402
 from repro_torch.core.binary_conv import conv_out_size  # noqa: E402
 from repro_torch.kernels import bitplane_pack as k4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import chain_conv as k5  # noqa: E402
 from repro_torch.kernels import direct_conv_bn_binarize as k3  # noqa: E402
 from repro_torch.kernels import fused_conv_bn_binarize as k2  # noqa: E402
+from repro_torch.runtime import regions  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and the dense
 # int8 tensor-core rate at which a ±1 product could run.
@@ -85,6 +94,46 @@ CONV_EDGES = [
 # (9216 and 4096 channels) fill every word, so K = 32·W bits.
 ALEXNET_DENSE = [("fc6", BATCH, 4096, 288), ("fc7", BATCH, 4096, 128)]
 DENSE_EDGES = [("N=48 weighted", 37, 48, 70), ("batch 1", 1, 4096, 288)]
+# K5 regions: the stages the planner forms at the default budget.
+# AlexNet's is conv1-conv5 with their pools, on the bit-plane entry;
+# YOLOv2-Tiny's second is conv4-conv8 on conv3's pooled 52x52x64 map.
+ALEXNET_CHAIN = (
+    k5.StageSpec("conv", 11, 4, 0, 0, 96, True),
+    k5.StageSpec("pool", 3, 2, 0, 0, 96),
+    k5.StageSpec("conv", 5, 1, 2, 2, 256),
+    k5.StageSpec("pool", 3, 2, 0, 0, 256),
+    k5.StageSpec("conv", 3, 1, 1, 1, 384),
+    k5.StageSpec("conv", 3, 1, 1, 1, 384),
+    k5.StageSpec("conv", 3, 1, 1, 1, 256),
+    k5.StageSpec("pool", 3, 2, 0, 0, 256))
+YOLO_CHAIN = (
+    k5.StageSpec("conv", 3, 1, 1, 1, 128), k5.StageSpec("pool", 2, 2, 0, 0, 128),
+    k5.StageSpec("conv", 3, 1, 1, 1, 256), k5.StageSpec("pool", 2, 2, 0, 0, 256),
+    k5.StageSpec("conv", 3, 1, 1, 1, 512), k5.StageSpec("pool", 2, 1, 0, 1, 512),
+    k5.StageSpec("conv", 3, 1, 1, 1, 1024),
+    k5.StageSpec("conv", 3, 1, 1, 1, 1024))
+# (name, (N, H, W, C) entry, C real channels per plane word when first,
+# stages, tile)
+CHAIN_CASES = [
+    ("alexnet region", (BATCH, 227, 227, 3), ALEXNET_CHAIN, {}),
+    ("alexnet region batch 1", (1, 227, 227, 3), ALEXNET_CHAIN, {}),
+    ("alexnet region tiled 4x4, 2 images a block", (3, 227, 227, 3),
+     ALEXNET_CHAIN, dict(block_h=4, block_w=4, block_n=2)),
+    ("yolo conv4-conv8 region", (BATCH, 52, 52, 64), YOLO_CHAIN, {}),
+]
+# Launches per forward on each serving path.
+WANT_LAUNCHES = {
+    "cuda_direct_pool": {"bitplane_pack": 1, "direct_conv_bn_binarize": 5,
+                         "fused_matmul_bn_binarize": 2, "chain_conv": 0},
+    "cuda_chain": {"bitplane_pack": 1, "direct_conv_bn_binarize": 0,
+                   "fused_matmul_bn_binarize": 2, "chain_conv": 1},
+}
+WANT_DETECT = {
+    "cuda_direct_pool": {"bitplane_pack": 1, "direct_conv_bn_binarize": 8,
+                         "fused_matmul_bn_binarize": 0, "chain_conv": 0},
+    "cuda_chain": {"bitplane_pack": 1, "direct_conv_bn_binarize": 1,
+                   "fused_matmul_bn_binarize": 0, "chain_conv": 2},
+}
 # Every threshold-and-pack case must give a mix of output bits: a kernel
 # that miscounts could otherwise still match on near-constant outputs.
 SET_SHARE = (0.2, 0.8)
@@ -98,6 +147,8 @@ SOURCES = {
     "fused_matmul_bn_binarize": (
         "src/repro_torch/kernels/csrc/fused_conv_bn_binarize.cu",
         "src/repro/kernels/fused_conv_bn_binarize.py:85"),
+    "chain_conv": ("src/repro_torch/kernels/csrc/chain_conv.cu",
+                   "src/repro/kernels/chain_conv.py:233"),
 }
 
 
@@ -226,6 +277,51 @@ def dense_cost(args, out) -> tuple[float, float]:
     return nbytes, 2.0 * m * b.shape[0] * w * 32
 
 
+def chain_case(inp: Inputs, case):
+    """Entry, kernel-layout operands and arena keywords of one K5 call at
+    the planner's offsets, and per conv stage (valid positions, O,
+    K_bits) for the bound."""
+    name, (n, h, w, c), stages, tile = case
+    first = stages[0].first
+    planes = 8 if first else 1
+    x = inp.channel_words((n, h, w, planes), c).reshape(n, h, w, -1)
+    arrays, convs, cin, hw = [], [], c, (h, w)
+    for i, st in enumerate(stages):
+        out_hw = (st.out_size(hw[0]), st.out_size(hw[1]))
+        if st.kind == "conv":
+            p = 8 if st.first else 1
+            kk = st.kernel * st.kernel
+            wp = inp.channel_words((st.channels, kk, p), cin).reshape(
+                st.channels, -1)
+            bits = torch.tensor(word_bits(cin) * p * kk, device=inp.device)
+            ww = (bitplanes.plane_word_weights(packing.num_words(cin))
+                  .repeat(kk).to(inp.device) if st.first else None)
+            pooled = i + 1 < len(stages) and stages[i + 1].kind == "pool"
+            thr, sgn = inp.epilogue(
+                st.channels, ww if st.first else torch.ones_like(bits), bits,
+                stages[i + 1].kernel ** 2 if pooled else 1)
+            arrays += [wp, ww, thr, sgn]
+            convs.append((n * out_hw[0] * out_hw[1], st.channels,
+                          int(bits.sum())))
+            cin = st.channels
+        hw = out_hw
+    ops = k5.chain_operands(stages, tuple(arrays))
+    plan = regions.plan_chain_vmem(stages, tuple(x.shape), tile=tile)
+    kw = dict(tile, arena_offsets=tuple(o // 4 for o in plan.offsets),
+              arena_words=plan.arena_bytes // 4)
+    return x, ops, kw, convs
+
+
+def chain_cost(x, ops, out, convs) -> tuple[float, float]:
+    """Entry, operands and output bytes once; 2·M·O·K_bits operations over
+    each conv stage's valid positions (conv_cost's convention), not the
+    halo-grown tiles the kernel computes."""
+    nbytes = (x.numel() + out.numel()) * 4 + sum(
+        t.numel() * 4 for group in (ops.w_t, ops.ww, ops.t, ops.s)
+        for t in group if t is not None)
+    return nbytes, sum(2.0 * m * o * k_bits for m, o, k_bits in convs)
+
+
 # --------------------------------------------------------------------------
 # Phases
 # --------------------------------------------------------------------------
@@ -237,6 +333,13 @@ def phase_build() -> str:
     log(f"[build] {path.name}: "
         + (f"nvcc {secs:.3f} s" if secs else "already built")
         + f", loaded in {time.perf_counter() - t0:.3f} s")
+    optin = k5.smem_optin(0)
+    if regions.DEFAULT_SMEM_BUDGET != optin:
+        raise AssertionError(f"[build] region budget "
+                             f"{regions.DEFAULT_SMEM_BUDGET} B != the card's "
+                             f"opt-in shared memory per block {optin} B")
+    log(f"[build] region budget {regions.DEFAULT_SMEM_BUDGET} B == "
+        f"cudaDevAttrMaxSharedMemoryPerBlockOptin")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -286,6 +389,16 @@ def phase_kernels(device) -> dict[str, int]:
         log(f"[kernels] fused_matmul_bn_binarize {case[0]} "
             f"a{tuple(args[0].shape)} b{tuple(args[1].shape)}: exact, "
             f"{share:.3f} of output bits set")
+    for case in CHAIN_CASES:
+        x, ops, kw, _ = chain_case(inp, case)
+        got = k5.chain_conv(x, case[2], ops, **kw)
+        want = k5.chain_conv_plain(x, case[2], ops, **kw)
+        note("chain_conv", check_equal(case[0], got, want))
+        share = check_share(case[0], got, case[2][-1].channels)
+        log(f"[kernels] chain_conv {case[0]} x{tuple(x.shape)} -> "
+            f"{tuple(got.shape)}, {len(case[2])} stages, arena "
+            f"{4 * kw['arena_words']} B: exact, {share:.3f} of output bits "
+            f"set")
     torch.cuda.synchronize()
     return err
 
@@ -294,19 +407,22 @@ def reset_launches() -> None:
     k4.bitplane_pack.launches = 0
     k3.direct_conv_bn_binarize.launches = 0
     k2.fused_matmul_bn_binarize.launches = 0
+    k5.chain_conv.launches = 0
 
 
 def read_launches() -> dict[str, int]:
     return {"bitplane_pack": k4.bitplane_pack.launches,
             "direct_conv_bn_binarize": k3.direct_conv_bn_binarize.launches,
-            "fused_matmul_bn_binarize": k2.fused_matmul_bn_binarize.launches}
+            "fused_matmul_bn_binarize": k2.fused_matmul_bn_binarize.launches,
+            "chain_conv": k5.chain_conv.launches}
 
 
-def phase_serve(rng: np.random.Generator):
-    """AlexNet behind InferenceServer.  Returns (the workload, launches in
-    the run, launches per forward, serving numbers)."""
+def phase_serve(rng: np.random.Generator, mode: str):
+    """AlexNet behind InferenceServer on one serving path.  Returns (the
+    workload, launches in the run, launches per forward, serving
+    numbers)."""
     t0 = time.perf_counter()
-    wl = workloads.get("alexnet_imagenet", seed=0)
+    wl = workloads.get("alexnet_imagenet", seed=0, matmul_mode=mode)
     server = wl.server(max_batch=8, buckets=(1, 2, 4, 8))
     timings = server.compile_buckets()
     log(f"[serve] alexnet_imagenet paper on {wl.engine.device} "
@@ -347,8 +463,7 @@ def phase_serve(rng: np.random.Generator):
         raise AssertionError("[serve] build_count moved while serving")
     forwards = len(record)
     per_forward = {k: v / forwards for k, v in launches.items()}
-    want = {"bitplane_pack": 1, "direct_conv_bn_binarize": 5,
-            "fused_matmul_bn_binarize": 2}
+    want = WANT_LAUNCHES[mode]
     if per_forward != want:
         raise AssertionError(f"[serve] launches per forward {per_forward}, "
                              f"want {want}")
@@ -360,11 +475,12 @@ def phase_serve(rng: np.random.Generator):
                 raise AssertionError("[serve] served row != cross_check")
         if not np.isfinite(ref).all() or ref.shape[1:] != (5, 2):
             raise AssertionError(f"[serve] bad rows {ref.shape}")
-    log(f"[serve] {len(imgs)} requests in groups {groups} through buckets "
+    log(f"[serve] {mode}: {len(imgs)} requests in groups {groups} through "
+        f"buckets "
         f"{sorted({server.scheduler.bucket_for(g) for g in groups})}: all "
         f"served, each row == cross_check; build_count flat at {builds}; "
         f"launches {launches} over {forwards} forwards")
-    log(f"[serve] mixed run: served/s {metrics['throughput']:.3f}, p50 "
+    log(f"[serve] {mode} mixed run: served/s {metrics['throughput']:.3f}, p50 "
         f"{metrics['p50_ms']:.3f} ms, p95 {metrics['p95_ms']:.3f} ms, peak "
         f"device memory {peak} B")
 
@@ -379,7 +495,8 @@ def phase_serve(rng: np.random.Generator):
     sm = steady.metrics()
     if sm["served"] != len(frames) or wl.engine.build_count != builds:
         raise AssertionError("[serve] steady run failed")
-    log(f"[serve] steady run, 64 requests of 227x227 at bucket 8: served/s "
+    log(f"[serve] {mode} steady run, 64 requests of 227x227 at bucket 8: "
+        f"served/s "
         f"{sm['throughput']:.3f}, p50 {sm['p50_ms']:.3f} ms, p95 "
         f"{sm['p95_ms']:.3f} ms")
     # The server's hook copies each image to the card and resizes it
@@ -403,9 +520,10 @@ def phase_serve(rng: np.random.Generator):
 
 
 def phase_profile(wl) -> dict:
-    """Where one AlexNet forward at bucket 8 spends its time: host wall per
-    forward (no profiler), device time per kernel and the device's busy
-    share (torch.profiler over the same forwards)."""
+    """Where one AlexNet forward at bucket 8 on the workload's serving path
+    spends its time: host wall per forward (no profiler), device time per
+    kernel and the device's busy share (torch.profiler over the same
+    forwards)."""
     exe = wl.engine.compile(BATCH)
     x = torch.randint(0, 256, (BATCH, 227, 227, 3), dtype=torch.uint8,
                       device=wl.engine.device)
@@ -432,7 +550,8 @@ def phase_profile(wl) -> dict:
             rows.append((us / reps / 1e3, e.count / reps, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    log(f"[profile] alexnet forward at batch {BATCH}: host wall "
+    log(f"[profile] {wl.matmul_mode} alexnet forward at batch {BATCH}: "
+        f"host wall "
         f"{wall_ms:.4f} ms/forward (no profiler), device "
         f"{device_ms:.4f} ms/forward, busy share "
         f"{device_ms / wall_ms:.3f}")
@@ -443,8 +562,8 @@ def phase_profile(wl) -> dict:
                      for ms, n, key in rows[:12]])
 
 
-def phase_detect(rng: np.random.Generator) -> None:
-    wl = workloads.get("yolov2_tiny_voc", seed=0)
+def phase_detect(rng: np.random.Generator, mode: str) -> None:
+    wl = workloads.get("yolov2_tiny_voc", seed=0, matmul_mode=mode)
     x = torch.stack([
         wl.preprocess_hook(rng.integers(0, 256, hw + (3,), dtype=np.uint8))
         for hw in [(375, 500), (416, 416)]])
@@ -456,10 +575,10 @@ def phase_detect(rng: np.random.Generator) -> None:
     if not torch.equal(rows, ref) or rows.shape != (2, 16, 6) \
             or not torch.isfinite(rows).all():
         raise AssertionError("[detect] yolov2_tiny_voc rows disagree")
-    if launches != {"bitplane_pack": 1, "direct_conv_bn_binarize": 8,
-                    "fused_matmul_bn_binarize": 0}:
-        raise AssertionError(f"[detect] launches {launches}")
-    log(f"[detect] yolov2_tiny_voc 416x416 batch 2: rows {tuple(rows.shape)}"
+    if launches != WANT_DETECT[mode]:
+        raise AssertionError(f"[detect] {mode} launches {launches}")
+    log(f"[detect] {mode} yolov2_tiny_voc 416x416 batch 2: rows "
+        f"{tuple(rows.shape)}"
         f" == cross_check, {int((rows[..., 4] > 0).sum())} detections, "
         f"launches {launches}")
 
@@ -482,6 +601,8 @@ def time_ms(fn, reps: int) -> float:
 
 def phase_timing(device, launches: dict, per_forward: dict,
                  errs: dict) -> list[dict]:
+    """Kernel medians at AlexNet's batch-8 shapes.  ``launches`` and
+    ``per_forward`` map each serving path to its counts."""
     inp = Inputs(device, seed=2)
     rows = {}
 
@@ -523,14 +644,35 @@ def phase_timing(device, launches: dict, per_forward: dict,
             time_ms(lambda: k2.fused_matmul_bn_binarize(*args), 50),
             time_ms(lambda: k2.fused_matmul_bn_binarize_plain(*args), 5),
             nbytes, ops)
+    x, ops, kw, convs = chain_case(inp, CHAIN_CASES[0])
+    out = k5.chain_conv(x, ALEXNET_CHAIN, ops, **kw)
+    add("chain_conv", CHAIN_CASES[0][0],
+        time_ms(lambda: k5.chain_conv(x, ALEXNET_CHAIN, ops, **kw), 10),
+        time_ms(lambda: k5.chain_conv_plain(x, ALEXNET_CHAIN, ops, **kw), 3),
+        *chain_cost(x, ops, out, convs))
+    # Off the main path, for the tile search to come: the same region at
+    # smaller final tiles (more blocks, more halo recompute).
+    for tile in (dict(block_h=3, block_w=3), dict(block_h=2, block_w=2),
+                 dict(block_h=1, block_w=1)):
+        plan = regions.plan_chain_vmem(ALEXNET_CHAIN, tuple(x.shape),
+                                       tile=tile)
+        tkw = dict(tile, arena_offsets=tuple(o // 4 for o in plan.offsets),
+                   arena_words=plan.arena_bytes // 4)
+        if not torch.equal(k5.chain_conv(x, ALEXNET_CHAIN, ops, **tkw), out):
+            raise AssertionError(f"[timing] chain_conv tile {tile} != "
+                                 f"the whole-map tile")
+        ms = time_ms(lambda: k5.chain_conv(x, ALEXNET_CHAIN, ops, **tkw), 10)
+        log(f"[timing] chain_conv alexnet region, tile {tile} (off the "
+            f"main path): kernel {ms:.4f} ms, arena {plan.arena_bytes} B")
 
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name],
-            launches_per_forward=per_forward[name],
+            launches=sum(v[name] for v in launches.values()),
+            launches_per_forward={m: v[name]
+                                  for m, v in per_forward.items()},
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
             bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
@@ -549,9 +691,13 @@ def main() -> int:
     smi = phase_build()
     errs = phase_kernels(device)
     rng = np.random.default_rng(0)
-    wl, launches, per_forward, numbers = phase_serve(rng)
-    numbers["profile"] = phase_profile(wl)
-    phase_detect(rng)
+    launches, per_forward, numbers = {}, {}, {}
+    for mode in WANT_LAUNCHES:
+        wl, launches[mode], per_forward[mode], numbers[mode] = \
+            phase_serve(rng, mode)
+        numbers[mode]["profile"] = phase_profile(wl)
+    for mode in WANT_DETECT:
+        phase_detect(rng, mode)
     kernels = phase_timing(device, launches, per_forward, errs)
     log(f"[serve] numbers {json.dumps(numbers)}")
     log(f"total {time.perf_counter() - t0:.1f} s")

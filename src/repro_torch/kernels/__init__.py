@@ -4,5 +4,6 @@ with the plain PyTorch version of each beside it.
 bitplane_pack            K4: first-layer bit-plane split + pack (Eqn 2)
 fused_conv_bn_binarize   K2: fused xor-popcount matmul + threshold + pack
 direct_conv_bn_binarize  K3: direct conv + threshold + pack (+ OR-pool)
+chain_conv               K5: a region of conv / OR-pool stages in one launch
 ops                      backend dispatch (port backend <-> JAX mode)
 """

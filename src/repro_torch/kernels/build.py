@@ -40,6 +40,9 @@ SIGNATURES = {
     "launch_direct_conv_bn_binarize": (_P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _I, _I, _I, _P),
+    "launch_chain_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _P),
+    "phonebit_smem_optin": (_I,),
 }
 
 

@@ -11,6 +11,8 @@ port backend          JAX mode               behaviour
 ``cuda_popcount``     ``vpu_popcount``       im2col + K2 (fused matmul)
 ``cuda_direct``       ``vpu_direct``         K3 (direct conv)
 ``cuda_direct_pool``  ``vpu_direct_pool``    K3 with the OR-pool epilogue
+``cuda_chain``        ``vpu_chain``          K5 per fused region (an engine
+                                             mode, not a per-node backend)
 ====================  =====================  ===============================
 
 A ``cuda_*`` backend launches its kernel for a CUDA tensor and runs the
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import binary_conv, layer_integration
+from repro_torch.kernels import chain_conv as _chain
 from repro_torch.kernels.bitplane_pack import bitplane_pack  # noqa: F401
 from repro_torch.kernels.direct_conv_bn_binarize import \
     direct_conv_bn_binarize
@@ -31,7 +34,8 @@ from repro_torch.kernels.fused_conv_bn_binarize import (
 
 #: Port backend name -> the reference's matching mode.
 JAX_MODE = {"torch": "xla", "cuda_popcount": "vpu_popcount",
-            "cuda_direct": "vpu_direct", "cuda_direct_pool": "vpu_direct_pool"}
+            "cuda_direct": "vpu_direct", "cuda_direct_pool": "vpu_direct_pool",
+            "cuda_chain": "vpu_chain"}
 CONV_MODES = ("torch", "cuda_popcount", "cuda_direct")
 
 
@@ -86,3 +90,16 @@ def fused_binary_conv2d(x_packed: torch.Tensor, w_packed: torch.Tensor,
         out = binary_conv.binary_or_maxpool(out, pool[0], pool[1],
                                             pad=tuple(pool[2]))
     return out
+
+
+def chain_forward(x_packed: torch.Tensor, stages, stage_arrays,
+                  **kw) -> torch.Tensor:
+    """Run a fused conv/pool chain (one region) in a single K5 launch with
+    on-chip intermediates (DESIGN.md §9); the region-level counterpart of
+    :func:`fused_binary_conv2d`.  ``stage_arrays`` is the reference's
+    per-conv-stage tuple, or :class:`~repro_torch.kernels.chain_conv.
+    ChainOperands` already in the kernel's layout (what a region caches)."""
+    stages = tuple(stages)
+    if not isinstance(stage_arrays, _chain.ChainOperands):
+        stage_arrays = _chain.chain_operands(stages, tuple(stage_arrays))
+    return _chain.chain_conv(x_packed, stages, stage_arrays, **kw)

@@ -12,26 +12,40 @@ in :mod:`repro_torch.kernels.ops` pairs each with its JAX mode):
 * ``"cuda_direct_pool"`` K3 with the OR-pool fused into its epilogue —
                          ``packed_conv_pool`` nodes only.
 
-``bitplane_expand`` always goes through the bit-plane kernel (K4).  All
-backends are bit-exact with one another.  A mode string that does not
-apply to an op degrades along ``_FALLBACK``; an explicit per-node backend
-that does not apply is rejected.
+``bitplane_expand`` always goes through the bit-plane kernel (K4).
+
+Above the per-node backends sits the region-level ``"cuda_chain"`` mode
+(DESIGN.md §9): the executor accepts ``regions=`` — chains formed by
+:mod:`repro_torch.runtime.regions` — and evaluates each whole region in
+one K5 launch with on-chip intermediates; member nodes are skipped in the
+schedule and nodes outside every region degrade per node along
+``_FALLBACK``.
+
+All backends are bit-exact with one another.  A mode string that does
+not apply to an op degrades along ``_FALLBACK``; an explicit per-node
+backend that does not apply is rejected.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 
 from repro_torch.core import binary_conv, bnn_model, packing
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import DISPATCHABLE_OPS, Graph
 
 BACKENDS = ("torch", "cuda_popcount", "cuda_direct", "cuda_direct_pool")
+# The region-level mode: not a per-node backend — chains are evaluated
+# whole via ``regions`` — but a valid engine ``matmul_mode``.
+CHAIN_BACKEND = "cuda_chain"
+ALL_MODES = BACKENDS + (CHAIN_BACKEND,)
 
 # Graceful degradation when a single mode string hits an op it cannot run.
-_FALLBACK = {"cuda_direct_pool": "cuda_direct",
+_FALLBACK = {"cuda_chain": "cuda_direct_pool",
+             "cuda_direct_pool": "cuda_direct",
              "cuda_direct": "cuda_popcount"}
 
 
@@ -111,13 +125,25 @@ def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
 
 
 class GraphExecutor:
-    """Topological evaluator with frozen per-node backends: serving calls
-    reuse the executor the engine built for their bucket."""
+    """Topological evaluator with frozen per-node backends and fused
+    regions: serving calls reuse the executor the engine built for their
+    bucket."""
 
     def __init__(self, graph: Graph,
-                 backends: str | Mapping[int, str] = "torch"):
+                 backends: str | Mapping[int, str] = "torch",
+                 regions: Sequence[_regions.Chain] | None = None):
         graph.validate()
         self.graph = graph
+        # Fused regions (runtime.regions.Chain): each is evaluated whole
+        # when the schedule reaches its head; member nodes are skipped and
+        # the result binds to the tail's id.
+        self.regions = tuple(regions or ())
+        self._region_head = {c.head: c for c in self.regions}
+        self._region_members = {nid for c in self.regions
+                                for nid in c.node_ids}
+        if len(self._region_members) != sum(len(c.node_ids)
+                                            for c in self.regions):
+            raise ValueError("regions overlap")
         if isinstance(backends, str):
             backends = {nid: resolve_backend(n.op, backends)
                         for nid, n in graph.nodes.items()
@@ -133,6 +159,8 @@ class GraphExecutor:
             if b not in valid_backends(op):
                 raise ValueError(f"backend {b!r} does not apply to node "
                                  f"{nid} ({op})")
+        self.params = {str(nid): n.params for nid, n in graph.nodes.items()
+                       if n.params}
         self._schedule = graph.topo_order()
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -143,13 +171,34 @@ class GraphExecutor:
             if node.op == "input":
                 env[nid] = x
                 continue
+            if nid in self._region_members:
+                if nid in self._region_head:
+                    chain = self._region_head[nid]
+                    env[chain.tail] = _regions.eval_chain(
+                        chain, self.params, env[node.inputs[0]])
+                continue
             env[nid] = eval_node(node.op, node.attrs, node.params,
                                  [env[i] for i in node.inputs],
                                  backend=self.backends.get(nid, "torch"))
         return env[g.output_id]
 
     def backend_report(self) -> list[dict]:
-        return [dict(node=nid, op=self.graph.nodes[nid].op,
-                     channels=self.graph.nodes[nid].attrs.get("channels"),
-                     backend=self.backends[nid])
-                for nid in self._schedule if nid in self.backends]
+        """One row per dispatchable node outside every region, and one per
+        region (``op="chain"``), in schedule order."""
+        rows = []
+        for nid in self._schedule:
+            node = self.graph.nodes[nid]
+            if nid in self._region_members:
+                chain = self._region_head.get(nid)
+                if chain is not None:
+                    rows.append(dict(
+                        node="+".join(map(str, chain.node_ids)), op="chain",
+                        channels=self.graph.nodes[chain.tail]
+                                     .attrs.get("channels"),
+                        backend=CHAIN_BACKEND, tile=dict(chain.tile)))
+                continue
+            if nid in self.backends:
+                rows.append(dict(node=nid, op=node.op,
+                                 channels=node.attrs.get("channels"),
+                                 backend=self.backends[nid]))
+        return rows

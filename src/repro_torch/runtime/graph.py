@@ -35,6 +35,12 @@ from repro_torch.core.binary_conv import conv_out_size
 from repro_torch.core.bnn_model import (BConv, BDense, FloatConv, FloatDense,
                                         LayerSpec, Pool)
 
+# Ops whose output is packed words (the reference's set, including ops the
+# port does not lower yet); a chain's ``maxpool_pm1`` needs a packed input.
+PACKED_OPS = frozenset({
+    "packed_conv", "packed_conv_pool", "packed_dense", "or_pool",
+    "bn_binarize", "threshold_pack", "maxpool_pm1", "concat_packed",
+})
 # Ops the executor can dispatch to more than one backend.
 DISPATCHABLE_OPS = frozenset({"packed_conv", "packed_conv_pool",
                               "packed_dense"})

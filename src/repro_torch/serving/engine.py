@@ -11,7 +11,10 @@ engine's device.  The flat :func:`~repro_torch.core.bnn_model.packed_forward`
 walk stays as the ``legacy_call`` / ``cross_check`` oracle.
 
 ``matmul_mode`` is a port backend (``torch``, ``cuda_popcount``,
-``cuda_direct``, ``cuda_direct_pool``; default ``cuda_direct_pool``).
+``cuda_direct``, ``cuda_direct_pool``; default ``cuda_direct_pool``) or
+the region mode ``cuda_chain``: chains of packed convs and pools run as
+one K5 launch each (:mod:`repro_torch.runtime.regions`), the rest per
+node along the fallback order.
 
 Batched serving goes through the per-bucket executor cache:
 ``compile(batch_size)`` builds an executor once per (bucket, mode).
@@ -34,6 +37,8 @@ import torch
 from repro_torch.core import bnn_model, converter, layer_integration
 from repro_torch.kernels import build as _build
 from repro_torch.runtime import executor as _executor
+from repro_torch.runtime import memory as _memory
+from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import lower_packed
 from repro_torch.runtime.passes import fuse_pool_epilogue
 
@@ -118,7 +123,13 @@ class PhoneBitEngine:
             raise ValueError(f"batch_size must be >= 1, got {bs}")
         key = (bs, mode)
         if key not in self._compiled:
-            self._compiled[key] = _executor.GraphExecutor(self._graph, mode)
+            if mode == _executor.CHAIN_BACKEND:
+                # Regions are planned at this bucket's shape.
+                exe = _regions.chain_executor(self._graph,
+                                              self._plan_shape(bs))
+            else:
+                exe = _executor.GraphExecutor(self._graph, mode)
+            self._compiled[key] = exe
         return self._compiled[key]
 
     @property
@@ -163,6 +174,15 @@ class PhoneBitEngine:
         return got
 
     # ---- introspection ---------------------------------------------------
+    def memory_plan(self) -> _memory.MemoryPlan:
+        """Static arena plan for the serving graph (DESIGN.md §4.4)."""
+        return _memory.plan_memory(self._graph, self._plan_shape())
+
+    @property
+    def backend_choices(self) -> list[dict]:
+        """Per-node backends and fused regions of the batch-1 executor."""
+        return self.compile().backend_report()
+
     @property
     def model_bytes(self) -> int:
         return converter.model_bytes(self.packed)

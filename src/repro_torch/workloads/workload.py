@@ -228,9 +228,10 @@ def names() -> list[str]:
 
 def get(name: str, **kw) -> Workload:
     """Build a registered workload.  Common kwargs: ``variant`` ("paper"
-    default, or "tiny"), ``matmul_mode``, ``input_hw`` (int or (h, w);
-    fully-conv nets only), ``seed``, ``params`` (latent params to serve
-    instead of the seeded checkpoint), ``device`` ("cuda" default)."""
+    default, or "tiny"), ``matmul_mode`` (a port backend or
+    ``cuda_chain``), ``input_hw`` (int or (h, w); fully-conv nets only),
+    ``seed``, ``params`` (latent params to serve instead of the seeded
+    checkpoint), ``device`` ("cuda" default)."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown workload {name!r}; have {names()}")
     return _REGISTRY[name](**kw)

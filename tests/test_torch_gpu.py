@@ -20,8 +20,10 @@ from repro_torch import workloads
 from repro_torch.core import bitplanes, packing
 from repro_torch.workloads import preprocess
 from repro_torch.kernels import bitplane_pack as k4
+from repro_torch.kernels import chain_conv as k5
 from repro_torch.kernels import direct_conv_bn_binarize as k3
 from repro_torch.kernels import fused_conv_bn_binarize as k2
+from repro_torch.runtime import regions
 
 pytestmark = pytest.mark.gpu
 
@@ -101,6 +103,67 @@ def test_direct_conv_on_card(cuda, case):
     assert_mixed(got, o)
 
 
+CHAIN_CASES = [  # (entry (N, H, W, C), first layer, stages, tile)
+    ((2, 51, 51, 3), True,
+     (k5.StageSpec("conv", 11, 4, 0, 0, 96, True),
+      k5.StageSpec("pool", 3, 2, 0, 0, 96),
+      k5.StageSpec("conv", 5, 1, 2, 2, 64),
+      k5.StageSpec("pool", 3, 2, 0, 0, 64)), {}),
+    ((2, 51, 51, 3), True,
+     (k5.StageSpec("conv", 11, 4, 0, 0, 96, True),
+      k5.StageSpec("pool", 3, 2, 0, 0, 96),
+      k5.StageSpec("conv", 5, 1, 2, 2, 64),
+      k5.StageSpec("pool", 3, 2, 0, 0, 64)), dict(block_h=1, block_w=1)),
+    ((3, 13, 13, 64), False,
+     (k5.StageSpec("conv", 3, 1, 1, 1, 64),
+      k5.StageSpec("pool", 2, 1, 0, 1, 64),
+      k5.StageSpec("conv", 3, 1, 1, 1, 40)),
+     dict(block_h=5, block_w=4, block_n=2)),
+]
+
+
+@pytest.mark.parametrize("entry,first,stages,tile", CHAIN_CASES)
+def test_chain_conv_on_card(cuda, entry, first, stages, tile):
+    """K5 against its plain version, at the planner's arena offsets: the
+    whole-map tile, and tiles smaller than the map (halo recompute, border
+    masking, a padded stride-1 pool, a ragged image block)."""
+    n, h, w, c = entry
+    planes = 8 if first else 1
+    cw = planes * packing.num_words(c)
+    x = words(cuda, n, h, w, cw)
+    arrays, cin = [], cw
+    convs = [i for i, st in enumerate(stages) if st.kind == "conv"]
+    for i in convs:
+        st = stages[i]
+        k = st.kernel * st.kernel * cin
+        ww = (bitplanes.plane_word_weights(cin // 8).repeat(
+            st.kernel * st.kernel).to(cuda) if st.first else None)
+        pooled = i + 1 < len(stages) and stages[i + 1].kind == "pool"
+        arrays += [words(cuda, st.channels, k), ww,
+                   *epilogue(cuda, st.channels,
+                             ww if st.first else torch.ones(k),
+                             stages[i + 1].kernel ** 2 if pooled else 1)]
+        cin = packing.num_words(st.channels)
+    ops = k5.chain_operands(stages, tuple(arrays))
+    plan = regions.plan_chain_vmem(stages, x.shape, tile=tile)
+    kw = dict(tile, arena_offsets=tuple(o // 4 for o in plan.offsets),
+              arena_words=plan.arena_bytes // 4)
+    got = k5.chain_conv(x, stages, ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k5.chain_conv_plain(x, stages, ops, **kw))
+    assert_mixed(got, stages[-1].channels)
+
+
+def test_chain_conv_raises_past_shared_memory(cuda):
+    st = (k5.StageSpec("conv", 3, 1, 1, 1, 32),
+          k5.StageSpec("pool", 2, 2, 0, 0, 32))
+    x = words(cuda, 1, 300, 300, 1)
+    ops = k5.chain_operands(st, (words(cuda, 32, 9), None,
+                                 *epilogue(cuda, 32, torch.ones(9))))
+    with pytest.raises(ValueError, match="shared memory"):
+        k5.chain_conv(x, st, ops)
+
+
 @pytest.mark.parametrize("transform", [
     lambda x: preprocess.center_crop_resize(x, (227, 227)),
     lambda x: preprocess.letterbox(x, (416, 416))])
@@ -113,7 +176,8 @@ def test_preprocess_hook_on_card_matches_cpu(cuda, transform):
     assert (got.cpu().int() - want.int()).abs().max() <= 1
 
 
-@pytest.mark.parametrize("backend", ["cuda_direct_pool", "cuda_popcount"])
+@pytest.mark.parametrize("backend", ["cuda_direct_pool", "cuda_popcount",
+                                     "cuda_chain"])
 @pytest.mark.parametrize("name", ["alexnet_imagenet", "vgg16_imagenet",
                                   "yolov2_tiny_voc"])
 def test_tiny_workload_on_card_matches_cpu(cuda, name, backend):
@@ -145,3 +209,19 @@ def test_tiny_alexnet_launch_counts(cuda):
     torch.cuda.synchronize()
     assert (k4.bitplane_pack.launches, k3.direct_conv_bn_binarize.launches,
             k2.fused_matmul_bn_binarize.launches) == (1, 2, 2)
+
+
+def test_tiny_alexnet_chain_launch_counts(cuda):
+    """Under cuda_chain the two convs and their pools are one K5 launch."""
+    wl = workloads.get("alexnet_imagenet", variant="tiny",
+                       matmul_mode="cuda_chain")
+    x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
+    wl.engine(x)
+    for fn in (k4.bitplane_pack, k3.direct_conv_bn_binarize,
+               k2.fused_matmul_bn_binarize, k5.chain_conv):
+        fn.launches = 0
+    wl.engine(x)
+    torch.cuda.synchronize()
+    assert (k4.bitplane_pack.launches, k5.chain_conv.launches,
+            k2.fused_matmul_bn_binarize.launches,
+            k3.direct_conv_bn_binarize.launches) == (1, 1, 2, 0)

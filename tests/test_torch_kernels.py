@@ -158,11 +158,15 @@ def test_unknown_modes_raise():
 
 
 def test_backend_table_pairs_with_reference_modes():
-    from repro.runtime.executor import BACKENDS as J_BACKENDS
-    from repro_torch.runtime.executor import BACKENDS, _FALLBACK
+    from repro.runtime.executor import ALL_MODES as J_ALL_MODES
+    from repro.runtime.executor import CHAIN_BACKEND as J_CHAIN
+    from repro_torch.runtime.executor import (ALL_MODES, BACKENDS,
+                                              CHAIN_BACKEND, _FALLBACK)
 
-    assert set(t_ops.JAX_MODE) == set(BACKENDS)
-    assert set(t_ops.JAX_MODE.values()) <= set(J_BACKENDS)
+    assert set(t_ops.JAX_MODE) == set(ALL_MODES)
+    assert set(t_ops.JAX_MODE.values()) <= set(J_ALL_MODES)
+    assert CHAIN_BACKEND not in BACKENDS
+    assert t_ops.JAX_MODE[CHAIN_BACKEND] == J_CHAIN
     from repro.runtime.executor import _FALLBACK as J_FALLBACK
     for port, nxt in _FALLBACK.items():
         assert J_FALLBACK[t_ops.JAX_MODE[port]] == t_ops.JAX_MODE[nxt]

@@ -1,6 +1,6 @@
 """Port parity: the serving slice end to end against the JAX package.
 
-* The three tiny workloads under every port backend on the CPU: raw
+* The three tiny workloads under every port mode on the CPU: raw
   output, packed tail (bit for bit) and decoded rows against the JAX
   workload in mode ``xla``, with the same latent params carried across.
 * The checked-in goldens ``tests/golden/*.npz``, reproduced by the port
@@ -31,7 +31,7 @@ from repro_torch import workloads as t_workloads
 from repro_torch.core import bnn_model as t_bnn
 from repro_torch.core import converter as t_conv
 from repro_torch.models import paper_nets as t_nets
-from repro_torch.runtime import (BACKENDS, fuse_pool_epilogue, infer_types,
+from repro_torch.runtime import (ALL_MODES, fuse_pool_epilogue, infer_types,
                                  lower_packed)
 
 T_DETECT = t_workloads.DetectConfig(
@@ -86,7 +86,7 @@ def assert_decoded_close(got: np.ndarray, want: np.ndarray,
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("backend", ALL_MODES)
 @pytest.mark.parametrize("name", harness.CONFORMANCE_NAMES)
 def test_backend_matches_reference(name, backend):
     ref = reference(name)
