@@ -13,15 +13,20 @@ Phases, each fatal on failure:
               opt-in limit per block;
 2. kernels  — every kernel of the serving paths (K4 bitplane_pack, K3
               direct_conv_bn_binarize, K2 fused_matmul_bn_binarize, K5
-              chain_conv) against its plain PyTorch version on the card,
-              bit-exact, at AlexNet's batch-8 shapes and at edge cases, with
-              thresholds that give a mix of output bits (a share of 0.2 to
-              0.8 set); K5 at AlexNet's region (batch 8 and 1), a tiled
-              case and YOLOv2-Tiny's conv4-conv8 region;
+              chain_conv, K1 xnor_popcount_matmul, K6 mxu_pm1_matmul)
+              against its plain PyTorch version on the card, bit-exact, at
+              AlexNet's batch-8 shapes and at edge cases, with thresholds
+              that give a mix of output bits (a share of 0.2 to 0.8 set; for
+              K1 and K6, whose counts the threshold follows on the main path,
+              0.3 to 0.7); K5 at AlexNet's region (batch 8 and 1), a tiled
+              case and YOLOv2-Tiny's conv4-conv8 region; K1 at conv1 with
+              its plane weights; K6 at conv2 and fc6, at words with pad
+              bits, ragged tiles, and k_valid past 2^24;
 3. serve    — paper AlexNet (227x227x3, 1000 classes, numpy-seeded random
               weights) behind ``InferenceServer``, once per serving path:
-              ``cuda_direct_pool`` (launches per forward K4 1, K3 5, K2 2)
-              and ``cuda_chain`` (K4 1, K5 1, K2 2, no K3).  Each: mixed-size
+              ``cuda_direct_pool`` (launches per forward K4 1, K3 5, K2 2),
+              ``cuda_chain`` (K4 1, K5 1, K2 2, no K3) and ``cuda_pm1`` (K4
+              1, K1 1 for conv1, K6 6, no K2, K3 or K5).  Each: mixed-size
               raw images in mixed group sizes through buckets (1, 2, 4, 8),
               every row equal to ``cross_check`` on the same padded batch,
               ``build_count`` flat, the launch counts read around that run
@@ -31,9 +36,18 @@ Phases, each fatal on failure:
               device time per kernel (torch.profiler), the busy share;
 4. detect   — paper YOLOv2-Tiny at 416² for one batch of 2 through the
               engine and ``detect_head`` on each path, cross-checked
-              (``cuda_chain``: K4 1, K3 1 for conv1, K5 2);
-5. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
-              warmed up, median) beside its plain version and its bound.
+              (``cuda_chain``: K4 1, K3 1 for conv1, K5 2; ``cuda_pm1``: K4
+              1, K1 1, K6 7);
+5. trained  — paper AlexNet built from seeded float params
+              (``bnn_model.to_graph``): the unfused graph (``assign_layouts``)
+              on the card, K4 1 and K1 7, against ``default_pipeline`` of the
+              same graph under ``cuda_direct_pool``: packed tails equal bit
+              for bit, float heads within 1e-3 and the same top-5, both
+              within 1e-3 of ``float_forward``;
+6. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
+              warmed up, median) beside its plain version and its bound; K1
+              and K6 also beside one library call on the unpacked +-1
+              operands.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -59,14 +73,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Fails without the repository's src/ beside the script.
 from repro_torch import workloads  # noqa: E402
-from repro_torch.core import bitplanes, packing  # noqa: E402
+from repro_torch.core import (binary_conv, binary_ops, bitplanes,  # noqa: E402
+                              bnn_model, layer_integration, packing)
 from repro_torch.core.binary_conv import conv_out_size  # noqa: E402
 from repro_torch.kernels import bitplane_pack as k4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import chain_conv as k5  # noqa: E402
 from repro_torch.kernels import direct_conv_bn_binarize as k3  # noqa: E402
 from repro_torch.kernels import fused_conv_bn_binarize as k2  # noqa: E402
-from repro_torch.runtime import regions  # noqa: E402
+from repro_torch.kernels import mxu_pm1_matmul as k6  # noqa: E402
+from repro_torch.kernels import xnor_popcount_matmul as k1  # noqa: E402
+from repro_torch.models import paper_nets  # noqa: E402
+from repro_torch.runtime import (GraphExecutor, assign_layouts,  # noqa: E402
+                                 default_pipeline, regions)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and the dense
 # int8 tensor-core rate at which a ±1 product could run.
@@ -121,22 +140,66 @@ CHAIN_CASES = [
      ALEXNET_CHAIN, dict(block_h=4, block_w=4, block_n=2)),
     ("yolo conv4-conv8 region", (BATCH, 52, 52, 64), YOLO_CHAIN, {}),
 ]
+# Matmul-shaped cases of K1 and K6, (name, (N, H, W, C), kernel, stride,
+# pad, O, first layer): the operands are the im2col rows of an (N, H, W, C)
+# map (8 bit-planes of C when first) against O filters.  A dense layer is a
+# 1x1 "conv" on (M, 1, 1, C).
+ALEXNET_FC = [("fc6", (BATCH, 1, 1, 9216), 1, 1, 0, 4096, False),
+              ("fc7", (BATCH, 1, 1, 4096), 1, 1, 0, 4096, False)]
+ALEXNET_MATMULS = [c[:6] + c[7:] for c in ALEXNET_CONVS] + ALEXNET_FC
+K1_CASES = [
+    ALEXNET_MATMULS[0],                                  # conv1, plane weights
+    ("first layer, ragged 84x33", (2, 13, 11, 5), 3, 2, 1, 33, True),
+    ("ragged 37x50, 13 words", (37, 1, 1, 416), 1, 1, 0, 50, False),
+]
+K6_CASES = [
+    ALEXNET_MATMULS[1],                                  # conv2
+    ALEXNET_FC[0],                                       # fc6
+    ("yolo conv2, 16 pad bits a word", (2, 208, 208, 16), 3, 1, 1, 32,
+     False),
+    ("ragged 65x70, 24 pad bits a position", (65, 3, 3, 40), 3, 1, 0, 70,
+     False),
+    ("k_valid 2^24 + 32", (8, 1, 1, 32 * ((1 << 19) + 1)), 1, 1, 0, 16,
+     False),
+]
 # Launches per forward on each serving path.
+KERNEL_NAMES = ("bitplane_pack", "direct_conv_bn_binarize",
+                "fused_matmul_bn_binarize", "chain_conv",
+                "xnor_popcount_matmul", "mxu_pm1_matmul")
+
+
+def launch_counts(**kw) -> dict[str, int]:
+    return {name: kw.get(name, 0) for name in KERNEL_NAMES}
+
+
 WANT_LAUNCHES = {
-    "cuda_direct_pool": {"bitplane_pack": 1, "direct_conv_bn_binarize": 5,
-                         "fused_matmul_bn_binarize": 2, "chain_conv": 0},
-    "cuda_chain": {"bitplane_pack": 1, "direct_conv_bn_binarize": 0,
-                   "fused_matmul_bn_binarize": 2, "chain_conv": 1},
+    "cuda_direct_pool": launch_counts(bitplane_pack=1,
+                                      direct_conv_bn_binarize=5,
+                                      fused_matmul_bn_binarize=2),
+    "cuda_chain": launch_counts(bitplane_pack=1, fused_matmul_bn_binarize=2,
+                                chain_conv=1),
+    "cuda_pm1": launch_counts(bitplane_pack=1, xnor_popcount_matmul=1,
+                              mxu_pm1_matmul=6),
 }
 WANT_DETECT = {
-    "cuda_direct_pool": {"bitplane_pack": 1, "direct_conv_bn_binarize": 8,
-                         "fused_matmul_bn_binarize": 0, "chain_conv": 0},
-    "cuda_chain": {"bitplane_pack": 1, "direct_conv_bn_binarize": 1,
-                   "fused_matmul_bn_binarize": 0, "chain_conv": 2},
+    "cuda_direct_pool": launch_counts(bitplane_pack=1,
+                                      direct_conv_bn_binarize=8),
+    "cuda_chain": launch_counts(bitplane_pack=1, direct_conv_bn_binarize=1,
+                                chain_conv=2),
+    "cuda_pm1": launch_counts(bitplane_pack=1, xnor_popcount_matmul=1,
+                              mxu_pm1_matmul=7),
+}
+# The trained path: the unfused graph, and its default pipeline under
+# cuda_direct_pool (the pools stay separate OR-pools there).
+WANT_TRAINED = {
+    "unfused": launch_counts(bitplane_pack=1, xnor_popcount_matmul=7),
+    "fused": launch_counts(bitplane_pack=1, direct_conv_bn_binarize=5,
+                           fused_matmul_bn_binarize=2),
 }
 # Every threshold-and-pack case must give a mix of output bits: a kernel
 # that miscounts could otherwise still match on near-constant outputs.
 SET_SHARE = (0.2, 0.8)
+COUNT_SET_SHARE = (0.3, 0.7)
 
 SOURCES = {
     "bitplane_pack": ("src/repro_torch/kernels/csrc/bitplane_pack.cu",
@@ -149,6 +212,11 @@ SOURCES = {
         "src/repro/kernels/fused_conv_bn_binarize.py:85"),
     "chain_conv": ("src/repro_torch/kernels/csrc/chain_conv.cu",
                    "src/repro/kernels/chain_conv.py:233"),
+    "xnor_popcount_matmul": (
+        "src/repro_torch/kernels/csrc/xnor_popcount_matmul.cu",
+        "src/repro/kernels/xnor_popcount_matmul.py:134"),
+    "mxu_pm1_matmul": ("src/repro_torch/kernels/csrc/mxu_pm1_matmul.cu",
+                       "src/repro/kernels/mxu_pm1_matmul.py:56"),
 }
 
 
@@ -237,14 +305,44 @@ def dense_case(inp: Inputs, case):
     return (a, b, thr, sgn, ww)
 
 
-def check_share(name: str, out, channels: int) -> float:
+def check_share(name: str, out, channels: int,
+                limits: tuple[float, float] = SET_SHARE) -> float:
     """Share of set bits over the real output channels of packed words;
-    fails outside ``SET_SHARE``."""
+    fails outside ``limits``."""
     share = packing.unpack_bits(out, channels).float().mean().item()
-    if not SET_SHARE[0] <= share <= SET_SHARE[1]:
+    if not limits[0] <= share <= limits[1]:
         raise AssertionError(f"[kernels] {name}: {share:.3f} of output bits "
-                             f"set, outside {SET_SHARE}")
+                             f"set, outside {limits}")
     return share
+
+
+def matmul_case(inp: Inputs, case):
+    """(a, b, word weights or None, real bits per word) of one K1/K6 call:
+    im2col rows of a random map against random filters; padded positions
+    are 0-words, real inputs of the reference."""
+    name, (n, h, w, c), k, st, pad, o, first = case
+    planes = 8 if first else 1
+    if k == 1 and c % 32 == 0:
+        a = inp.words(n * h * w, c // 32)          # every bit real
+    else:
+        x = inp.channel_words((n, h, w, planes), c).reshape(n, h, w, -1)
+        a, _ = binary_conv.im2col_matmul(x, k, k, st, pad)
+    b = inp.channel_words((o, k * k, planes), c).reshape(o, -1)
+    bits = torch.tensor(word_bits(c) * planes * k * k, device=inp.device)
+    ww = (bitplanes.plane_word_weights(packing.num_words(c)).repeat(k * k)
+          .to(inp.device) if first else None)
+    return a.contiguous(), b, ww, bits
+
+
+def count_share(inp: Inputs, name: str, cnt, ww, bits) -> float:
+    """The threshold-and-pack that follows the counts on the main path, at
+    thresholds centred on them: the share of set bits must lie inside
+    ``COUNT_SET_SHARE``."""
+    thr, sgn = inp.epilogue(cnt.shape[1], ww if ww is not None
+                            else torch.ones_like(bits), bits)
+    out = packing.pack_bits(layer_integration.apply_threshold(
+        cnt, layer_integration.IntegratedParams(thr, sgn)), axis=-1)
+    return check_share(name, out, cnt.shape[1], COUNT_SET_SHARE)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -275,6 +373,14 @@ def dense_cost(args, out) -> tuple[float, float]:
     nbytes = (a.numel() + b.numel() + thr.numel() + out.numel()) * 4 \
         + sgn.numel() + (ww.numel() * 4 if ww is not None else 0)
     return nbytes, 2.0 * m * b.shape[0] * w * 32
+
+
+def matmul_cost(a, b, out, bits, ww=None) -> tuple[float, float]:
+    """Bytes of a, b (and word weights) read once and the int32 result
+    written once; 2·M·N·K_bits operations over the real input bits."""
+    nbytes = (a.numel() + b.numel() + out.numel()) * 4 + \
+        (ww.numel() * 4 if ww is not None else 0)
+    return nbytes, 2.0 * a.shape[0] * b.shape[0] * float(bits.sum())
 
 
 def chain_case(inp: Inputs, case):
@@ -399,22 +505,51 @@ def phase_kernels(device) -> dict[str, int]:
             f"{tuple(got.shape)}, {len(case[2])} stages, arena "
             f"{4 * kw['arena_words']} B: exact, {share:.3f} of output bits "
             f"set")
+    check_count_kernels(inp, note)
     torch.cuda.synchronize()
     return err
 
 
+def check_count_kernels(inp: Inputs, note) -> None:
+    """K1 and K6 against their plain versions at ``K1_CASES`` and
+    ``K6_CASES``, bit-exact; ``note(name, max |kernel - plain|)``."""
+    for case in K1_CASES:
+        a, b, ww, bits = matmul_case(inp, case)
+        got = k1.xnor_popcount_matmul(a, b, ww)
+        note("xnor_popcount_matmul", check_equal(
+            case[0], got, k1.xnor_popcount_matmul_plain(a, b, ww)))
+        share = count_share(inp, case[0], got, ww, bits)
+        log(f"[kernels] xnor_popcount_matmul {case[0]} a{tuple(a.shape)} "
+            f"b{tuple(b.shape)}"
+            + (" weighted" if ww is not None else "")
+            + f": exact, {share:.3f} of thresholded bits set")
+    for case in K6_CASES:
+        a, b, _, bits = matmul_case(inp, case)
+        k_valid = int(bits.sum())
+        got = k6.mxu_pm1_matmul(a, b, k_valid)
+        note("mxu_pm1_matmul", check_equal(
+            case[0], got, k6.mxu_pm1_matmul_plain(a, b, k_valid)))
+        share = count_share(inp, case[0], (k_valid - got) // 2, None, bits)
+        log(f"[kernels] mxu_pm1_matmul {case[0]} a{tuple(a.shape)} "
+            f"b{tuple(b.shape)} k_valid {k_valid}: exact, {share:.3f} of "
+            f"thresholded bits set")
+
+
+WRAPPERS = {"bitplane_pack": k4.bitplane_pack,
+            "direct_conv_bn_binarize": k3.direct_conv_bn_binarize,
+            "fused_matmul_bn_binarize": k2.fused_matmul_bn_binarize,
+            "chain_conv": k5.chain_conv,
+            "xnor_popcount_matmul": k1.xnor_popcount_matmul,
+            "mxu_pm1_matmul": k6.mxu_pm1_matmul}
+
+
 def reset_launches() -> None:
-    k4.bitplane_pack.launches = 0
-    k3.direct_conv_bn_binarize.launches = 0
-    k2.fused_matmul_bn_binarize.launches = 0
-    k5.chain_conv.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def read_launches() -> dict[str, int]:
-    return {"bitplane_pack": k4.bitplane_pack.launches,
-            "direct_conv_bn_binarize": k3.direct_conv_bn_binarize.launches,
-            "fused_matmul_bn_binarize": k2.fused_matmul_bn_binarize.launches,
-            "chain_conv": k5.chain_conv.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def phase_serve(rng: np.random.Generator, mode: str):
@@ -583,6 +718,131 @@ def phase_detect(rng: np.random.Generator, mode: str) -> None:
         f"launches {launches}")
 
 
+def packed_tail(g):
+    """``g`` cut at its last packed node, the input of the float head's
+    ``unpack_pm1``."""
+    unpack = next(n for n in g.nodes.values() if n.op == "unpack_pm1")
+    return g.upto(unpack.inputs[0])
+
+
+def phase_trained(device) -> dict[str, dict[str, int]]:
+    """Paper AlexNet from seeded float params through the trained-params
+    path: the unfused graph on the card (K4, K1 for every count node, the
+    float-BN epilogue and max-pools in plain PyTorch) against its default
+    pipeline under ``cuda_direct_pool``, and both against the float oracle.
+    Returns the launches of each graph's run."""
+    spec = paper_nets.alexnet_spec()
+    hw = (227, 227)
+    params = workloads.checkpoint_params(spec, seed=0)
+    graphs = {
+        "unfused": (assign_layouts(bnn_model.to_graph(params, spec, hw)),
+                    "torch"),
+        "fused": (default_pipeline(bnn_model.to_graph(params, spec, hw)),
+                  "cuda_direct_pool"),
+    }
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randint(0, 256, (BATCH, *hw, 3), dtype=torch.uint8,
+                      device=device, generator=g)
+    heads, tails, launches = {}, {}, {}
+    for name, (graph, backend) in graphs.items():
+        graph = graph.to(device)
+        exe = GraphExecutor(graph, backend)
+        exe(x)
+        torch.cuda.synchronize()
+        reset_launches()
+        heads[name] = exe(x)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        if launches[name] != WANT_TRAINED[name]:
+            raise AssertionError(f"[trained] {name} launches "
+                                 f"{launches[name]}, want "
+                                 f"{WANT_TRAINED[name]}")
+        tails[name] = GraphExecutor(packed_tail(graph), backend)(x)
+    oracle = bnn_model.float_forward(params, spec, x)
+    torch.cuda.synchronize()
+    if not torch.equal(tails["unfused"], tails["fused"]):
+        differ = int((tails["unfused"] != tails["fused"]).sum())
+        raise AssertionError(f"[trained] packed tails differ in {differ} "
+                             f"words of {tails['fused'].numel()}")
+    diffs = {name: (h - oracle).abs().max().item()
+             for name, h in heads.items()}
+    diffs["unfused vs fused"] = (heads["unfused"] -
+                                 heads["fused"]).abs().max().item()
+    if max(diffs.values()) > 1e-3:
+        raise AssertionError(f"[trained] float heads differ: {diffs}")
+    top5 = {name: torch.topk(h, 5, dim=-1).indices
+            for name, h in dict(heads, oracle=oracle).items()}
+    if not (torch.equal(top5["unfused"], top5["fused"])
+            and torch.equal(top5["unfused"], top5["oracle"])):
+        raise AssertionError("[trained] top-5 classes differ")
+    if not torch.isfinite(oracle).all() or oracle.shape != (BATCH, 1000):
+        raise AssertionError(f"[trained] bad heads {tuple(oracle.shape)}")
+    log(f"[trained] alexnet 227x227 batch {BATCH} from float params: "
+        f"unfused graph ({len(graphs['unfused'][0].nodes)} nodes) launches "
+        f"{launches['unfused']}; default pipeline under cuda_direct_pool "
+        f"launches {launches['fused']}; packed tails "
+        f"{tuple(tails['fused'].shape)} equal bit for bit; top-5 equal; "
+        f"largest |head - float_forward| unfused "
+        f"{diffs['unfused']:.3e}, fused {diffs['fused']:.3e}, unfused vs "
+        f"fused {diffs['unfused vs fused']:.3e}")
+    return launches
+
+
+def pm1_library(a, b):
+    """One PyTorch call computing K6's +-1 dots from operands already
+    unpacked (unpacking not timed): ``torch._int_mm`` on int8 where its
+    shape rules allow (more than 16 rows, K and N multiples of 8), else a
+    float32 matmul with TF32 off.  Returns (the call, its name); the call
+    gives the dots over all 32·W bits."""
+    bits = a.shape[1] * packing.WORD_BITS
+    av = packing.unpack_to_pm1(a, bits, dtype=torch.int8)
+    bv = packing.unpack_to_pm1(b, bits, dtype=torch.int8)
+    if a.shape[0] > 16 and bits % 8 == 0 and b.shape[0] % 8 == 0:
+        bt = bv.t().contiguous()
+        return (lambda: torch._int_mm(av, bt)), "torch._int_mm (int8)"
+    af, bft = av.float(), bv.float().t().contiguous()
+
+    def f32():
+        with binary_ops.full_float32():
+            return af @ bft
+    return f32, "torch.matmul (float32, TF32 off)"
+
+
+def count_library(a, b, ww):
+    """One PyTorch call computing K1's counts from operands already
+    unpacked (unpacking not timed), and the map from its result to the
+    counts (not timed either).  Without word weights it is
+    :func:`pm1_library`'s dot over all 32·W bits, and cnt = (32·W - dot)/2;
+    with them, a float32 matmul (TF32 off) of ``a``'s +-1 bits scaled by
+    their word's weight against ``b``'s, and cnt = (32·sum(ww) - dot)/2,
+    exact while 32·sum(ww) < 2^24.  Returns (the call, its name, the map)."""
+    if ww is None:
+        call, name = pm1_library(a, b)
+        total = a.shape[1] * packing.WORD_BITS
+    else:
+        total = packing.WORD_BITS * int(ww.sum())
+        if total >= 1 << 24:
+            raise AssertionError(f"[timing] weighted dots of {total} "
+                                 f"terms are not exact in float32")
+        bits = a.shape[1] * packing.WORD_BITS
+        av = (packing.unpack_to_pm1(a, bits, dtype=torch.float32)
+              * ww.float().repeat_interleave(packing.WORD_BITS))
+        bt = packing.unpack_to_pm1(b, bits, dtype=torch.float32).t() \
+            .contiguous()
+
+        def call():
+            with binary_ops.full_float32():
+                return av @ bt
+        name = "torch.matmul (float32, TF32 off, word-weighted a)"
+
+    def to_counts(dot):
+        twice = total - dot.to(torch.int64)
+        if (twice % 2).any():
+            raise AssertionError(f"[timing] {name}: odd total - dot")
+        return (twice // 2).to(torch.int32)
+    return call, name, to_counts
+
+
 def time_ms(fn, reps: int) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
     fn()
@@ -606,19 +866,27 @@ def phase_timing(device, launches: dict, per_forward: dict,
     inp = Inputs(device, seed=2)
     rows = {}
 
-    def add(name, shape, ms, plain_ms, nbytes, ops):
+    def add(name, shape, ms, plain_ms, nbytes, ops, library=None):
         b, by = bound_ms(nbytes, ops)
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                       t_bytes=0.0, t_ops=0.0, shapes=[]))
+                                       t_bytes=0.0, t_ops=0.0,
+                                       library_ms=None, shapes=[]))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b
         r["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
         r["t_ops"] += ops / INT8_OPS_PER_S * 1e3
-        r["shapes"].append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b, bound_by=by))
+        shape_row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                         bound_by=by)
+        extra = ""
+        if library is not None:
+            lib_ms, lib_name = library
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+            shape_row.update(library_ms=lib_ms, library=lib_name)
+            extra = f", library {lib_ms:.4f} ms ({lib_name})"
+        r["shapes"].append(shape_row)
         log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b:.5f} ms ({by})")
+            f"{plain_ms:.4f} ms, bound {b:.5f} ms ({by}){extra}")
 
     x = torch.randint(0, 256, (BATCH, 227, 227, 3), dtype=torch.uint8,
                       device=device, generator=inp.g)
@@ -644,6 +912,34 @@ def phase_timing(device, launches: dict, per_forward: dict,
             time_ms(lambda: k2.fused_matmul_bn_binarize(*args), 50),
             time_ms(lambda: k2.fused_matmul_bn_binarize_plain(*args), 5),
             nbytes, ops)
+    # K1 at every count node of the trained path's unfused graph (conv1
+    # alone is cuda_pm1's one K1 launch); K6 at cuda_pm1's six.
+    for case in ALEXNET_MATMULS:
+        a, b, ww, bits = matmul_case(inp, case)
+        out = k1.xnor_popcount_matmul(a, b, ww)
+        lib, lib_name, to_counts = count_library(a, b, ww)
+        if not torch.equal(to_counts(lib()), out):
+            raise AssertionError(f"[timing] {lib_name} != "
+                                 f"xnor_popcount_matmul at {case[0]}")
+        add("xnor_popcount_matmul", case[0],
+            time_ms(lambda: k1.xnor_popcount_matmul(a, b, ww), 20),
+            time_ms(lambda: k1.xnor_popcount_matmul_plain(a, b, ww), 3),
+            *matmul_cost(a, b, out, bits, ww),
+            library=(time_ms(lib, 20), lib_name))
+    for case in ALEXNET_MATMULS[1:]:
+        a, b, _, bits = matmul_case(inp, case)
+        k_valid = int(bits.sum())
+        out = k6.mxu_pm1_matmul(a, b, k_valid)
+        lib, lib_name = pm1_library(a, b)
+        if not torch.equal(lib().to(torch.int32)
+                           - (a.shape[1] * 32 - k_valid), out):
+            raise AssertionError(f"[timing] {lib_name} != mxu_pm1_matmul "
+                                 f"at {case[0]}")
+        add("mxu_pm1_matmul", case[0],
+            time_ms(lambda: k6.mxu_pm1_matmul(a, b, k_valid), 20),
+            time_ms(lambda: k6.mxu_pm1_matmul_plain(a, b, k_valid), 5),
+            *matmul_cost(a, b, out, bits),
+            library=(time_ms(lib, 20), lib_name))
     x, ops, kw, convs = chain_case(inp, CHAIN_CASES[0])
     out = k5.chain_conv(x, ALEXNET_CHAIN, ops, **kw)
     add("chain_conv", CHAIN_CASES[0][0],
@@ -676,7 +972,7 @@ def phase_timing(device, launches: dict, per_forward: dict,
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
             bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
-            library_ms=None, per_shape=r["shapes"]))
+            library_ms=r["library_ms"], per_shape=r["shapes"]))
     return kernels
 
 
@@ -698,6 +994,8 @@ def main() -> int:
         numbers[mode]["profile"] = phase_profile(wl)
     for mode in WANT_DETECT:
         phase_detect(rng, mode)
+    for name, counts in phase_trained(device).items():
+        launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
     kernels = phase_timing(device, launches, per_forward, errs)
     log(f"[serve] numbers {json.dumps(numbers)}")
     log(f"total {time.perf_counter() - t0:.1f} s")

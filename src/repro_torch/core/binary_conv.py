@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.core.binary_conv``: im2col over packed words
 (spatial patches gathered with strided slices, patch words ordered
-(kh, kw, Cw) major-to-minor), then one xor-popcount matmul.
+(kh, kw, Cw) major-to-minor), then one count matmul in xor or pm1 form
+(``impl``, :func:`repro_torch.core.binary_ops.packed_matmul_counts`).
 
 Padding: spatial padding inserts 0-words, i.e. 32 channels of -1 (the
 -1-padding convention of DESIGN.md §3.2).
@@ -61,23 +62,32 @@ def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:
 
 def binary_conv2d_counts(x_packed: torch.Tensor, w_packed: torch.Tensor,
                          kh: int, kw: int, stride: int = 1, pad: int = 0,
-                         word_weights: torch.Tensor | None = None
-                         ) -> torch.Tensor:
+                         word_weights: torch.Tensor | None = None,
+                         impl: str = "xor") -> torch.Tensor:
     """cnt[n,oh,ow,o] = sum_w ww[w] * popcount(patch ^ filter)."""
     flat, (n, oh, ow) = im2col_matmul(x_packed, kh, kw, stride, pad)
     cnt = binary_ops.packed_matmul_counts(flat, w_packed,
-                                          word_weights=word_weights)
+                                          word_weights=word_weights,
+                                          impl=impl)
     return cnt.reshape(n, oh, ow, w_packed.shape[0])
+
+
+def binary_conv2d_dot(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                      k_valid: int, kh: int, kw: int, stride: int = 1,
+                      pad: int = 0) -> torch.Tensor:
+    """+-1 dot products: K - 2*cnt (paper Eqn 1), int32 NHWO."""
+    cnt = binary_conv2d_counts(x_packed, w_packed, kh, kw, stride, pad)
+    return k_valid - 2 * cnt
 
 
 def binary_conv2d_fused(x_packed: torch.Tensor, w_packed: torch.Tensor,
                         p: layer_integration.IntegratedParams,
                         kh: int, kw: int, stride: int = 1, pad: int = 0,
-                        word_weights: torch.Tensor | None = None
-                        ) -> torch.Tensor:
+                        word_weights: torch.Tensor | None = None,
+                        impl: str = "xor") -> torch.Tensor:
     """Integrated conv+BN+binarize with packed output (N, OH, OW, Ow)."""
     cnt = binary_conv2d_counts(x_packed, w_packed, kh, kw, stride, pad,
-                               word_weights=word_weights)
+                               word_weights=word_weights, impl=impl)
     return packing.pack_bits(layer_integration.apply_threshold(cnt, p),
                              axis=-1)
 
@@ -104,9 +114,21 @@ def binary_or_maxpool(x_packed: torch.Tensor, window: int, stride: int,
 
 
 def binary_dense_fused(x_packed: torch.Tensor, w_packed: torch.Tensor,
-                       p: layer_integration.IntegratedParams
-                       ) -> torch.Tensor:
+                       p: layer_integration.IntegratedParams,
+                       impl: str = "xor") -> torch.Tensor:
     """Integrated dense+BN+binarize with packed output (..., Ow)."""
-    cnt = binary_ops.binary_dense_counts(x_packed, w_packed)
+    cnt = binary_ops.binary_dense_counts(x_packed, w_packed, impl=impl)
     return packing.pack_bits(layer_integration.apply_threshold(cnt, p),
                              axis=-1)
+
+
+def final_float_dense(x_packed: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor | None, channels: int) -> torch.Tensor:
+    """Paper's final full-precision layer: unpack +-1 acts, float32 matmul
+    (in full float32)."""
+    xv = packing.unpack_to_pm1(x_packed, channels, dtype=torch.float32)
+    with binary_ops.full_float32():
+        out = xv @ w.to(torch.float32)
+    if b is not None:
+        out = out + b.to(torch.float32)
+    return out

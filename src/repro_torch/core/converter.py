@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core import bitplanes, binary_conv, layer_integration, packing
 from repro_torch.core.bnn_model import (BConv, BDense, FloatConv, FloatDense,
-                                        LayerSpec, Pool, _BN_EPS)
+                                        LayerSpec, Pool, bn_sigma)
 
 
 def _t(x) -> torch.Tensor:
@@ -32,7 +32,7 @@ def _t(x) -> torch.Tensor:
 
 
 def _sigma(var) -> torch.Tensor:
-    return torch.sqrt(_t(var).to(torch.float32) + _BN_EPS)
+    return bn_sigma(_t(var).to(torch.float32))
 
 
 def _bn(p: dict) -> tuple:
@@ -168,3 +168,8 @@ def model_bytes(packed: Sequence[dict]) -> int:
                 a = _np(v)
                 total += a.size * a.dtype.itemsize
     return total
+
+
+def float_model_bytes(params: Sequence[dict]) -> int:
+    """Size of the full-precision counterpart (Tab II 'CNN' column, fp32)."""
+    return sum(_np(v).size * 4 for layer in params for v in layer.values())

@@ -42,6 +42,8 @@ SIGNATURES = {
                                        _I, _I, _I, _I, _I, _I, _I, _P),
     "launch_chain_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P),
+    "launch_xnor_popcount_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "launch_mxu_pm1_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
     "phonebit_smem_optin": (_I,),
 }
 

@@ -8,6 +8,10 @@ modes they pair with in conformance tests:
 port backend          JAX mode               behaviour
 ====================  =====================  ===============================
 ``torch``             ``xla``                plain PyTorch (im2col + counts)
+``torch_pm1``         ``xla_pm1``            plain PyTorch, +-1 matmul form
+``cuda_pm1``          ``mxu_pm1``            im2col + K6 (+-1 dots on the
+                                             tensor cores); K1 counts where
+                                             words carry weights
 ``cuda_popcount``     ``vpu_popcount``       im2col + K2 (fused matmul)
 ``cuda_direct``       ``vpu_direct``         K3 (direct conv)
 ``cuda_direct_pool``  ``vpu_direct_pool``    K3 with the OR-pool epilogue
@@ -18,25 +22,76 @@ port backend          JAX mode               behaviour
 A ``cuda_*`` backend launches its kernel for a CUDA tensor and runs the
 kernel's plain version for a CPU tensor; nothing falls back from one to
 the other.
+
+The pm1 forms have no +-1 counterpart for weighted words (the first
+layer's bit planes, Eqn 2): there ``torch_pm1`` keeps xor counts, as the
+reference's pm1 form does, and ``cuda_pm1`` takes K1's counts.
+
+Unweighted counts from the +-1 dot: ``cnt = (32·W - dot) / 2`` over all
+``32·W`` bits of the operands (pad bits agree, add +1 to the dot each and
+nothing to the count).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import binary_conv, layer_integration
+from repro_torch.core import (binary_conv, binary_ops, layer_integration,
+                              packing)
 from repro_torch.kernels import chain_conv as _chain
 from repro_torch.kernels.bitplane_pack import bitplane_pack  # noqa: F401
 from repro_torch.kernels.direct_conv_bn_binarize import \
     direct_conv_bn_binarize
 from repro_torch.kernels.fused_conv_bn_binarize import (
     fused_matmul_bn_binarize as _fused_kernel, fused_matmul_bn_binarize_plain)
+from repro_torch.kernels.mxu_pm1_matmul import mxu_pm1_matmul
+from repro_torch.kernels.xnor_popcount_matmul import xnor_popcount_matmul
 
 #: Port backend name -> the reference's matching mode.
-JAX_MODE = {"torch": "xla", "cuda_popcount": "vpu_popcount",
-            "cuda_direct": "vpu_direct", "cuda_direct_pool": "vpu_direct_pool",
-            "cuda_chain": "vpu_chain"}
-CONV_MODES = ("torch", "cuda_popcount", "cuda_direct")
+JAX_MODE = {"torch": "xla", "torch_pm1": "xla_pm1", "cuda_pm1": "mxu_pm1",
+            "cuda_popcount": "vpu_popcount", "cuda_direct": "vpu_direct",
+            "cuda_direct_pool": "vpu_direct_pool", "cuda_chain": "vpu_chain"}
+CONV_MODES = ("torch", "torch_pm1", "cuda_pm1", "cuda_popcount",
+              "cuda_direct")
+#: Modes of :func:`binary_matmul_dot` and of :func:`matmul_counts`.
+DOT_MODES = ("cuda_popcount", "cuda_pm1", "torch")
+COUNT_MODES = ("cuda_popcount", "torch")
+
+
+def binary_matmul_dot(a: torch.Tensor, b: torch.Tensor, k_valid: int,
+                      mode: str = "cuda_popcount") -> torch.Tensor:
+    """Binary +-1 dots (M, N) int32 over ``k_valid`` real bits: K1
+    (``k_valid - 2·cnt``), K6, or plain PyTorch."""
+    if mode == "cuda_popcount":
+        return k_valid - 2 * xnor_popcount_matmul(a, b)
+    if mode == "cuda_pm1":
+        return mxu_pm1_matmul(a, b, k_valid)
+    if mode == "torch":
+        return binary_ops.packed_matmul_dot(a, b, k_valid)
+    raise ValueError(f"unknown matmul mode {mode!r}; want one of "
+                     f"{DOT_MODES}")
+
+
+def matmul_counts(a: torch.Tensor, b: torch.Tensor,
+                  word_weights: torch.Tensor | None = None,
+                  mode: str = "cuda_popcount") -> torch.Tensor:
+    """Weighted xor-popcount counts (M, N) int32: K1 or plain PyTorch."""
+    if mode == "cuda_popcount":
+        return xnor_popcount_matmul(a, b, word_weights)
+    if mode == "torch":
+        return binary_ops.packed_matmul_counts(a, b, word_weights=word_weights)
+    raise ValueError(f"counts not supported for mode {mode!r}; want one of "
+                     f"{COUNT_MODES}")
+
+
+def _pm1_counts(a: torch.Tensor, b: torch.Tensor,
+                word_weights) -> torch.Tensor:
+    """``cuda_pm1`` counts: K6's +-1 dot over all 32·W bits, halved back to
+    counts; weighted words take K1."""
+    if word_weights is not None:
+        return xnor_popcount_matmul(a, b, word_weights)
+    total = a.shape[1] * packing.WORD_BITS
+    return (total - mxu_pm1_matmul(a, b, total)) // 2
 
 
 def fused_matmul_bn_binarize(a, b, p: layer_integration.IntegratedParams,
@@ -48,7 +103,15 @@ def fused_matmul_bn_binarize(a, b, p: layer_integration.IntegratedParams,
     if mode == "torch":
         return fused_matmul_bn_binarize_plain(a, b, p.threshold, p.sign_flip,
                                               word_weights)
-    raise ValueError(f"fused path not supported for mode {mode!r}")
+    if mode == "cuda_pm1":
+        cnt = _pm1_counts(a, b, word_weights)
+    elif mode == "torch_pm1":
+        cnt = binary_ops.packed_matmul_counts(a, b, word_weights=word_weights,
+                                              impl="pm1")
+    else:
+        raise ValueError(f"fused path not supported for mode {mode!r}")
+    return packing.pack_bits(layer_integration.apply_threshold(cnt, p),
+                             axis=-1)
 
 
 def fused_binary_dense(x_packed, w_packed,
@@ -73,16 +136,17 @@ def fused_binary_conv2d(x_packed: torch.Tensor, w_packed: torch.Tensor,
         return direct_conv_bn_binarize(
             x_packed, w_packed, p.threshold, p.sign_flip, kh=kh, kw=kw,
             stride=stride, pad=pad, word_weights=word_weights, pool=pool)
-    if mode == "cuda_popcount":
+    if mode in ("cuda_popcount", "cuda_pm1"):
         flat, (n, oh, ow) = binary_conv.im2col_matmul(x_packed, kh, kw,
                                                       stride, pad)
-        out = _fused_kernel(flat, w_packed, p.threshold, p.sign_flip,
-                            word_weights)
+        out = fused_matmul_bn_binarize(flat, w_packed, p, word_weights,
+                                       mode=mode)
         out = out.reshape(n, oh, ow, out.shape[-1])
-    elif mode == "torch":
+    elif mode in ("torch", "torch_pm1"):
         out = binary_conv.binary_conv2d_fused(
             x_packed, w_packed, p, kh, kw, stride, pad,
-            word_weights=word_weights)
+            word_weights=word_weights,
+            impl="pm1" if mode == "torch_pm1" else "xor")
     else:
         raise ValueError(
             f"unknown conv mode {mode!r}; want one of {CONV_MODES}")

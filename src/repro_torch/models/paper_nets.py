@@ -2,14 +2,18 @@
 
 Counterpart of ``repro.models.paper_nets``: the three network specs at
 their published shapes (AlexNet/VGG16 at 1000-class ImageNet, YOLOv2-Tiny
-at 416² VOC with 125 = 5·(20+5) output channels).  The float-CNN baseline
-forward is not ported.
+at 416² VOC with 125 = 5·(20+5) output channels), and the float CNN
+baseline the paper compares against (:func:`cnn_float_forward`).
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core import binary_ops
 from repro_torch.core.bnn_model import (BConv, BDense, FloatConv, FloatDense,
-                                        Pool)
+                                        Pool, _param, bn, float_conv_nhwc,
+                                        max_pool_nhwc)
 
 
 def alexnet_spec() -> list:
@@ -79,3 +83,32 @@ def get(name: str):
     """Returns (spec, input_hwc)."""
     fn, shape = NETWORKS[name]
     return fn(), shape
+
+
+# --------------------------------------------------------------------------
+# Full-precision CNN baseline (Tab III float frameworks)
+# --------------------------------------------------------------------------
+
+def cnn_float_forward(params, spec, x_uint8: torch.Tensor) -> torch.Tensor:
+    """The float CNN the paper benchmarks against: same topology, ReLU+BN,
+    full-precision weights (the latent floats), standard 0-padding; in
+    full float32, on ``x_uint8``'s device."""
+    dev = x_uint8.device
+    x = x_uint8.to(torch.float32) / 255.0
+    with binary_ops.full_float32():
+        for layer, p in zip(spec, params):
+            p = {k: _param(v, dev) for k, v in p.items()}
+            if isinstance(layer, BConv):
+                x = float_conv_nhwc(x, p["w"], None, layer.stride, layer.pad)
+                x = torch.relu(bn(x, p))
+            elif isinstance(layer, Pool):
+                x = max_pool_nhwc(x, layer.window, layer.stride,
+                                  tuple(layer.pad), fill=float("-inf"))
+            elif isinstance(layer, BDense):
+                x = torch.relu(bn(x.reshape(x.shape[0], -1) @ p["w"], p))
+            elif isinstance(layer, FloatDense):
+                x = x.reshape(x.shape[0], -1) @ p["w"] + p["b"]
+            elif isinstance(layer, FloatConv):
+                x = float_conv_nhwc(x, p["w"], p["b"], layer.stride,
+                                    layer.pad)
+    return x

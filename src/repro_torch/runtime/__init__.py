@@ -1,5 +1,5 @@
-"""Graph runtime (counterpart of ``repro.runtime``): operator IR, the
-pool-epilogue fusion pass, the memory planner, chain-fusion regions and
+"""Graph runtime (counterpart of ``repro.runtime``): operator IR and its two
+lowerings, the rewrite passes, the memory planner, chain-fusion regions and
 the per-node backend executor."""
 
 from repro_torch.runtime.executor import (ALL_MODES, BACKENDS, CHAIN_BACKEND,
@@ -7,10 +7,12 @@ from repro_torch.runtime.executor import (ALL_MODES, BACKENDS, CHAIN_BACKEND,
                                           resolve_backend, valid_backends)
 from repro_torch.runtime.graph import (DISPATCHABLE_OPS, PACKED_OPS, Graph,
                                        Node, TensorType, infer_types,
-                                       lower_packed)
+                                       lower_packed, lower_trained)
 from repro_torch.runtime.memory import (MemoryPlan, VmemPlan, plan_memory,
                                         vmem_plan)
-from repro_torch.runtime.passes import fuse_pool_epilogue
+from repro_torch.runtime.passes import (absorb_pools, assign_layouts,
+                                        default_pipeline, fuse_epilogues,
+                                        fuse_pool_epilogue, integrate_bn)
 from repro_torch.runtime.regions import (DEFAULT_SMEM_BUDGET, Chain,
                                          build_chain, chain_executor,
                                          chain_report, partition_chains,
@@ -19,8 +21,10 @@ from repro_torch.runtime.regions import (DEFAULT_SMEM_BUDGET, Chain,
 __all__ = [
     "ALL_MODES", "BACKENDS", "CHAIN_BACKEND", "DEFAULT_SMEM_BUDGET",
     "DISPATCHABLE_OPS", "PACKED_OPS", "Chain", "Graph", "GraphExecutor",
-    "MemoryPlan", "Node", "TensorType", "VmemPlan", "build_chain",
-    "chain_executor", "chain_report", "eval_node", "fuse_pool_epilogue",
-    "infer_types", "lower_packed", "partition_chains", "plan_chain_vmem",
-    "plan_memory", "resolve_backend", "valid_backends", "vmem_plan",
+    "MemoryPlan", "Node", "TensorType", "VmemPlan", "absorb_pools",
+    "assign_layouts", "build_chain", "chain_executor", "chain_report",
+    "default_pipeline", "eval_node", "fuse_epilogues", "fuse_pool_epilogue",
+    "infer_types", "integrate_bn", "lower_packed", "lower_trained",
+    "partition_chains", "plan_chain_vmem", "plan_memory", "resolve_backend",
+    "valid_backends", "vmem_plan",
 ]

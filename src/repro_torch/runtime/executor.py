@@ -7,12 +7,19 @@ reached, and nothing waits for the device.  Per-node backends (the table
 in :mod:`repro_torch.kernels.ops` pairs each with its JAX mode):
 
 * ``"torch"``            plain PyTorch xor+popcount (always available),
+* ``"torch_pm1"``        plain PyTorch +-1 matmul form,
+* ``"cuda_pm1"``         im2col + the +-1 tensor-core kernel (K6); the
+                         first layer's weighted words through K1,
 * ``"cuda_popcount"``    im2col + the fused matmul kernel (K2),
 * ``"cuda_direct"``      the direct conv kernel (K3) — conv ops only,
 * ``"cuda_direct_pool"`` K3 with the OR-pool fused into its epilogue —
                          ``packed_conv_pool`` nodes only.
 
-``bitplane_expand`` always goes through the bit-plane kernel (K4).
+``bitplane_expand`` always goes through the bit-plane kernel (K4), and the
+unfused count ops of a trained-params graph (``conv_counts``,
+``dense_counts``) always go through the count kernel (K1); their float-BN
+and pool epilogues (``bn_binarize``, ``threshold_pack``, ``maxpool_pm1``)
+are plain PyTorch.
 
 Above the per-node backends sits the region-level ``"cuda_chain"`` mode
 (DESIGN.md §9): the executor accepts ``regions=`` — chains formed by
@@ -32,12 +39,14 @@ from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.core import binary_conv, bnn_model, packing
+from repro_torch.core import (binary_conv, binary_ops, bnn_model,
+                              layer_integration, packing)
 from repro_torch.kernels import ops as kops
 from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import DISPATCHABLE_OPS, Graph
 
-BACKENDS = ("torch", "cuda_popcount", "cuda_direct", "cuda_direct_pool")
+BACKENDS = ("torch", "torch_pm1", "cuda_pm1", "cuda_popcount", "cuda_direct",
+            "cuda_direct_pool")
 # The region-level mode: not a per-node backend — chains are evaluated
 # whole via ``regions`` — but a valid engine ``matmul_mode``.
 CHAIN_BACKEND = "cuda_chain"
@@ -54,9 +63,9 @@ def valid_backends(op: str) -> tuple[str, ...]:
     if op == "packed_conv_pool":
         return BACKENDS
     if op == "packed_conv":
-        return ("torch", "cuda_popcount", "cuda_direct")
+        return tuple(b for b in BACKENDS if b != "cuda_direct_pool")
     if op == "packed_dense":
-        return ("torch", "cuda_popcount")
+        return ("torch", "torch_pm1", "cuda_pm1", "cuda_popcount")
     return ()
 
 
@@ -97,12 +106,53 @@ def _eval_packed_conv(a: dict, p: dict, x, backend: str):
     return out
 
 
+def _eval_bn_binarize(a: dict, p: dict, cnt: torch.Tensor) -> torch.Tensor:
+    """The float-BN epilogue on counts, in float32 with the reference's
+    operation order, so its bits equal ``threshold_pack``'s after
+    ``integrate_bn``."""
+    k_valid = float(a["k_valid"])
+    if a.get("first"):
+        # wcnt -> Eqn-2 dot: s = 255*(K + w_sum)/2 - wcnt
+        const = 255.0 * (k_valid + p["w_sum"].to(torch.float32)) / 2.0
+        dot = const - cnt.to(torch.float32)
+    else:
+        dot = k_valid - 2.0 * cnt.to(torch.float32)
+    x3 = bnn_model.bn(dot + p.get("bias", 0.0), p)
+    return packing.pack_bits(x3 >= 0, axis=-1)
+
+
+def _eval_maxpool_pm1(a: dict, x: torch.Tensor) -> torch.Tensor:
+    """Semantic max-pool: unpack to +-1, pad with -1, max, repack."""
+    xv = packing.unpack_to_pm1(x, a["channels"], dtype=torch.float32)
+    xv = bnn_model.max_pool_nhwc(xv, a["window"], a["stride"],
+                                 tuple(a.get("pad", (0, 0))))
+    return packing.pack_bits(xv >= 0, axis=-1)
+
+
 def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
               backend: str = "torch"):
     """Evaluate one node given its already-computed input values."""
     a, p = attrs, params
     if node_op == "bitplane_expand":
         return kops.bitplane_pack(inputs[0])
+    if node_op == "conv_counts":
+        flat, (n, oh, ow) = binary_conv.im2col_matmul(
+            inputs[0], a["kernel"], a["kernel"], a["stride"], a["pad"])
+        cnt = kops.matmul_counts(flat, p["w_packed"], p.get("word_weights"))
+        return cnt.reshape(n, oh, ow, cnt.shape[-1])
+    if node_op == "dense_counts":
+        flat = inputs[0].reshape(inputs[0].shape[0], -1)
+        return kops.matmul_counts(flat, p["w_packed"])
+    if node_op == "bn_binarize":
+        return _eval_bn_binarize(a, p, inputs[0])
+    if node_op == "threshold_pack":
+        return packing.pack_bits(
+            layer_integration.apply_threshold(inputs[0], p["thresh"]),
+            axis=-1)
+    if node_op == "maxpool_pm1":
+        return _eval_maxpool_pm1(a, inputs[0])
+    if node_op == "concat_packed":
+        return torch.cat(inputs, dim=-1)
     if node_op in ("packed_conv", "packed_conv_pool"):
         return _eval_packed_conv(a, p, inputs[0], backend)
     if node_op == "packed_dense":
@@ -117,7 +167,8 @@ def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
                                      dtype=torch.float32)
     if node_op == "float_dense":
         flat = inputs[0].reshape(inputs[0].shape[0], -1)
-        return flat @ p["w"] + p["b"]
+        with binary_ops.full_float32():
+            return flat @ p["w"] + p["b"]
     if node_op == "float_conv":
         return bnn_model.float_conv_nhwc(inputs[0], p["w"], p["b"],
                                          a["stride"], a["pad"])

@@ -1,9 +1,16 @@
 """Operator IR for the PhoneBit graph runtime (DESIGN.md §4.1).
 
-Counterpart of ``repro.runtime.graph`` for the serving path: a model is a
-DAG of :class:`Node` objects with explicit edges, built from a converter
-artifact by :func:`lower_packed`.  The ops this lowering (plus
-``passes.fuse_pool_epilogue``) emits:
+Counterpart of ``repro.runtime.graph``: a model is a DAG of :class:`Node`
+objects with explicit edges.  Two lowerings build one:
+
+* :func:`lower_packed` — from a converter artifact (the serving path):
+  the fused ops directly;
+* :func:`lower_trained` — from trained latent-float params: the unfused
+  ops (``conv_counts`` → ``bn_binarize``, ``maxpool_pm1``), which the
+  passes of :mod:`repro_torch.runtime.passes` rewrite into the fused
+  graph.
+
+The op vocabulary:
 
 ===============  ============================================================
 op               semantics
@@ -14,9 +21,15 @@ packed_conv      fused conv+BN+binarize on packed words → packed words
 packed_conv_pool packed_conv with an OR-pool epilogue fused in
 packed_dense     fused dense+BN+binarize, flattens input → (N, Ow)
 or_pool          max-pool in the packed domain = windowed bitwise OR
+conv_counts      unfused conv: weighted xor-popcounts (N,OH,OW,O) int32
+dense_counts     unfused dense counts (N, O) int32
+bn_binarize      float-BN epilogue on counts → packed bits (oracle form)
+threshold_pack   integer-threshold epilogue on counts → packed bits
+maxpool_pm1      semantic max-pool: unpack ±1 → reduce-max → repack
 unpack_pm1       packed words → float ±1 (c_per_pos valid channels)
 float_dense      full-precision head: flatten, x@w+b
 float_conv       full-precision conv (paper's conv9)
+concat_packed    channel-concat of packed words (each input C ≡ 0 mod 32)
 ===============  ============================================================
 
 Every node carries ``attrs["channels"]``, the number of valid binary
@@ -28,15 +41,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.core import bitplanes, packing
-from repro_torch.core.binary_conv import conv_out_size
+from repro_torch.core import bitplanes, layer_integration, packing
+from repro_torch.core.binary_conv import conv_out_size, pack_conv_weights
 from repro_torch.core.bnn_model import (BConv, BDense, FloatConv, FloatDense,
                                         LayerSpec, Pool)
 
-# Ops whose output is packed words (the reference's set, including ops the
-# port does not lower yet); a chain's ``maxpool_pm1`` needs a packed input.
+# Ops whose output is packed words.
 PACKED_OPS = frozenset({
     "packed_conv", "packed_conv_pool", "packed_dense", "or_pool",
     "bn_binarize", "threshold_pack", "maxpool_pm1", "concat_packed",
@@ -102,6 +115,34 @@ class Graph:
             raise ValueError("graph has a cycle")
         return order
 
+    def to(self, device) -> "Graph":
+        """A copy with every param tensor on ``device`` (contiguous)."""
+        def move(v):
+            if isinstance(v, layer_integration.IntegratedParams):
+                return layer_integration.IntegratedParams(
+                    *(move(f) for f in v))
+            return v.to(device).contiguous() if torch.is_tensor(v) else v
+
+        g = self.copy()
+        for node in g.nodes.values():
+            node.params = {k: move(v) for k, v in node.params.items()}
+        return g
+
+    def upto(self, output_id: int) -> "Graph":
+        """A copy cut at ``output_id``: that node and its ancestors, with
+        it as the output."""
+        keep, todo = set(), [output_id]
+        while todo:
+            nid = todo.pop()
+            if nid not in keep:
+                keep.add(nid)
+                todo.extend(self.nodes[nid].inputs)
+        g = self.copy()
+        g.nodes = {nid: n for nid, n in g.nodes.items() if nid in keep}
+        g.output_id = output_id
+        g.validate()
+        return g
+
     def copy(self) -> "Graph":
         return Graph(
             nodes={nid: Node(n.id, n.op, n.inputs, dict(n.attrs),
@@ -156,16 +197,17 @@ def infer_types(graph: Graph,
             t = TensorType(
                 (n, h, w, bitplanes.NUM_PLANES * packing.num_words(c)),
                 torch.int32)
-        elif node.op in ("packed_conv", "packed_conv_pool"):
+        elif node.op in ("packed_conv", "packed_conv_pool", "conv_counts"):
             oh, ow = _conv_hw(ins[0].shape, a["kernel"], a["stride"],
                               a["pad"])
             if node.op == "packed_conv_pool":
                 pp = sum(a.get("pool_pad", (0, 0)))
                 oh = (oh + pp - a["pool_window"]) // a["pool_stride"] + 1
                 ow = (ow + pp - a["pool_window"]) // a["pool_stride"] + 1
-            t = TensorType((ins[0].shape[0], oh, ow,
-                            packing.num_words(a["channels"])), torch.int32)
-        elif node.op == "or_pool":
+            last = (a["channels"] if node.op == "conv_counts"
+                    else packing.num_words(a["channels"]))
+            t = TensorType((ins[0].shape[0], oh, ow, last), torch.int32)
+        elif node.op in ("or_pool", "maxpool_pm1"):
             n, h, w, cw = ins[0].shape
             ph, pw = a.get("pad", (0, 0))
             oh = (h + ph + pw - a["window"]) // a["stride"] + 1
@@ -175,6 +217,11 @@ def infer_types(graph: Graph,
             t = TensorType(
                 (ins[0].shape[0], packing.num_words(a["channels"])),
                 torch.int32)
+        elif node.op == "dense_counts":
+            t = TensorType((ins[0].shape[0], a["channels"]), torch.int32)
+        elif node.op in ("bn_binarize", "threshold_pack"):
+            s = ins[0].shape
+            t = TensorType(s[:-1] + (packing.num_words(s[-1]),), torch.int32)
         elif node.op == "unpack_pm1":
             s = ins[0].shape
             t = TensorType(s[:-1] + (a["channels"],), torch.float32)
@@ -185,6 +232,10 @@ def infer_types(graph: Graph,
                               a["pad"])
             t = TensorType((ins[0].shape[0], oh, ow, a["channels"]),
                            torch.float32)
+        elif node.op == "concat_packed":
+            base = ins[0].shape
+            t = TensorType(base[:-1] + (sum(i.shape[-1] for i in ins),),
+                           torch.int32)
         else:
             raise ValueError(f"no shape rule for op {node.op!r}")
         types[nid] = t
@@ -245,6 +296,114 @@ def lower_packed(spec: Sequence[LayerSpec], packed: Sequence[dict],
                         attrs=dict(kernel=layer.kernel, stride=layer.stride,
                                    pad=layer.pad, channels=layer.c_out),
                         params=dict(w=p["w"], b=p["b"]))
+            channels = layer.c_out
+        else:
+            raise ValueError(f"cannot lower layer {layer!r}")
+    g.output_id = cur
+    g.validate()
+    return g
+
+
+# --------------------------------------------------------------------------
+# Lowering: trained float params -> unfused graph (pass-pipeline input)
+# --------------------------------------------------------------------------
+
+def _f32(v) -> torch.Tensor:
+    t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+    return t.to(torch.float32)
+
+
+def _first_layer_packed_weights(layer: BConv, w: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bit-plane filters (O, KH·KW·8·Cw), each plane a copy of the sign
+    words, and their word weights 2^(n-1) per plane word."""
+    cw = packing.num_words(layer.c_in)
+    wp = packing.pack_signs(w, axis=2)                        # KH,KW,Cw,O
+    wp = wp[:, :, None].expand(-1, -1, bitplanes.NUM_PLANES, -1, -1)
+    wp = wp.permute(4, 0, 1, 2, 3).reshape(layer.c_out, -1).contiguous()
+    ww = bitplanes.plane_word_weights(cw).repeat(layer.kernel * layer.kernel)
+    return wp, ww
+
+
+def lower_trained(spec: Sequence[LayerSpec], params: Sequence[dict],
+                  input_hw: tuple[int, int]) -> Graph:
+    """Lower trained latent-float params (torch tensors or numpy arrays) to
+    the *unfused* graph, on the CPU.
+
+    Weight bit-packing happens here (packing is layout, not fusion), but BN
+    stays a float epilogue (``bn_binarize``), pools stay semantic max-pools
+    (``maxpool_pm1``), and no layout adapters (``bitplane_expand`` /
+    ``unpack_pm1``) are emitted: those are the work of
+    :func:`repro_torch.runtime.passes.default_pipeline`.
+    """
+    g = Graph(input_hw=input_hw)
+    cur = g.add("input", attrs=dict(channels=_input_channels(spec)))
+    g.input_id = cur
+    h, w = input_hw
+    channels: int | None = None
+    flat = False
+
+    for layer, p in zip(spec, params):
+        p = {k: _f32(v) for k, v in p.items()}
+        bn = {k: p[k] for k in ("gamma", "beta", "mu", "var") if k in p}
+        if isinstance(layer, BConv):
+            if layer.first:
+                wp, ww = _first_layer_packed_weights(layer, p["w"])
+                w_sum = torch.where(p["w"] >= 0, 1.0, -1.0).sum(dim=(0, 1, 2))
+                conv_params = dict(w_packed=wp, word_weights=ww)
+                bn_extra = dict(w_sum=w_sum)
+            else:
+                conv_params = dict(w_packed=pack_conv_weights(p["w"]))
+                bn_extra = {}
+            cur = g.add("conv_counts", [cur],
+                        attrs=dict(kernel=layer.kernel, stride=layer.stride,
+                                   pad=layer.pad, channels=layer.c_out,
+                                   first=layer.first, k_valid=layer.k_valid),
+                        params=conv_params)
+            cur = g.add("bn_binarize", [cur],
+                        attrs=dict(k_valid=layer.k_valid, first=layer.first,
+                                   channels=layer.c_out),
+                        params=dict(bn, **bn_extra))
+            h = conv_out_size(h, layer.kernel, layer.stride, layer.pad)
+            w = conv_out_size(w, layer.kernel, layer.stride, layer.pad)
+            channels = layer.c_out
+        elif isinstance(layer, Pool):
+            cur = g.add("maxpool_pm1", [cur],
+                        attrs=dict(window=layer.window, stride=layer.stride,
+                                   pad=tuple(layer.pad), channels=channels))
+            h = (h + sum(layer.pad) - layer.window) // layer.stride + 1
+            w = (w + sum(layer.pad) - layer.window) // layer.stride + 1
+        elif isinstance(layer, BDense):
+            if not flat:
+                if h * w * channels != layer.d_in:
+                    raise ValueError(f"BDense d_in={layer.d_in} != "
+                                     f"{h}x{w}x{channels}")
+                wp = pack_conv_weights(
+                    p["w"].reshape(h, w, channels, layer.d_out))
+            else:
+                wp = packing.pack_signs(p["w"], axis=0).T.contiguous()
+            cur = g.add("dense_counts", [cur],
+                        attrs=dict(channels=layer.d_out, k_valid=layer.d_in),
+                        params=dict(w_packed=wp))
+            cur = g.add("bn_binarize", [cur],
+                        attrs=dict(k_valid=layer.d_in, first=False,
+                                   channels=layer.d_out),
+                        params=bn)
+            channels = layer.d_out
+            flat = True
+        elif isinstance(layer, FloatDense):
+            cur = g.add("float_dense", [cur],
+                        attrs=dict(channels=layer.d_out),
+                        params=dict(w=p["w"], b=p["b"]))
+            channels = layer.d_out
+            flat = True
+        elif isinstance(layer, FloatConv):
+            cur = g.add("float_conv", [cur],
+                        attrs=dict(kernel=layer.kernel, stride=layer.stride,
+                                   pad=layer.pad, channels=layer.c_out),
+                        params=dict(w=p["w"], b=p["b"]))
+            h = conv_out_size(h, layer.kernel, layer.stride, layer.pad)
+            w = conv_out_size(w, layer.kernel, layer.stride, layer.pad)
             channels = layer.c_out
         else:
             raise ValueError(f"cannot lower layer {layer!r}")

@@ -10,11 +10,13 @@ packed integer forward through the graph runtime: the artifact is lowered
 engine's device.  The flat :func:`~repro_torch.core.bnn_model.packed_forward`
 walk stays as the ``legacy_call`` / ``cross_check`` oracle.
 
-``matmul_mode`` is a port backend (``torch``, ``cuda_popcount``,
-``cuda_direct``, ``cuda_direct_pool``; default ``cuda_direct_pool``) or
-the region mode ``cuda_chain``: chains of packed convs and pools run as
-one K5 launch each (:mod:`repro_torch.runtime.regions`), the rest per
-node along the fallback order.
+``matmul_mode`` is a port backend (``torch``, ``torch_pm1``, ``cuda_pm1``,
+``cuda_popcount``, ``cuda_direct``, ``cuda_direct_pool``; default
+``cuda_direct_pool``) or the region mode ``cuda_chain``: chains of packed
+convs and pools run as one K5 launch each
+(:mod:`repro_torch.runtime.regions`), the rest per node along the
+fallback order.  Under the pm1 modes the flat oracle takes the +-1 matmul
+count form too.
 
 Batched serving goes through the per-bucket executor cache:
 ``compile(batch_size)`` builds an executor once per (bucket, mode).
@@ -41,6 +43,9 @@ from repro_torch.runtime import memory as _memory
 from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import lower_packed
 from repro_torch.runtime.passes import fuse_pool_epilogue
+
+# Modes whose flat-path count form is the +-1 matmul.
+_PM1_MODES = ("cuda_pm1", "torch_pm1")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -75,11 +80,6 @@ class PhoneBitEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        # cuDNN convolutions default to TF32 on the card, and the float
-        # head (YOLO's 1x1 float_conv) would then miss the 1e-4 parity
-        # tolerance; keep float32 products in full float32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.packed = [{k: _to_device(v, self.device)
                         for k, v in layer.items()} for layer in self.packed]
         self._compiled: dict[tuple[int, str], _executor.GraphExecutor] = {}
@@ -159,9 +159,11 @@ class PhoneBitEngine:
 
     # ---- legacy flat path (cross-check oracle) ---------------------------
     def legacy_call(self, x_uint8) -> torch.Tensor:
-        """The flat ``packed_forward`` walk (oracle), plain PyTorch."""
+        """The flat ``packed_forward`` walk (oracle), plain PyTorch, in the
+        count form of the engine's mode."""
+        impl = "pm1" if self.matmul_mode in _PM1_MODES else "xor"
         return bnn_model.packed_forward(self.packed, self.spec,
-                                        self._input(x_uint8))
+                                        self._input(x_uint8), impl=impl)
 
     def cross_check(self, x_uint8) -> torch.Tensor:
         """Run the graph path and assert bit-exactness vs the flat path."""

@@ -23,7 +23,10 @@ from repro_torch.kernels import bitplane_pack as k4
 from repro_torch.kernels import chain_conv as k5
 from repro_torch.kernels import direct_conv_bn_binarize as k3
 from repro_torch.kernels import fused_conv_bn_binarize as k2
-from repro_torch.runtime import regions
+from repro_torch.kernels import mxu_pm1_matmul as k6
+from repro_torch.kernels import xnor_popcount_matmul as k1
+from repro_torch.runtime import (GraphExecutor, assign_layouts,
+                                 default_pipeline, lower_trained, regions)
 
 pytestmark = pytest.mark.gpu
 
@@ -164,6 +167,41 @@ def test_chain_conv_raises_past_shared_memory(cuda):
         k5.chain_conv(x, st, ops)
 
 
+@pytest.mark.parametrize("m,n,w,weighted", [(8, 4096, 288, False),
+                                            (37, 50, 13, False),
+                                            (130, 96, 968, True),
+                                            (1, 33, 70, True)])
+def test_xnor_popcount_matmul_on_card(cuda, m, n, w, weighted):
+    ww = (torch.from_numpy(RNG.integers(1, 129, w).astype(np.int32)).to(cuda)
+          if weighted else None)
+    a, b = words(cuda, m, w), words(cuda, n, w)
+    got = k1.xnor_popcount_matmul(a, b, ww)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1.xnor_popcount_matmul_plain(a, b, ww))
+
+
+def channel_words(dev, rows: int, channels: int, positions: int
+                  ) -> torch.Tensor:
+    """im2col-shaped rows: ``positions`` packed groups of ``channels``
+    random real bits each, pad bits 0."""
+    bits = torch.from_numpy(RNG.integers(0, 2, (rows, positions, channels)))
+    return packing.pack_bits(bits, axis=-1).reshape(rows, -1).to(dev)
+
+
+@pytest.mark.parametrize("m,n,c,pos", [(5832, 256, 96, 25),
+                                       (8, 4096, 9216, 1),
+                                       (7, 9, 16, 9), (65, 70, 40, 3),
+                                       (3, 5, 32, (1 << 19) + 1)])
+def test_mxu_pm1_matmul_on_card(cuda, m, n, c, pos):
+    """K6 against its plain version: AlexNet's conv2 and fc6, pad bits in
+    every word, ragged tiles, and k_valid past 2^24 (where a float32
+    accumulation is no longer exact)."""
+    a, b = channel_words(cuda, m, c, pos), channel_words(cuda, n, c, pos)
+    got = k6.mxu_pm1_matmul(a, b, c * pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k6.mxu_pm1_matmul_plain(a, b, c * pos))
+
+
 @pytest.mark.parametrize("transform", [
     lambda x: preprocess.center_crop_resize(x, (227, 227)),
     lambda x: preprocess.letterbox(x, (416, 416))])
@@ -177,7 +215,7 @@ def test_preprocess_hook_on_card_matches_cpu(cuda, transform):
 
 
 @pytest.mark.parametrize("backend", ["cuda_direct_pool", "cuda_popcount",
-                                     "cuda_chain"])
+                                     "cuda_chain", "cuda_pm1"])
 @pytest.mark.parametrize("name", ["alexnet_imagenet", "vgg16_imagenet",
                                   "yolov2_tiny_voc"])
 def test_tiny_workload_on_card_matches_cpu(cuda, name, backend):
@@ -225,3 +263,43 @@ def test_tiny_alexnet_chain_launch_counts(cuda):
     assert (k4.bitplane_pack.launches, k5.chain_conv.launches,
             k2.fused_matmul_bn_binarize.launches,
             k3.direct_conv_bn_binarize.launches) == (1, 1, 2, 0)
+
+
+def test_tiny_alexnet_pm1_launch_counts(cuda):
+    """Under cuda_pm1 the bit-plane conv takes K1 (weighted words) and every
+    other binary layer K6."""
+    wl = workloads.get("alexnet_imagenet", variant="tiny",
+                       matmul_mode="cuda_pm1")
+    x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
+    wl.engine(x)
+    for fn in (k4.bitplane_pack, k1.xnor_popcount_matmul,
+               k6.mxu_pm1_matmul, k2.fused_matmul_bn_binarize,
+               k3.direct_conv_bn_binarize):
+        fn.launches = 0
+    wl.engine.engine.cross_check(x)
+    torch.cuda.synchronize()
+    assert (k4.bitplane_pack.launches, k1.xnor_popcount_matmul.launches,
+            k6.mxu_pm1_matmul.launches, k2.fused_matmul_bn_binarize.launches,
+            k3.direct_conv_bn_binarize.launches) == (1, 1, 3, 0, 0)
+
+
+@pytest.mark.parametrize("name", ["alexnet_imagenet", "yolov2_tiny_voc"])
+def test_trained_graph_on_card_matches_cpu(cuda, name):
+    """The unfused trained-params graph on the card (K1 for every count
+    node) equals the same graph on the CPU and its fused pipeline graph."""
+    spec = workloads.get(name, variant="tiny", device="cpu").spec
+    hw = workloads.get(name, variant="tiny", device="cpu").input_hw
+    params = workloads.checkpoint_params(spec, 4)
+    unfused = assign_layouts(lower_trained(spec, params, hw))
+    fused = default_pipeline(lower_trained(spec, params, hw))
+    x = torch.from_numpy(RNG.integers(0, 256, (2, *hw, 3), dtype=np.uint8))
+    want = GraphExecutor(unfused)(x)
+    k1.xnor_popcount_matmul.launches = 0
+    got = GraphExecutor(unfused.to(cuda))(x.to(cuda))
+    torch.cuda.synchronize()
+    counts = sum(n.op in ("conv_counts", "dense_counts")
+                 for n in unfused.nodes.values())
+    assert k1.xnor_popcount_matmul.launches == counts
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    fused_out = GraphExecutor(fused.to(cuda), "cuda_direct_pool")(x.to(cuda))
+    torch.testing.assert_close(fused_out.cpu(), want, rtol=0, atol=1e-4)
