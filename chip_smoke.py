@@ -44,10 +44,29 @@ Phases, each fatal on failure:
               same graph under ``cuda_direct_pool``: packed tails equal bit
               for bit, float heads within 1e-3 and the same top-5, both
               within 1e-3 of ``float_forward``;
-6. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
+6. lm       — K7 flash_attention against its plain version on the card
+              at minitron-8b's prefill layer (B 2, S 2048, H 32, KV 8, hd
+              128, bf16, causal) and at edge cases (non-causal, G = 1, one
+              64-row tile, a ragged tile) within the stated tolerance,
+              and its refusal of float32 (the kernel takes bf16, the LM
+              path's dtype); then minitron-8b at full width and depth
+              (32 layers, d_model 4096, vocab 256,000; bf16 weights drawn on
+              the card from a seeded generator): ``make_prefill_step`` at
+              B 2, S 2048 (K7 32 launches, tokens/s, K7's share of the
+              device time, peak memory); the same prompt fed token by token
+              through ``make_decode_step`` into a fresh cache, at the depth
+              of the first 8 layers (a step costs ~39 ms at 32: the full
+              depth would hold the phase past a minute), its last logits
+              and cache rows held against the prefill of those 8 layers (no
+              K7 launch in the decode); full-depth decode steps at B 4 timed
+              and profiled (host wall, device time, busy share); and
+              ``LMServer`` answering 8 requests (4 slots, max_seq 256; one
+              over-long prompt rejected; no K7 launch);
+7. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
               warmed up, median) beside its plain version and its bound; K1
               and K6 also beside one library call on the unpacked +-1
-              operands.
+              operands; K7 at the prefill layer's shapes beside
+              ``F.scaled_dot_product_attention`` on the same tensors.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -57,6 +76,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -66,6 +86,7 @@ from statistics import NormalDist
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -73,6 +94,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Fails without the repository's src/ beside the script.
 from repro_torch import workloads  # noqa: E402
+from repro_torch.configs import minitron_8b  # noqa: E402
 from repro_torch.core import (binary_conv, binary_ops, bitplanes,  # noqa: E402
                               bnn_model, layer_integration, packing)
 from repro_torch.core.binary_conv import conv_out_size  # noqa: E402
@@ -80,17 +102,21 @@ from repro_torch.kernels import bitplane_pack as k4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import chain_conv as k5  # noqa: E402
 from repro_torch.kernels import direct_conv_bn_binarize as k3  # noqa: E402
+from repro_torch.kernels import flash_attention as k7  # noqa: E402
 from repro_torch.kernels import fused_conv_bn_binarize as k2  # noqa: E402
 from repro_torch.kernels import mxu_pm1_matmul as k6  # noqa: E402
 from repro_torch.kernels import xnor_popcount_matmul as k1  # noqa: E402
-from repro_torch.models import paper_nets  # noqa: E402
+from repro_torch.models import paper_nets, transformer  # noqa: E402
 from repro_torch.runtime import (GraphExecutor, assign_layouts,  # noqa: E402
                                  default_pipeline, regions)
+from repro_torch.serving.lm_server import LMServer  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and the dense
-# int8 tensor-core rate at which a ±1 product could run.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the dense int8
+# tensor-core rate at which a ±1 product could run, and the dense bf16
+# tensor-core rate (attention).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 
 BATCH = 8
 # (name, (N, H, W, C), kernel, stride, pad, O, pool, first layer): C is the
@@ -162,10 +188,44 @@ K6_CASES = [
     ("k_valid 2^24 + 32", (8, 1, 1, 32 * ((1 << 19) + 1)), 1, 1, 0, 16,
      False),
 ]
+# K7 cases, bf16: (name, B, S, H, KV, hd, causal).  The first is
+# minitron-8b's prefill layer, the shape the LM path gives K7.
+FLASH_PREFILL = ("minitron prefill layer", 2, 2048, 32, 8, 128, True)
+FLASH_CASES = [
+    FLASH_PREFILL,
+    ("non-causal", 2, 1024, 32, 8, 128, False),
+    ("G = 1", 1, 512, 8, 8, 128, True),
+    ("S = one 64-row tile", 2, 64, 32, 8, 128, True),
+    ("ragged last tile, S = 100", 1, 100, 32, 8, 128, True),
+]
+# K7 against its plain version, |kernel - plain| <= tol·(1 + |plain|):
+# both round p to bf16, under different running maxima (the kernel's
+# 64-key tiles against the plain version's 512-key blocks), and round the
+# output once each, so they agree to a few bf16 steps (2^-8 relative).
+FLASH_TOL = 1e-2
+# The LM phase: minitron-8b prefill at B 2, S 2048 into a cache of 2304.
+LM_BATCH, LM_SEQ, LM_MAX_SEQ = 2, 2048, 2304
+# Prefill against the token-by-token decode of the same prompt, at the
+# depth of the first LM_CHECK_LAYERS layers, as max |prefill - decode| /
+# max |decode| for the last position's logits and for the cache's K/V
+# rows.  The bound: the reference's own two paths agree to 1-1.5% at
+# smoke size, this port's to 2.1% at depth 32 (PERF.md); bf16 rounds the
+# two paths' matmuls differently at every layer.  A K7 fault (a wrong
+# mask, KV head or tile) moves attention by O(1), far past it.
+LM_CHECK_LAYERS = 8
+LM_LOGIT_BOUND = 0.04
+LM_CACHE_BOUND = 0.04
+# LMServer: (prompt length, max_new) of 8 requests.  The server keeps one
+# global position for all slots (the reference's simplification), which
+# every prompt token and every tick advance, so the whole run must fit in
+# max_seq: 176 prompt tokens + 46 ticks < 256.
+LM_SERVER_SLOTS, LM_SERVER_MAX_SEQ = 4, 256
+LM_REQUESTS = [(16, 16), (16, 16), (16, 16), (16, 16), (16, 20), (16, 24),
+               (16, 32), (64, 32)]
 # Launches per forward on each serving path.
 KERNEL_NAMES = ("bitplane_pack", "direct_conv_bn_binarize",
                 "fused_matmul_bn_binarize", "chain_conv",
-                "xnor_popcount_matmul", "mxu_pm1_matmul")
+                "xnor_popcount_matmul", "mxu_pm1_matmul", "flash_attention")
 
 
 def launch_counts(**kw) -> dict[str, int]:
@@ -217,6 +277,8 @@ SOURCES = {
         "src/repro/kernels/xnor_popcount_matmul.py:134"),
     "mxu_pm1_matmul": ("src/repro_torch/kernels/csrc/mxu_pm1_matmul.cu",
                        "src/repro/kernels/mxu_pm1_matmul.py:56"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:138"),
 }
 
 
@@ -345,8 +407,9 @@ def count_share(inp: Inputs, name: str, cnt, ww, bits) -> float:
     return check_share(name, out, cnt.shape[1], COUNT_SET_SHARE)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -506,6 +569,7 @@ def phase_kernels(device) -> dict[str, int]:
             f"{4 * kw['arena_words']} B: exact, {share:.3f} of output bits "
             f"set")
     check_count_kernels(inp, note)
+    check_flash(inp, note)
     torch.cuda.synchronize()
     return err
 
@@ -535,12 +599,57 @@ def check_count_kernels(inp: Inputs, note) -> None:
             f"thresholded bits set")
 
 
+def flash_inputs(inp: Inputs, case):
+    """Seeded N(0, 1) bf16 q, k, v of one K7 case on the card."""
+    _, b, s, h, kvh, hd, _ = case
+    return tuple(torch.randn(shape, device=inp.device, generator=inp.g)
+                 .to(torch.bfloat16)
+                 for shape in ((b, s, h, hd), (b, s, kvh, hd),
+                               (b, s, kvh, hd)))
+
+
+def flash_error(name: str, got, want) -> float:
+    """max |got - want|; fails past ``FLASH_TOL``."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"[kernels] {name}: bad output")
+    diff = (got - want).abs()
+    if (diff > FLASH_TOL * (1 + want.abs())).any():
+        raise AssertionError(f"[kernels] {name}: max |kernel - plain| "
+                             f"{diff.max().item():.3e} past {FLASH_TOL} · "
+                             f"(1 + |plain|)")
+    return diff.max().item()
+
+
+def check_flash(inp: Inputs, note) -> None:
+    """K7 against its plain version at ``FLASH_CASES``; float32 inputs
+    are refused, not run."""
+    for case in FLASH_CASES:
+        q, k, v = flash_inputs(inp, case)
+        causal = case[6]
+        err = flash_error(case[0], k7.flash_attention(q, k, v, causal),
+                          k7.flash_attention_plain(q, k, v, causal))
+        note("flash_attention", err)
+        log(f"[kernels] flash_attention {case[0]} q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} {'causal' if causal else 'non-causal'} "
+            f"bf16: max |kernel - plain| {err:.3e} (tolerance {FLASH_TOL} "
+            f"· (1 + |plain|))")
+    q = q.float()
+    try:
+        k7.flash_attention(q, q, q)
+    except ValueError as e:
+        log(f"[kernels] flash_attention float32: refused ({e})")
+    else:
+        raise AssertionError("[kernels] flash_attention took float32")
+
+
 WRAPPERS = {"bitplane_pack": k4.bitplane_pack,
             "direct_conv_bn_binarize": k3.direct_conv_bn_binarize,
             "fused_matmul_bn_binarize": k2.fused_matmul_bn_binarize,
             "chain_conv": k5.chain_conv,
             "xnor_popcount_matmul": k1.xnor_popcount_matmul,
-            "mxu_pm1_matmul": k6.mxu_pm1_matmul}
+            "mxu_pm1_matmul": k6.mxu_pm1_matmul,
+            "flash_attention": k7.flash_attention}
 
 
 def reset_launches() -> None:
@@ -676,14 +785,7 @@ def phase_profile(wl) -> dict:
         for _ in range(reps):
             exe(x)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        # Device-side events only (kernels, copies): a CPU op may report
-        # its kernels' time too, which would count them twice.
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
-            rows.append((us / reps / 1e3, e.count / reps, e.key))
-    rows.sort(reverse=True)
+    rows = device_time_by_kernel(prof, reps)
     device_ms = sum(r[0] for r in rows)
     log(f"[profile] {wl.matmul_mode} alexnet forward at batch {BATCH}: "
         f"host wall "
@@ -788,6 +890,206 @@ def phase_trained(device) -> dict[str, dict[str, int]]:
     return launches
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def device_time_by_kernel(prof, reps: int) -> list[tuple[float, float, str]]:
+    """(ms per rep, launches per rep, name) of each device-side event."""
+    rows = []
+    for e in prof.key_averages():
+        # Device-side events only (kernels, copies): a CPU op may report
+        # its kernels' time too, which would count them twice.
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
+            rows.append((us / reps / 1e3, e.count / reps, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def phase_lm(device) -> tuple[dict, dict]:
+    """minitron-8b at full width and depth: prefill through K7, the same
+    prompt through the decode step, and LMServer answering requests.
+    Returns (launches of each LM path, numbers)."""
+    cfg = minitron_8b.FULL
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = transformer.init_params(cfg, gen, device)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), device=device,
+                           generator=gen)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [params["embed"], params["lm_head"],
+                        *params["layers"].values()])
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}: {cfg.param_count()} params, "
+        f"{weight_bytes} B on the card, drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    prefill = transformer.make_prefill_step(cfg, LM_MAX_SEQ)
+    prefill(params, tokens)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {"lm_prefill": read_launches()}
+    peak = torch.cuda.max_memory_allocated()
+    want = launch_counts(flash_attention=cfg.n_layers)
+    if launches["lm_prefill"] != want:
+        raise AssertionError(f"[lm] prefill launches "
+                             f"{launches['lm_prefill']}, want {want}")
+    if logits.shape != (LM_BATCH, cfg.vocab) \
+            or not torch.isfinite(logits).all() \
+            or not torch.isfinite(cache["k"]).all():
+        raise AssertionError(f"[lm] bad prefill output {tuple(logits.shape)}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(params, tokens)
+        torch.cuda.synchronize()
+    rows = device_time_by_kernel(prof, 1)
+    device_ms = sum(r[0] for r in rows)
+    k7_ms = sum(r[0] for r in rows if "flash_fwd" in r[2])
+    log(f"[lm] prefill B {LM_BATCH} x S {LM_SEQ} (max_seq {LM_MAX_SEQ}): "
+        f"{prefill_s * 1e3:.3f} ms wall, "
+        f"{LM_BATCH * LM_SEQ / prefill_s:.1f} tokens/s; K7 launches "
+        f"{launches['lm_prefill']['flash_attention']}; device "
+        f"{device_ms:.3f} ms (profiled), K7 {k7_ms:.3f} ms = "
+        f"{k7_ms / device_ms:.4f} of it; peak device memory {peak} B")
+    for ms, n, key in rows[:8]:
+        log(f"[lm]   {ms:.4f} ms  x{n:g}  {key[:90]}")
+
+    del logits, cache
+
+    # The same prompt, token by token, through the decode step, at the
+    # depth of the first LM_CHECK_LAYERS layers (the same weights).
+    check_cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    check_params = dict(params, layers={
+        n: t[:LM_CHECK_LAYERS] for n, t in params["layers"].items()})
+    logits, cache = transformer.make_prefill_step(check_cfg, LM_MAX_SEQ)(
+        check_params, tokens)
+    decode = transformer.make_decode_step(check_cfg, LM_MAX_SEQ)
+    dcache = transformer.init_cache(check_cfg, LM_BATCH, LM_MAX_SEQ, device)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(LM_SEQ):
+        dlogits, dcache = decode(check_params, dcache, tokens[:, i:i + 1], i)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches["lm_decode"] = read_launches()
+    if launches["lm_decode"] != launch_counts():
+        raise AssertionError(f"[lm] decode launches {launches['lm_decode']}")
+    errs = {"logits": rel_err(logits, dlogits)}
+    for name in ("k", "v"):
+        errs[name] = rel_err(cache[name][:, :, :, :LM_SEQ],
+                             dcache[name][:, :, :, :LM_SEQ])
+    same_argmax = (logits.argmax(-1) == dlogits.argmax(-1)).float().mean()
+    log(f"[lm] decode fill of the same {LM_SEQ} tokens, first "
+        f"{LM_CHECK_LAYERS} layers: {decode_s / LM_SEQ * 1e3:.3f} ms a step "
+        f"at B {LM_BATCH}, K7 launches 0; prefill vs decode relative max "
+        f"error: last logits {errs['logits']:.4e} (bound {LM_LOGIT_BOUND}), "
+        f"cache K {errs['k']:.4e}, V {errs['v']:.4e} (bound "
+        f"{LM_CACHE_BOUND}); same argmax in {same_argmax.item():.2f} of the "
+        f"rows")
+    if errs["logits"] > LM_LOGIT_BOUND or max(errs["k"], errs["v"]) \
+            > LM_CACHE_BOUND:
+        raise AssertionError(f"[lm] prefill and decode disagree: {errs}")
+    if not torch.isfinite(dlogits).all():
+        raise AssertionError("[lm] decode logits not finite")
+    del logits, cache, dlogits, dcache, check_params
+
+    # Full-depth decode steps at the server's shape: host wall per step
+    # (no profiler), then device time and busy share under the profiler.
+    decode = transformer.make_decode_step(cfg, LM_SERVER_MAX_SEQ)
+    dcache = transformer.init_cache(cfg, LM_SERVER_SLOTS, LM_SERVER_MAX_SEQ,
+                                    device)
+    step_tokens = tokens[:, :1].repeat(LM_SERVER_SLOTS // LM_BATCH, 1)
+    reps = 5
+    decode(params, dcache, step_tokens, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        decode(params, dcache, step_tokens, 1 + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            decode(params, dcache, step_tokens, 1 + reps + i)
+        torch.cuda.synchronize()
+    drows = device_time_by_kernel(prof, reps)
+    step_device_ms = sum(r[0] for r in drows)
+    step_kernels = sum(r[1] for r in drows)
+    log(f"[lm] full-depth decode step at B {LM_SERVER_SLOTS}, max_seq "
+        f"{LM_SERVER_MAX_SEQ}: host wall {step_ms:.3f} ms (no profiler), "
+        f"device {step_device_ms:.3f} ms in {step_kernels:g} device events, "
+        f"busy share {step_device_ms / step_ms:.3f}; weights alone take "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    for ms, n, key in drows[:6]:
+        log(f"[lm]   {ms:.4f} ms  x{n:g}  {key[:90]}")
+    del dcache
+
+    # LMServer answers requests (decode only: no K7).
+    server = LMServer(cfg, params, n_slots=LM_SERVER_SLOTS,
+                      max_seq=LM_SERVER_MAX_SEQ, device=device)
+    rng = np.random.default_rng(1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [server.submit([int(t) for t in rng.integers(0, cfg.vocab, n)],
+                          max_new=m) for n, m in LM_REQUESTS]
+    too_long = server.submit([1] * (LM_SERVER_MAX_SEQ - 8), max_new=16)
+    server.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches["lm_server"] = read_launches()
+    m = server.metrics()
+    generated = sum(len(r.result or []) for r in reqs)
+    if not all(r.outcome == "served" and len(r.result) == mn
+               for r, (_, mn) in zip(reqs, LM_REQUESTS)) \
+            or m["served"] != len(LM_REQUESTS):
+        raise AssertionError(f"[lm] LMServer: "
+                             f"{[r.outcome for r in reqs]}, {m}")
+    if too_long.outcome != "rejected" or m["rejected"] != 1:
+        raise AssertionError(f"[lm] over-long prompt {too_long.outcome}")
+    if launches["lm_server"] != launch_counts():
+        raise AssertionError(f"[lm] LMServer launches "
+                             f"{launches['lm_server']}")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.result):
+        raise AssertionError("[lm] LMServer produced an out-of-vocab token")
+    log(f"[lm] LMServer {LM_SERVER_SLOTS} slots, max_seq "
+        f"{LM_SERVER_MAX_SEQ}: {len(reqs)} requests served, 1 rejected "
+        f"({too_long.error}); served/s {m['throughput']:.3f}, p50 "
+        f"{m['p50_ms']:.3f} ms, p95 {m['p95_ms']:.3f} ms; {generated} "
+        f"tokens in {serve_s:.3f} s ({generated / serve_s:.2f} generated "
+        f"tokens/s), {server.pos} decode steps "
+        f"({serve_s / server.pos * 1e3:.3f} ms a step); K7 launches 0")
+    numbers = dict(
+        prefill=dict(tokens_per_s=LM_BATCH * LM_SEQ / prefill_s,
+                     wall_ms=prefill_s * 1e3, device_ms=device_ms,
+                     k7_ms=k7_ms, k7_share=k7_ms / device_ms,
+                     peak_bytes=peak),
+        decode_fill=dict(layers=LM_CHECK_LAYERS,
+                         ms_per_step=decode_s / LM_SEQ * 1e3,
+                         rel_err=errs),
+        decode_step=dict(batch=LM_SERVER_SLOTS, wall_ms=step_ms,
+                         device_ms=step_device_ms,
+                         busy_share=step_device_ms / step_ms),
+        server=dict(served_per_s=m["throughput"], p50_ms=m["p50_ms"],
+                    p95_ms=m["p95_ms"],
+                    generated_tokens_per_s=generated / serve_s,
+                    ms_per_step=serve_s / server.pos * 1e3))
+    del server, params
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def pm1_library(a, b):
     """One PyTorch call computing K6's +-1 dots from operands already
     unpacked (unpacking not timed): ``torch._int_mm`` on int8 where its
@@ -866,8 +1168,9 @@ def phase_timing(device, launches: dict, per_forward: dict,
     inp = Inputs(device, seed=2)
     rows = {}
 
-    def add(name, shape, ms, plain_ms, nbytes, ops, library=None):
-        b, by = bound_ms(nbytes, ops)
+    def add(name, shape, ms, plain_ms, nbytes, ops, library=None,
+            ops_per_s=INT8_OPS_PER_S):
+        b, by = bound_ms(nbytes, ops, ops_per_s)
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                        t_bytes=0.0, t_ops=0.0,
                                        library_ms=None, shapes=[]))
@@ -875,7 +1178,7 @@ def phase_timing(device, launches: dict, per_forward: dict,
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b
         r["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
-        r["t_ops"] += ops / INT8_OPS_PER_S * 1e3
+        r["t_ops"] += ops / ops_per_s * 1e3
         shape_row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b,
                          bound_by=by)
         extra = ""
@@ -961,6 +1264,27 @@ def phase_timing(device, launches: dict, per_forward: dict,
         log(f"[timing] chain_conv alexnet region, tile {tile} (off the "
             f"main path): kernel {ms:.4f} ms, arena {plan.arena_bytes} B")
 
+    # K7 at minitron's prefill layer, beside one SDPA call on the same
+    # tensors (in its (B, H, S, hd) layout, as views).
+    q, k, v = flash_inputs(inp, FLASH_PREFILL)
+    _, b, s_len, h, kvh, hd, _ = FLASH_PREFILL
+    out = k7.flash_attention(q, k, v, True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    flash_error("F.scaled_dot_product_attention", sdpa().transpose(1, 2),
+                out)
+    add("flash_attention", FLASH_PREFILL[0],
+        time_ms(lambda: k7.flash_attention(q, k, v, True), 20),
+        time_ms(lambda: k7.flash_attention_plain(q, k, v, True), 3),
+        (q.numel() + k.numel() + v.numel() + out.numel()) * 2,
+        4.0 * b * h * hd * s_len * (s_len + 1) / 2,
+        library=(time_ms(sdpa, 20), "F.scaled_dot_product_attention "
+                 "(is_causal, enable_gqa)"),
+        ops_per_s=BF16_FLOPS_PER_S)
+
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
@@ -996,6 +1320,9 @@ def main() -> int:
         phase_detect(rng, mode)
     for name, counts in phase_trained(device).items():
         launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
+    lm_launches, numbers["lm"] = phase_lm(device)
+    launches.update(lm_launches)
+    per_forward.update(lm_launches)
     kernels = phase_timing(device, launches, per_forward, errs)
     log(f"[serve] numbers {json.dumps(numbers)}")
     log(f"total {time.perf_counter() - t0:.1f} s")

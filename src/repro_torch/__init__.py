@@ -3,15 +3,19 @@
 The JAX package ``repro`` is the reference; this package mirrors its module
 names so each counterpart is easy to find, imports neither ``jax`` nor
 ``repro``, and runs its entry points on the CUDA card unless the caller
-passes ``device="cpu"``.  The serving slice is ported:
+passes ``device="cpu"`` (:func:`repro_torch.device.resolve_device`).
+Ported so far:
 
 core       packing, bit-planes, BN folding, xor-popcount counts, packed
            conv/pool, the flat packed oracle, the converter
-models     the paper nets' specs (AlexNet, VGG16, YOLOv2-Tiny)
+configs    the LM configs the port runs (minitron-8b)
+models     the paper nets' specs (AlexNet, VGG16, YOLOv2-Tiny); the dense
+           LM stack (layers, transformer)
 runtime    operator IR, ``fuse_pool_epilogue``, the per-node executor
 kernels    hand-written CUDA kernels (``csrc/``) with their plain PyTorch
            versions, and the backend dispatch
-serving    PhoneBitEngine, the batch scheduler, InferenceServer
+serving    PhoneBitEngine, the batch scheduler, InferenceServer; the KV
+           cache manager and LMServer
 workloads  preprocess, postprocess heads, the workload registry
 obs        serving metrics
 """

@@ -30,7 +30,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # Launcher signatures: pointers and the stream as c_void_p (a plain int
 # argument would be cut to 32 bits), sizes as c_int / c_longlong.
 SIGNATURES = {
@@ -44,6 +45,8 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _P),
     "launch_xnor_popcount_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "launch_mxu_pm1_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "launch_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _P),
     "phonebit_smem_optin": (_I,),
 }
 

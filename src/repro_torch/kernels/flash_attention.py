@@ -1,0 +1,141 @@
+"""K7: GQA attention forward with an online softmax (flash attention).
+
+Port of ``repro.kernels.flash_attention.flash_attention`` (``_flash_fwd``,
+``_kernel``); the CUDA kernel is ``csrc/flash_attention.cu`` (bf16
+``mma.sync`` with float32 accumulation; bf16 inputs, head width 128).
+For q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) with H = KV·G:
+
+    out = softmax(q·kᵀ / sqrt(hd) [causal mask]) · v     in q's dtype
+
+Scores, the running max and sum and the accumulator are float32; p is
+rounded to v's dtype for the PV product, which accumulates in float32; the
+output is divided by ``max(l, 1e-30)``.  Causal assumes Sq == Skv.  The
+plain version keeps the reference's block contract: ``block_q``
+(``block_k``), cut to Sq (Skv), must divide it.  The CUDA kernel tiles by
+64 rows and keys and masks ragged tiles, so it ignores the blocks.  The
+plain version also takes float32 (the CPU tests); on the card the kernel
+takes bf16 only, the LM path's dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+_HEAD_DIM = 128
+
+
+def _check_shapes(q, k, v, causal: bool) -> None:
+    """The layouts both versions take."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: want q (B, Sq, H, hd), k and v "
+                         f"(B, Skv, KV, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    _, skv, kvh, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != hd or h % kvh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree (H must be a multiple "
+                         f"of KV)")
+    if causal and sq != skv:
+        raise ValueError(f"flash_attention: causal needs Sq == Skv, got "
+                         f"{sq} and {skv}")
+
+
+def _check_blocks(sq: int, skv: int, block_q: int, block_k: int
+                  ) -> tuple[int, int]:
+    """The reference's block contract; returns the blocks cut to the
+    sequence lengths."""
+    block_q, block_k = min(block_q, sq), min(block_k, skv)
+    if sq % block_q or skv % block_k:
+        raise ValueError(f"flash_attention: blocks ({block_q}, {block_k}) "
+                         f"must divide (Sq, Skv) = ({sq}, {skv})")
+    return block_q, block_k
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 512,
+                          block_k: int = 512) -> torch.Tensor:
+    """The plain PyTorch version: ``_kernel``'s blocked online softmax with
+    the same dtype steps, the q heads of each KV head taken together (no
+    K/V copy per q head)."""
+    _check_shapes(q, k, v, causal)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    block_q, block_k = _check_blocks(sq, skv, block_q, block_k)
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qr = q.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4).float() * scale
+    kr = k.permute(0, 2, 1, 3).float()                    # (B, KV, Skv, hd)
+    vr = v.permute(0, 2, 1, 3)
+    out = torch.empty((b, kvh, g, sq, hd), dtype=q.dtype, device=dev)
+    for q_lo in range(0, sq, block_q):
+        qi = qr[:, :, :, q_lo:q_lo + block_q]
+        m = torch.full((b, kvh, g, block_q), NEG_INF, device=dev)
+        l = torch.zeros((b, kvh, g, block_q), device=dev)
+        acc = torch.zeros((b, kvh, g, block_q, hd), device=dev)
+        n_k = skv // block_k
+        if causal:       # triangular: KV blocks up to this block's diagonal
+            n_k = min(n_k, -(-(q_lo + block_q) // block_k))
+        for ki in range(n_k):
+            k_lo = ki * block_k
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qi,
+                             kr[:, :, k_lo:k_lo + block_k])
+            if causal:
+                q_pos = q_lo + torch.arange(block_q, device=dev)
+                kv_pos = k_lo + torch.arange(block_k, device=dev)
+                s = torch.where(q_pos[:, None] >= kv_pos[None, :], s,
+                                NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            # p rounded to v's dtype; the products are exact in float32
+            pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
+                              vr[:, :, k_lo:k_lo + block_k].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out[:, :, :, q_lo:q_lo + block_q] = (
+            acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 512,
+                    block_k: int = 512) -> torch.Tensor:
+    """(B, Sq, H, hd) attention of q over k, v in q's dtype.
+
+    Launches the CUDA kernel for CUDA tensors (bf16, hd 128; the blocks
+    shape only the plain version); CPU tensors take the plain version.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, block_q, block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_shapes(q, k, v, causal)
+    if q.dtype != torch.bfloat16 or q.shape[3] != _HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernel takes bf16 with hd "
+                         f"{_HEAD_DIM}, got {q.dtype} hd {q.shape[3]}")
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.require(t, name, q.dtype, 4, dev)
+        if t.data_ptr() % 16:      # the kernel loads rows in 16-byte chunks
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = build.library()
+    flash_attention.launches += 1
+    build.check(lib.launch_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
+        h, kvh, hd, int(causal), 1.0 / math.sqrt(hd),
+        build.stream_ptr(dev)), "flash_attention")
+    return out
+
+
+flash_attention.launches = 0

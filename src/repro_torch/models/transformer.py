@@ -1,0 +1,351 @@
+"""Decoder-only transformer LM: dense inference on one device.
+
+Counterpart of ``repro.models.transformer`` for serving a dense model:
+GQA with RoPE, ``relu2`` / ``swiglu`` MLPs, a full-sequence forward, the
+serving prefill that fills the KV cache, and the one-token decode step.
+Parameters are stacked on a leading layer dim as in the reference; the
+layer loop is a Python loop over them (the reference's ``scan``).  One
+card has nothing to shard, so the reference's ``rules`` argument is gone.
+
+Matrices, the embedding and the head are stored in bf16: the reference
+keeps float32 and casts to bf16 at every use, which gives the same values,
+so the port casts once (minitron-8b: 15.5 GB instead of 30.9).  The norm
+scales stay float32, as the reference's norms read them.  Attention over
+the full sequence runs through K7 (``layers.chunked_attention``); the
+projections, the MLP and the head are plain matmuls, as the reference
+leaves them to XLA, and so is the decode step's masked softmax over the
+cache.  The decode step writes the new K/V row into the cache in place
+(the reference returns an updated copy).
+
+Not ported yet: MoE (``models/moe.py``), training (loss, chunked
+cross-entropy, the train step) and the dry-run analytics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    # MoE (n_experts == 0 -> dense)
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    # variants
+    qk_norm: bool = False
+    mlp_act: str = "swiglu"          # "swiglu" | "relu2"
+    tie_embeddings: bool = False
+    rope_theta: float = 1_000_000.0
+    norm_eps: float = 1e-5
+    # attention chunking
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    # the reference's training and dry-run knobs, kept so configs read
+    # alike; inference does not read them
+    binary_mlp: bool = False
+    unroll: bool = False
+    remat_policy: str = "nothing"
+    attn_step_remat: bool = True
+
+    def __post_init__(self):
+        if self.n_experts > 0:
+            raise NotImplementedError(
+                f"{self.name}: MoE configs need models/moe.py, which the "
+                f"port does not have yet")
+        if self.mlp_act not in ("swiglu", "relu2"):
+            raise ValueError(f"unknown mlp_act {self.mlp_act!r}")
+
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def qkv_dim(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+    def param_count(self) -> int:
+        d, l = self.d_model, self.n_layers
+        attn = d * self.qkv_dim + 2 * d * self.kv_dim + self.qkv_dim * d
+        mlp = (3 if self.mlp_act == "swiglu" else 2) * d * self.d_ff
+        norms = 2 * d + (2 * self.d_head if self.qk_norm else 0)
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + mlp + norms) + embed + d
+
+
+def padded_vocab(vocab: int, multiple: int) -> int:
+    """Vocab padded to a multiple (the reference pads to its TP degree);
+    pad ids are masked to -1e30 in the logits and never decoded.  Padded
+    parameters come across from the reference through
+    ``params_from_numpy``."""
+    return -(-vocab // multiple) * multiple
+
+
+# (name, shape without L, fan-in or None for a norm scale of ones)
+def _layer_shapes(cfg: LMConfig) -> list[tuple[str, tuple[int, ...], int]]:
+    d = cfg.d_model
+    shapes = [("ln1", (d,), 0), ("ln2", (d,), 0),
+              ("wq", (d, cfg.qkv_dim), d), ("wk", (d, cfg.kv_dim), d),
+              ("wv", (d, cfg.kv_dim), d), ("wo", (cfg.qkv_dim, d),
+                                           cfg.qkv_dim)]
+    if cfg.qk_norm:
+        shapes += [("q_norm", (cfg.d_head,), 0),
+                   ("k_norm", (cfg.d_head,), 0)]
+    if cfg.mlp_act == "swiglu":
+        shapes.append(("w_gate", (d, cfg.d_ff), d))
+    shapes += [("w_up", (d, cfg.d_ff), d), ("w_down", (cfg.d_ff, d),
+                                            cfg.d_ff)]
+    return shapes
+
+
+@torch.inference_mode()
+def init_params(cfg: LMConfig, generator: torch.Generator,
+                device: str | torch.device = "cuda") -> dict:
+    """Stacked-layer parameters with the reference's shapes and scales
+    (matrices N(0, 1/fan_in), embedding and head N(0, 0.02²), norms 1),
+    drawn in float32 from ``generator`` (on ``device``) one layer at a
+    time and stored in bf16; norm scales float32."""
+    device = resolve_device(device)
+    cd = layers.COMPUTE_DTYPE
+    l, d = cfg.n_layers, cfg.d_model
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=device)
+                .mul_(std).to(cd))
+
+    lay: dict[str, torch.Tensor] = {}
+    for name, shape, fan_in in _layer_shapes(cfg):
+        if not fan_in:
+            lay[name] = torch.ones((l, *shape), device=device)
+            continue
+        t = torch.empty((l, *shape), dtype=cd, device=device)
+        for i in range(l):
+            t[i] = normal(shape, 1.0 / math.sqrt(fan_in))
+        lay[name] = t
+    params = {"embed": normal((cfg.vocab, d), 0.02), "layers": lay,
+              "final_norm": torch.ones((d,), device=device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab), 0.02)
+    return params
+
+
+@torch.inference_mode()
+def params_from_numpy(tree: dict, cfg: LMConfig,
+                      device: str | torch.device = "cuda") -> dict:
+    """The port's parameters from the reference's ``init_params`` pytree
+    as numpy arrays (``jax.tree.map(np.asarray, params)``): the same
+    values, matrices in bf16 (the reference's cast at use), norm scales
+    float32."""
+    device = resolve_device(device)
+    norms = {"ln1", "ln2", "q_norm", "k_norm", "final_norm"}
+    want = {name for name, _, _ in _layer_shapes(cfg)}
+    if set(tree["layers"]) != want:
+        raise ValueError(f"layer params {sorted(tree['layers'])} do not "
+                         f"match {cfg.name}'s {sorted(want)}")
+
+    def conv(name, a):   # a copy: arrays from jax are read-only
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device, torch.float32 if name in norms
+                    else layers.COMPUTE_DTYPE).contiguous()
+
+    out = {name: conv(name, a) for name, a in tree.items()
+           if name != "layers"}
+    out["layers"] = {name: conv(name, a)
+                     for name, a in tree["layers"].items()}
+    return out
+
+
+def _layer_params(params: dict, cfg: LMConfig) -> list[dict]:
+    """The stacked layer parameters cut into one dict per layer (views)."""
+    lay = params["layers"]
+    return [{name: t[i] for name, t in lay.items()}
+            for i in range(cfg.n_layers)]
+
+
+# --------------------------------------------------------------------------
+# Blocks
+# --------------------------------------------------------------------------
+
+def _qkv(hnorm, lp, cfg: LMConfig, positions):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) of the normed hidden, with
+    RoPE on q and k."""
+    b, s, _ = hnorm.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = (hnorm @ lp["wq"]).reshape(b, s, h, hd)
+    k = (hnorm @ lp["wk"]).reshape(b, s, kvh, hd)
+    v = (hnorm @ lp["wv"]).reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attention(x, lp, cfg: LMConfig, positions):
+    """Causal self-attention over the full sequence (prefill).  Returns
+    (x + attention, k, v); k and v are what the cache keeps.  On one
+    device the reference takes one q chunk of the whole sequence and a
+    masked KV scan; K7 computes the same function on its triangle."""
+    b, s, _ = x.shape
+    hnorm = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(hnorm, lp, cfg, positions)
+    o = layers.chunked_attention(q, k, v, causal=True, q_chunk=s,
+                                 kv_chunk=min(cfg.kv_chunk, s))
+    return x + o.reshape(b, s, cfg.qkv_dim) @ lp["wo"], k, v
+
+
+def _mlp_dense(hnorm, lp, cfg: LMConfig):
+    up = hnorm @ lp["w_up"]
+    if cfg.mlp_act == "swiglu":
+        gate = hnorm @ lp["w_gate"]
+        hmid = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+    else:                                        # relu2, squared in bf16
+        hmid = torch.relu(up).square()
+    return hmid @ lp["w_down"]
+
+
+def _mlp(x, lp, cfg: LMConfig):
+    return x + _mlp_dense(layers.rms_norm(x, lp["ln2"], cfg.norm_eps), lp,
+                          cfg)
+
+
+def _embed(params, tokens):
+    return params["embed"][tokens].to(layers.COMPUTE_DTYPE)
+
+
+def _head(params, cfg: LMConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _mask_pad_vocab(logits, cfg: LMConfig):
+    """-1e30 on padded vocab columns (argmax/softmax never pick them)."""
+    v_pad = logits.shape[-1]
+    if v_pad == cfg.vocab:
+        return logits
+    mask = torch.arange(v_pad, device=logits.device) < cfg.vocab
+    return torch.where(mask, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                  device=logits.device))
+
+
+@torch.inference_mode()
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embed + all layers + final norm.  Returns (x (B, S, D), aux); aux
+    is the MoE balance loss, 0 for a dense model."""
+    x = _embed(params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    for lp in _layer_params(params, cfg):
+        x, _, _ = _attention(x, lp, cfg, positions)
+        x = _mlp(x, lp, cfg)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), device=x.device)
+
+
+@torch.inference_mode()
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: (logits (B, S, Vp) in bf16, aux); padded
+    vocab columns are masked to -1e30."""
+    x, aux = forward_hidden(params, tokens, cfg)
+    return _mask_pad_vocab(x @ _head(params, cfg), cfg), aux
+
+
+# --------------------------------------------------------------------------
+# Serving: prefill + decode over a KV cache
+# --------------------------------------------------------------------------
+
+@torch.inference_mode()
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               device: str | torch.device = "cuda") -> dict:
+    """Zero KV cache in the reference's (L, B, KV, S, hd) layout, bf16."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=layers.COMPUTE_DTYPE,
+                             device=device),
+            "v": torch.zeros(shape, dtype=layers.COMPUTE_DTYPE,
+                             device=device)}
+
+
+def make_prefill_step(cfg: LMConfig, max_seq: int) -> Callable:
+    """Prefill: (params, tokens (B, S)) -> (the last position's logits
+    (B, Vp), a KV cache of ``max_seq`` filled at [0, S)).  K and v are
+    computed once a layer, for attention and for the cache."""
+
+    @torch.inference_mode()
+    def prefill_step(params, tokens):
+        b, s = tokens.shape
+        if s > max_seq:
+            raise ValueError(f"prompt of {s} tokens exceeds max_seq "
+                             f"{max_seq}")
+        cache = init_cache(cfg, b, max_seq, tokens.device)
+        x = _embed(params, tokens)
+        positions = torch.arange(s, device=tokens.device)[None]
+        for i, lp in enumerate(_layer_params(params, cfg)):
+            x, k, v = _attention(x, lp, cfg, positions)
+            x = _mlp(x, lp, cfg)
+            cache["k"][i, :, :, :s] = k.transpose(1, 2)
+            cache["v"][i, :, :, :s] = v.transpose(1, 2)
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # Serving prefill only needs the last position's logits.
+        return x[:, -1, :] @ _head(params, cfg), cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: LMConfig, max_seq: int) -> Callable:
+    """One decode step: (params, cache, tokens (B, 1), pos) -> (logits
+    (B, Vp), cache).  Every row writes its K/V at ``pos`` (one global
+    position, as the reference) and attends to cache positions <= pos
+    through a float32 masked softmax; the cache is updated in place."""
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = h // kvh
+
+    @torch.inference_mode()
+    def decode_step(params, cache, tokens, pos: int):
+        if not 0 <= pos < max_seq:
+            raise ValueError(f"decode position {pos} outside [0, "
+                             f"{max_seq})")
+        b = tokens.shape[0]
+        dev = tokens.device
+        x = _embed(params, tokens[:, 0])
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+        valid = torch.arange(max_seq, device=dev) <= pos
+        for i, lp in enumerate(_layer_params(params, cfg)):
+            hnorm = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = _qkv(hnorm[:, None], lp, cfg, positions)
+            cache["k"][i, :, :, pos] = k[:, 0]
+            cache["v"][i, :, :, pos] = v[:, 0]
+            qf = q.reshape(b, kvh, g, hd).float() / math.sqrt(hd)
+            s = torch.einsum("bhgd,bhsd->bhgs", qf, cache["k"][i].float())
+            s = torch.where(valid, s, -1e30)
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            o = torch.einsum("bhgs,bhsd->bhgd", p / p.sum(-1, keepdim=True),
+                             cache["v"][i].float())
+            x = x + o.reshape(b, h * hd).to(x.dtype) @ lp["wo"]
+            x = _mlp(x, lp, cfg)
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _mask_pad_vocab(x @ _head(params, cfg), cfg), cache
+
+    return decode_step

@@ -2,9 +2,10 @@
 
 Counterpart of the parts of ``repro.obs.metrics`` the serving slice uses:
 :func:`percentile` (copied as is) and :class:`ServingMetrics`, which keeps
-the reference's ``metrics()`` keys for what this slice reports — served,
-dropped, queue depth, p50/p95 latency and throughput over the busy window.
-The registry, tracing and resilience series are not ported.
+the reference's ``metrics()`` keys for what the port reports — served,
+dropped, errors, rejected, queue depth, p50/p95 latency and throughput over
+the busy window.  The registry, tracing and the retry and degradation
+series are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ class ServingMetrics:
         self._clock = clock
         self.latencies: list[float] = []
         self.served = 0
+        self.errors = 0
+        self.rejected = 0
         self._t_first: float | None = None
         self._t_last: float | None = None
 
@@ -45,7 +48,15 @@ class ServingMetrics:
         self.served += len(latencies)
         self._t_last = self._clock()
 
+    def record_error(self, n: int = 1) -> None:
+        self.errors += n
+
+    def record_rejected(self, n: int = 1) -> None:
+        self.rejected += n
+
     def snapshot(self, *, dropped: int, queue_depth: int, **extra) -> dict:
+        """The ``metrics()`` keys; ``dropped`` is the owner's shed count
+        (the scheduler's, or ``LMServer.dropped``)."""
         lat = sorted(self.latencies)
         busy = (self._t_last - self._t_first
                 if self._t_first is not None and self._t_last is not None
@@ -53,6 +64,8 @@ class ServingMetrics:
         return {
             "served": self.served,
             "dropped": dropped,
+            "errors": self.errors,
+            "rejected": self.rejected,
             "queue_depth": queue_depth,
             "p50_ms": None if not lat else percentile(lat, 0.50) * 1e3,
             "p95_ms": None if not lat else percentile(lat, 0.95) * 1e3,

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bnn_model, converter, layer_integration
+from repro_torch.device import resolve_device
 from repro_torch.kernels import build as _build
 from repro_torch.runtime import executor as _executor
 from repro_torch.runtime import memory as _memory
@@ -46,16 +47,6 @@ from repro_torch.runtime.passes import fuse_pool_epilogue
 
 # Modes whose flat-path count form is the +-1 matmul.
 _PM1_MODES = ("cuda_pm1", "torch_pm1")
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The port's entry points run on the card unless the caller asks for
-    the CPU; a CUDA device without a card is an error, not a fallback."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain PyTorch versions on the CPU")
-    return device
 
 
 def _to_device(v, device: torch.device):

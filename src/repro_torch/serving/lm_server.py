@@ -1,0 +1,250 @@
+"""Continuous-batching LM decode server.
+
+Counterpart of ``repro.serving.lm_server.LMServer``: submitted prompts
+queue as :class:`Request` objects, the :class:`KVCacheManager` assigns
+cache slots, a prompt is prefilled token by token into its slot through
+the decode step, and one decode step advances *all* active slots each tick
+(continuous batching: new sequences join between ticks, finished ones free
+their slot without stalling the rest).
+
+It speaks the servers' protocol: ``submit(prompt)`` -> Request, ``poll``,
+``step``, ``serve_tick``, ``drain`` (bounded) and ``metrics()`` with the
+same p50/p95/served/dropped/rejected/queue-depth definitions (latency is
+submit -> last token).  Invalid prompts and queue-full submits resolve
+``rejected`` at the protocol edge; requests whose deadline passes while
+they wait for a slot are shed anywhere in the queue.
+
+As in the reference: one global position per tick (every slot writes its
+K/V at ``pos``; attention masks cache positions <= pos), greedy sampling,
+one host loop.  Every prompt token and every tick advance that position,
+so a server's whole run must fit in ``max_seq``: past it the decode step
+raises (the reference's cache update clamps to the last row instead).
+Token state lives on the card; each tick reads back one argmax vector.
+The reference's resilience — decode retry, KV checkpoints and restore,
+the request journal, evacuation to another lane, the flight recorder and
+trace spans — is not ported: a faulted decode tick raises out of
+``serve_tick``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.obs.metrics import ServingMetrics
+from repro_torch.serving.kv_cache import KVCacheManager
+from repro_torch.serving.scheduler import Request, shed_expired_requests
+
+
+@dataclasses.dataclass
+class LMServer:
+    cfg: transformer.LMConfig
+    params: Any
+    n_slots: int
+    max_seq: int
+    eos_id: int | None = None
+    clock: Callable[[], float] = time.monotonic
+    max_queue: int | None = None
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        where = self.params["embed"].device
+        if where.type != self.device.type:
+            raise ValueError(f"params on {where}, server on {self.device}")
+        self.cache = transformer.init_cache(self.cfg, self.n_slots,
+                                            self.max_seq, self.device)
+        self.manager = KVCacheManager(self.n_slots, self.max_seq)
+        with torch.inference_mode():
+            self.tokens = torch.zeros((self.n_slots, 1), dtype=torch.int64,
+                                      device=self.device)
+        self.pos = 0
+        self._decode = transformer.make_decode_step(self.cfg, self.max_seq)
+        self._waiting: deque[Request] = deque()
+        self.dropped = 0          # deadline-shed requests (overload stat)
+        self._by_seq: dict[int, tuple[Request, Any]] = {}
+        self._metrics = ServingMetrics(self.clock)
+
+    # ---- admission ---------------------------------------------------------
+    @torch.inference_mode()
+    def add_prompt(self, prompt: list[int], max_new: int = 32):
+        """Prefill a prompt token by token into a slot through the decode
+        step (every slot steps; the others rewrite their own token's K/V
+        at the new positions, as in the reference)."""
+        seq = self.manager.admit(len(prompt), max_new)
+        for i, tok in enumerate(prompt):
+            toks = self.tokens.clone()
+            toks[seq.slot, 0] = tok
+            logits, self.cache = self._decode(self.params, self.cache, toks,
+                                              self.pos + i)
+        self.pos += len(prompt)
+        nxt = int(logits[seq.slot].argmax())
+        # The first generated token goes through the manager, so a
+        # max_new=1 sequence finishes right here.
+        self.manager.record_token(seq.seq_id, nxt, self.eos_id)
+        self.tokens[seq.slot, 0] = nxt
+        return seq
+
+    # ---- decode tick -------------------------------------------------------
+    @torch.inference_mode()
+    def step(self) -> dict[int, int]:
+        """One decode tick for all active sequences.  Returns
+        {seq_id: new_token} for the sequences that were active."""
+        if not self.manager.active:
+            return {}
+        logits, self.cache = self._decode(self.params, self.cache,
+                                          self.tokens, self.pos)
+        self.pos += 1
+        nxt = logits.argmax(-1)
+        slots = torch.tensor(self.manager.active_slots(), device=self.device)
+        self.tokens[slots, 0] = nxt[slots]
+        host = nxt.cpu().numpy()                 # the one readback a tick
+        out: dict[int, int] = {}
+        for seq_id, seq in list(self.manager.active.items()):
+            out[seq_id] = int(host[seq.slot])
+            self.manager.record_token(seq_id, out[seq_id], self.eos_id)
+        return out
+
+    # ---- server protocol ---------------------------------------------------
+    def submit(self, prompt: list[int], max_new: int = 16,
+               deadline_s: float | None = None,
+               now: float | None = None) -> Request:
+        """Queue a prompt; it joins the continuous batch when a KV slot
+        frees, and ``request.result`` becomes the generated token list.
+        Invalid requests resolve ``rejected`` here, at the protocol edge,
+        instead of raising (raising inside ``drain`` would strand every
+        other queued request)."""
+        now = self.clock() if now is None else now
+        prompt = list(prompt)
+        err = None
+        if not prompt:
+            err = "empty prompt"
+        elif any(not isinstance(t, (int, np.integer)) for t in prompt):
+            err = "prompt tokens must be ints"
+        elif len(prompt) + max_new > self.max_seq:
+            err = (f"prompt ({len(prompt)}) + max_new ({max_new}) exceeds "
+                   f"max_seq ({self.max_seq})")
+        elif self.max_queue is not None \
+                and len(self._waiting) >= self.max_queue:
+            err = (f"queue full ({len(self._waiting)} >= "
+                   f"max_queue={self.max_queue})")
+        r = Request((prompt, max_new), deadline_s=deadline_s)
+        r.arrival_s = now        # one clock domain for arrival and done
+        if err is not None:
+            r.resolve("rejected", error=err)
+            self._metrics.record_rejected()
+            return r
+        self._waiting.append(r)
+        return r
+
+    def poll(self, request: Request) -> bool:
+        return request.done
+
+    def _admit_waiting(self, now: float | None = None) -> None:
+        now = self.clock() if now is None else now
+        # Shed expired requests anywhere in the queue: a full KV cache
+        # must not protect queued requests from their deadlines.
+        self._waiting, shed = shed_expired_requests(self._waiting, now)
+        self.dropped += len(shed)
+        while self._waiting and self.manager.can_admit():
+            r = self._waiting.popleft()
+            prompt, max_new = r.payload
+            self._metrics.mark_dispatch()
+            seq = self.add_prompt(prompt, max_new=max_new)
+            self._by_seq[seq.seq_id] = (r, seq)
+
+    def _fail_inflight(self, reason: str) -> list[Request]:
+        """Resolve every in-flight sequence ``error`` and free its slot."""
+        failed: list[Request] = []
+        for seq_id, (r, _) in list(self._by_seq.items()):
+            r.resolve("error", error=reason)
+            self._metrics.record_error()
+            if seq_id in self.manager.active:
+                self.manager.release(seq_id)
+            del self._by_seq[seq_id]
+            failed.append(r)
+        return failed
+
+    def serve_tick(self, now: float | None = None) -> list[Request]:
+        """One serving tick: admit waiting prompts into free slots, run a
+        decode step, complete the sequences that finished.  A fault in the
+        decode step raises (no retry in the port yet)."""
+        self._admit_waiting(now)
+        self.step()
+        now = self.clock() if now is None else now
+        done: list[Request] = []
+        for seq_id, (r, seq) in list(self._by_seq.items()):
+            if seq_id not in self.manager.active:    # finished + released
+                r.resolve("served", list(seq.tokens))
+                self._metrics.record([now - r.arrival_s])
+                del self._by_seq[seq_id]
+                done.append(r)
+        return done
+
+    def drain(self, now: float | None = None,
+              max_steps: int | None = None) -> list[Request]:
+        """Serve until every submitted prompt has completed or been shed.
+        Bounded: after ``max_steps`` ticks (default generous: each
+        sequence needs at most ``max_seq`` ticks) whatever is still
+        outstanding resolves ``error`` instead of hanging the caller."""
+        if max_steps is None:
+            outstanding = len(self._waiting) + len(self._by_seq) + 1
+            max_steps = outstanding * (self.max_seq + 1) * 2 + 16
+        done: list[Request] = []
+        steps = 0
+        while self._waiting or self._by_seq:
+            if steps >= max_steps:
+                reason = "drain wedged: step budget exhausted"
+                wedged = list(self._waiting)
+                self._waiting.clear()
+                for r in wedged:
+                    r.resolve("error", error=reason)
+                    self._metrics.record_error()
+                done += wedged + self._fail_inflight(reason)
+                break
+            steps += 1
+            done += self.serve_tick(now)
+        return done
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._waiting) + len(self._by_seq)
+
+    def metrics(self) -> dict:
+        """The servers' definitions; latency is submit -> last token."""
+        return self._metrics.snapshot(
+            dropped=self.dropped, queue_depth=self.queue_depth,
+            kv_utilization=self.manager.utilization)
+
+    @torch.inference_mode()
+    def generate(self, prompt: list[int], max_new: int = 16) -> list[int]:
+        """Convenience: run one sequence to completion."""
+        seq = self.manager.admit(len(prompt), max_new)
+        sid = seq.slot
+        out: list[int] = []
+        for tok in prompt:
+            toks = self.tokens.clone()
+            toks[sid, 0] = tok
+            logits, self.cache = self._decode(self.params, self.cache, toks,
+                                              self.pos)
+            self.pos += 1
+        for _ in range(max_new):
+            nxt = int(logits[sid].argmax())
+            out.append(nxt)
+            toks = self.tokens.clone()
+            toks[sid, 0] = nxt
+            logits, self.cache = self._decode(self.params, self.cache, toks,
+                                              self.pos)
+            self.pos += 1
+            if self.eos_id is not None and nxt == self.eos_id:
+                break
+        if seq.seq_id in self.manager.active:
+            self.manager.release(seq.seq_id)
+        return out

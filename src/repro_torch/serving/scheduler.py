@@ -9,7 +9,8 @@ tail of the results is discarded.
 
 A request may carry a ``deadline_s`` (seconds of queue residency it will
 tolerate); expired requests are shed — resolved ``shed`` with
-``result=None`` and counted in ``dropped``.
+``result=None`` and counted in ``dropped``.  :func:`shed_expired_requests`
+is the one shed policy, shared with the LM server's admission queue.
 
 Every time-dependent method takes an injectable ``now=`` (monotonic
 seconds) so policy is testable with a fake clock.
@@ -25,8 +26,9 @@ from typing import Any
 
 import numpy as np
 
-#: The terminal request outcomes this slice produces.
-OUTCOMES = ("served", "shed")
+#: The terminal request outcomes: ``rejected`` at the protocol edge (LM
+#: server), ``error`` when a bounded drain gives up.
+OUTCOMES = ("served", "shed", "error", "rejected")
 
 
 @dataclasses.dataclass
@@ -39,16 +41,33 @@ class Request:
     result: Any = None
     done: bool = False
     outcome: str | None = None        # one of OUTCOMES once done
+    error: str | None = None          # why, for rejected / error
 
     def expired(self, now: float) -> bool:
         return (self.deadline_s is not None
                 and (now - self.arrival_s) >= self.deadline_s)
 
-    def resolve(self, outcome: str, result: Any = None) -> "Request":
+    def resolve(self, outcome: str, result: Any = None,
+                error: str | None = None) -> "Request":
         if outcome not in OUTCOMES:
             raise ValueError(f"unknown outcome {outcome!r}")
         self.result, self.done, self.outcome = result, True, outcome
+        self.error = error
         return self
+
+
+def shed_expired_requests(queue: "deque[Request]", now: float
+                          ) -> tuple["deque[Request]", list[Request]]:
+    """Partition a request queue into (kept, shed by deadline); shed
+    requests resolve ``shed`` with ``result=None``."""
+    kept: deque[Request] = deque()
+    shed: list[Request] = []
+    for r in queue:
+        if r.expired(now):
+            shed.append(r.resolve("shed"))
+        else:
+            kept.append(r)
+    return kept, shed
 
 
 def _zero_like(payload: Any) -> Any:
@@ -99,10 +118,8 @@ class BatchScheduler:
         if not self._queue:
             return []
         now = time.monotonic() if now is None else now
-        shed = [r.resolve("shed") for r in self._queue if r.expired(now)]
-        if shed:
-            self._queue = deque(r for r in self._queue if not r.done)
-            self.dropped += len(shed)
+        self._queue, shed = shed_expired_requests(self._queue, now)
+        self.dropped += len(shed)
         return shed
 
     def ready(self, now: float | None = None) -> bool:

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
+
 # Gray letterbox fill: the YOLO convention (114 in most implementations).
 LETTERBOX_FILL = 114
 
@@ -93,15 +95,15 @@ def center_crop_resize(img: torch.Tensor,
 
 
 def as_server_hook(transform: Callable[[torch.Tensor], torch.Tensor],
-                   device: str | torch.device = "cpu"
+                   device: str | torch.device = "cuda"
                    ) -> Callable[[np.ndarray], torch.Tensor]:
     """Adapt a tensor image transform to ``InferenceServer(preprocess=...)``:
     numpy payload in, network-size uint8 tensor out, computed on
-    ``device`` (the engine's), as the reference's jitted hook runs on its
-    default device.  On the card the payload is staged through pinned
-    memory, so the hook queues its copy and resize and returns without
-    waiting on the device."""
-    device = torch.device(device)
+    ``device`` (the engine's; the card unless the caller passes "cpu"),
+    as the reference's jitted hook runs on its default device.  On the
+    card the payload is staged through pinned memory, so the hook queues
+    its copy and resize and returns without waiting on the device."""
+    device = resolve_device(device)
 
     def hook(payload: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(payload))

@@ -22,11 +22,14 @@ from repro_torch.workloads import preprocess
 from repro_torch.kernels import bitplane_pack as k4
 from repro_torch.kernels import chain_conv as k5
 from repro_torch.kernels import direct_conv_bn_binarize as k3
+from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import fused_conv_bn_binarize as k2
 from repro_torch.kernels import mxu_pm1_matmul as k6
 from repro_torch.kernels import xnor_popcount_matmul as k1
+from repro_torch.models import transformer
 from repro_torch.runtime import (GraphExecutor, assign_layouts,
                                  default_pipeline, lower_trained, regions)
+from repro_torch.serving.lm_server import LMServer
 
 pytestmark = pytest.mark.gpu
 
@@ -303,3 +306,94 @@ def test_trained_graph_on_card_matches_cpu(cuda, name):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
     fused_out = GraphExecutor(fused.to(cuda), "cuda_direct_pool")(x.to(cuda))
     torch.testing.assert_close(fused_out.cpu(), want, rtol=0, atol=1e-4)
+
+
+# K7 against its plain version: the two round p to bf16 under different
+# running maxima (64-key tiles against the plain version's blocks) and
+# round the output once each, so they agree to a few bf16 steps (2^-8
+# relative): 1e-2 absolute + 1e-2 relative.
+K7_TOL = 1e-2
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal", [
+    (2, 512, 8, 2, 128, True),
+    (1, 256, 4, 4, 128, False),     # G = 1, non-causal
+    (2, 64, 8, 2, 128, True),       # one tile
+    (1, 100, 4, 1, 128, True),      # ragged last tile
+    (1, 192, 4, 2, 128, True),
+])
+def test_flash_attention_on_card(cuda, b, s, h, kvh, hd, causal):
+    q, k, v = (torch.from_numpy(RNG.standard_normal(shape)
+                                .astype(np.float32)).to(cuda, torch.bfloat16)
+               for shape in ((b, s, h, hd), (b, s, kvh, hd),
+                             (b, s, kvh, hd)))
+    k7.flash_attention.launches = 0
+    # the kernel tiles by 64 whatever the blocks: 48 divides no S but 192
+    got = k7.flash_attention(q, k, v, causal, block_q=48, block_k=48)
+    torch.cuda.synchronize()
+    assert k7.flash_attention.launches == 1
+    assert got.dtype == torch.bfloat16
+    want = k7.flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=K7_TOL,
+                               atol=K7_TOL)
+
+
+def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
+    q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="hd 128"):
+        k7.flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 2, 128), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        k7.flash_attention(q, q, q)
+    buf = torch.zeros(64 * 2 * 128 + 1, dtype=torch.bfloat16, device=cuda)
+    q = buf[1:].view(1, 64, 2, 128)         # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        k7.flash_attention(q, q, q)
+
+
+LM_CFG = dict(name="gpu-lm", n_layers=2, d_model=256, n_heads=4,
+              n_kv_heads=2, d_head=128, d_ff=512, vocab=1000,
+              rope_theta=10_000.0, mlp_act="relu2")
+
+
+@pytest.fixture
+def lm_params(cuda):
+    cfg = transformer.LMConfig(**LM_CFG)
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    return cfg, cpu, {k: ({n: t.to(cuda) for n, t in v.items()}
+                          if isinstance(v, dict) else v.to(cuda))
+                      for k, v in cpu.items()}
+
+
+def test_lm_prefill_on_card_matches_cpu(cuda, lm_params):
+    """A 2-layer prefill on the card (K7 once a layer) against the same
+    prefill on the CPU (K7's plain version), within bf16 rounding."""
+    cfg, cpu, card = lm_params
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab, (2, 128)))
+    step = transformer.make_prefill_step(cfg, 160)
+    k7.flash_attention.launches = 0
+    logits, cache = step(card, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert k7.flash_attention.launches == cfg.n_layers
+    want, want_cache = step(cpu, toks)
+    scale = want.float().abs().max()
+    assert (logits.cpu().float() - want.float()).abs().max() <= 2e-2 * scale
+    for name in ("k", "v"):
+        ref = want_cache[name].float()
+        err = (cache[name].cpu().float() - ref).abs().max()
+        assert err <= 2e-2 * ref.abs().max()
+
+
+def test_lm_server_on_card(cuda, lm_params):
+    """LMServer on the card serves every request; decoding launches no K7."""
+    cfg, _, card = lm_params
+    server = LMServer(cfg, card, n_slots=2, max_seq=64)
+    k7.flash_attention.launches = 0
+    reqs = [server.submit(list(RNG.integers(1, cfg.vocab, n)), max_new=m)
+            for n, m in ((5, 3), (8, 4), (3, 2))]
+    server.drain()
+    assert all(r.outcome == "served" and len(r.result) == m
+               for r, m in zip(reqs, (3, 4, 2)))
+    assert k7.flash_attention.launches == 0
+    assert server.metrics()["served"] == 3

@@ -80,7 +80,7 @@ def test_center_crop_matches_reference(in_hw, out_hw):
 
 def test_server_hook_is_contiguous_uint8():
     hook = t_pre.as_server_hook(
-        lambda x: t_pre.center_crop_resize(x, (16, 16)))
+        lambda x: t_pre.center_crop_resize(x, (16, 16)), device="cpu")
     img = RNG.integers(0, 256, (30, 40, 3), dtype=np.uint8)
     out = hook(img)
     assert out.shape == (16, 16, 3) and out.dtype == torch.uint8
