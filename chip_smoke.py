@@ -8,9 +8,11 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each fatal on failure:
 
 1. build    — compile the CUDA kernel library from ``csrc/`` with nvcc
-              (sm_90a), print the card's name and power limit, and check
-              the region planner's shared-memory budget against the card's
-              opt-in limit per block;
+              (sm_90a), print the card's name and power limit, check the
+              region planner's shared-memory budget against the card's
+              opt-in limit per block, and print K7's registers and shared
+              memory a block and K5's cluster size C (with how many
+              clusters of 16, 8 and 4 the card holds at once);
 2. kernels  — every kernel of the serving paths (K4 bitplane_pack, K3
               direct_conv_bn_binarize, K2 fused_matmul_bn_binarize, K5
               chain_conv, K1 xnor_popcount_matmul, K6 mxu_pm1_matmul)
@@ -18,10 +20,12 @@ Phases, each fatal on failure:
               AlexNet's batch-8 shapes and at edge cases, with thresholds
               that give a mix of output bits (a share of 0.2 to 0.8 set; for
               K1 and K6, whose counts the threshold follows on the main path,
-              0.3 to 0.7); K5 at AlexNet's region (batch 8 and 1), a tiled
-              case and YOLOv2-Tiny's conv4-conv8 region; K1 at conv1 with
-              its plane weights; K6 at conv2 and fc6, at words with pad
-              bits, ragged tiles, and k_valid past 2^24;
+              0.3 to 0.7); K5 at AlexNet's region (batch 8 and 1), tiled
+              cases (one with 3 images a cluster and a last block of 1),
+              YOLOv2-Tiny's conv4-conv8 region and a region whose later
+              stages have fewer rows than C (shared out by words); K1 at
+              conv1 with its plane weights; K6 at conv2 and fc6, at words
+              with pad bits, ragged tiles, and k_valid past 2^24;
 3. serve    — paper AlexNet (227x227x3, 1000 classes, numpy-seeded random
               weights) behind ``InferenceServer``, once per serving path:
               ``cuda_direct_pool`` (launches per forward K4 1, K3 5, K2 2),
@@ -46,8 +50,10 @@ Phases, each fatal on failure:
               within 1e-3 of ``float_forward``;
 6. lm       — K7 flash_attention against its plain version on the card
               at minitron-8b's prefill layer (B 2, S 2048, H 32, KV 8, hd
-              128, bf16, causal) and at edge cases (non-causal, G = 1, one
-              64-row tile, a ragged tile) within the stated tolerance,
+              128, bf16, causal) and at edge cases of its 128-row, 128-key
+              tiles (non-causal, G = 1 at S 512 and 256, part of one tile,
+              ragged tiles at S 100 and 129, non-causal Sq 100 against
+              Skv 300) within the stated tolerance,
               and its refusal of float32 (the kernel takes bf16, the LM
               path's dtype); then minitron-8b at full width and depth
               (32 layers, d_model 4096, vocab 256,000; bf16 weights drawn on
@@ -63,9 +69,10 @@ Phases, each fatal on failure:
               ``LMServer`` answering 8 requests (4 slots, max_seq 256; one
               over-long prompt rejected; no K7 launch);
 7. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
-              warmed up, median) beside its plain version and its bound; K1
-              and K6 also beside one library call on the unpacked +-1
-              operands; K7 at the prefill layer's shapes beside
+              warmed up, median) beside its plain version and its bound; K5
+              also at every cluster size the card can schedule; K1 and K6
+              also beside one library call on the unpacked +-1 operands; K7
+              at the prefill layer's shapes beside
               ``F.scaled_dot_product_attention`` on the same tensors.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
@@ -157,6 +164,13 @@ YOLO_CHAIN = (
     k5.StageSpec("conv", 3, 1, 1, 1, 512), k5.StageSpec("pool", 2, 1, 0, 1, 512),
     k5.StageSpec("conv", 3, 1, 1, 1, 1024),
     k5.StageSpec("conv", 3, 1, 1, 1, 1024))
+# A region whose later stages have fewer rows than a cluster has ranks:
+# those stages are shared out by output words (2 or 4 here), so most ranks
+# compute nothing there.
+NARROW_CHAIN = (
+    k5.StageSpec("conv", 3, 1, 1, 1, 64), k5.StageSpec("pool", 2, 2, 0, 0, 64),
+    k5.StageSpec("conv", 3, 1, 1, 1, 128),
+    k5.StageSpec("pool", 2, 2, 0, 0, 128))
 # (name, (N, H, W, C) entry, C real channels per plane word when first,
 # stages, tile)
 CHAIN_CASES = [
@@ -165,6 +179,10 @@ CHAIN_CASES = [
     ("alexnet region tiled 4x4, 2 images a block", (3, 227, 227, 3),
      ALEXNET_CHAIN, dict(block_h=4, block_w=4, block_n=2)),
     ("yolo conv4-conv8 region", (BATCH, 52, 52, 64), YOLO_CHAIN, {}),
+    ("alexnet region tiled 3x3, 3 images a block, the last block 1",
+     (7, 227, 227, 3), ALEXNET_CHAIN, dict(block_h=3, block_w=3, block_n=3)),
+    ("rows below the cluster size from stage 1 on", (2, 16, 16, 64),
+     NARROW_CHAIN, {}),
 ]
 # Matmul-shaped cases of K1 and K6, (name, (N, H, W, C), kernel, stride,
 # pad, O, first layer): the operands are the im2col rows of an (N, H, W, C)
@@ -188,19 +206,23 @@ K6_CASES = [
     ("k_valid 2^24 + 32", (8, 1, 1, 32 * ((1 << 19) + 1)), 1, 1, 0, 16,
      False),
 ]
-# K7 cases, bf16: (name, B, S, H, KV, hd, causal).  The first is
-# minitron-8b's prefill layer, the shape the LM path gives K7.
-FLASH_PREFILL = ("minitron prefill layer", 2, 2048, 32, 8, 128, True)
+# K7 cases, bf16: (name, B, Sq, Skv, H, KV, hd, causal).  The first is
+# minitron-8b's prefill layer, the shape the LM path gives K7; the kernel
+# tiles by 128 q rows and 128 keys.
+FLASH_PREFILL = ("minitron prefill layer", 2, 2048, 2048, 32, 8, 128, True)
 FLASH_CASES = [
     FLASH_PREFILL,
-    ("non-causal", 2, 1024, 32, 8, 128, False),
-    ("G = 1", 1, 512, 8, 8, 128, True),
-    ("S = one 64-row tile", 2, 64, 32, 8, 128, True),
-    ("ragged last tile, S = 100", 1, 100, 32, 8, 128, True),
+    ("non-causal", 2, 1024, 1024, 32, 8, 128, False),
+    ("G = 1", 1, 512, 512, 8, 8, 128, True),
+    ("S = 64, part of one tile", 2, 64, 64, 32, 8, 128, True),
+    ("ragged last tile, S = 100", 1, 100, 100, 32, 8, 128, True),
+    ("S = 129, a full tile and one row", 1, 129, 129, 32, 8, 128, True),
+    ("non-causal Sq 100, Skv 300", 1, 100, 300, 32, 8, 128, False),
+    ("G = 1, S = 256", 1, 256, 256, 8, 8, 128, True),
 ]
 # K7 against its plain version, |kernel - plain| <= tol·(1 + |plain|):
 # both round p to bf16, under different running maxima (the kernel's
-# 64-key tiles against the plain version's 512-key blocks), and round the
+# 128-key tiles against the plain version's 512-key blocks), and round the
 # output once each, so they agree to a few bf16 steps (2^-8 relative).
 FLASH_TOL = 1e-2
 # The LM phase: minitron-8b prefill at B 2, S 2048 into a cache of 2304.
@@ -495,6 +517,12 @@ def chain_cost(x, ops, out, convs) -> tuple[float, float]:
 # Phases
 # --------------------------------------------------------------------------
 
+def alexnet_arena_words() -> int:
+    """Arena words of AlexNet's region at batch 8, whole-map tile."""
+    plan = regions.plan_chain_vmem(ALEXNET_CHAIN, (BATCH, 227, 227, 8))
+    return plan.arena_bytes // 4
+
+
 def phase_build() -> str:
     t0 = time.perf_counter()
     path, secs = build.build(verbose=True)
@@ -509,6 +537,19 @@ def phase_build() -> str:
                              f"opt-in shared memory per block {optin} B")
     log(f"[build] region budget {regions.DEFAULT_SMEM_BUDGET} B == "
         f"cudaDevAttrMaxSharedMemoryPerBlockOptin")
+    info = k7.kernel_info()
+    log(f"[build] flash_attention: {info['registers']} registers a thread "
+        f"as compiled, {info['smem_bytes']} B of shared memory a block, "
+        f"{info['threads']} threads a block")
+    info = k5.kernel_info()
+    words = alexnet_arena_words()
+    active = {c: k5.max_clusters(words, c) for c in k5.CLUSTER_SIZES}
+    log(f"[build] chain_conv: {info['registers']} registers a thread, "
+        f"{info['threads']} threads a block; AlexNet's region ({4 * words} "
+        f"B arena a block): clusters the card holds at once by size "
+        f"{active}; the wrapper's cluster C = {k5.cluster_size(words, 1)} "
+        f"for one image, {k5.cluster_size(words, BATCH)} for {BATCH} "
+        f"(fewest waves a rank)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -601,11 +642,11 @@ def check_count_kernels(inp: Inputs, note) -> None:
 
 def flash_inputs(inp: Inputs, case):
     """Seeded N(0, 1) bf16 q, k, v of one K7 case on the card."""
-    _, b, s, h, kvh, hd, _ = case
+    _, b, sq, skv, h, kvh, hd, _ = case
     return tuple(torch.randn(shape, device=inp.device, generator=inp.g)
                  .to(torch.bfloat16)
-                 for shape in ((b, s, h, hd), (b, s, kvh, hd),
-                               (b, s, kvh, hd)))
+                 for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                               (b, skv, kvh, hd)))
 
 
 def flash_error(name: str, got, want) -> float:
@@ -626,7 +667,7 @@ def check_flash(inp: Inputs, note) -> None:
     are refused, not run."""
     for case in FLASH_CASES:
         q, k, v = flash_inputs(inp, case)
-        causal = case[6]
+        causal = case[7]
         err = flash_error(case[0], k7.flash_attention(q, k, v, causal),
                           k7.flash_attention_plain(q, k, v, causal))
         note("flash_attention", err)
@@ -1249,6 +1290,25 @@ def phase_timing(device, launches: dict, per_forward: dict,
         time_ms(lambda: k5.chain_conv(x, ALEXNET_CHAIN, ops, **kw), 10),
         time_ms(lambda: k5.chain_conv_plain(x, ALEXNET_CHAIN, ops, **kw), 3),
         *chain_cost(x, ops, out, convs))
+    # Every cluster size the card can schedule, beside the wrapper's C:
+    # batch 8 is 8 clusters, which may exceed what the card holds at once.
+    words = kw["arena_words"]
+    for c in k5.CLUSTER_SIZES:
+        active = k5.max_clusters(words, c)
+        if active < 1:
+            log(f"[timing] chain_conv alexnet region, cluster {c}: cannot "
+                f"be scheduled")
+            continue
+        if not torch.equal(k5.chain_conv(x, ALEXNET_CHAIN, ops, cluster=c,
+                                         **kw), out):
+            raise AssertionError(f"[timing] chain_conv cluster {c} != "
+                                 f"the wrapper's cluster")
+        ms = time_ms(lambda: k5.chain_conv(x, ALEXNET_CHAIN, ops, cluster=c,
+                                           **kw), 10)
+        log(f"[timing] chain_conv alexnet region, cluster {c} ({active} "
+            f"clusters at once, the grid has {BATCH}): kernel {ms:.4f} ms"
+            + (" (the wrapper's)" if c == k5.cluster_size(words, BATCH)
+               else ""))
     # Off the main path, for the tile search to come: the same region at
     # smaller final tiles (more blocks, more halo recompute).
     for tile in (dict(block_h=3, block_w=3), dict(block_h=2, block_w=2),
@@ -1267,7 +1327,7 @@ def phase_timing(device, launches: dict, per_forward: dict,
     # K7 at minitron's prefill layer, beside one SDPA call on the same
     # tensors (in its (B, H, S, hd) layout, as views).
     q, k, v = flash_inputs(inp, FLASH_PREFILL)
-    _, b, s_len, h, kvh, hd, _ = FLASH_PREFILL
+    _, b, s_len, _, h, kvh, hd, _ = FLASH_PREFILL
     out = k7.flash_attention(q, k, v, True)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 

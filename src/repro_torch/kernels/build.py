@@ -42,11 +42,14 @@ SIGNATURES = {
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _I, _I, _I, _P),
     "launch_chain_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _P),
+                          _I, _I, _I, _I, _I, _I, _P),
+    "chain_conv_max_clusters": (_I, _I, _P),
+    "chain_conv_info": (_P, _P),
     "launch_xnor_popcount_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "launch_mxu_pm1_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
     "launch_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P),
+    "flash_attention_info": (_P, _P, _P),
     "phonebit_smem_optin": (_I,),
 }
 

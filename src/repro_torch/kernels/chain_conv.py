@@ -7,6 +7,15 @@ every interior stage output lives in an on-chip arena at the offset the
 memory planner assigned (:func:`repro_torch.runtime.memory.vmem_plan`).
 Only the chain's entry and exit touch device memory.
 
+On the card one thread-block cluster of C blocks (C = 16, 8 or 4:
+:func:`cluster_size`) runs each (image block, final tile).  Every block
+holds a full copy of the arena; :func:`chain_shares` splits each stage's
+valid positions among the C ranks (by output rows, or by output words
+when the stage has fewer rows than ranks), and before each stage a rank
+copies from its neighbours' shared memory the words its share reads
+(:func:`chain_gather` names them).  Masked positions are stored as the
+0-word without being computed.
+
 Tiling couples the stages through halo growth: to emit a
 ``(block_h, block_w)`` tile of the final stage, stage k must produce a
 tile grown backwards through every later window and stride.  Tile
@@ -20,6 +29,7 @@ tile is the whole map with ``block_n = 1``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -31,8 +41,12 @@ from repro_torch.core import binary_ops, packing
 from repro_torch.core.packing import WORD_BITS, num_words
 from repro_torch.kernels import build
 
-# The CUDA kernel's stage-descriptor array (csrc/chain_conv.cu kMaxStages).
+# The CUDA kernel's stage-descriptor array (csrc/chain_conv.cu kMaxStages)
+# and its largest cluster (kMaxCluster); the cluster sizes tried, largest
+# first (16 needs the non-portable cluster size).
 MAX_STAGES = 16
+MAX_CLUSTER = 16
+CLUSTER_SIZES = (16, 8, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +113,72 @@ def chain_geometry(stages: tuple[StageSpec, ...], h: int, w: int,
         valid_hw=tuple(reversed(valid)),
         entry_tile=(th, tw), entry_step=(mh, mw), entry_off=(oh, ow),
         final_hw=(fh, fw))
+
+
+@dataclasses.dataclass(frozen=True)
+class StageShare:
+    """How the ranks of a cluster split one stage's valid positions.
+    ``rows`` = [lo, hi) are the output-tile rows valid in some tile of the
+    grid.  With ``by_rows`` rank r computes rows ``bounds[r]`` (all
+    words), else output words ``bounds[r]`` of every row in ``rows``."""
+    by_rows: bool
+    rows: tuple[int, int]
+    bounds: tuple[tuple[int, int], ...]
+
+
+def chain_shares(geo: _Geometry, cws, cluster: int
+                 ) -> tuple[StageShare, ...]:
+    """Per stage, the split of its valid positions over ``cluster`` ranks:
+    contiguous output rows when the stage has at least ``cluster``
+    computed rows, else contiguous output channel words; shares differ by
+    at most one row or word."""
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"chain_shares: cluster {cluster} outside 1.."
+                         f"{MAX_CLUSTER}")
+    gh = -(-geo.final_hw[0] // geo.out_tile[-1][0])
+    shares = []
+    for k, (th, _) in enumerate(geo.out_tile):
+        step, off, valid = (geo.out_step[k][0], geo.out_off[k][0],
+                            geo.valid_hw[k][0])
+        # Tile gi's valid rows are [off - gi*step, valid + off - gi*step).
+        lo, hi = max(0, off - (gh - 1) * step), min(th, valid + off)
+        n = hi - lo
+        by_rows = n >= cluster
+        base, span = (lo, n) if by_rows else (0, cws[k + 1])
+        shares.append(StageShare(by_rows, (lo, hi), tuple(
+            (base + span * r // cluster, base + span * (r + 1) // cluster)
+            for r in range(cluster))))
+    return tuple(shares)
+
+
+def chain_gather(stages: tuple[StageSpec, ...], geo: _Geometry, cws,
+                 shares: tuple[StageShare, ...], k: int, rank: int
+                 ) -> list[tuple[int, tuple[int, int], tuple[int, int]]]:
+    """What ``rank`` copies before stage k (k >= 1): blocks ``(owner, rows,
+    words)`` of stage k-1's output tile (all its columns) that its share of
+    stage k reads and ``owner`` computed.  The kernel copies the same
+    blocks, further cut to the positions valid in its tile (the masked
+    ones it holds as 0-words already)."""
+    st, sh, prev = stages[k], shares[k], shares[k - 1]
+    lo, hi = sh.bounds[rank] if sh.by_rows else sh.rows
+    w_lo, w_hi = sh.bounds[rank] if not sh.by_rows else (0, cws[k + 1])
+    if lo >= hi or w_lo >= w_hi:
+        return []
+    r0 = lo * st.stride
+    r1 = min(geo.out_tile[k - 1][0], (hi - 1) * st.stride + st.kernel)
+    g0, g1 = ((0, cws[k]) if st.kind == "conv" or sh.by_rows
+              else (w_lo, w_hi))
+    blocks = []
+    for o in range(len(sh.bounds)):
+        if o == rank:
+            continue
+        o_rows = prev.bounds[o] if prev.by_rows else prev.rows
+        o_words = (0, cws[k]) if prev.by_rows else prev.bounds[o]
+        rows = (max(r0, o_rows[0]), min(r1, o_rows[1]))
+        words = (max(g0, o_words[0]), min(g1, o_words[1]))
+        if rows[0] < rows[1] and words[0] < words[1]:
+            blocks.append((o, rows, words))
+    return blocks
 
 
 def chain_word_counts(stages: tuple[StageSpec, ...], cw_in: int
@@ -269,8 +349,53 @@ def smem_optin(device_index: int) -> int:
     return build.library().phonebit_smem_optin(device_index)
 
 
+@functools.lru_cache(maxsize=None)
+def max_clusters(arena_words: int, cluster: int) -> int:
+    """Clusters of ``cluster`` blocks, each with the arena in shared
+    memory, that the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: none can be scheduled)."""
+    n = ctypes.c_int()
+    build.check(build.library().chain_conv_max_clusters(
+        arena_words, cluster, ctypes.addressof(n)), "chain_conv")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_size(arena_words: int, clusters: int = 1) -> int:
+    """The cluster size the kernel runs a grid of ``clusters`` clusters in:
+    of the ``CLUSTER_SIZES`` the card can schedule with this arena, the
+    one with the fewest waves (``ceil(clusters / held at once)``) per
+    block of the cluster, each rank's work falling as 1/C; on a tie the
+    one with fewer waves.  So a grid that fits at once takes the largest
+    size, and one that would leave a second wave of large clusters takes
+    a smaller size that fits.  Raises when none can be scheduled."""
+    best = None
+    for c in CLUSTER_SIZES:
+        held = max_clusters(arena_words, c)
+        if held < 1:
+            continue
+        waves = -(-clusters // held)
+        key = (waves * MAX_CLUSTER // c, waves)     # c divides MAX_CLUSTER
+        if best is None or key < best[0]:
+            best = (key, c)
+    if best is None:
+        raise RuntimeError(f"chain_conv: no cluster of {CLUSTER_SIZES} "
+                           f"blocks with a {4 * arena_words} B arena can be "
+                           f"scheduled")
+    return best[1]
+
+
+def kernel_info() -> dict[str, int]:
+    """The CUDA kernel's registers a thread and threads a block
+    (``cudaFuncGetAttributes``)."""
+    vals = [ctypes.c_int() for _ in range(2)]
+    build.check(build.library().chain_conv_info(
+        *(ctypes.addressof(v) for v in vals)), "chain_conv_info")
+    return dict(zip(("registers", "threads"), (v.value for v in vals)))
+
+
 def _descriptors(stages, geo: _Geometry, cws, ops: ChainOperands,
-                 arena_offsets, dev) -> np.ndarray:
+                 arena_offsets, shares, dev) -> np.ndarray:
     """The kernel's per-stage descriptor rows (int64; csrc/chain_conv.cu
     ``Stage``), validating each conv stage's operands on the way."""
     rows, ci = [], 0
@@ -298,12 +423,15 @@ def _descriptors(stages, geo: _Geometry, cws, ops: ChainOperands,
                     t.data_ptr(), s.data_ptr()]
         elif st.kind != "pool":
             raise ValueError(f"chain_conv: unknown stage kind {st.kind!r}")
+        sh = shares[k]
+        bounds = list(sh.bounds) + [(0, 0)] * (MAX_CLUSTER - len(sh.bounds))
         rows.append([0 if st.kind == "conv" else 1, st.kernel, st.stride,
                      in_h, in_w, cws[k], out_h, out_w, cws[k + 1],
                      *geo.out_step[k], *geo.out_off[k], *geo.valid_hw[k],
                      -1 if k == 0 else arena_offsets[k - 1],
                      -1 if k == len(stages) - 1 else arena_offsets[k],
-                     *ptrs])
+                     *ptrs, int(sh.by_rows), *sh.rows,
+                     *(v for b in bounds for v in b)])
     return np.ascontiguousarray(rows, dtype=np.int64)
 
 
@@ -311,7 +439,8 @@ def chain_conv(x: torch.Tensor, stages: tuple[StageSpec, ...],
                ops: ChainOperands, *, block_h: int | None = None,
                block_w: int | None = None, block_n: int = 1,
                arena_offsets: tuple[int, ...] | None = None,
-               arena_words: int | None = None) -> torch.Tensor:
+               arena_words: int | None = None,
+               cluster: int | None = None) -> torch.Tensor:
     """Run a static conv/pool chain in one launch.
 
     x: (N, H, W, Cw) int32 packed words (bit-plane words for a
@@ -322,9 +451,10 @@ def chain_conv(x: torch.Tensor, stages: tuple[StageSpec, ...],
     no-reuse layout when omitted.  Returns (N, FH, FW, ceil(O_last/32))
     int32 (pool-only chains keep Cw).
 
-    Launches the CUDA kernel for a CUDA tensor and raises if the arena
-    exceeds the card's shared memory per block; a CPU tensor takes the
-    plain version.
+    Launches the CUDA kernel for a CUDA tensor, in clusters of
+    ``cluster`` blocks (default :func:`cluster_size` for the grid), and
+    raises if the arena exceeds the card's shared memory per block or no
+    such cluster can be scheduled; a CPU tensor takes the plain version.
     """
     if x.device.type == "cpu":
         return chain_conv_plain(x, stages, ops, block_h=block_h,
@@ -351,15 +481,22 @@ def chain_conv(x: torch.Tensor, stages: tuple[StageSpec, ...],
     if 4 * arena_words > limit:
         raise ValueError(f"chain_conv: arena of {4 * arena_words} B exceeds "
                          f"the card's {limit} B of shared memory per block")
-    desc = _descriptors(stages, geo, cws, ops, arena_offsets, dev)
-    out = torch.empty((n, fh, fw, cws[-1]), dtype=torch.int32, device=dev)
     gn, gh, gw = -(-n // bn), -(-fh // bh), -(-fw // bw)
+    if cluster is None:
+        cluster = cluster_size(arena_words, gn * gh * gw)
+    elif cluster not in CLUSTER_SIZES \
+            or max_clusters(arena_words, cluster) < 1:
+        raise ValueError(f"chain_conv: a cluster of {cluster} blocks with "
+                         f"a {4 * arena_words} B arena cannot be scheduled")
+    desc = _descriptors(stages, geo, cws, ops, arena_offsets,
+                        chain_shares(geo, cws, cluster), dev)
+    out = torch.empty((n, fh, fw, cws[-1]), dtype=torch.int32, device=dev)
     lib = build.library()
     chain_conv.launches += 1
     build.check(lib.launch_chain_conv(
         x.data_ptr(), out.data_ptr(), desc.ctypes.data, len(stages), n, h,
         w_in, cw0, bn, gn, gh, gw, *geo.entry_step, *geo.entry_off,
-        arena_words, build.stream_ptr(dev)), "chain_conv")
+        arena_words, cluster, build.stream_ptr(dev)), "chain_conv")
     return out
 
 

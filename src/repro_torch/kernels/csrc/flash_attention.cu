@@ -1,5 +1,5 @@
-// Causal / non-causal GQA attention forward with an online softmax
-// (FlashAttention-2 shape).
+// Causal / non-causal GQA attention forward with an online softmax: a
+// warp-specialised Hopper kernel, TMA ring + wgmma (FlashAttention-3 shape).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py ::
 // flash_attention (_flash_fwd, _kernel): for q (B, Sq, H, hd) and k, v
@@ -10,42 +10,181 @@
 //
 // in q's dtype.  Scores, the running max and sum and the accumulator are
 // float32; p is rounded to v's dtype for the PV product, which accumulates
-// in float32; the output is divided by max(l, 1e-30).  Causal assumes
-// Sq == Skv: key tiles past a q tile's diagonal are skipped and only the
-// tiles that reach past a row's diagonal (or past Skv) are masked.  Each q
-// head reads its KV head h / G directly: no K/V copy per q head, where the
-// TPU kernel repeated each KV head G times in device memory.
+// in float32; the output is divided by max(l, 1e-30).  The scale goes on
+// the float32 scores times log2 e, so p = 2^(x - m) is the reference's
+// e^(s - m) with one ex2 (what __expf runs).  Causal assumes Sq == Skv:
+// key tiles past a q tile's diagonal are skipped and only the tiles that
+// reach past a row's diagonal (or past Skv) are masked.  Each q head reads
+// its KV head h / G directly: no K/V copy per q head, where the TPU kernel
+// repeated each KV head G times in device memory.
 //
 // Bound on the H100: at minitron-8b's prefill layer (B 2, S 2048, H 32,
 // KV 8, hd 128, bf16, causal) operations — 4·B·H·hd·S(S+1)/2 = 68.8 GFLOP
 // take 0.070 ms at the bf16 tensor-core rate, the 84 MB of q, k, v and out
-// 0.025 ms.  Design (bf16): the products run on the tensor cores, one
-// mma.sync.m16n8k16 bf16 -> f32 per 16 x 8 x 16 step, and the score tile
-// never leaves registers.  One block of 4 warps takes 64 q rows of one
-// (batch, head), 16 rows a warp, with its q fragments held in registers for
-// the whole key sweep.  Each step stages a 64-key tile of K and V in shared
-// memory (rows padded by 16 bytes, so the ldmatrix row fetches hit 32
-// distinct banks); S = q·kᵀ comes out in the accumulator layout, which is
-// the A-fragment layout of the PV product, so p goes from the softmax to
-// the second mma without touching shared memory.  The blocks of a causal
-// sweep are issued longest first.  Inputs are bf16, the LM path's dtype;
-// float32 has only the plain version.  Single-buffered staging, mma.sync
-// rather than wgmma, and no TMA are the first things a faster version
-// changes.
+// 0.025 ms.  So the products must run at the tensor cores' full rate, which
+// only wgmma reaches, and the tensor cores must not wait on the loads.
+//
+// Design.  One block per (q head, batch, 128 q rows), issued longest causal
+// sweep first over the whole grid; 384 threads in three warpgroups.
+//   * Producer warpgroup: gives up its registers (setmaxnreg 40); one
+//     elected thread issues every copy with TMA (cp.async.bulk.tensor) from
+//     4-D tensor maps over the (B, S, heads, hd) layouts as they lie, so a
+//     box cuts one head's rows with no copy.  Q (128 x 128 bf16, 32 KB) is
+//     loaded once; K and V tiles of 128 keys (32 KB each) go through a ring
+//     of kStages stages, each with a full and an empty mbarrier, so the
+//     copy of tile j+1 runs while the consumers compute tile j.  A box is
+//     64 bf16 wide (the 128-byte swizzle's row), so a 128-wide row is two
+//     boxes; TMA fills rows past S with zeros, and those keys are masked.
+//   * Two consumer warpgroups (setmaxnreg 232), 64 q rows each.
+//     S = Q·Kᵀ is 8 wgmma.m64n128k16 (bf16 in, f32 out), both operands read
+//     from shared memory through 128-byte-swizzle descriptors, K-major (no
+//     transpose).  The online softmax runs on S in registers; the f32
+//     accumulator layout, rounded to bf16 and packed in pairs, is the
+//     register A-fragment layout, so O += P·V is 8 wgmma with A = P from
+//     registers and B = V from shared memory, MN-major (the descriptor's
+//     transpose bit).  Each consumer thread then arrives on the stage's
+//     empty barrier.  One warpgroup's softmax runs beside the other's
+//     products; issuing tile j+1's QKᵀ before tile j's softmax within a
+//     warpgroup (with a 3-stage ring) measured slower on the H100 without a
+//     ping-pong order between the two warpgroups, so it is not done here.
+// Shared memory: 32 KB of Q + kStages x 64 KB of K/V + barriers, so one
+// block an SM; registers 168 a thread as compiled, then 40 for the
+// producer and 232 for the consumers.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBQ = 64;          // q rows per block, 16 a warp
-constexpr int kBK = 64;          // keys per staged tile
-constexpr int kThreads = 128;    // 4 warps
+constexpr int kHD = 128;         // head width (the wrapper checks)
+constexpr int kBQ = 128;         // q rows a block, 64 a consumer warpgroup
+constexpr int kBK = 128;         // keys a ring stage
+constexpr int kStages = 2;
+constexpr int kThreads = 384;    // producer + 2 consumer warpgroups
+constexpr int kBox = 64;         // bf16 columns a TMA box: one 128-B row
+constexpr int kTileBytes = kBQ * kHD * 2;      // 32 KB, a 128 x 128 tile
+constexpr int kBoxBytes = kTileBytes / 2;      // one 64-column box
+constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
+constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 4-D box (hd, head, row, batch) into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.  K-major: sbo is
+// the 8-row group stride (1024 B), lbo unused.  MN-major: lbo is the
+// stride between 64-element MN blocks, sbo between 8-row K groups.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+#define D8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D64 D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+#define R64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128 f32) = [d +] A (64 x 16, shared) · B (16 x 128, shared),
+// both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128 f32) += A (64 x 16, registers) · B (16 x 128, shared,
+// MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef D8
+#undef D64
+#undef R64
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of wgmma results above the wait.
+__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the special-function unit (what __expf runs after scaling x by
+// log2 e; here the scores already carry that factor).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -53,243 +192,268 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i.  Without .trans lane l receives row l/4, columns
-// 2(l%4), 2(l%4)+1 of each matrix; with .trans, column l/4 of rows 2(l%4),
-// 2(l%4)+1.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
+// Accumulator layout of m64nNk16 (warp w of the warpgroup, g = lane / 4,
+// t = lane % 4): d[4j], d[4j+1] are row 16w + g, columns 8j + 2t, 8j + 2t + 1;
+// d[4j+2], d[4j+3] the same columns of row 16w + g + 8.  The A register
+// fragment of one k16 step is {row g cols 2t.., row g+8 cols 2t.., row g
+// cols 2t+8.., row g+8 cols 2t+8..}: for keys 16kk.. that is d[8kk..8kk+7]
+// packed in pairs.
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int KV,
+    int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 B: tiles start on that grain.
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t q_full = base + kBarOffset;
+  auto stage_k = [&](int s) { return base + kTileBytes * (1 + 2 * s); };
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + kStages + s); };
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a (16 x 16, row) · b (16 x 8, col), bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16 x 16): reg 0 row g, columns 2t, 2t+1; reg 1 row g+8; regs 2, 3
-//                the same rows at columns + 8;
-//   B (16 x 8):  reg 0 rows 2t, 2t+1 of column g; reg 1 rows + 8;
-//   C (16 x 8):  c0, c1 row g, columns 2t, 2t+1; c2, c3 row g+8.
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int Sq, int Skv, int H, int KV, int causal, float scale) {
-  constexpr int kStride = HD + 8;          // shared row, in bf16 elements
-  static_assert(HD % 16 == 0, "head width: whole 16-wide mma steps");
-  constexpr int kChunks = HD / 8;          // 16-byte chunks a row
-  __shared__ __align__(16) __nv_bfloat16 sk[kBK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sv[kBK * kStride];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest sweep first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;   // longest sweep first
   const int kvh = h / (H / KV);
-  const int r0 = q0 + warp * 16 + g;       // this thread's rows: r0, r0 + 8
-  const int r1 = r0 + 8;
-
-  const long long q_step = (long long)H * HD;   // between sequence positions
-  const long long kv_step = (long long)KV * HD;
-  const __nv_bfloat16* qb = q + ((long long)b * Sq * H + h) * HD;
-  const __nv_bfloat16* kb = k + ((long long)b * Skv * KV + kvh) * HD;
-  const __nv_bfloat16* vb = v + ((long long)b * Skv * KV + kvh) * HD;
-
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < Sq ? ldg32(qb + r0 * q_step + c) : 0u;
-    qf[kk][1] = r1 < Sq ? ldg32(qb + r1 * q_step + c) : 0u;
-    qf[kk][2] = r0 < Sq ? ldg32(qb + r0 * q_step + c + 8) : 0u;
-    qf[kk][3] = r1 < Sq ? ldg32(qb + r1 * q_step + c + 8) : 0u;
-  }
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};       // this thread's share of each row's sum
-
   int n_kt = (Skv + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ + kBK - 1) / kBK);
-  const int mi = lane >> 3;      // the ldmatrix matrix this lane addresses
-  const int mr = lane & 7;       // and its row in it
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();             // the previous tile's readers are done
-    for (int idx = tid; idx < kBK * kChunks; idx += kThreads) {
-      const int row = idx / kChunks;
-      const int ch = idx - row * kChunks;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (k0 + row < Skv) {      // rows past Skv stay 0: 0 · p adds nothing
-        kx = *reinterpret_cast<const uint4*>(kb + (k0 + row) * kv_step +
-                                             ch * 8);
-        vx = *reinterpret_cast<const uint4*>(vb + (k0 + row) * kv_step +
-                                             ch * 8);
-      }
-      *reinterpret_cast<uint4*>(sk + row * kStride + ch * 8) = kx;
-      *reinterpret_cast<uint4*>(sv + row * kStride + ch * 8) = vx;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);     // every consumer thread arrives
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = q · kᵀ over 16-dim steps; one ldmatrix gives the B fragments of
-    // two 8-key column tiles.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < kBK / 16; ++jp) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, sk + (jp * 16 + (mi >> 1) * 8 + mr) * kStride +
-                            kk * 16 + (mi & 1) * 8);
-        mma_bf16(s[2 * jp], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer.  Round r of stage s waits for the consumers' release of
+    // round r - 1 (parity (r & 1) ^ 1: round 0 passes at once).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kTileBytes);
+      tma_load(sq, &qmap, q_full, 0, h, q0, b);
+      tma_load(sq + kBoxBytes, &qmap, q_full, kBox, h, q0, b);
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % kStages;
+        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        const uint32_t sk = stage_k(s), sv = sk + kTileBytes;
+        const int k0 = i * kBK;
+        mbar_expect_tx(full(s), 2 * kTileBytes);
+        tma_load(sk, &kmap, full(s), 0, kvh, k0, b);
+        tma_load(sk + kBoxBytes, &kmap, full(s), kBox, kvh, k0, b);
+        tma_load(sv, &vmap, full(s), 0, kvh, k0, b);
+        tma_load(sv + kBoxBytes, &vmap, full(s), kBox, kvh, k0, b);
       }
     }
+    return;
+  }
+
+  // Consumer warpgroup c: q rows q0 + 64c .. q0 + 64c + 63.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = q0 + 64 * c + 16 * (tid >> 5) + (lane >> 2);
+  const int r1 = r0 + 8;          // this thread's rows: r0, r1
+  const uint32_t sq_c = sq + c * (kBoxBytes / 2);   // 64 rows of 128 B
+
+  float o[64], s[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) o[e] = s[e] = 0.f;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};        // this thread's share of each row's sum
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_kt; ++i) {
+    const int st = i % kStages;
+    mbar_wait(full(st), (i / kStages) & 1);
+    const uint32_t sk = stage_k(st), sv = sk + kTileBytes;
+
+    // S = Q · Kᵀ: 8 k16 steps over hd; the first four in the first box,
+    // 32 B apart inside the swizzled 128-B rows.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+      wgmma_ss(s, desc_sw128(sq_c + off, 16, 1024),
+               desc_sw128(sk + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit_and_wait();
+    fence_regs(s);
 
     // Online softmax on the float32 scores (scale applied here, as the
-    // reference's chunked attention does).
-    const bool masked = (causal && k0 + kBK - 1 > q0) || k0 + kBK > Skv;
+    // reference's chunked attention does, times log2 e so that one FADD
+    // and one ex2 give each p).
+    const int k0 = i * kBK;
+    const bool masked =
+        (causal && k0 + kBK - 1 > q0 + 64 * c) || k0 + kBK > Skv;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (masked) {
-          const int col = k0 + 8 * j + 2 * t + (e & 1);
-          const int row = e < 2 ? r0 : r1;
-          if (col >= Skv || (causal && col > row)) x = kNegInf;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    for (int e = 0; e < 64; ++e) {
+      float x = s[e] * scale_log2;
+      if (masked) {
+        const int col = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        const int row = (e & 2) ? r1 : r0;
+        if (col >= Skv || (causal && col > row)) x = kNegInf;
       }
+      s[e] = x;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+    }
     float corr[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = __expf(m[i] - mx[i]);
-      m[i] = mx[i];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
     }
     float ls[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        ls[e >> 1] += p;
-      }
+    for (int e = 0; e < 64; ++e) {
+      const float p = ex2(s[e] - m[(e >> 1) & 1]);
+      s[e] = p;
+      ls[(e >> 1) & 1] += p;
+    }
     l[0] = l[0] * corr[0] + ls[0];
     l[1] = l[1] * corr[1] + ls[1];
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
+    for (int e = 0; e < 64; ++e) o[e] *= corr[(e >> 1) & 1];
 
-    // o += p · v over 16-key steps: p, rounded to bf16, is already in the
-    // A layout; one transposing ldmatrix gives the B fragments of two
-    // 8-dim column tiles.
+    // O += P · V over 16-key steps: p rounded to bf16 in the A layout;
+    // V's 16 rows of a step lie 2048 B apart, its two 64-wide boxes
+    // 16 KB apart (the leading byte offset).
+    uint32_t pa[kBK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sv + (kk * 16 + (mi & 1) * 8 + mr) * kStride +
-                                  np * 16 + (mi >> 1) * 8);
-        mma_bf16(o[2 * np], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
-      }
-    }
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs(o, pa[kk], desc_sw128(sv + kk * 16 * 128, kBoxBytes, 1024));
+    wgmma_commit_and_wait();
+    fence_regs(o);
+    mbar_arrive(empty(st));
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
   }
-  __nv_bfloat16* ob = out + ((long long)b * Sq * H + h) * HD;
+  const long long q_step = (long long)H * kHD;   // between positions
+  __nv_bfloat16* ob = out + ((long long)b * Sq * H + h) * kHD;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int j = 0; j < kHD / 8; ++j) {
+    const int col = 8 * j + 2 * t;
     if (r0 < Sq) {
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_step + c) =
-          pack_bf16(o[n][0] / l[0], o[n][1] / l[0]);
+      *reinterpret_cast<uint32_t*>(ob + r0 * q_step + col) =
+          pack_bf16(o[4 * j] / l[0], o[4 * j + 1] / l[0]);
     }
     if (r1 < Sq) {
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_step + c) =
-          pack_bf16(o[n][2] / l[1], o[n][3] / l[1]);
+      *reinterpret_cast<uint32_t*>(ob + r1 * q_step + col) =
+          pack_bf16(o[4 * j + 2] / l[1], o[4 * j + 3] / l[1]);
     }
   }
 }
 
-template <int HD>
-void launch_bf16(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Skv, int H, int KV, int causal,
-                 float scale, cudaStream_t st) {
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_bf16_kernel<HD><<<grid, kThreads, 0, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Sq, Skv, H, KV, causal,
-      scale);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda at link time.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map (hd, heads, S, B) over a (B, S, heads, hd) bf16 tensor, boxes
+// of 64 x 1 x 128 x 1 with the 128-byte swizzle; out-of-range rows read 0.
+bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads,
+              int S, int B) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kHD, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)kHD * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {kBox, 1, kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 // bf16 only (the LM path's dtype); hd must be 128 (minitron's and
-// command-r's head width).
+// command-r's head width); q, k, v contiguous and 16-byte aligned.
 extern "C" int launch_flash_attention(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Skv, int H, int KV, int hd,
                                       int causal, float scale, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || Skv <= 0 || hd != 128) {
+  if (KV <= 0 || H % KV != 0 || Skv <= 0 || hd != kHD) {
     return (int)cudaErrorInvalidValue;
   }
-  launch_bf16<128>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale,
-                   (cudaStream_t)stream);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(fn, &qmap, q, H, Sq, B) || !make_map(fn, &kmap, k, KV, Skv, B)
+      || !make_map(fn, &vmap, v, KV, Skv, B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + kBQ - 1) / kBQ));
+  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      qmap, kmap, vmap, (__nv_bfloat16*)out, Sq, Skv, H, KV, causal, scale);
   return (int)cudaGetLastError();
+}
+
+// The kernel's registers a thread as compiled (before setmaxnreg moves
+// them between warpgroups), its dynamic shared memory a block, and its
+// threads a block.
+extern "C" int flash_attention_info(int* regs, int* smem_bytes,
+                                    int* threads) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *smem_bytes = kSmemBytes;
+  *threads = kThreads;
+  return (int)cudaSuccess;
 }

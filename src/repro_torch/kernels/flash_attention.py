@@ -1,8 +1,10 @@
 """K7: GQA attention forward with an online softmax (flash attention).
 
 Port of ``repro.kernels.flash_attention.flash_attention`` (``_flash_fwd``,
-``_kernel``); the CUDA kernel is ``csrc/flash_attention.cu`` (bf16
-``mma.sync`` with float32 accumulation; bf16 inputs, head width 128).
+``_kernel``); the CUDA kernel is ``csrc/flash_attention.cu``: a
+warp-specialised Hopper kernel in which a producer warpgroup feeds a ring
+of K/V tiles through TMA and two consumer warpgroups run both products on
+``wgmma`` (bf16 in, float32 accumulation; bf16 inputs, head width 128).
 For q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) with H = KV·G:
 
     out = softmax(q·kᵀ / sqrt(hd) [causal mask]) · v     in q's dtype
@@ -12,13 +14,14 @@ rounded to v's dtype for the PV product, which accumulates in float32; the
 output is divided by ``max(l, 1e-30)``.  Causal assumes Sq == Skv.  The
 plain version keeps the reference's block contract: ``block_q``
 (``block_k``), cut to Sq (Skv), must divide it.  The CUDA kernel tiles by
-64 rows and keys and masks ragged tiles, so it ignores the blocks.  The
+128 rows and keys and masks ragged tiles, so it ignores the blocks.  The
 plain version also takes float32 (the CPU tests); on the card the kernel
 takes bf16 only, the LM path's dtype.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -139,3 +142,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def kernel_info() -> dict[str, int]:
+    """The CUDA kernel's registers a thread as compiled, dynamic shared
+    memory a block and threads a block (``cudaFuncGetAttributes``)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    build.check(build.library().flash_attention_info(
+        *(ctypes.addressof(v) for v in vals)), "flash_attention_info")
+    return dict(zip(("registers", "smem_bytes", "threads"),
+                    (v.value for v in vals)))

@@ -22,6 +22,7 @@ Tolerance: packed words exact.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -470,3 +471,113 @@ def test_executor_rejects_overlapping_regions():
     sub = t_regions.build_chain(tg, chain.node_ids[1:3], (1,) + hwc)
     with pytest.raises(ValueError, match="overlap"):
         GraphExecutor(tg, CHAIN_BACKEND, regions=[chain, sub])
+
+
+# --------------------------------------------------------------------------
+# K5's cluster shares: how the C blocks of a cluster split each stage
+# --------------------------------------------------------------------------
+
+SHARE_NETS = ("alexnet", "yolov2-tiny") + harness.CONFORMANCE_NAMES
+SHARE_TILES = [{}, dict(block_h=2, block_w=3)]
+
+
+@functools.lru_cache(maxsize=None)
+def share_regions(net: str):
+    """(stages, entry shape) of every region the port forms: the paper
+    nets at batch 8 under the default budget, the tiny nets at batch 2."""
+    if net in ("alexnet", "yolov2-tiny"):
+        _, tg, hwc = paper_graphs(net)
+        chains = t_regions.partition_chains(tg, (8,) + hwc)
+    else:
+        _, tg, hwc = tiny_graphs(net)
+        chains = t_regions.partition_chains(tg, (2,) + hwc,
+                                            vmem_budget=None)
+    assert chains
+    return [(c.stages, tuple(c.in_shape)) for c in chains]
+
+
+def region_shares(net, tile, cluster):
+    """Per region: stages, geometry, word counts and shares."""
+    for stages, (_, h, w, cw) in share_regions(net):
+        geo = t_chain.chain_geometry(stages, h, w, tile.get("block_h"),
+                                     tile.get("block_w"))
+        cws = t_chain.chain_word_counts(stages, cw)
+        yield stages, geo, cws, t_chain.chain_shares(geo, cws, cluster)
+
+
+@pytest.mark.parametrize("tile", SHARE_TILES)
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("net", SHARE_NETS)
+def test_chain_shares_cover_each_valid_position_once(net, cluster, tile):
+    """The ranks' rows (or words) partition the stage's computed rows (or
+    output words), and those rows hold every row any tile of the grid
+    computes; rows are shared when there are at least as many as ranks."""
+    for _, geo, cws, shares in region_shares(net, tile, cluster):
+        gh = -(-geo.final_hw[0] // geo.out_tile[-1][0])
+        for k, sh in enumerate(shares):
+            assert len(sh.bounds) == cluster
+            lo, hi = sh.rows if sh.by_rows else (0, cws[k + 1])
+            assert [b[0] for b in sh.bounds] == [lo] + [
+                b[1] for b in sh.bounds[:-1]]
+            assert sh.bounds[-1][1] == hi
+            assert sh.by_rows == (sh.rows[1] - sh.rows[0] >= cluster)
+            th = geo.out_tile[k][0]
+            assert 0 <= sh.rows[0] < sh.rows[1] <= th
+            for gi in range(gh):
+                origin = gi * geo.out_step[k][0] - geo.out_off[k][0]
+                rows = [r for r in range(th)
+                        if 0 <= origin + r < geo.valid_hw[k][0]]
+                assert rows and sh.rows[0] <= rows[0] and \
+                    rows[-1] < sh.rows[1]
+
+
+@pytest.mark.parametrize("tile", SHARE_TILES)
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("net", SHARE_NETS)
+def test_chain_shares_are_even(net, cluster, tile):
+    for _, _, cws, shares in region_shares(net, tile, cluster):
+        for sh in shares:
+            sizes = [b - a for a, b in sh.bounds]
+            assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("tile", SHARE_TILES)
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("net", SHARE_NETS)
+def test_chain_gather_stays_in_the_previous_tile(net, cluster, tile):
+    """Every block a rank gathers lies in the previous stage's output tile
+    and in its owner's share; and every computed word a rank's share reads
+    is its own or gathered (the rest of its window is masked, held as
+    0-words)."""
+    for stages, geo, cws, shares in region_shares(net, tile, cluster):
+        for k in range(1, len(stages)):
+            st, sh, prev = stages[k], shares[k], shares[k - 1]
+            th_prev = geo.out_tile[k - 1][0]
+            owner = {}
+            for o, (a, b) in enumerate(prev.bounds):
+                rows = range(a, b) if prev.by_rows else range(*prev.rows)
+                words = range(cws[k]) if prev.by_rows else range(a, b)
+                owner.update({(r, g): o for r in rows for g in words})
+            for rank in range(cluster):
+                got = set()
+                for o, (r0, r1), (g0, g1) in t_chain.chain_gather(
+                        stages, geo, cws, shares, k, rank):
+                    assert o != rank
+                    assert 0 <= r0 < r1 <= th_prev
+                    assert 0 <= g0 < g1 <= cws[k]
+                    cells = {(r, g) for r in range(r0, r1)
+                             for g in range(g0, g1)}
+                    assert all(owner[c] == o for c in cells)
+                    got |= cells
+                lo, hi = sh.bounds[rank] if sh.by_rows else sh.rows
+                w0, w1 = (0, cws[k + 1]) if sh.by_rows else sh.bounds[rank]
+                if lo >= hi or w0 >= w1:
+                    assert not got
+                    continue
+                words = (range(cws[k]) if st.kind == "conv" or sh.by_rows
+                         else range(w0, w1))
+                reads = {(r, g)
+                         for r in range(lo * st.stride,
+                                        (hi - 1) * st.stride + st.kernel)
+                         for g in words if (r, g) in owner}
+                assert {c for c in reads if owner[c] != rank} == got

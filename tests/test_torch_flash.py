@@ -52,6 +52,20 @@ def test_plain_vs_pallas_and_chunked(causal, h, kvh, block_q, block_k):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [256, 384])
+def test_plain_at_the_kernel_tiling_vs_pallas(causal, s):
+    """The CUDA kernel's tiling, 128 q rows by 128 keys: several tiles a
+    sweep, so the running max and sum carry across tiles."""
+    q, k, v = qkv(1, s, 4, 2, 16)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal, 128, 128).numpy()
+    pallas = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+                     128, 128, True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_bf16_vs_pallas(causal):
     q, k, v = qkv(2, 64, 8, 2, 16)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))

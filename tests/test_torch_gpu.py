@@ -125,14 +125,28 @@ CHAIN_CASES = [  # (entry (N, H, W, C), first layer, stages, tile)
       k5.StageSpec("pool", 2, 1, 0, 1, 64),
       k5.StageSpec("conv", 3, 1, 1, 1, 40)),
      dict(block_h=5, block_w=4, block_n=2)),
+    # Fewer rows than a cluster has ranks from stage 1 on: shared out by
+    # output words, most ranks get none.
+    ((2, 16, 16, 64), False,
+     (k5.StageSpec("conv", 3, 1, 1, 1, 64),
+      k5.StageSpec("pool", 2, 2, 0, 0, 64),
+      k5.StageSpec("conv", 3, 1, 1, 1, 128),
+      k5.StageSpec("pool", 2, 2, 0, 0, 128)), {}),
+    # Batch 1, and 3 images a cluster with a last block of 1.
+    ((1, 51, 51, 3), True,
+     (k5.StageSpec("conv", 11, 4, 0, 0, 96, True),
+      k5.StageSpec("pool", 3, 2, 0, 0, 96),
+      k5.StageSpec("conv", 5, 1, 2, 2, 64)), {}),
+    ((7, 19, 19, 64), False,
+     (k5.StageSpec("conv", 3, 1, 1, 1, 64),
+      k5.StageSpec("pool", 2, 2, 0, 0, 64),
+      k5.StageSpec("conv", 3, 1, 1, 1, 40)), dict(block_n=3)),
 ]
 
 
-@pytest.mark.parametrize("entry,first,stages,tile", CHAIN_CASES)
-def test_chain_conv_on_card(cuda, entry, first, stages, tile):
-    """K5 against its plain version, at the planner's arena offsets: the
-    whole-map tile, and tiles smaller than the map (halo recompute, border
-    masking, a padded stride-1 pool, a ragged image block)."""
+def chain_inputs(cuda, entry, first, stages, tile):
+    """A seeded K5 call: the entry, kernel-layout operands, and the
+    planner's arena keywords."""
     n, h, w, c = entry
     planes = 8 if first else 1
     cw = planes * packing.num_words(c)
@@ -154,10 +168,38 @@ def test_chain_conv_on_card(cuda, entry, first, stages, tile):
     plan = regions.plan_chain_vmem(stages, x.shape, tile=tile)
     kw = dict(tile, arena_offsets=tuple(o // 4 for o in plan.offsets),
               arena_words=plan.arena_bytes // 4)
+    return x, ops, kw
+
+
+@pytest.mark.parametrize("entry,first,stages,tile", CHAIN_CASES)
+def test_chain_conv_on_card(cuda, entry, first, stages, tile):
+    """K5 against its plain version, at the planner's arena offsets: the
+    whole-map tile, and tiles smaller than the map (halo recompute, border
+    masking, a padded stride-1 pool, a ragged image block)."""
+    x, ops, kw = chain_inputs(cuda, entry, first, stages, tile)
     got = k5.chain_conv(x, stages, ops, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, k5.chain_conv_plain(x, stages, ops, **kw))
     assert_mixed(got, stages[-1].channels)
+
+
+@pytest.mark.parametrize("case", [0, 2, 3])
+def test_chain_conv_every_cluster_size(cuda, case):
+    """The same call at each cluster size the card can schedule gives the
+    plain version's words: the output does not depend on the shares."""
+    entry, first, stages, tile = CHAIN_CASES[case]
+    x, ops, kw = chain_inputs(cuda, entry, first, stages, tile)
+    want = k5.chain_conv_plain(x, stages, ops, **kw)
+    arena_words = kw["arena_words"]
+    assert k5.cluster_size(arena_words) in k5.CLUSTER_SIZES
+    sizes = [c for c in k5.CLUSTER_SIZES
+             if k5.max_clusters(arena_words, c) >= 1]
+    assert k5.cluster_size(arena_words) == sizes[0]
+    for c in sizes:
+        assert torch.equal(k5.chain_conv(x, stages, ops, cluster=c, **kw),
+                           want), c
+    with pytest.raises(ValueError, match="cluster of 3"):
+        k5.chain_conv(x, stages, ops, cluster=3, **kw)
 
 
 def test_chain_conv_raises_past_shared_memory(cuda):
@@ -309,7 +351,7 @@ def test_trained_graph_on_card_matches_cpu(cuda, name):
 
 
 # K7 against its plain version: the two round p to bf16 under different
-# running maxima (64-key tiles against the plain version's blocks) and
+# running maxima (128-key tiles against the plain version's blocks) and
 # round the output once each, so they agree to a few bf16 steps (2^-8
 # relative): 1e-2 absolute + 1e-2 relative.
 K7_TOL = 1e-2
@@ -321,6 +363,8 @@ K7_TOL = 1e-2
     (2, 64, 8, 2, 128, True),       # one tile
     (1, 100, 4, 1, 128, True),      # ragged last tile
     (1, 192, 4, 2, 128, True),
+    (1, 129, 4, 2, 128, True),      # one full 128-row tile and one row
+    (1, 256, 4, 4, 128, True),      # G = 1, two full tiles
 ])
 def test_flash_attention_on_card(cuda, b, s, h, kvh, hd, causal):
     q, k, v = (torch.from_numpy(RNG.standard_normal(shape)
@@ -328,12 +372,26 @@ def test_flash_attention_on_card(cuda, b, s, h, kvh, hd, causal):
                for shape in ((b, s, h, hd), (b, s, kvh, hd),
                              (b, s, kvh, hd)))
     k7.flash_attention.launches = 0
-    # the kernel tiles by 64 whatever the blocks: 48 divides no S but 192
+    # the kernel tiles by 128 whatever the blocks: 48 divides no S but 192
     got = k7.flash_attention(q, k, v, causal, block_q=48, block_k=48)
     torch.cuda.synchronize()
     assert k7.flash_attention.launches == 1
     assert got.dtype == torch.bfloat16
     want = k7.flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=K7_TOL,
+                               atol=K7_TOL)
+
+
+@pytest.mark.parametrize("sq,skv", [(100, 300), (300, 100), (128, 129)])
+def test_flash_attention_on_card_sq_ne_skv(cuda, sq, skv):
+    """Non-causal with Sq != Skv: the q and key tiles are ragged apart."""
+    q = torch.from_numpy(RNG.standard_normal((1, sq, 4, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    k, v = (torch.from_numpy(RNG.standard_normal((1, skv, 2, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(2))
+    got = k7.flash_attention(q, k, v, False)
+    torch.cuda.synchronize()
+    want = k7.flash_attention_plain(q, k, v, False)
     torch.testing.assert_close(got.float(), want.float(), rtol=K7_TOL,
                                atol=K7_TOL)
 
