@@ -14,8 +14,10 @@ Phases, each fatal on failure:
               memory a block and K5's cluster size C (with how many
               clusters of 16, 8 and 4 the card holds at once);
 2. kernels  — every kernel of the serving paths (K4 bitplane_pack, K3
-              direct_conv_bn_binarize, K2 fused_matmul_bn_binarize, K5
-              chain_conv, K1 xnor_popcount_matmul, K6 mxu_pm1_matmul)
+              direct_conv_bn_binarize and its bit-plane variant
+              direct_conv_bn_binarize_planes, K2 fused_matmul_bn_binarize,
+              K5 chain_conv, K1 xnor_popcount_matmul and its bit-plane
+              variant xnor_popcount_matmul_planes, K6 mxu_pm1_matmul)
               against its plain PyTorch version on the card, bit-exact, at
               AlexNet's batch-8 shapes and at edge cases, with thresholds
               that give a mix of output bits (a share of 0.2 to 0.8 set; for
@@ -24,13 +26,20 @@ Phases, each fatal on failure:
               cases (one with 3 images a cluster and a last block of 1),
               YOLOv2-Tiny's conv4-conv8 region and a region whose later
               stages have fewer rows than C (shared out by words); K1 at
-              conv1 with its plane weights; K6 at conv2 and fc6, at words
-              with pad bits, ragged tiles, and k_valid past 2^24;
+              conv1 with random plane weights (the generic weighted
+              kernel); the bit-plane variants of K3 and K1 on
+              converter-structured filters (each tap's sign words in all 8
+              planes) at AlexNet conv1 (pool and no pool), YOLOv2-Tiny conv1
+              (416², 3x3, pad 1, 16 filters), input pad bits set and a
+              ragged first-layer K1 case, each also against the generic
+              plain version on the weighted words; K6 at conv2 and fc6, at
+              words with pad bits, ragged tiles, and k_valid past 2^24;
 3. serve    — paper AlexNet (227x227x3, 1000 classes, numpy-seeded random
               weights) behind ``InferenceServer``, once per serving path:
-              ``cuda_direct_pool`` (launches per forward K4 1, K3 5, K2 2),
-              ``cuda_chain`` (K4 1, K5 1, K2 2, no K3) and ``cuda_pm1`` (K4
-              1, K1 1 for conv1, K6 6, no K2, K3 or K5).  Each: mixed-size
+              ``cuda_direct_pool`` (launches per forward K4 1, K3's
+              bit-plane variant 1 for conv1, K3 4, K2 2), ``cuda_chain`` (K4
+              1, K5 1, K2 2, no K3) and ``cuda_pm1`` (K4 1, K1's bit-plane
+              variant 1 for conv1, K6 6, no K2, K3 or K5).  Each: mixed-size
               raw images in mixed group sizes through buckets (1, 2, 4, 8),
               every row equal to ``cross_check`` on the same padded batch,
               ``build_count`` flat, the launch counts read around that run
@@ -39,13 +48,15 @@ Phases, each fatal on failure:
    profile  — one AlexNet forward at bucket 8 per path: host wall time,
               device time per kernel (torch.profiler), the busy share;
 4. detect   — paper YOLOv2-Tiny at 416² for one batch of 2 through the
-              engine and ``detect_head`` on each path, cross-checked
-              (``cuda_chain``: K4 1, K3 1 for conv1, K5 2; ``cuda_pm1``: K4
-              1, K1 1, K6 7);
+              engine and ``detect_head`` on each path, the same images on
+              every path, cross-checked and the three paths' rows equal
+              (conv1 through a bit-plane variant on each: ``cuda_chain``:
+              K4 1, K3's 1, K5 2; ``cuda_pm1``: K4 1, K1's 1, K6 7);
 5. trained  — paper AlexNet built from seeded float params
               (``bnn_model.to_graph``): the unfused graph (``assign_layouts``)
-              on the card, K4 1 and K1 7, against ``default_pipeline`` of the
-              same graph under ``cuda_direct_pool``: packed tails equal bit
+              on the card, K4 1, K1's bit-plane variant 1 and K1 6, against
+              ``default_pipeline`` of the same graph under
+              ``cuda_direct_pool`` (K3's variant 1): packed tails equal bit
               for bit, float heads within 1e-3 and the same top-5, both
               within 1e-3 of ``float_forward``;
 6. lm       — K7 flash_attention against its plain version on the card
@@ -69,7 +80,9 @@ Phases, each fatal on failure:
               ``LMServer`` answering 8 requests (4 slots, max_seq 256; one
               over-long prompt rejected; no K7 launch);
 7. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
-              warmed up, median) beside its plain version and its bound; K5
+              warmed up, median) beside its plain version and its bound —
+              K3 and K1 at conv1 in both variants (the bit-plane variant on
+              the main path, the generic weighted kernel off it); K5
               also at every cluster size the card can schedule; K1 and K6
               also beside one library call on the unpacked +-1 operands; K7
               at the prefill layer's shapes beside
@@ -146,6 +159,17 @@ CONV_EDGES = [
 # (9216 and 4096 channels) fill every word, so K = 32·W bits.
 ALEXNET_DENSE = [("fc6", BATCH, 4096, 288), ("fc7", BATCH, 4096, 128)]
 DENSE_EDGES = [("N=48 weighted", 37, 48, 70), ("batch 1", 1, 4096, 288)]
+# K3's bit-plane variant, on converter-structured filters: (name, (N, H, W,
+# C), kernel, stride, pad, O, pool, input pad bits set).
+PLANE_CONVS = [
+    ("conv1", (BATCH, 227, 227, 3), 11, 4, 0, 96, (3, 2, (0, 0)), False),
+    ("conv1 no pool", (BATCH, 227, 227, 3), 11, 4, 0, 96, None, False),
+    ("yolo conv1", (2, 416, 416, 3), 3, 1, 1, 16, (2, 2, (0, 0)), False),
+    ("conv1 batch 1, input pad bits set", (1, 227, 227, 3), 11, 4, 0, 96,
+     (3, 2, (0, 0)), True),
+    ("ragged O=40, pool pad (0,1)", (2, 29, 31, 3), 3, 1, 1, 40,
+     (2, 1, (0, 1)), False),
+]
 # K5 regions: the stages the planner forms at the default budget.
 # AlexNet's is conv1-conv5 with their pools, on the bit-plane entry;
 # YOLOv2-Tiny's second is conv4-conv8 on conv3's pooled 52x52x64 map.
@@ -194,7 +218,14 @@ ALEXNET_MATMULS = [c[:6] + c[7:] for c in ALEXNET_CONVS] + ALEXNET_FC
 K1_CASES = [
     ALEXNET_MATMULS[0],                                  # conv1, plane weights
     ("first layer, ragged 84x33", (2, 13, 11, 5), 3, 2, 1, 33, True),
+    ALEXNET_MATMULS[1],                                  # conv2
+    ALEXNET_FC[0],                                       # fc6, split
     ("ragged 37x50, 13 words", (37, 1, 1, 416), 1, 1, 0, 50, False),
+]
+# K1's bit-plane variant: (name, (N, H, W, C), kernel, stride, pad, O).
+PLANE_MATMULS = [
+    ("conv1", (BATCH, 227, 227, 3), 11, 4, 0, 96),
+    ("first layer, ragged 84x33", (2, 13, 11, 5), 3, 2, 1, 33),
 ]
 K6_CASES = [
     ALEXNET_MATMULS[1],                                  # conv2
@@ -239,43 +270,52 @@ LM_LOGIT_BOUND = 0.04
 LM_CACHE_BOUND = 0.04
 # LMServer: (prompt length, max_new) of 8 requests.  The server keeps one
 # global position for all slots (the reference's simplification), which
-# every prompt token and every tick advance, so the whole run must fit in
-# max_seq: 176 prompt tokens + 46 ticks < 256.
+# every prompt token and every tick advance; these fit in max_seq (176
+# prompt tokens + 46 ticks < 256), so no request waits for the position to
+# return to 0 and ``server.pos`` counts the run's decode steps.
 LM_SERVER_SLOTS, LM_SERVER_MAX_SEQ = 4, 256
 LM_REQUESTS = [(16, 16), (16, 16), (16, 16), (16, 16), (16, 20), (16, 24),
                (16, 32), (64, 32)]
 # Launches per forward on each serving path.
 KERNEL_NAMES = ("bitplane_pack", "direct_conv_bn_binarize",
+                "direct_conv_bn_binarize_planes",
                 "fused_matmul_bn_binarize", "chain_conv",
-                "xnor_popcount_matmul", "mxu_pm1_matmul", "flash_attention")
+                "xnor_popcount_matmul", "xnor_popcount_matmul_planes",
+                "mxu_pm1_matmul", "flash_attention")
 
 
 def launch_counts(**kw) -> dict[str, int]:
     return {name: kw.get(name, 0) for name in KERNEL_NAMES}
 
 
+# conv1 goes through a bit-plane variant on every path that has one.
 WANT_LAUNCHES = {
     "cuda_direct_pool": launch_counts(bitplane_pack=1,
-                                      direct_conv_bn_binarize=5,
+                                      direct_conv_bn_binarize_planes=1,
+                                      direct_conv_bn_binarize=4,
                                       fused_matmul_bn_binarize=2),
     "cuda_chain": launch_counts(bitplane_pack=1, fused_matmul_bn_binarize=2,
                                 chain_conv=1),
-    "cuda_pm1": launch_counts(bitplane_pack=1, xnor_popcount_matmul=1,
+    "cuda_pm1": launch_counts(bitplane_pack=1, xnor_popcount_matmul_planes=1,
                               mxu_pm1_matmul=6),
 }
 WANT_DETECT = {
     "cuda_direct_pool": launch_counts(bitplane_pack=1,
-                                      direct_conv_bn_binarize=8),
-    "cuda_chain": launch_counts(bitplane_pack=1, direct_conv_bn_binarize=1,
+                                      direct_conv_bn_binarize_planes=1,
+                                      direct_conv_bn_binarize=7),
+    "cuda_chain": launch_counts(bitplane_pack=1,
+                                direct_conv_bn_binarize_planes=1,
                                 chain_conv=2),
-    "cuda_pm1": launch_counts(bitplane_pack=1, xnor_popcount_matmul=1,
+    "cuda_pm1": launch_counts(bitplane_pack=1, xnor_popcount_matmul_planes=1,
                               mxu_pm1_matmul=7),
 }
 # The trained path: the unfused graph, and its default pipeline under
 # cuda_direct_pool (the pools stay separate OR-pools there).
 WANT_TRAINED = {
-    "unfused": launch_counts(bitplane_pack=1, xnor_popcount_matmul=7),
-    "fused": launch_counts(bitplane_pack=1, direct_conv_bn_binarize=5,
+    "unfused": launch_counts(bitplane_pack=1, xnor_popcount_matmul_planes=1,
+                             xnor_popcount_matmul=6),
+    "fused": launch_counts(bitplane_pack=1, direct_conv_bn_binarize_planes=1,
+                           direct_conv_bn_binarize=4,
                            fused_matmul_bn_binarize=2),
 }
 # Every threshold-and-pack case must give a mix of output bits: a kernel
@@ -289,12 +329,18 @@ SOURCES = {
     "direct_conv_bn_binarize": (
         "src/repro_torch/kernels/csrc/direct_conv_bn_binarize.cu",
         "src/repro/kernels/direct_conv_bn_binarize.py:101"),
+    "direct_conv_bn_binarize_planes": (
+        "src/repro_torch/kernels/csrc/direct_conv_bn_binarize.cu",
+        "src/repro/kernels/direct_conv_bn_binarize.py:101"),
     "fused_matmul_bn_binarize": (
         "src/repro_torch/kernels/csrc/fused_conv_bn_binarize.cu",
         "src/repro/kernels/fused_conv_bn_binarize.py:85"),
     "chain_conv": ("src/repro_torch/kernels/csrc/chain_conv.cu",
                    "src/repro/kernels/chain_conv.py:233"),
     "xnor_popcount_matmul": (
+        "src/repro_torch/kernels/csrc/xnor_popcount_matmul.cu",
+        "src/repro/kernels/xnor_popcount_matmul.py:134"),
+    "xnor_popcount_matmul_planes": (
         "src/repro_torch/kernels/csrc/xnor_popcount_matmul.cu",
         "src/repro/kernels/xnor_popcount_matmul.py:134"),
     "mxu_pm1_matmul": ("src/repro_torch/kernels/csrc/mxu_pm1_matmul.cu",
@@ -374,6 +420,58 @@ def conv_case(inp: Inputs, case):
                             pool[0] ** 2 if pool else 1)
     kw = dict(kh=k, kw=k, stride=st, pad=pad, word_weights=ww, pool=pool)
     return (x, wp, thr, sgn), kw, int(bits.sum())
+
+
+def plane_filters(inp: Inputs, o: int, taps: int, c: int):
+    """Converter-structured first-layer filters: each tap's random sign
+    words (pad bits 0) copied into all 8 planes, their plane word weights,
+    and the u8 x s8 form the executor builds from them."""
+    signs = inp.channel_words((o, taps), c)                # O, taps, Cw
+    wp = signs[:, :, None].expand(-1, -1, 8, -1).reshape(o, -1).contiguous()
+    ww = bitplanes.plane_word_weights(signs.shape[-1]).repeat(taps) \
+        .to(inp.device)
+    return wp, ww, bitplanes.plane_filters(wp, ww, taps)
+
+
+def plane_input(inp: Inputs, n: int, h: int, w: int, c: int,
+                pad_bits: bool):
+    """A first layer's input: K4's planes of a random image, or random
+    words with every pad bit random too."""
+    if pad_bits:
+        return inp.words(n, h, w, 8 * packing.num_words(c))
+    img = torch.randint(0, 256, (n, h, w, c), dtype=torch.uint8,
+                        device=inp.device, generator=inp.g)
+    return k4.bitplane_pack(img).reshape(n, h, w, -1)
+
+
+def plane_conv_case(inp: Inputs, case):
+    """Operands of one call of K3's bit-plane variant, its keyword
+    arguments, the weighted words it stands for (w_packed, word weights)
+    and the input bytes behind one output (every bit position of each
+    word: the kernel's multiply-adds, for the bound)."""
+    name, (n, h, w, c), k, st, pad, o, pool, pad_bits = case
+    x = plane_input(inp, n, h, w, c, pad_bits)
+    wp, ww, filters = plane_filters(inp, o, k * k, c)
+    cw = packing.num_words(c)
+    bits = torch.tensor(([32] * cw if pad_bits else word_bits(c)) * 8
+                        * k * k, device=inp.device)
+    thr, sgn = inp.epilogue(o, ww, bits, pool[0] ** 2 if pool else 1)
+    kw = dict(kh=k, kw=k, stride=st, pad=pad, pool=pool)
+    return (x, filters, thr, sgn), kw, wp, ww, k * k * cw * 32
+
+
+def plane_matmul_case(inp: Inputs, case, pad_bits: bool):
+    """(a, filters, w_packed, word weights, real bits a word, Cw) of one
+    call of K1's bit-plane variant: im2col rows of a first layer's
+    input."""
+    name, (n, h, w, c), k, st, pad, o = case
+    x = plane_input(inp, n, h, w, c, pad_bits)
+    a, _ = binary_conv.im2col_matmul(x, k, k, st, pad)
+    wp, ww, filters = plane_filters(inp, o, k * k, c)
+    cw = packing.num_words(c)
+    bits = torch.tensor(([32] * cw if pad_bits else word_bits(c)) * 8
+                        * k * k, device=inp.device)
+    return a.contiguous(), filters, wp, ww, bits, cw
 
 
 def dense_case(inp: Inputs, case):
@@ -550,6 +648,10 @@ def phase_build() -> str:
         f"{active}; the wrapper's cluster C = {k5.cluster_size(words, 1)} "
         f"for one image, {k5.cluster_size(words, BATCH)} for {BATCH} "
         f"(fewest waves a rank)")
+    lim = k3.mma_limits(torch.device("cuda", 0))
+    log(f"[build] direct_conv_bn_binarize tile planner: {lim.sms} SMs and "
+        f"{lim.smem_block} B of shared memory a block, read from the card; "
+        f"weights {dataclasses.asdict(k3.MMA_WEIGHTS)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -590,6 +692,20 @@ def phase_kernels(device) -> dict[str, int]:
         log(f"[kernels] direct_conv_bn_binarize {case[0]} "
             f"x{tuple(args[0].shape)} -> {tuple(got.shape)}: exact, "
             f"{share:.3f} of output bits set")
+    for case in PLANE_CONVS:
+        args, kw, wp, ww, _ = plane_conv_case(inp, case)
+        got = k3.direct_conv_bn_binarize_planes(*args, **kw)
+        want = k3.direct_conv_bn_binarize_planes_plain(*args, **kw)
+        note("direct_conv_bn_binarize_planes",
+             check_equal(case[0], got, want))
+        check_equal(f"{case[0]}, generic plain on the weighted words", got,
+                    k3.direct_conv_bn_binarize_plain(
+                        args[0], wp, args[2], args[3], word_weights=ww,
+                        **kw))
+        share = check_share(case[0], got, case[5])
+        log(f"[kernels] direct_conv_bn_binarize_planes {case[0]} "
+            f"x{tuple(args[0].shape)} -> {tuple(got.shape)}: exact (and == "
+            f"the generic plain version), {share:.3f} of output bits set")
     for case in ALEXNET_DENSE + DENSE_EDGES:
         args = dense_case(inp, case)
         got = k2.fused_matmul_bn_binarize(*args)
@@ -628,6 +744,20 @@ def check_count_kernels(inp: Inputs, note) -> None:
             f"b{tuple(b.shape)}"
             + (" weighted" if ww is not None else "")
             + f": exact, {share:.3f} of thresholded bits set")
+    for case, pad_bits in zip(PLANE_MATMULS, (False, True)):
+        a, filters, wp, ww, bits, cw = plane_matmul_case(inp, case, pad_bits)
+        got = k1.xnor_popcount_matmul_planes(a, filters, cw)
+        note("xnor_popcount_matmul_planes", check_equal(
+            case[0], got,
+            k1.xnor_popcount_matmul_planes_plain(a, filters, cw)))
+        check_equal(f"{case[0]}, generic plain on the weighted words", got,
+                    k1.xnor_popcount_matmul_plain(a, wp, ww))
+        share = count_share(inp, case[0], got, ww, bits)
+        log(f"[kernels] xnor_popcount_matmul_planes {case[0]} "
+            f"a{tuple(a.shape)} signs{tuple(filters.signs.shape)}"
+            + (", input pad bits set" if pad_bits else "")
+            + f": exact (and == the generic plain version), {share:.3f} of "
+            f"thresholded bits set")
     for case in K6_CASES:
         a, b, _, bits = matmul_case(inp, case)
         k_valid = int(bits.sum())
@@ -686,6 +816,9 @@ def check_flash(inp: Inputs, note) -> None:
 
 WRAPPERS = {"bitplane_pack": k4.bitplane_pack,
             "direct_conv_bn_binarize": k3.direct_conv_bn_binarize,
+            "direct_conv_bn_binarize_planes":
+                k3.direct_conv_bn_binarize_planes,
+            "xnor_popcount_matmul_planes": k1.xnor_popcount_matmul_planes,
             "fused_matmul_bn_binarize": k2.fused_matmul_bn_binarize,
             "chain_conv": k5.chain_conv,
             "xnor_popcount_matmul": k1.xnor_popcount_matmul,
@@ -840,11 +973,11 @@ def phase_profile(wl) -> dict:
                      for ms, n, key in rows[:12]])
 
 
-def phase_detect(rng: np.random.Generator, mode: str) -> None:
+def phase_detect(images: list[np.ndarray], mode: str) -> torch.Tensor:
+    """YOLOv2-Tiny on one serving path; returns its detection rows (every
+    path gets the same images, and main() holds the rows equal)."""
     wl = workloads.get("yolov2_tiny_voc", seed=0, matmul_mode=mode)
-    x = torch.stack([
-        wl.preprocess_hook(rng.integers(0, 256, hw + (3,), dtype=np.uint8))
-        for hw in [(375, 500), (416, 416)]])
+    x = torch.stack([wl.preprocess_hook(im) for im in images])
     reset_launches()
     rows = wl.engine(x)
     torch.cuda.synchronize()
@@ -859,6 +992,7 @@ def phase_detect(rng: np.random.Generator, mode: str) -> None:
         f"{tuple(rows.shape)}"
         f" == cross_check, {int((rows[..., 4] > 0).sum())} detections, "
         f"launches {launches}")
+    return rows
 
 
 def packed_tail(g):
@@ -1210,7 +1344,10 @@ def phase_timing(device, launches: dict, per_forward: dict,
     rows = {}
 
     def add(name, shape, ms, plain_ms, nbytes, ops, library=None,
-            ops_per_s=INT8_OPS_PER_S):
+            ops_per_s=INT8_OPS_PER_S, real_ops=None):
+        """``real_ops``: a bit-plane variant's operations over the real
+        channels alone (exact only when the input's pad bits are 0, as
+        K4 leaves them); its bound is kept beside the contract's."""
         b, by = bound_ms(nbytes, ops, ops_per_s)
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                        t_bytes=0.0, t_ops=0.0,
@@ -1223,11 +1360,16 @@ def phase_timing(device, launches: dict, per_forward: dict,
         shape_row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b,
                          bound_by=by)
         extra = ""
+        if real_ops is not None:
+            rb, rby = bound_ms(nbytes, real_ops, ops_per_s)
+            r["bound_real_ms"] = r.get("bound_real_ms", 0.0) + rb
+            shape_row.update(bound_real_ms=rb, bound_real_by=rby)
+            extra = f", real-channel bound {rb:.5f} ms ({rby})"
         if library is not None:
             lib_ms, lib_name = library
             r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
             shape_row.update(library_ms=lib_ms, library=lib_name)
-            extra = f", library {lib_ms:.4f} ms ({lib_name})"
+            extra += f", library {lib_ms:.4f} ms ({lib_name})"
         r["shapes"].append(shape_row)
         log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b:.5f} ms ({by}){extra}")
@@ -1239,12 +1381,39 @@ def phase_timing(device, launches: dict, per_forward: dict,
         time_ms(lambda: k4.bitplane_pack(x), 50),
         time_ms(lambda: k4.bitplane_pack_plain(x), 10),
         x.numel() + out.numel() * 4, 0.0)
+    # conv1 on the main path: K3's bit-plane variant (u8 x s8 over every
+    # bit position of each input word); conv2-conv5: K3 without word
+    # weights.  conv1 with random plane weights takes the generic weighted
+    # kernel, off the main path: timed beside the variant, not summed.
+    # Its bound counts a u8 multiply-add for every bit position of each
+    # word (the contract: any pad bits); the real-channel bound counts
+    # KH·KW·C of them.
+    args, kw, _, _, k_bytes = plane_conv_case(inp, PLANE_CONVS[0])
+    out = k3.direct_conv_bn_binarize_planes(*args, **kw)
+    x, filters, thr, sgn = args
+    n, h, w, _ = x.shape
+    oh, ow = (conv_out_size(d, kw["kh"], kw["stride"], kw["pad"])
+              for d in (h, w))
+    positions = 2.0 * n * oh * ow * filters.signs.shape[0]
+    add("direct_conv_bn_binarize_planes", "conv1",
+        time_ms(lambda: k3.direct_conv_bn_binarize_planes(*args, **kw), 20),
+        time_ms(lambda: k3.direct_conv_bn_binarize_planes_plain(*args, **kw),
+                3),
+        (x.numel() + filters.signs.numel() + filters.const.numel()
+         + thr.numel() + out.numel()) * 4 + sgn.numel(),
+        positions * k_bytes,
+        real_ops=positions * kw["kh"] * kw["kw"] * PLANE_CONVS[0][1][3])
     for case in ALEXNET_CONVS:
         args, kw, k_bits = conv_case(inp, case)
         out = k3.direct_conv_bn_binarize(*args, **kw)
+        ms = time_ms(lambda: k3.direct_conv_bn_binarize(*args, **kw), 20)
+        if case[7]:
+            log(f"[timing] direct_conv_bn_binarize {case[0]} with random "
+                f"plane weights (the generic weighted kernel, off the main "
+                f"path): kernel {ms:.4f} ms")
+            continue
         nbytes, ops = conv_cost(args, kw, out, k_bits)
-        add("direct_conv_bn_binarize", case[0],
-            time_ms(lambda: k3.direct_conv_bn_binarize(*args, **kw), 20),
+        add("direct_conv_bn_binarize", case[0], ms,
             time_ms(lambda: k3.direct_conv_bn_binarize_plain(*args, **kw),
                     3),
             nbytes, ops)
@@ -1256,17 +1425,41 @@ def phase_timing(device, launches: dict, per_forward: dict,
             time_ms(lambda: k2.fused_matmul_bn_binarize(*args), 50),
             time_ms(lambda: k2.fused_matmul_bn_binarize_plain(*args), 5),
             nbytes, ops)
-    # K1 at every count node of the trained path's unfused graph (conv1
-    # alone is cuda_pm1's one K1 launch); K6 at cuda_pm1's six.
+    # K1 at every count node of the trained path's unfused graph: conv1
+    # (cuda_pm1's one K1 launch) through K1's bit-plane variant, conv2-fc7
+    # without word weights; conv1 with random plane weights (the generic
+    # weighted kernel, off the main path) timed beside it.  K6 at
+    # cuda_pm1's six.
+    a, filters, wp, ww, bits, cw = plane_matmul_case(inp, PLANE_MATMULS[0],
+                                                     False)
+    out = k1.xnor_popcount_matmul_planes(a, filters, cw)
+    lib, lib_name, to_counts = count_library(a, wp, ww)
+    if not torch.equal(to_counts(lib()), out):
+        raise AssertionError(f"[timing] {lib_name} != "
+                             f"xnor_popcount_matmul_planes at conv1")
+    add("xnor_popcount_matmul_planes", "conv1",
+        time_ms(lambda: k1.xnor_popcount_matmul_planes(a, filters, cw), 20),
+        time_ms(lambda: k1.xnor_popcount_matmul_planes_plain(a, filters,
+                                                             cw), 3),
+        (a.numel() + filters.signs.numel() + filters.const.numel()
+         + out.numel()) * 4,
+        2.0 * a.shape[0] * out.shape[1] * filters.signs.shape[1] * 32,
+        library=(time_ms(lib, 20), lib_name),
+        real_ops=2.0 * a.shape[0] * out.shape[1] * float(bits.sum()) / 8)
     for case in ALEXNET_MATMULS:
         a, b, ww, bits = matmul_case(inp, case)
         out = k1.xnor_popcount_matmul(a, b, ww)
+        ms = time_ms(lambda: k1.xnor_popcount_matmul(a, b, ww), 20)
+        if ww is not None:
+            log(f"[timing] xnor_popcount_matmul {case[0]} with random "
+                f"plane weights (the generic weighted kernel, off the main "
+                f"path): kernel {ms:.4f} ms")
+            continue
         lib, lib_name, to_counts = count_library(a, b, ww)
         if not torch.equal(to_counts(lib()), out):
             raise AssertionError(f"[timing] {lib_name} != "
                                  f"xnor_popcount_matmul at {case[0]}")
-        add("xnor_popcount_matmul", case[0],
-            time_ms(lambda: k1.xnor_popcount_matmul(a, b, ww), 20),
+        add("xnor_popcount_matmul", case[0], ms,
             time_ms(lambda: k1.xnor_popcount_matmul_plain(a, b, ww), 3),
             *matmul_cost(a, b, out, bits, ww),
             library=(time_ms(lib, 20), lib_name))
@@ -1356,7 +1549,9 @@ def phase_timing(device, launches: dict, per_forward: dict,
             max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
             bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
-            library_ms=r["library_ms"], per_shape=r["shapes"]))
+            library_ms=r["library_ms"], per_shape=r["shapes"],
+            **({"bound_real_ms": r["bound_real_ms"]}
+               if "bound_real_ms" in r else {})))
     return kernels
 
 
@@ -1376,8 +1571,14 @@ def main() -> int:
         wl, launches[mode], per_forward[mode], numbers[mode] = \
             phase_serve(rng, mode)
         numbers[mode]["profile"] = phase_profile(wl)
-    for mode in WANT_DETECT:
-        phase_detect(rng, mode)
+    images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+              for hw in [(375, 500), (416, 416)]]
+    rows = {mode: phase_detect(images, mode) for mode in WANT_DETECT}
+    first = next(iter(rows.values()))
+    if not all(torch.equal(r, first) for r in rows.values()):
+        raise AssertionError("[detect] the paths' rows differ on the same "
+                             "images")
+    log(f"[detect] the same images on {list(rows)}: rows equal bit for bit")
     for name, counts in phase_trained(device).items():
         launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
     lm_launches, numbers["lm"] = phase_lm(device)

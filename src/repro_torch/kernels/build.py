@@ -41,11 +41,14 @@ SIGNATURES = {
     "launch_direct_conv_bn_binarize": (_P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _I, _I, _I, _P),
+    "launch_direct_conv_mma": (_P, _P, _P, _P, _P, _P) + (_I,) * 20 + (_P,),
     "launch_chain_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _P),
     "chain_conv_max_clusters": (_I, _I, _P),
     "chain_conv_info": (_P, _P),
     "launch_xnor_popcount_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "launch_xnor_popcount_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P),
     "launch_mxu_pm1_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
     "launch_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P),
@@ -150,6 +153,13 @@ def require(t, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name}: on {t.device}, want {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (the tile planners' grid
+    model)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -27,6 +27,11 @@ The pm1 forms have no +-1 counterpart for weighted words (the first
 layer's bit planes, Eqn 2): there ``torch_pm1`` keeps xor counts, as the
 reference's pm1 form does, and ``cuda_pm1`` takes K1's counts.
 
+``planes=`` (a ``core.bitplanes.PlaneFilters``, which an executor builds
+once for a first-layer node) sends ``cuda_direct`` to K3's and
+``cuda_pm1`` / :func:`matmul_counts` to K1's bit-plane variant: the same
+counts as a u8 x s8 product on the tensor cores.
+
 Unweighted counts from the +-1 dot: ``cnt = (32·W - dot) / 2`` over all
 ``32·W`` bits of the operands (pad bits agree, add +1 to the dot each and
 nothing to the count).
@@ -36,16 +41,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import (binary_conv, binary_ops, layer_integration,
-                              packing)
+from repro_torch.core import (binary_conv, binary_ops, bitplanes,
+                              layer_integration, packing)
 from repro_torch.kernels import chain_conv as _chain
 from repro_torch.kernels.bitplane_pack import bitplane_pack  # noqa: F401
-from repro_torch.kernels.direct_conv_bn_binarize import \
-    direct_conv_bn_binarize
+from repro_torch.kernels.direct_conv_bn_binarize import (
+    direct_conv_bn_binarize, direct_conv_bn_binarize_planes)
 from repro_torch.kernels.fused_conv_bn_binarize import (
     fused_matmul_bn_binarize as _fused_kernel, fused_matmul_bn_binarize_plain)
 from repro_torch.kernels.mxu_pm1_matmul import mxu_pm1_matmul
-from repro_torch.kernels.xnor_popcount_matmul import xnor_popcount_matmul
+from repro_torch.kernels.xnor_popcount_matmul import (
+    xnor_popcount_matmul, xnor_popcount_matmul_planes)
 
 #: Port backend name -> the reference's matching mode.
 JAX_MODE = {"torch": "xla", "torch_pm1": "xla_pm1", "cuda_pm1": "mxu_pm1",
@@ -74,9 +80,13 @@ def binary_matmul_dot(a: torch.Tensor, b: torch.Tensor, k_valid: int,
 
 def matmul_counts(a: torch.Tensor, b: torch.Tensor,
                   word_weights: torch.Tensor | None = None,
-                  mode: str = "cuda_popcount") -> torch.Tensor:
-    """Weighted xor-popcount counts (M, N) int32: K1 or plain PyTorch."""
+                  mode: str = "cuda_popcount", planes=None,
+                  cw: int = 1) -> torch.Tensor:
+    """Weighted xor-popcount counts (M, N) int32: K1 or plain PyTorch;
+    with ``planes`` (``cw`` words a plane), K1's bit-plane variant."""
     if mode == "cuda_popcount":
+        if planes is not None:
+            return xnor_popcount_matmul_planes(a, planes, cw)
         return xnor_popcount_matmul(a, b, word_weights)
     if mode == "torch":
         return binary_ops.packed_matmul_counts(a, b, word_weights=word_weights)
@@ -84,10 +94,13 @@ def matmul_counts(a: torch.Tensor, b: torch.Tensor,
                      f"{COUNT_MODES}")
 
 
-def _pm1_counts(a: torch.Tensor, b: torch.Tensor,
-                word_weights) -> torch.Tensor:
+def _pm1_counts(a: torch.Tensor, b: torch.Tensor, word_weights,
+                planes=None, cw: int = 1) -> torch.Tensor:
     """``cuda_pm1`` counts: K6's +-1 dot over all 32·W bits, halved back to
-    counts; weighted words take K1."""
+    counts; the first layer's u8 x s8 filters (``planes``, ``cw`` words a
+    plane) take K1's bit-plane variant, other weighted words K1."""
+    if planes is not None:
+        return xnor_popcount_matmul_planes(a, planes, cw)
     if word_weights is not None:
         return xnor_popcount_matmul(a, b, word_weights)
     total = a.shape[1] * packing.WORD_BITS
@@ -96,15 +109,17 @@ def _pm1_counts(a: torch.Tensor, b: torch.Tensor,
 
 def fused_matmul_bn_binarize(a, b, p: layer_integration.IntegratedParams,
                              word_weights=None,
-                             mode: str = "cuda_popcount") -> torch.Tensor:
-    """Integrated matmul+BN+sign+pack: (M, ceil(N/32)) int32."""
+                             mode: str = "cuda_popcount", planes=None,
+                             cw: int = 1) -> torch.Tensor:
+    """Integrated matmul+BN+sign+pack: (M, ceil(N/32)) int32.  ``planes``
+    (``cw`` words a plane) is taken by ``cuda_pm1`` only."""
     if mode == "cuda_popcount":
         return _fused_kernel(a, b, p.threshold, p.sign_flip, word_weights)
     if mode == "torch":
         return fused_matmul_bn_binarize_plain(a, b, p.threshold, p.sign_flip,
                                               word_weights)
     if mode == "cuda_pm1":
-        cnt = _pm1_counts(a, b, word_weights)
+        cnt = _pm1_counts(a, b, word_weights, planes, cw)
     elif mode == "torch_pm1":
         cnt = binary_ops.packed_matmul_counts(a, b, word_weights=word_weights,
                                               impl="pm1")
@@ -126,21 +141,28 @@ def fused_binary_conv2d(x_packed: torch.Tensor, w_packed: torch.Tensor,
                         p: layer_integration.IntegratedParams,
                         kh: int, kw: int, stride: int = 1, pad: int = 0,
                         word_weights=None, mode: str = "cuda_direct",
-                        pool: tuple[int, int, tuple[int, int]] | None = None
-                        ) -> torch.Tensor:
+                        pool: tuple[int, int, tuple[int, int]] | None = None,
+                        planes=None) -> torch.Tensor:
     """Fused conv+BN+binarize(+OR-pool) dispatch — one call site for every
     backend.  ``pool`` = ``(window, stride, (pad_lo, pad_hi))``: on
     ``cuda_direct`` it rides the kernel's epilogue, on the im2col backends
-    it runs as a separate packed-domain OR-pool after the conv."""
+    it runs as a separate packed-domain OR-pool after the conv.
+    ``planes``: the first layer's u8 x s8 filters, taken by ``cuda_direct``
+    and ``cuda_pm1`` (the other modes keep the weighted words)."""
     if mode == "cuda_direct":
+        if planes is not None:
+            return direct_conv_bn_binarize_planes(
+                x_packed, planes, p.threshold, p.sign_flip, kh=kh, kw=kw,
+                stride=stride, pad=pad, pool=pool)
         return direct_conv_bn_binarize(
             x_packed, w_packed, p.threshold, p.sign_flip, kh=kh, kw=kw,
             stride=stride, pad=pad, word_weights=word_weights, pool=pool)
     if mode in ("cuda_popcount", "cuda_pm1"):
         flat, (n, oh, ow) = binary_conv.im2col_matmul(x_packed, kh, kw,
                                                       stride, pad)
-        out = fused_matmul_bn_binarize(flat, w_packed, p, word_weights,
-                                       mode=mode)
+        out = fused_matmul_bn_binarize(
+            flat, w_packed, p, word_weights, mode=mode, planes=planes,
+            cw=x_packed.shape[-1] // bitplanes.NUM_PLANES)
         out = out.reshape(n, oh, ow, out.shape[-1])
     elif mode in ("torch", "torch_pm1"):
         out = binary_conv.binary_conv2d_fused(

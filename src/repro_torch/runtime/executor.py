@@ -21,6 +21,13 @@ unfused count ops of a trained-params graph (``conv_counts``,
 and pool epilogues (``bn_binarize``, ``threshold_pack``, ``maxpool_pm1``)
 are plain PyTorch.
 
+The first layer's filters are the converter's bit-plane copies, so their
+counts are one u8 x s8 product (``core.bitplanes``).  For a first-layer
+conv on ``cuda_direct``/``cuda_direct_pool``/``cuda_pm1``, and for a
+first-layer ``conv_counts``, the executor builds that form once, when it
+is built (``bitplanes.plane_filters`` raises if the filters lack the
+structure), and the node runs K3's or K1's bit-plane variant.
+
 Above the per-node backends sits the region-level ``"cuda_chain"`` mode
 (DESIGN.md §9): the executor accepts ``regions=`` — chains formed by
 :mod:`repro_torch.runtime.regions` — and evaluates each whole region in
@@ -39,8 +46,8 @@ from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.core import (binary_conv, binary_ops, bnn_model,
-                              layer_integration, packing)
+from repro_torch.core import (binary_conv, binary_ops, bitplanes,
+                              bnn_model, layer_integration, packing)
 from repro_torch.kernels import ops as kops
 from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import DISPATCHABLE_OPS, Graph
@@ -56,6 +63,8 @@ ALL_MODES = BACKENDS + (CHAIN_BACKEND,)
 _FALLBACK = {"cuda_chain": "cuda_direct_pool",
              "cuda_direct_pool": "cuda_direct",
              "cuda_direct": "cuda_popcount"}
+# Backends whose first-layer conv runs a bit-plane variant (K3's or K1's).
+_PLANE_BACKENDS = ("cuda_direct", "cuda_direct_pool", "cuda_pm1")
 
 
 def valid_backends(op: str) -> tuple[str, ...]:
@@ -92,14 +101,15 @@ def _eval_packed_conv(a: dict, p: dict, x, backend: str):
     k, s, pad = a["kernel"], a["stride"], a["pad"]
     ww = p.get("word_weights")
     pool = _pool_attrs(a)
+    planes = p.get("planes")
     if backend == "cuda_direct_pool":
         # The pool rides the direct kernel's epilogue.
         return kops.fused_binary_conv2d(
             x, p["w_packed"], p["thresh"], k, k, s, pad, word_weights=ww,
-            mode="cuda_direct", pool=pool)
+            mode="cuda_direct", pool=pool, planes=planes)
     out = kops.fused_binary_conv2d(
         x, p["w_packed"], p["thresh"], k, k, s, pad, word_weights=ww,
-        mode=backend)
+        mode=backend, planes=planes)
     if pool is not None:
         out = binary_conv.binary_or_maxpool(out, pool[0], pool[1],
                                             pad=pool[2])
@@ -138,7 +148,10 @@ def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
     if node_op == "conv_counts":
         flat, (n, oh, ow) = binary_conv.im2col_matmul(
             inputs[0], a["kernel"], a["kernel"], a["stride"], a["pad"])
-        cnt = kops.matmul_counts(flat, p["w_packed"], p.get("word_weights"))
+        cnt = kops.matmul_counts(flat, p["w_packed"], p.get("word_weights"),
+                                 planes=p.get("planes"),
+                                 cw=inputs[0].shape[-1]
+                                 // bitplanes.NUM_PLANES)
         return cnt.reshape(n, oh, ow, cnt.shape[-1])
     if node_op == "dense_counts":
         flat = inputs[0].reshape(inputs[0].shape[0], -1)
@@ -212,6 +225,17 @@ class GraphExecutor:
                                  f"{nid} ({op})")
         self.params = {str(nid): n.params for nid, n in graph.nodes.items()
                        if n.params}
+        # First-layer nodes that run a bit-plane variant: their params with
+        # the u8 x s8 filters, built once here.
+        self._node_params = {
+            nid: dict(n.params, planes=bitplanes.plane_filters(
+                n.params["w_packed"], n.params["word_weights"],
+                n.attrs["kernel"] ** 2))
+            for nid, n in graph.nodes.items()
+            if n.attrs.get("first") and "word_weights" in n.params
+            and nid not in self._region_members
+            and (n.op == "conv_counts"
+                 or self.backends.get(nid) in _PLANE_BACKENDS)}
         self._schedule = graph.topo_order()
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -228,7 +252,8 @@ class GraphExecutor:
                     env[chain.tail] = _regions.eval_chain(
                         chain, self.params, env[node.inputs[0]])
                 continue
-            env[nid] = eval_node(node.op, node.attrs, node.params,
+            env[nid] = eval_node(node.op, node.attrs,
+                                 self._node_params.get(nid, node.params),
                                  [env[i] for i in node.inputs],
                                  backend=self.backends.get(nid, "torch"))
         return env[g.output_id]

@@ -16,14 +16,21 @@ they wait for a slot are shed anywhere in the queue.
 
 As in the reference: one global position per tick (every slot writes its
 K/V at ``pos``; attention masks cache positions <= pos), greedy sampling,
-one host loop.  Every prompt token and every tick advance that position,
-so a server's whole run must fit in ``max_seq``: past it the decode step
-raises (the reference's cache update clamps to the last row instead).
+one host loop.  Every prompt token and every tick advance that position.
+Unlike the reference, whose cache write clamps to the last row once
+``pos`` passes ``max_seq``, a waiting request is admitted only while its
+prefill, its own ticks and every active sequence's remaining ticks stay
+inside ``max_seq``; otherwise it waits.  With no slot active, ``pos``
+and every slot's token return to 0, a fresh server's state, before such a
+request is admitted: every tick rewrites every slot's row at ``pos``, so
+no row a new sequence attends to predates the reset, and it decodes as in
+a fresh server.  A server therefore outlives ``max_seq``.
 Token state lives on the card; each tick reads back one argmax vector.
 The reference's resilience — decode retry, KV checkpoints and restore,
 the request journal, evacuation to another lane, the flight recorder and
-trace spans — is not ported: a faulted decode tick raises out of
-``serve_tick``.
+trace spans — is not ported: a fault that still escapes a prefill or a
+decode tick resolves every in-flight request ``error`` and frees its
+slot, and the server goes on with the queue.
 """
 
 from __future__ import annotations
@@ -79,6 +86,11 @@ class LMServer:
         step (every slot steps; the others rewrite their own token's K/V
         at the new positions, as in the reference)."""
         seq = self.manager.admit(len(prompt), max_new)
+        self._prefill(seq, prompt)
+        return seq
+
+    @torch.inference_mode()
+    def _prefill(self, seq, prompt: list[int]) -> None:
         for i, tok in enumerate(prompt):
             toks = self.tokens.clone()
             toks[seq.slot, 0] = tok
@@ -90,7 +102,6 @@ class LMServer:
         # max_new=1 sequence finishes right here.
         self.manager.record_token(seq.seq_id, nxt, self.eos_id)
         self.tokens[seq.slot, 0] = nxt
-        return seq
 
     # ---- decode tick -------------------------------------------------------
     @torch.inference_mode()
@@ -154,11 +165,34 @@ class LMServer:
         self._waiting, shed = shed_expired_requests(self._waiting, now)
         self.dropped += len(shed)
         while self._waiting and self.manager.can_admit():
+            prompt, max_new = self._waiting[0].payload
+            if not self._fits(len(prompt), max_new):
+                if self.manager.active:
+                    break                 # waits for the active to finish
+                self._restart()
             r = self._waiting.popleft()
-            prompt, max_new = r.payload
             self._metrics.mark_dispatch()
-            seq = self.add_prompt(prompt, max_new=max_new)
+            seq = self.manager.admit(len(prompt), max_new)
             self._by_seq[seq.seq_id] = (r, seq)
+            self._prefill(seq, prompt)
+
+    @torch.inference_mode()
+    def _restart(self) -> None:
+        """Return an idle server to a fresh one's state: position 0 and
+        token 0 in every slot.  The cache needs no reset: every tick and
+        prompt token rewrites every slot's row at the position it reads up
+        to, so no row written before the restart is read after it."""
+        self.pos = 0
+        self.tokens.zero_()
+
+    def _fits(self, prompt_len: int, max_new: int) -> bool:
+        """Whether a sequence admitted now, and every active one, can run
+        to its end with every decode position below ``max_seq``: the
+        prefill takes ``prompt_len`` positions, then each tick one, and a
+        sequence needs a tick for each token after its first."""
+        ticks = max([max_new - 1] + [s.max_new - s.generated
+                                     for s in self.manager.active.values()])
+        return self.pos + prompt_len + ticks <= self.max_seq
 
     def _fail_inflight(self, reason: str) -> list[Request]:
         """Resolve every in-flight sequence ``error`` and free its slot."""
@@ -174,10 +208,14 @@ class LMServer:
 
     def serve_tick(self, now: float | None = None) -> list[Request]:
         """One serving tick: admit waiting prompts into free slots, run a
-        decode step, complete the sequences that finished.  A fault in the
-        decode step raises (no retry in the port yet)."""
-        self._admit_waiting(now)
-        self.step()
+        decode step, complete the sequences that finished.  A fault in a
+        prefill or the decode step (no retry in the port yet) resolves the
+        in-flight requests ``error`` and frees their slots."""
+        try:
+            self._admit_waiting(now)
+            self.step()
+        except Exception as e:           # noqa: BLE001 — nothing escapes
+            return self._fail_inflight(f"decode step failed: {e!r}")
         now = self.clock() if now is None else now
         done: list[Request] = []
         for seq_id, (r, seq) in list(self._by_seq.items()):

@@ -15,8 +15,15 @@ Counterpart of ``repro.serving.server`` for the serving core:
 
 The ``preprocess=`` hook runs per payload before a batch is staged; the
 workloads' hook returns a tensor on the engine's device, so on the card
-the resize runs there.  Fault injection, retry and degradation ladders,
-the request journal, tracing, placement and multiplexing are not ported.
+the resize runs there.
+
+Every request resolves: ``submit`` checks each payload as the reference's
+validator does (array-like, numeric, finite, and the engine's input shape
+when there is no preprocess hook) and resolves a bad one ``rejected``
+alone; a batch whose preprocess, dispatch or readback still raises
+resolves each of its rows ``error``, and serving goes on.  Fault
+injection, retry and degradation ladders, the request journal, tracing,
+placement and multiplexing are not ported.
 """
 
 from __future__ import annotations
@@ -96,7 +103,40 @@ class InferenceServer:
         # Arrival is stamped from the server's clock so latency samples
         # stay in one clock domain when a fake clock is injected.
         now = self.clock() if now is None else now
+        err = self._payload_error(payload)
+        if err is not None:
+            r = Request(payload, deadline_s=deadline_s)
+            r.arrival_s = now
+            r.resolve("rejected", error=err)
+            self._metrics.record_rejected()
+            return r
         return self.scheduler.submit(payload, deadline_s=deadline_s, now=now)
+
+    def _payload_error(self, payload: Any) -> str | None:
+        """Why this payload cannot be served, or None when it can: checked
+        at the protocol edge, so a malformed payload resolves alone
+        instead of failing the batch it would have ridden in."""
+        try:
+            arr = np.asarray(payload)
+        except Exception as e:          # noqa: BLE001 — any failure rejects
+            return f"payload is not array-like: {e}"
+        if not np.issubdtype(arr.dtype, np.number):
+            return f"payload dtype {arr.dtype} is not numeric"
+        if np.issubdtype(arr.dtype, np.floating) \
+                and not bool(np.isfinite(arr).all()):
+            return "payload contains NaN/Inf"
+        if self.preprocess is None:
+            want = tuple(self.engine._plan_shape(1)[1:])
+            if tuple(arr.shape) != want:
+                return (f"payload shape {tuple(arr.shape)} != engine "
+                        f"input {want}")
+        return None
+
+    def _fail(self, batch: list[Request], e: Exception) -> list[Request]:
+        for r in batch:
+            r.resolve("error", error=f"batch failed: {e!r}")
+        self._metrics.record_error(len(batch))
+        return batch
 
     def poll(self, request: Request) -> bool:
         return request.done
@@ -139,13 +179,19 @@ class InferenceServer:
         completed this tick."""
         now = self.clock() if now is None else now
         flight = None
+        done: list[Request] = []
         got = self.scheduler.padded_batch(now, force=force)
         if got is not None:
-            flight = self._dispatch(*got)
-        done: list[Request] = []
-        if self._pending is not None:
-            done = self._scatter(self._pending)
-        self._pending = flight
+            try:
+                flight = self._dispatch(*got)
+            except Exception as e:       # noqa: BLE001 — nothing escapes
+                done += self._fail(got[0], e)
+        pending, self._pending = self._pending, flight
+        if pending is not None:
+            try:
+                done += self._scatter(pending)
+            except Exception as e:       # noqa: BLE001
+                done += self._fail(pending.batch, e)
         return done
 
     def drain(self, now: float | None = None) -> list[Request]:

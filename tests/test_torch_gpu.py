@@ -225,6 +225,141 @@ def test_xnor_popcount_matmul_on_card(cuda, m, n, w, weighted):
     assert torch.equal(got, k1.xnor_popcount_matmul_plain(a, b, ww))
 
 
+def plane_filters(dev, o: int, taps: int, cw: int, c_real: int):
+    """Converter-structured first-layer filters on the card: each tap's
+    sign words (pad bits 0) copied into all 8 planes, their plane word
+    weights, and the u8 x s8 form built from them."""
+    bits = torch.from_numpy(RNG.integers(0, 2, (o, taps, c_real)))
+    signs = packing.pack_bits(bits, axis=-1)
+    wp = signs[:, :, None].expand(-1, -1, 8, -1).reshape(o, -1)
+    wp = wp.contiguous().to(dev)
+    ww = bitplanes.plane_word_weights(cw).repeat(taps).to(dev)
+    return wp, ww, bitplanes.plane_filters(wp, ww, taps)
+
+
+PLANE_CONV_CASES = [  # ((N, H, W, C), k, stride, pad, O, pool, pad bits)
+    ((8, 227, 227, 3), 11, 4, 0, 96, (3, 2, (0, 0)), False),   # conv1
+    ((2, 227, 227, 3), 11, 4, 0, 96, None, False),
+    ((2, 416, 416, 3), 3, 1, 1, 16, (2, 2, (0, 0)), False),    # yolo conv1
+    ((2, 37, 29, 3), 3, 1, 1, 48, (2, 1, (0, 1)), True),
+    ((1, 30, 30, 40), 5, 2, 2, 72, (3, 2, (0, 0)), True),
+]
+
+
+@pytest.mark.parametrize("case", PLANE_CONV_CASES)
+def test_direct_conv_planes_on_card(cuda, case):
+    """K3's bit-plane variant against its plain version and the generic
+    plain K3 on the weighted words, bit for bit."""
+    (n, h, w, c), k, st, pad, o, pool, pad_bits = case
+    cw = packing.num_words(c)
+    if pad_bits:
+        x = words(cuda, n, h, w, 8 * cw)
+    else:
+        img = torch.from_numpy(RNG.integers(0, 256, (n, h, w, c),
+                                            dtype=np.uint8)).to(cuda)
+        x = k4.bitplane_pack(img).reshape(n, h, w, -1)
+    wp, ww, filters = plane_filters(cuda, o, k * k, cw, c)
+    thr, sgn = epilogue(cuda, o, ww, pool[0] ** 2 if pool else 1)
+    kw = dict(kh=k, kw=k, stride=st, pad=pad, pool=pool)
+    got = k3.direct_conv_bn_binarize_planes(x, filters, thr, sgn, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k3.direct_conv_bn_binarize_planes_plain(
+        x, filters, thr, sgn, **kw))
+    assert torch.equal(got, k3.direct_conv_bn_binarize_plain(
+        x, wp, thr, sgn, word_weights=ww, **kw))
+
+
+@pytest.mark.parametrize("case", [
+    ((8, 27, 27, 96), 5, 1, 2, 256, (3, 2, (0, 0))),     # AlexNet conv2
+    ((8, 13, 13, 384), 3, 1, 1, 384, None),              # conv4
+    ((2, 13, 13, 256), 3, 1, 1, 512, (2, 1, (0, 1))),    # YOLO conv6
+    ((3, 11, 9, 40), 3, 2, 1, 70, (3, 2, (0, 0))),       # ragged O, stride 2
+])
+def test_direct_conv_mma_on_card(cuda, case):
+    """K3 without word weights (the tensor-core kernel) at AlexNet's and
+    YOLOv2-Tiny's later convs and a ragged case, input pad bits set."""
+    (n, h, w, c), k, st, pad, o, pool = case
+    cw = packing.num_words(c)
+    args = (words(cuda, n, h, w, cw), words(cuda, o, k * k * cw),
+            *epilogue(cuda, o, torch.ones(k * k * cw),
+                      pool[0] ** 2 if pool else 1))
+    kw = dict(kh=k, kw=k, stride=st, pad=pad, pool=pool)
+    got = k3.direct_conv_bn_binarize(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k3.direct_conv_bn_binarize_plain(*args, **kw))
+    assert_mixed(got, o)
+
+
+@pytest.mark.parametrize("m,taps,cw,o", [(24200, 121, 1, 96), (84, 9, 1, 33),
+                                         (8, 9, 2, 130)])
+def test_xnor_popcount_matmul_planes_on_card(cuda, m, taps, cw, o):
+    """K1's bit-plane variant at conv1's im2col rows, a ragged case and two
+    words a plane, every bit of the rows random."""
+    a = words(cuda, m, taps * 8 * cw)
+    wp, ww, filters = plane_filters(cuda, o, taps, cw, 32 * cw - 3)
+    got = k1.xnor_popcount_matmul_planes(a, filters, cw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1.xnor_popcount_matmul_planes_plain(
+        a, filters, cw))
+    assert torch.equal(got, k1.xnor_popcount_matmul_plain(a, wp, ww))
+
+
+def test_plane_variant_refuses_filters_whose_planes_differ(cuda):
+    """The bit-plane form is built from the converter's structure or not
+    at all: an executor whose first layer's planes differ raises when it
+    is built, and a wrapper handed operands of the wrong shape raises —
+    neither falls back to the weighted kernel."""
+    wl = workloads.get("alexnet_imagenet", variant="tiny")
+    graph = wl.engine.engine._graph.copy()
+    first = next(n for n in graph.nodes.values() if n.attrs.get("first")
+                 and n.op.startswith("packed"))
+    w = first.params["w_packed"].clone()
+    w[0, 1] ^= 1
+    first.params = dict(first.params, w_packed=w)
+    before = (k3.direct_conv_bn_binarize.launches,
+              k3.direct_conv_bn_binarize_planes.launches)
+    with pytest.raises(ValueError, match="planes of a tap differ"):
+        GraphExecutor(graph, "cuda_direct_pool")
+    _, _, filters = plane_filters(cuda, 32, 9, 1, 3)
+    thr, sgn = epilogue(cuda, 32, torch.ones(9))
+    with pytest.raises(ValueError):
+        k3.direct_conv_bn_binarize_planes(words(cuda, 1, 8, 8, 16), filters,
+                                          thr, sgn, kh=3, kw=3, pad=1)
+    with pytest.raises(ValueError):
+        k1.xnor_popcount_matmul_planes(words(cuda, 4, 9 * 8 * 2), filters)
+    assert (k3.direct_conv_bn_binarize.launches,
+            k3.direct_conv_bn_binarize_planes.launches) == before
+
+
+def test_mma_limits_read_from_the_card(cuda):
+    """K3's tile planner reads its limits from the card: the SM count and
+    the opt-in shared memory a block (the region budget's value on an
+    H100)."""
+    limits = k3.mma_limits(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert limits.sms == props.multi_processor_count
+    assert limits.smem_block == regions.DEFAULT_SMEM_BUDGET
+
+
+def test_engine_default_path_takes_the_plane_variant(cuda):
+    """Paper AlexNet on the engine's default path (cuda_direct_pool): conv1
+    is the one launch of K3's bit-plane variant a forward, and the output
+    equals the flat oracle."""
+    wl = workloads.get("alexnet_imagenet")
+    assert wl.engine.engine.matmul_mode == "cuda_direct_pool"
+    x = torch.from_numpy(RNG.integers(0, 256, (2, 227, 227, 3),
+                                      dtype=np.uint8)).to(cuda)
+    wl.engine(x)
+    for fn in (k3.direct_conv_bn_binarize, k3.direct_conv_bn_binarize_planes,
+               k1.xnor_popcount_matmul_planes):
+        fn.launches = 0
+    wl.engine.engine.cross_check(x)
+    torch.cuda.synchronize()
+    assert (k3.direct_conv_bn_binarize_planes.launches,
+            k3.direct_conv_bn_binarize.launches,
+            k1.xnor_popcount_matmul_planes.launches) == (1, 4, 0)
+
+
 def channel_words(dev, rows: int, channels: int, positions: int
                   ) -> torch.Tensor:
     """im2col-shaped rows: ``positions`` packed groups of ``channels``
@@ -286,12 +421,15 @@ def test_tiny_alexnet_launch_counts(cuda):
     x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
     wl.engine(x)
     for fn in (k4.bitplane_pack, k3.direct_conv_bn_binarize,
+               k3.direct_conv_bn_binarize_planes,
                k2.fused_matmul_bn_binarize):
         fn.launches = 0
     wl.engine(x)
     torch.cuda.synchronize()
+    # conv1 through K3's bit-plane variant, conv2 through K3.
     assert (k4.bitplane_pack.launches, k3.direct_conv_bn_binarize.launches,
-            k2.fused_matmul_bn_binarize.launches) == (1, 2, 2)
+            k3.direct_conv_bn_binarize_planes.launches,
+            k2.fused_matmul_bn_binarize.launches) == (1, 1, 1, 2)
 
 
 def test_tiny_alexnet_chain_launch_counts(cuda):
@@ -311,27 +449,30 @@ def test_tiny_alexnet_chain_launch_counts(cuda):
 
 
 def test_tiny_alexnet_pm1_launch_counts(cuda):
-    """Under cuda_pm1 the bit-plane conv takes K1 (weighted words) and every
-    other binary layer K6."""
+    """Under cuda_pm1 the bit-plane conv takes K1's bit-plane variant and
+    every other binary layer K6."""
     wl = workloads.get("alexnet_imagenet", variant="tiny",
                        matmul_mode="cuda_pm1")
     x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
     wl.engine(x)
     for fn in (k4.bitplane_pack, k1.xnor_popcount_matmul,
+               k1.xnor_popcount_matmul_planes,
                k6.mxu_pm1_matmul, k2.fused_matmul_bn_binarize,
                k3.direct_conv_bn_binarize):
         fn.launches = 0
     wl.engine.engine.cross_check(x)
     torch.cuda.synchronize()
     assert (k4.bitplane_pack.launches, k1.xnor_popcount_matmul.launches,
+            k1.xnor_popcount_matmul_planes.launches,
             k6.mxu_pm1_matmul.launches, k2.fused_matmul_bn_binarize.launches,
-            k3.direct_conv_bn_binarize.launches) == (1, 1, 3, 0, 0)
+            k3.direct_conv_bn_binarize.launches) == (1, 0, 1, 3, 0, 0)
 
 
 @pytest.mark.parametrize("name", ["alexnet_imagenet", "yolov2_tiny_voc"])
 def test_trained_graph_on_card_matches_cpu(cuda, name):
     """The unfused trained-params graph on the card (K1 for every count
-    node) equals the same graph on the CPU and its fused pipeline graph."""
+    node, the first conv's through its bit-plane variant) equals the same
+    graph on the CPU and its fused pipeline graph."""
     spec = workloads.get(name, variant="tiny", device="cpu").spec
     hw = workloads.get(name, variant="tiny", device="cpu").input_hw
     params = workloads.checkpoint_params(spec, 4)
@@ -340,11 +481,13 @@ def test_trained_graph_on_card_matches_cpu(cuda, name):
     x = torch.from_numpy(RNG.integers(0, 256, (2, *hw, 3), dtype=np.uint8))
     want = GraphExecutor(unfused)(x)
     k1.xnor_popcount_matmul.launches = 0
+    k1.xnor_popcount_matmul_planes.launches = 0
     got = GraphExecutor(unfused.to(cuda))(x.to(cuda))
     torch.cuda.synchronize()
     counts = sum(n.op in ("conv_counts", "dense_counts")
                  for n in unfused.nodes.values())
-    assert k1.xnor_popcount_matmul.launches == counts
+    assert (k1.xnor_popcount_matmul.launches,
+            k1.xnor_popcount_matmul_planes.launches) == (counts - 1, 1)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
     fused_out = GraphExecutor(fused.to(cuda), "cuda_direct_pool")(x.to(cuda))
     torch.testing.assert_close(fused_out.cpu(), want, rtol=0, atol=1e-4)

@@ -321,6 +321,65 @@ def test_lm_server_generate_and_bounded_drain(proto):
     assert wedged.metrics()["errors"] == 2 and wedged.queue_depth == 0
 
 
+def test_lm_server_outlives_max_seq(smoke):
+    """Four requests of 4 + 4 tokens through 2 slots of max_seq 16: the
+    one global position would pass max_seq, so the later requests wait
+    for the slots to empty and start again at position 0.  All are served,
+    no slot stays taken, every decode position stays below max_seq, and
+    the requests admitted after the reset get the tokens a fresh server
+    gives the same prompts."""
+    _, params = smoke
+    server = LMServer(t_minitron.SMOKE, params, n_slots=2, max_seq=16,
+                      device="cpu")
+    positions = []
+    decode = server._decode
+
+    def record(params, cache, toks, pos):
+        positions.append(pos)
+        return decode(params, cache, toks, pos)
+    server._decode = record
+    rng = np.random.default_rng(16)
+    reqs = [server.submit(list(rng.integers(1, t_minitron.SMOKE.vocab, 4)),
+                          max_new=4) for _ in range(4)]
+    server.drain()
+    assert [r.outcome for r in reqs] == ["served"] * 4
+    assert [len(r.result) for r in reqs] == [4] * 4
+    assert not server.manager.active and server.manager.utilization == 0
+    assert server.queue_depth == 0 and server.metrics()["served"] == 4
+    assert max(positions) < 16 and positions.count(0) == 2
+    fresh = LMServer(t_minitron.SMOKE, params, n_slots=2, max_seq=16,
+                     device="cpu")
+    again = [fresh.submit(r.payload[0], max_new=4) for r in reqs[2:]]
+    fresh.drain()
+    assert [r.result for r in reqs[2:]] == [r.result for r in again]
+    assert [r.outcome for r in again] == ["served"] * 2
+
+
+def test_lm_server_fault_frees_slots(smoke):
+    """A decode fault resolves the in-flight requests ``error`` and frees
+    their slots; the server goes on and serves the queue."""
+    _, params = smoke
+    server = LMServer(t_minitron.SMOKE, params, n_slots=2, max_seq=32,
+                      device="cpu")
+    decode, calls = server._decode, []
+
+    def faulty(params, cache, toks, pos):
+        calls.append(pos)
+        if len(calls) == 5:
+            raise RuntimeError("injected device fault")
+        return decode(params, cache, toks, pos)
+    server._decode = faulty
+    reqs = [server.submit([1, 2], max_new=3) for _ in range(3)]
+    done = server.drain()
+    assert sorted(r.id for r in done) == sorted(r.id for r in reqs)
+    assert [r.outcome for r in reqs] == ["error", "error", "served"]
+    assert "injected device fault" in reqs[0].error
+    assert len(reqs[2].result) == 3
+    assert not server.manager.active and server.queue_depth == 0
+    m = server.metrics()
+    assert m["errors"] == 2 and m["served"] == 1
+
+
 # --------------------------------------------------------------------------
 # Configs, entry points and the import boundary
 # --------------------------------------------------------------------------

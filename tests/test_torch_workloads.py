@@ -151,6 +151,53 @@ def test_served_buckets(name):
             np.testing.assert_array_equal(r.result, expect)
 
 
+def test_malformed_payload_resolves_alone():
+    """Paper AlexNet served without a preprocess hook: two good images and
+    one a row too tall.  The bad one resolves ``rejected`` at submit, the
+    good ones are served and equal ``cross_check``, and ``drain`` returns."""
+    wl = t_workloads.get("alexnet_imagenet", device="cpu",
+                         matmul_mode="torch")
+    server = wl.server(preprocess=None, max_batch=2, buckets=(1, 2))
+    h, w = wl.input_hw
+    rng = np.random.default_rng(harness.SEED)
+    good = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for _ in range(2)]
+    reqs = [server.submit(good[0]),
+            server.submit(rng.integers(0, 256, (h + 1, w, 3),
+                                       dtype=np.uint8)),
+            server.submit(good[1])]
+    server.drain()
+    assert [r.outcome for r in reqs] == ["served", "rejected", "served"]
+    assert "shape" in reqs[1].error
+    ref = wl.engine.cross_check(torch.from_numpy(np.stack(good))).numpy()
+    np.testing.assert_array_equal(reqs[0].result, ref[0])
+    np.testing.assert_array_equal(reqs[2].result, ref[1])
+    m = server.metrics()
+    assert m["served"] == 2 and m["rejected"] == 1 and m["queue_depth"] == 0
+
+
+def test_failed_batch_resolves_error_and_serving_goes_on():
+    """A batch whose preprocess raises resolves each of its rows
+    ``error``; the next batch is served."""
+    wl = port_workload("alexnet_imagenet")
+    hook = wl.preprocess_hook
+
+    def flaky(p):
+        if p.shape[0] == 13:
+            raise ValueError("corrupt image")
+        return hook(p)
+    server = wl.server(preprocess=flaky, max_batch=2, buckets=(1, 2))
+    bad = [server.submit(np.zeros((s, 20, 3), np.uint8)) for s in (13, 20)]
+    server.drain()
+    ok = server.submit(np.zeros((20, 20, 3), np.uint8))
+    server.drain()
+    assert [r.outcome for r in bad] == ["error", "error"]
+    assert "corrupt image" in bad[0].error
+    assert ok.outcome == "served"
+    m = server.metrics()
+    assert m["errors"] == 2 and m["served"] == 1 and m["queue_depth"] == 0
+
+
 def test_deadline_sheds_and_counts():
     wl = port_workload("alexnet_imagenet")
     server = wl.server(max_batch=2, buckets=(1, 2), clock=lambda: 100.0)
