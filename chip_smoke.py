@@ -32,8 +32,13 @@ Phases, each fatal on failure:
               planes) at AlexNet conv1 (pool and no pool), YOLOv2-Tiny conv1
               (416², 3x3, pad 1, 16 filters), input pad bits set and a
               ragged first-layer K1 case, each also against the generic
-              plain version on the weighted words; K6 at conv2 and fc6, at
-              words with pad bits, ragged tiles, and k_valid past 2^24;
+              plain version on the weighted words; K6 at conv2, fc6, fc7
+              and batch 1 at fc6, at words with pad bits, ragged tiles, k_valid
+              past 2^24, a W below the cluster split its planner would
+              take, N not a multiple of the swapped tile and 12 rows; K2
+              also at conv2's im2col shape, a ragged 37x48x13 case split
+              over a cluster, M 12 and M 17 (every route of
+              ``pm1_gemm.plan_pm1``);
 3. serve    — paper AlexNet (227x227x3, 1000 classes, numpy-seeded random
               weights) behind ``InferenceServer``, once per serving path:
               ``cuda_direct_pool`` (launches per forward K4 1, K3's
@@ -49,9 +54,11 @@ Phases, each fatal on failure:
               device time per kernel (torch.profiler), the busy share;
 4. detect   — paper YOLOv2-Tiny at 416² for one batch of 2 through the
               engine and ``detect_head`` on each path, the same images on
-              every path, cross-checked and the three paths' rows equal
-              (conv1 through a bit-plane variant on each: ``cuda_chain``:
-              K4 1, K3's 1, K5 2; ``cuda_pm1``: K4 1, K1's 1, K6 7);
+              every path, cross-checked and the four paths' rows equal
+              (conv1 through a bit-plane variant on the first three:
+              ``cuda_chain``: K4 1, K3's 1, K5 2; ``cuda_pm1``: K4 1,
+              K1's 1, K6 7; ``cuda_popcount``: K4 1, K2 8, one a conv
+              node of the executor, conv1 on its weighted kernel);
 5. trained  — paper AlexNet built from seeded float params
               (``bnn_model.to_graph``): the unfused graph (``assign_layouts``)
               on the card, K4 1, K1's bit-plane variant 1 and K1 6, against
@@ -79,8 +86,10 @@ Phases, each fatal on failure:
               and profiled (host wall, device time, busy share); and
               ``LMServer`` answering 8 requests (4 slots, max_seq 256; one
               over-long prompt rejected; no K7 launch);
-7. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events,
-              warmed up, median) beside its plain version and its bound —
+7. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events
+              around one call, warmed up, median; and the device time a
+              call, torch.profiler's kernel time over 20 calls / 20)
+              beside its plain version and its bound —
               K3 and K1 at conv1 in both variants (the bit-plane variant on
               the main path, the generic weighted kernel off it); K5
               also at every cluster size the card can schedule; K1 and K6
@@ -158,7 +167,16 @@ CONV_EDGES = [
 # (name, M, N, W): AlexNet's packed_dense nodes at batch 8.  Their inputs
 # (9216 and 4096 channels) fill every word, so K = 32·W bits.
 ALEXNET_DENSE = [("fc6", BATCH, 4096, 288), ("fc7", BATCH, 4096, 128)]
-DENSE_EDGES = [("N=48 weighted", 37, 48, 70), ("batch 1", 1, 4096, 288)]
+# Every route of K2's planner (kernels/pm1_gemm.py plan_pm1): conv2's im2col
+# shape on 64 x 64 wgmma tiles, unsplit; a ragged unswapped grid split over
+# a cluster of 4 (slices of 3-4 words, 4-byte copies); batch 1 swapped; 12
+# rows on the swapped 16-row tile; 17 rows, one past the swap, split over
+# 2; and the weighted CUDA-core kernel.
+DENSE_EDGES = [("N=48 weighted", 37, 48, 70), ("batch 1", 1, 4096, 288),
+               ("conv2 im2col", 5832, 256, 75),
+               ("ragged 37x48, 13 words", 37, 48, 13),
+               ("M 12", 12, 4096, 288),
+               ("M 17", 17, 4096, 288)]
 # K3's bit-plane variant, on converter-structured filters: (name, (N, H, W,
 # C), kernel, stride, pad, O, pool, input pad bits set).
 PLANE_CONVS = [
@@ -236,6 +254,13 @@ K6_CASES = [
      False),
     ("k_valid 2^24 + 32", (8, 1, 1, 32 * ((1 << 19) + 1)), 1, 1, 0, 16,
      False),
+    ALEXNET_FC[1],                                       # fc7
+    ("batch 1 at fc6", (1, 1, 1, 9216), 1, 1, 0, 4096, False),
+    ("W 2, below the cluster split", (8, 1, 1, 64), 1, 1, 0, 512, False),
+    ("N 1000, not a multiple of the swapped tile", (8, 1, 1, 4096), 1, 1,
+     0, 1000, False),
+    ("12 rows at fc6, the swapped 16-row tile", (12, 1, 1, 9216), 1, 1, 0,
+     4096, False),
 ]
 # K7 cases, bf16: (name, B, Sq, Skv, H, KV, hd, causal).  The first is
 # minitron-8b's prefill layer, the shape the LM path gives K7; the kernel
@@ -308,6 +333,11 @@ WANT_DETECT = {
                                 chain_conv=2),
     "cuda_pm1": launch_counts(bitplane_pack=1, xnor_popcount_matmul_planes=1,
                               mxu_pm1_matmul=7),
+    # K2 once a conv node of the executor (phase_detect counts them): 8,
+    # conv1's bit planes on the weighted CUDA-core kernel, conv2-conv8 on
+    # the tensor cores.
+    "cuda_popcount": launch_counts(bitplane_pack=1,
+                                   fused_matmul_bn_binarize=8),
 }
 # The trained path: the unfused graph, and its default pipeline under
 # cuda_direct_pool (the pools stay separate OR-pools there).
@@ -659,6 +689,18 @@ def phase_build() -> str:
     return smi
 
 
+def pm1_route(m: int, n: int, w: int) -> str:
+    """The route ``plan_pm1`` gives K6 and K2 (unweighted) at (M, N, W)."""
+    # Imported here, not at the top: tools/kernel_times.py runs this
+    # script's timing phase on trees that predate the planner.
+    from repro_torch.kernels import pm1_gemm
+    plan = pm1_gemm.plan_pm1(m, n, w, build.sm_count(torch.device("cuda")))
+    t = pm1_gemm.TILES[plan.tile]
+    return (f"{'swapped' if t.swap else 'unswapped'} {t.bx}x{t.by} "
+            f"{'wgmma' if t.wgmma else 'mma.sync'} tile, cluster "
+            f"{plan.cluster}")
+
+
 def check_equal(name: str, got, want) -> int:
     if got.shape != want.shape or not torch.equal(got, want):
         diff = (got.long() - want.long()).abs().max().item() \
@@ -713,7 +755,9 @@ def phase_kernels(device) -> dict[str, int]:
         note("fused_matmul_bn_binarize", check_equal(case[0], got, want))
         share = check_share(case[0], got, case[2])
         log(f"[kernels] fused_matmul_bn_binarize {case[0]} "
-            f"a{tuple(args[0].shape)} b{tuple(args[1].shape)}: exact, "
+            f"a{tuple(args[0].shape)} b{tuple(args[1].shape)} ("
+            + ("weighted CUDA-core kernel" if args[4] is not None
+               else pm1_route(*case[1:])) + f"): exact, "
             f"{share:.3f} of output bits set")
     for case in CHAIN_CASES:
         x, ops, kw, _ = chain_case(inp, case)
@@ -766,8 +810,9 @@ def check_count_kernels(inp: Inputs, note) -> None:
             case[0], got, k6.mxu_pm1_matmul_plain(a, b, k_valid)))
         share = count_share(inp, case[0], (k_valid - got) // 2, None, bits)
         log(f"[kernels] mxu_pm1_matmul {case[0]} a{tuple(a.shape)} "
-            f"b{tuple(b.shape)} k_valid {k_valid}: exact, {share:.3f} of "
-            f"thresholded bits set")
+            f"b{tuple(b.shape)} k_valid {k_valid} ("
+            f"{pm1_route(a.shape[0], b.shape[0], a.shape[1])}): exact, "
+            f"{share:.3f} of thresholded bits set")
 
 
 def flash_inputs(inp: Inputs, case):
@@ -966,11 +1011,11 @@ def phase_profile(wl) -> dict:
         f"{wall_ms:.4f} ms/forward (no profiler), device "
         f"{device_ms:.4f} ms/forward, busy share "
         f"{device_ms / wall_ms:.3f}")
-    for ms, n, key in rows[:12]:
+    for ms, n, key in rows:
         log(f"[profile]   {ms:.4f} ms  x{n:g}  {key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms,
-                top=[dict(ms=ms, per_forward=n, kernel=key[:90])
-                     for ms, n, key in rows[:12]])
+                rows=[dict(ms=ms, per_forward=n, kernel=key[:90])
+                      for ms, n, key in rows])
 
 
 def phase_detect(images: list[np.ndarray], mode: str) -> torch.Tensor:
@@ -988,6 +1033,13 @@ def phase_detect(images: list[np.ndarray], mode: str) -> torch.Tensor:
         raise AssertionError("[detect] yolov2_tiny_voc rows disagree")
     if launches != WANT_DETECT[mode]:
         raise AssertionError(f"[detect] {mode} launches {launches}")
+    if mode == "cuda_popcount":
+        convs = [r for r in wl.engine.engine.backend_choices
+                 if r["op"] in ("packed_conv", "packed_conv_pool")
+                 and r["backend"] == mode]
+        if len(convs) != launches["fused_matmul_bn_binarize"]:
+            raise AssertionError(f"[detect] {len(convs)} conv nodes on "
+                                 f"{mode}, K2 launches {launches}")
     log(f"[detect] {mode} yolov2_tiny_voc 416x416 batch 2: rows "
         f"{tuple(rows.shape)}"
         f" == cross_check, {int((rows[..., 4] > 0).sum())} detections, "
@@ -1072,14 +1124,32 @@ def rel_err(got, want) -> float:
 
 
 def device_time_by_kernel(prof, reps: int) -> list[tuple[float, float, str]]:
-    """(ms per rep, launches per rep, name) of each device-side event."""
-    rows = []
+    """(ms per rep, records per rep, name) of each device-side event.
+
+    A session may miss the records of the first few launches (late in a
+    long run, 3 of 20 at every kernel of the timing phase) or catch a
+    stray event from before it began, so an event's time a rep is the
+    mean of its records times its launches a rep (its records a rep,
+    rounded); an event of less than half a record a rep is a stray and is
+    left out.  Every session that missed records or left strays out says
+    so in the log."""
+    rows, missing, strays = [], 0, 0
     for e in prof.key_averages():
         # Device-side events only (kernels, copies): a CPU op may report
         # its kernels' time too, which would count them twice.
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type != torch.autograd.DeviceType.CPU:
-            rows.append((us / reps / 1e3, e.count / reps, e.key))
+        if us <= 0 or e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        per_rep = round(e.count / reps)
+        if per_rep >= 1:
+            rows.append((us / e.count * per_rep / 1e3, e.count / reps, e.key))
+            missing += max(0, per_rep * reps - e.count)
+        else:
+            strays += e.count
+    if missing or strays:
+        log(f"[profiler] a session of {reps} reps missed {missing} of "
+            f"{sum(round(n) for _, n, _ in rows) * reps} records "
+            f"(rescaled) and left out {strays} stray records")
     rows.sort(reverse=True)
     return rows
 
@@ -1321,7 +1391,9 @@ def count_library(a, b, ww):
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+    """Median of ``reps`` CUDA-event timings of one call of ``fn`` after a
+    warm-up: the call's host work (the wrapper's checks, its allocation,
+    the ctypes call) included."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -1336,6 +1408,31 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+DEVICE_REPS = 20
+
+
+def device_ms(fn, reps: int = DEVICE_REPS) -> float:
+    """The device time of one call of ``fn``: the torch.profiler duration
+    of every CUDA kernel it launches, over ``reps`` calls after a warm-up
+    (:func:`device_time_by_kernel`)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_time_by_kernel(prof, reps)
+    if not rows:
+        raise RuntimeError("torch.profiler recorded no kernel")
+    return sum(r[0] for r in rows)
+
+
+def kernel_ms(fn, reps: int) -> tuple[float, float]:
+    """(single-call event median, device time a call) of a kernel call."""
+    return time_ms(fn, reps), device_ms(fn)
+
+
 def phase_timing(device, launches: dict, per_forward: dict,
                  errs: dict) -> list[dict]:
     """Kernel medians at AlexNet's batch-8 shapes.  ``launches`` and
@@ -1343,22 +1440,25 @@ def phase_timing(device, launches: dict, per_forward: dict,
     inp = Inputs(device, seed=2)
     rows = {}
 
-    def add(name, shape, ms, plain_ms, nbytes, ops, library=None,
+    def add(name, shape, times, plain_ms, nbytes, ops, library=None,
             ops_per_s=INT8_OPS_PER_S, real_ops=None):
-        """``real_ops``: a bit-plane variant's operations over the real
-        channels alone (exact only when the input's pad bits are 0, as
-        K4 leaves them); its bound is kept beside the contract's."""
+        """``times``: :func:`kernel_ms` of the kernel.  ``real_ops``: a
+        bit-plane variant's operations over the real channels alone (exact
+        only when the input's pad bits are 0, as K4 leaves them); its
+        bound is kept beside the contract's."""
+        ms, dev_ms = times
         b, by = bound_ms(nbytes, ops, ops_per_s)
-        r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                       t_bytes=0.0, t_ops=0.0,
+        r = rows.setdefault(name, dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
+                                       bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
                                        library_ms=None, shapes=[]))
         r["ms"] += ms
+        r["device_ms"] += dev_ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b
         r["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
         r["t_ops"] += ops / ops_per_s * 1e3
-        shape_row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                         bound_by=by)
+        shape_row = dict(shape=shape, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by)
         extra = ""
         if real_ops is not None:
             rb, rby = bound_ms(nbytes, real_ops, ops_per_s)
@@ -1371,14 +1471,15 @@ def phase_timing(device, launches: dict, per_forward: dict,
             shape_row.update(library_ms=lib_ms, library=lib_name)
             extra += f", library {lib_ms:.4f} ms ({lib_name})"
         r["shapes"].append(shape_row)
-        log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b:.5f} ms ({by}){extra}")
+        log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, device "
+            f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.5f} ms "
+            f"({by}){extra}")
 
     x = torch.randint(0, 256, (BATCH, 227, 227, 3), dtype=torch.uint8,
                       device=device, generator=inp.g)
     out = k4.bitplane_pack(x)
     add("bitplane_pack", str(tuple(x.shape)),
-        time_ms(lambda: k4.bitplane_pack(x), 50),
+        kernel_ms(lambda: k4.bitplane_pack(x), 50),
         time_ms(lambda: k4.bitplane_pack_plain(x), 10),
         x.numel() + out.numel() * 4, 0.0)
     # conv1 on the main path: K3's bit-plane variant (u8 x s8 over every
@@ -1396,7 +1497,8 @@ def phase_timing(device, launches: dict, per_forward: dict,
               for d in (h, w))
     positions = 2.0 * n * oh * ow * filters.signs.shape[0]
     add("direct_conv_bn_binarize_planes", "conv1",
-        time_ms(lambda: k3.direct_conv_bn_binarize_planes(*args, **kw), 20),
+        kernel_ms(lambda: k3.direct_conv_bn_binarize_planes(*args, **kw),
+                  20),
         time_ms(lambda: k3.direct_conv_bn_binarize_planes_plain(*args, **kw),
                 3),
         (x.numel() + filters.signs.numel() + filters.const.numel()
@@ -1406,14 +1508,15 @@ def phase_timing(device, launches: dict, per_forward: dict,
     for case in ALEXNET_CONVS:
         args, kw, k_bits = conv_case(inp, case)
         out = k3.direct_conv_bn_binarize(*args, **kw)
-        ms = time_ms(lambda: k3.direct_conv_bn_binarize(*args, **kw), 20)
+        times = kernel_ms(lambda: k3.direct_conv_bn_binarize(*args, **kw),
+                          20)
         if case[7]:
             log(f"[timing] direct_conv_bn_binarize {case[0]} with random "
                 f"plane weights (the generic weighted kernel, off the main "
-                f"path): kernel {ms:.4f} ms")
+                f"path): kernel {times[0]:.4f} ms, device {times[1]:.4f} ms")
             continue
         nbytes, ops = conv_cost(args, kw, out, k_bits)
-        add("direct_conv_bn_binarize", case[0], ms,
+        add("direct_conv_bn_binarize", case[0], times,
             time_ms(lambda: k3.direct_conv_bn_binarize_plain(*args, **kw),
                     3),
             nbytes, ops)
@@ -1422,9 +1525,18 @@ def phase_timing(device, launches: dict, per_forward: dict,
         out = k2.fused_matmul_bn_binarize(*args)
         nbytes, ops = dense_cost(args, out)
         add("fused_matmul_bn_binarize", case[0],
-            time_ms(lambda: k2.fused_matmul_bn_binarize(*args), 50),
+            kernel_ms(lambda: k2.fused_matmul_bn_binarize(*args), 50),
             time_ms(lambda: k2.fused_matmul_bn_binarize_plain(*args), 5),
             nbytes, ops)
+    # K2 at conv2's im2col rows, as cuda_popcount runs it (off the main
+    # path: timed, not summed).
+    args = dense_case(inp, DENSE_EDGES[2])
+    out = k2.fused_matmul_bn_binarize(*args)
+    ms, dev = kernel_ms(lambda: k2.fused_matmul_bn_binarize(*args), 20)
+    b, by = bound_ms(*dense_cost(args, out))
+    log(f"[timing] fused_matmul_bn_binarize conv2 im2col "
+        f"a{tuple(args[0].shape)} (cuda_popcount, off the main path): "
+        f"kernel {ms:.4f} ms, device {dev:.4f} ms, bound {b:.5f} ms ({by})")
     # K1 at every count node of the trained path's unfused graph: conv1
     # (cuda_pm1's one K1 launch) through K1's bit-plane variant, conv2-fc7
     # without word weights; conv1 with random plane weights (the generic
@@ -1438,7 +1550,8 @@ def phase_timing(device, launches: dict, per_forward: dict,
         raise AssertionError(f"[timing] {lib_name} != "
                              f"xnor_popcount_matmul_planes at conv1")
     add("xnor_popcount_matmul_planes", "conv1",
-        time_ms(lambda: k1.xnor_popcount_matmul_planes(a, filters, cw), 20),
+        kernel_ms(lambda: k1.xnor_popcount_matmul_planes(a, filters, cw),
+                  20),
         time_ms(lambda: k1.xnor_popcount_matmul_planes_plain(a, filters,
                                                              cw), 3),
         (a.numel() + filters.signs.numel() + filters.const.numel()
@@ -1449,17 +1562,17 @@ def phase_timing(device, launches: dict, per_forward: dict,
     for case in ALEXNET_MATMULS:
         a, b, ww, bits = matmul_case(inp, case)
         out = k1.xnor_popcount_matmul(a, b, ww)
-        ms = time_ms(lambda: k1.xnor_popcount_matmul(a, b, ww), 20)
+        times = kernel_ms(lambda: k1.xnor_popcount_matmul(a, b, ww), 20)
         if ww is not None:
             log(f"[timing] xnor_popcount_matmul {case[0]} with random "
                 f"plane weights (the generic weighted kernel, off the main "
-                f"path): kernel {ms:.4f} ms")
+                f"path): kernel {times[0]:.4f} ms, device {times[1]:.4f} ms")
             continue
         lib, lib_name, to_counts = count_library(a, b, ww)
         if not torch.equal(to_counts(lib()), out):
             raise AssertionError(f"[timing] {lib_name} != "
                                  f"xnor_popcount_matmul at {case[0]}")
-        add("xnor_popcount_matmul", case[0], ms,
+        add("xnor_popcount_matmul", case[0], times,
             time_ms(lambda: k1.xnor_popcount_matmul_plain(a, b, ww), 3),
             *matmul_cost(a, b, out, bits, ww),
             library=(time_ms(lib, 20), lib_name))
@@ -1473,14 +1586,14 @@ def phase_timing(device, launches: dict, per_forward: dict,
             raise AssertionError(f"[timing] {lib_name} != mxu_pm1_matmul "
                                  f"at {case[0]}")
         add("mxu_pm1_matmul", case[0],
-            time_ms(lambda: k6.mxu_pm1_matmul(a, b, k_valid), 20),
+            kernel_ms(lambda: k6.mxu_pm1_matmul(a, b, k_valid), 20),
             time_ms(lambda: k6.mxu_pm1_matmul_plain(a, b, k_valid), 5),
             *matmul_cost(a, b, out, bits),
             library=(time_ms(lib, 20), lib_name))
     x, ops, kw, convs = chain_case(inp, CHAIN_CASES[0])
     out = k5.chain_conv(x, ALEXNET_CHAIN, ops, **kw)
     add("chain_conv", CHAIN_CASES[0][0],
-        time_ms(lambda: k5.chain_conv(x, ALEXNET_CHAIN, ops, **kw), 10),
+        kernel_ms(lambda: k5.chain_conv(x, ALEXNET_CHAIN, ops, **kw), 10),
         time_ms(lambda: k5.chain_conv_plain(x, ALEXNET_CHAIN, ops, **kw), 3),
         *chain_cost(x, ops, out, convs))
     # Every cluster size the card can schedule, beside the wrapper's C:
@@ -1530,7 +1643,7 @@ def phase_timing(device, launches: dict, per_forward: dict,
     flash_error("F.scaled_dot_product_attention", sdpa().transpose(1, 2),
                 out)
     add("flash_attention", FLASH_PREFILL[0],
-        time_ms(lambda: k7.flash_attention(q, k, v, True), 20),
+        kernel_ms(lambda: k7.flash_attention(q, k, v, True), 20),
         time_ms(lambda: k7.flash_attention_plain(q, k, v, True), 3),
         (q.numel() + k.numel() + v.numel() + out.numel()) * 2,
         4.0 * b * h * hd * s_len * (s_len + 1) / 2,
@@ -1546,7 +1659,8 @@ def phase_timing(device, launches: dict, per_forward: dict,
             launches=sum(v[name] for v in launches.values()),
             launches_per_forward={m: v[name]
                                   for m, v in per_forward.items()},
-            max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=errs[name], ms=r["ms"], device_ms=r["device_ms"],
+            plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
             bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
             library_ms=r["library_ms"], per_shape=r["shapes"],

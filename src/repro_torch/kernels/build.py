@@ -38,6 +38,8 @@ SIGNATURES = {
     "launch_bitplane_pack": (_P, _P, _LL, _I, _P),
     "launch_fused_matmul_bn_binarize": (_P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _P),
+    "launch_fused_matmul_bn_binarize_pm1": (_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _P),
     "launch_direct_conv_bn_binarize": (_P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _I, _I, _I, _P),
@@ -49,7 +51,7 @@ SIGNATURES = {
     "launch_xnor_popcount_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "launch_xnor_popcount_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P),
-    "launch_mxu_pm1_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "launch_mxu_pm1_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "launch_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P),
     "flash_attention_info": (_P, _P, _P),
@@ -57,7 +59,7 @@ SIGNATURES = {
 }
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
@@ -83,7 +85,7 @@ def build(verbose: bool = False) -> tuple[pathlib.Path, float]:
     out = library_path()
     if out.exists():
         return out, 0.0
-    nvcc = _nvcc()
+    nvcc_bin = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -93,7 +95,8 @@ def build(verbose: bool = False) -> tuple[pathlib.Path, float]:
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             objs.append(str(obj))
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+                [nvcc_bin, *NVCC_FLAGS, *extra, "-c", str(src), "-o",
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         logs, failed = [], []
@@ -107,7 +110,7 @@ def build(verbose: bool = False) -> tuple[pathlib.Path, float]:
         if verbose:
             print("\n".join(logs))
         tmp_lib = pathlib.Path(tmp) / out.name
-        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
+        subprocess.run([nvcc_bin, *NVCC_FLAGS, "-shared", *objs, "-o",
                         str(tmp_lib)], check=True, capture_output=True)
         os.replace(tmp_lib, out)   # atomic: concurrent builds agree
     return out, time.perf_counter() - t0

@@ -1,6 +1,6 @@
-// Shared device helpers of the int8 tensor-core count kernels (K1, K3):
-// packed words to the byte operands of mma.sync.m16n8k32, and the two
-// products they feed.
+// Shared device helpers of the int8 tensor-core count kernels (K1, K3, and
+// K2 and K6 through pm1_gemm.cuh's mainloop): packed words to the byte
+// operands of mma.sync.m16n8k32, and the two products they feed.
 //
 // One packed word is one k32 step: bit j of the word is byte k = j of the
 // step.  Two operand forms:
@@ -31,6 +31,21 @@ __device__ __forceinline__ void pm1_pair(uint32_t w, int t, uint32_t& lo,
                                          uint32_t& hi) {
   lo = expand_nibble((w >> (4 * t)) & 15u);
   hi = expand_nibble((w >> (16 + 4 * t)) & 15u);
+}
+
+// The same two registers under a permutation of the word's bits, at 3
+// instructions a register instead of pm1_pair's 6: lo takes bits t, t + 8,
+// t + 16, t + 24 (bytes 0..3), hi bits t + 4, t + 12, t + 20, t + 28, so a
+// shift and a mask give 0/1 bytes (1 where the bit is 0) and one multiply-
+// add their +-1 bytes (0x01 + 0xFE·z, no carry).  Over the quad's threads
+// t = 0..3 every bit of the word lands on exactly one k of the k32 step: a
+// product whose two operands both take this form is the same dot, summed in
+// another order.  Mixing it with pm1_pair or natural byte order is wrong.
+__device__ __forceinline__ void pm1_pair_strided(uint32_t w, int t,
+                                                 uint32_t& lo, uint32_t& hi) {
+  const uint32_t z = ~w;
+  lo = ((z >> t) & 0x01010101u) * 0xFEu + 0x01010101u;
+  hi = ((z >> (t + 4)) & 0x01010101u) * 0xFEu + 0x01010101u;
 }
 
 // Byte q of 8 plane words, transposed: returns bytes 8q..8q+7 of the 32

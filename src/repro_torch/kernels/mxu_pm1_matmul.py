@@ -1,7 +1,9 @@
 """K6: +-1 dot products of packed words on the tensor cores.
 
 Port of ``repro.kernels.mxu_pm1_matmul.mxu_pm1_matmul``; the CUDA kernel is
-``csrc/mxu_pm1_matmul.cu`` (int8 ``mma.sync`` with int32 accumulation):
+``csrc/mxu_pm1_matmul.cu``, the +-1 mainloop of ``csrc/pm1_gemm.cuh``
+(packed words staged by ``cp.async``, int8 tensor-core products with
+int32 accumulation) with the epilogue below:
 
     dot[m, n] = sum over all 32·W bits of pm1(a[m]) * pm1(b[n])
                 - (32·W - k_valid)
@@ -10,6 +12,14 @@ for a (M, W), b (N, W) int32 packed rows -> (M, N) int32.  Pad bits agree
 in both operands and add +1 each, so the correction is on the padded width
 of the tensors.  The reference accumulates in float32 and is exact for
 ``k_valid <= 2^24``; both versions here are exact at every width.
+
+Two routes, chosen by :func:`repro_torch.kernels.pm1_gemm.plan_pm1`: many
+rows (the im2col convs) take 64 x 64 tiles of one warpgroup on ``wgmma``
+(the filters' +-1 bytes in shared memory), split over a cluster as below
+where the grid would leave SMs idle; few rows (fc6/fc7 at small
+batch) put the filters on ``mma.sync``'s 16-row side and split the word
+axis over a thread-block cluster, whose leader sums the partial dots
+through distributed shared memory.
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import binary_ops, packing
-from repro_torch.kernels import build
+from repro_torch.kernels import build, pm1_gemm
 
 
 def mxu_pm1_matmul_plain(a, b, k_valid: int) -> torch.Tensor:
@@ -52,11 +62,13 @@ def mxu_pm1_matmul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"mxu_pm1_matmul: k_valid {k_valid} outside "
                          f"(0, {w * packing.WORD_BITS}] or W {w} too wide")
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    plan = pm1_gemm.plan_pm1(m, n, w, build.sm_count(dev))
     lib = build.library()
     mxu_pm1_matmul.launches += 1
     build.check(lib.launch_mxu_pm1_matmul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, w, pad_bits,
-        build.stream_ptr(dev)), "mxu_pm1_matmul")
+        plan.tile, plan.cluster, build.stream_ptr(dev)),
+        "mxu_pm1_matmul")
     return out
 
 

@@ -10,9 +10,14 @@ port backend          JAX mode               behaviour
 ``torch``             ``xla``                plain PyTorch (im2col + counts)
 ``torch_pm1``         ``xla_pm1``            plain PyTorch, +-1 matmul form
 ``cuda_pm1``          ``mxu_pm1``            im2col + K6 (+-1 dots on the
-                                             tensor cores); K1 counts where
+                                             tensor cores, ``pm1_gemm``'s
+                                             mainloop); K1 counts where
                                              words carry weights
-``cuda_popcount``     ``vpu_popcount``       im2col + K2 (fused matmul)
+``cuda_popcount``     ``vpu_popcount``       im2col + K2 (fused matmul:
+                                             ``pm1_gemm``'s mainloop with a
+                                             threshold-and-pack epilogue;
+                                             its CUDA-core kernel where
+                                             words carry weights)
 ``cuda_direct``       ``vpu_direct``         K3 (direct conv)
 ``cuda_direct_pool``  ``vpu_direct_pool``    K3 with the OR-pool epilogue
 ``cuda_chain``        ``vpu_chain``          K5 per fused region (an engine
@@ -34,7 +39,11 @@ counts as a u8 x s8 product on the tensor cores.
 
 Unweighted counts from the +-1 dot: ``cnt = (32·W - dot) / 2`` over all
 ``32·W`` bits of the operands (pad bits agree, add +1 to the dot each and
-nothing to the count).
+nothing to the count).  K6 and K2 take their tile and cluster split from
+:func:`repro_torch.kernels.pm1_gemm.plan_pm1`: the im2col convs on
+``wgmma`` tiles, the word axis split over a thread-block cluster only
+where the grid leaves SMs idle; the dense layers at small batch on
+``mma.sync`` with the filters on its 16-row side, split over a cluster.
 """
 
 from __future__ import annotations

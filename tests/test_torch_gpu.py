@@ -20,6 +20,7 @@ from repro_torch import workloads
 from repro_torch.core import bitplanes, packing
 from repro_torch.workloads import preprocess
 from repro_torch.kernels import bitplane_pack as k4
+from repro_torch.kernels import build, pm1_gemm
 from repro_torch.kernels import chain_conv as k5
 from repro_torch.kernels import direct_conv_bn_binarize as k3
 from repro_torch.kernels import flash_attention as k7
@@ -79,7 +80,10 @@ def test_bitplane_pack_on_card(cuda, shape):
 
 @pytest.mark.parametrize("m,n,w,weighted", [(8, 4096, 288, False),
                                             (13, 48, 7, True),
-                                            (1, 96, 30, False)])
+                                            (1, 96, 30, False),
+                                            (5832, 256, 75, False),
+                                            (37, 48, 13, False),
+                                            (17, 4096, 288, False)])
 def test_fused_matmul_on_card(cuda, m, n, w, weighted):
     ww = (torch.from_numpy(RNG.integers(1, 129, w).astype(np.int32)).to(cuda)
           if weighted else None)
@@ -370,16 +374,63 @@ def channel_words(dev, rows: int, channels: int, positions: int
 
 @pytest.mark.parametrize("m,n,c,pos", [(5832, 256, 96, 25),
                                        (8, 4096, 9216, 1),
+                                       (8, 4096, 4096, 1),
+                                       (1, 4096, 9216, 1),
                                        (7, 9, 16, 9), (65, 70, 40, 3),
                                        (3, 5, 32, (1 << 19) + 1)])
 def test_mxu_pm1_matmul_on_card(cuda, m, n, c, pos):
-    """K6 against its plain version: AlexNet's conv2 and fc6, pad bits in
-    every word, ragged tiles, and k_valid past 2^24 (where a float32
-    accumulation is no longer exact)."""
+    """K6 against its plain version: AlexNet's conv2, fc6 and fc7, batch 1
+    at fc6, pad bits in every word, ragged tiles, and k_valid past 2^24
+    (where a float32 accumulation is no longer exact)."""
     a, b = channel_words(cuda, m, c, pos), channel_words(cuda, n, c, pos)
     got = k6.mxu_pm1_matmul(a, b, c * pos)
     torch.cuda.synchronize()
     assert torch.equal(got, k6.mxu_pm1_matmul_plain(a, b, c * pos))
+
+
+@pytest.mark.parametrize("m,n,w", [(8, 4096, 128), (40, 100, 13),
+                                   (3, 48, 9)])
+def test_pm1_every_plan_on_card(cuda, m, n, w):
+    """Every tile and cluster split of the +-1 mainloop
+    (``pm1_gemm.TILES``), K6's and K2's epilogues, against the plain
+    versions."""
+    a, b = words(cuda, m, w), words(cuda, n, w)
+    thr, sgn = epilogue(cuda, n, torch.ones(w))
+    dot = k6.mxu_pm1_matmul_plain(a, b, 32 * w)
+    packed = k2.fused_matmul_bn_binarize_plain(a, b, thr, sgn)
+    lib, stream = build.library(), build.stream_ptr(cuda)
+    units = w // pm1_gemm.granule(w)
+    for tile, t in enumerate(pm1_gemm.TILES):
+        if t.swap and m > t.by:
+            continue
+        for cluster in (1, 2, 4, 8):
+            if cluster > units:
+                continue
+            out = torch.full_like(dot, -1)
+            build.check(lib.launch_mxu_pm1_matmul(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, w, 0,
+                tile, cluster, stream), "mxu_pm1_matmul")
+            words_out = torch.full_like(packed, -1)
+            build.check(lib.launch_fused_matmul_bn_binarize_pm1(
+                a.data_ptr(), b.data_ptr(), thr.data_ptr(), sgn.data_ptr(),
+                words_out.data_ptr(), m, n, w, tile, cluster, stream),
+                "fused_matmul_bn_binarize")
+            torch.cuda.synchronize()
+            plan = (tile, cluster)
+            assert torch.equal(out, dot), plan
+            assert torch.equal(words_out, packed), plan
+
+
+def test_pm1_refuses_an_empty_slice(cuda):
+    """A cluster larger than the word axis has units is refused at launch,
+    not run."""
+    a, b = words(cuda, 8, 3), words(cuda, 64, 3)
+    out = torch.empty((8, 64), dtype=torch.int32, device=cuda)
+    err = build.library().launch_mxu_pm1_matmul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), 8, 64, 3, 0,
+        pm1_gemm.SWAP_8, 4, build.stream_ptr(cuda))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(err, "mxu_pm1_matmul")
 
 
 @pytest.mark.parametrize("transform", [
