@@ -19,7 +19,10 @@ Phases, each fatal on failure:
               K5 chain_conv, K1 xnor_popcount_matmul and its bit-plane
               variant xnor_popcount_matmul_planes, K6 mxu_pm1_matmul)
               against its plain PyTorch version on the card, bit-exact, at
-              AlexNet's batch-8 shapes and at edge cases, with thresholds
+              AlexNet's batch-8 shapes and at edge cases (K4 also at C in
+              {1, 8, 31, 32, 33, 64, 100, 200}, at pixel counts no
+              multiple of its 256-pixel blocks and from inputs that start
+              off a 16-byte boundary), with thresholds
               that give a mix of output bits (a share of 0.2 to 0.8 set; for
               K1 and K6, whose counts the threshold follows on the main path,
               0.3 to 0.7); K5 at AlexNet's region (batch 8 and 1), tiled
@@ -49,7 +52,13 @@ Phases, each fatal on failure:
               every row equal to ``cross_check`` on the same padded batch,
               ``build_count`` flat, the launch counts read around that run
               alone; then a steady run of 64 images and the preprocess time
-              per image (copy and resize on the card);
+              per image (copy and resize on the card).  Under cuda_chain
+              each bucket's region tile is tuned (``tune_chains``), and
+              every tile the sweep timed is held against K5's plain
+              version (also YOLOv2-Tiny's two regions below); under
+              cuda_direct_pool one batch of 8 is served again with tracing
+              on: equal rows, a Chrome export that passes
+              ``validate_trace``, the span names printed;
    profile  — one AlexNet forward at bucket 8 per path: host wall time,
               device time per kernel (torch.profiler), the busy share;
 4. detect   — paper YOLOv2-Tiny at 416² for one batch of 2 through the
@@ -86,12 +95,22 @@ Phases, each fatal on failure:
               and profiled (host wall, device time, busy share); and
               ``LMServer`` answering 8 requests (4 slots, max_seq 256; one
               over-long prompt rejected; no K7 launch);
-7. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events
+7. autotune — engines under ``matmul_mode="auto"`` (a temporary cache
+              file): paper AlexNet and YOLOv2-Tiny tuned at bucket 8 then
+              1, VGG16 (224²) at 1; each node's winner, tile and sweep
+              beside the default path's time; each bucket's output ==
+              ``cross_check`` and its launches those of its winners; no
+              plain backend wins; bucket 1 reuses bucket 8's winners
+              (``xfer_hit``), and at bucket 1 a fresh sweep times each
+              transferred K3 winner beside the fastest; a second engine
+              re-times nothing; AlexNet's tuned forward profiled;
+8. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events
               around one call, warmed up, median; and the device time a
               call, torch.profiler's kernel time over 20 calls / 20)
               beside its plain version and its bound —
-              K3 and K1 at conv1 in both variants (the bit-plane variant on
-              the main path, the generic weighted kernel off it); K5
+              K4 also at bucket 1; K3 and K1 at conv1 in both variants
+              (the bit-plane variant on the main path, the generic
+              weighted kernel off it); K5
               also at every cluster size the card can schedule; K1 and K6
               also beside one library call on the unpacked +-1 operands; K7
               at the prefill layer's shapes beside
@@ -105,11 +124,14 @@ result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from statistics import NormalDist
 
@@ -301,6 +323,12 @@ LM_CACHE_BOUND = 0.04
 LM_SERVER_SLOTS, LM_SERVER_MAX_SEQ = 4, 256
 LM_REQUESTS = [(16, 16), (16, 16), (16, 16), (16, 16), (16, 20), (16, 24),
                (16, 32), (64, 32)]
+# K4: the main path's shapes (batch 8 and 1), then every C kernel path
+# (Cw 1-4 and above) at pixel counts that are no multiple of a block's
+# 256 pixels.
+K4_SHAPES = [(BATCH, 227, 227, 3), (1, 227, 227, 3), (2, 5, 7, 40)] + [
+    (1, 37, 41, c) for c in (1, 8, 31, 32, 33, 64, 100, 200)] + [
+    (3, 1, 1, 33), (2, 333, 1, 5)]
 # Launches per forward on each serving path.
 KERNEL_NAMES = ("bitplane_pack", "direct_conv_bn_binarize",
                 "direct_conv_bn_binarize_planes",
@@ -718,13 +746,19 @@ def phase_kernels(device) -> dict[str, int]:
     def note(name: str, e: int) -> None:
         err[name] = max(err.get(name, 0), e)
 
-    for shape in [(BATCH, 227, 227, 3), (1, 227, 227, 3), (2, 5, 7, 40)]:
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=device,
-                          generator=inp.g)
-        note("bitplane_pack", check_equal(
-            f"bitplane_pack {shape}", k4.bitplane_pack(x),
-            k4.bitplane_pack_plain(x)))
-        log(f"[kernels] bitplane_pack {shape}: exact")
+    for shape in K4_SHAPES:
+        # The whole tensor, and the same shape as a slice one image into a
+        # larger one (its first byte off a 16-byte boundary when the image
+        # is an odd number of bytes).
+        big = torch.randint(0, 256, (shape[0] + 1,) + shape[1:],
+                            dtype=torch.uint8, device=device,
+                            generator=inp.g)
+        for x in (big[:-1].contiguous(), big[1:]):
+            note("bitplane_pack", check_equal(
+                f"bitplane_pack {shape}", k4.bitplane_pack(x),
+                k4.bitplane_pack_plain(x)))
+        log(f"[kernels] bitplane_pack {shape}: exact, also from byte "
+            f"offset {big[1:].data_ptr() % 16} of a 16-byte boundary")
     for case in ALEXNET_CONVS + CONV_EDGES:
         args, kw, _ = conv_case(inp, case)
         got = k3.direct_conv_bn_binarize(*args, **kw)
@@ -1018,11 +1052,15 @@ def phase_profile(wl) -> dict:
                       for ms, n, key in rows])
 
 
-def phase_detect(images: list[np.ndarray], mode: str) -> torch.Tensor:
+def phase_detect(images: list[np.ndarray], mode: str):
     """YOLOv2-Tiny on one serving path; returns its detection rows (every
-    path gets the same images, and main() holds the rows equal)."""
+    path gets the same images, and main() holds the rows equal) and the
+    workload."""
     wl = workloads.get("yolov2_tiny_voc", seed=0, matmul_mode=mode)
     x = torch.stack([wl.preprocess_hook(im) for im in images])
+    # Built first: under cuda_chain the build times each region's tiles,
+    # launches that are not the forward's.
+    wl.engine.compile(x.shape[0])
     reset_launches()
     rows = wl.engine(x)
     torch.cuda.synchronize()
@@ -1044,7 +1082,7 @@ def phase_detect(images: list[np.ndarray], mode: str) -> torch.Tensor:
         f"{tuple(rows.shape)}"
         f" == cross_check, {int((rows[..., 4] > 0).sum())} detections, "
         f"launches {launches}")
-    return rows
+    return rows, wl
 
 
 def packed_tail(g):
@@ -1115,6 +1153,252 @@ def phase_trained(device) -> dict[str, dict[str, int]]:
         f"{diffs['unfused']:.3e}, fused {diffs['fused']:.3e}, unfused vs "
         f"fused {diffs['unfused vs fused']:.3e}")
     return launches
+
+
+# The autotune phase: (workload, buckets tuned in order).  VGG16 (224²)
+# only at bucket 1, to keep the run's time.
+AUTO_RUNS = [("alexnet_imagenet", (8, 1)), ("yolov2_tiny_voc", (8, 1)),
+             ("vgg16_imagenet", (1,))]
+# The wrapper a node's backend launches: (first layer, other layers).
+AUTO_KERNELS = {
+    "cuda_direct": ("direct_conv_bn_binarize_planes",
+                    "direct_conv_bn_binarize"),
+    "cuda_direct_pool": ("direct_conv_bn_binarize_planes",
+                         "direct_conv_bn_binarize"),
+    "cuda_pm1": ("xnor_popcount_matmul_planes", "mxu_pm1_matmul"),
+    "cuda_popcount": ("fused_matmul_bn_binarize",
+                      "fused_matmul_bn_binarize"),
+}
+
+
+def auto_launches(engine, exe) -> dict[str, int]:
+    """The launches one forward of a tuned executor must make: K4 once,
+    and each node's winner's kernel (the first layer's bit-plane variant
+    where the winner has one)."""
+    want = launch_counts(bitplane_pack=1)
+    for row in exe.backend_report():
+        first = bool(engine._graph.nodes[row["node"]].attrs.get("first"))
+        want[AUTO_KERNELS[row["backend"]][0 if first else 1]] += 1
+    return want
+
+
+def default_ms(node, shape, entry: dict) -> tuple[str, float | None]:
+    """The default path's backend for ``node`` and its time in a sweep
+    (``cuda_direct_pool`` degraded along the fallback order, at
+    ``plan_mma``'s tile, the sweep's first of that backend)."""
+    from repro_torch.runtime import autotune, executor
+    backend = executor.resolve_backend(node.op, "cuda_direct_pool")
+    tile = autotune.tile_candidates(
+        backend, node, shape, k3.mma_limits(torch.device("cuda", 0)))[0]
+    return backend, entry["timings_ms"].get(autotune.label(backend, tile))
+
+
+def phase_autotune(device) -> dict:
+    """Engines under ``matmul_mode="auto"`` on the paper nets: tune each
+    bucket (AlexNet and YOLOv2-Tiny at 8 then 1, VGG16 at 1), print every
+    node's winner, tile and sweep, hold each bucket's output to
+    ``cross_check`` and its launches to its winners; bucket 1 must reuse
+    bucket 8's winners (``xfer_hit``), and a second engine must re-time
+    nothing.  At bucket 1 a fresh sweep of each transferred K3 node times
+    the transferred winner beside the fastest.  Returns the winners, the
+    outcomes and the launches a forward."""
+    # Imported here, not at the top: tools/kernel_times.py runs this
+    # script's timing phase on trees that predate the autotuner.
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.runtime import autotune
+    out: dict = {"runs": [], "launches": {}}
+    g = torch.Generator(device=device).manual_seed(4)
+    for name, buckets in AUTO_RUNS:
+        wl = workloads.get(name, seed=0, matmul_mode="auto")
+        eng = wl.engine.engine
+        h, w = wl.input_hw
+        for b in buckets:
+            with obs_metrics.use_registry() as reg:
+                t0 = time.perf_counter()
+                exe = eng.compile(b)
+                tune_s = time.perf_counter() - t0
+                outcomes = dict(collections.Counter(
+                    e["outcome"] for e in reg.events("autotune")))
+            # Bucket 1 after 8 re-times nothing: bucket 8's winners
+            # transfer (a node identical to an earlier one of the same
+            # graph is a plain hit).
+            if b == 1 and len(buckets) > 1 and (
+                    "xfer_hit" not in outcomes
+                    or not set(outcomes) <= {"xfer_hit", "hit"}):
+                raise AssertionError(f"[autotune] {name} bucket 1 after 8: "
+                                     f"{outcomes}, want xfer_hit")
+            x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                              device=device, generator=g)
+            exe(x)
+            torch.cuda.synchronize()
+            reset_launches()
+            exe(x)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            want = auto_launches(eng, exe)
+            if launches != want:
+                raise AssertionError(f"[autotune] {name} bucket {b} "
+                                     f"launches {launches}, want {want}")
+            eng.cross_check(x)
+            out["launches"][f"auto_{name}_{b}"] = launches
+            types = runtime_types(eng, b)
+            rows = []
+            for r in exe.backend_report():
+                node = eng._graph.nodes[r["node"]]
+                shape = types[node.inputs[0]].shape
+                entry = eng._tuner.entry(node, shape)
+                if r["backend"] in autotune.PLAIN_BACKENDS:
+                    raise AssertionError(f"[autotune] {name} node "
+                                         f"{r['node']} won by {r['backend']}")
+                dflt, dflt_ms = default_ms(node, shape, entry)
+                won_ms = entry["timings_ms"][autotune.label(r["backend"],
+                                                             r["tile"])]
+                rows.append(dict(node=r["node"], op=r["op"],
+                                 channels=r["channels"],
+                                 winner=r["backend"], tile=r["tile"],
+                                 winner_ms=won_ms, default=dflt,
+                                 default_ms=dflt_ms,
+                                 transferred=bool(
+                                     entry.get("reused_across_batch")),
+                                 timings_ms=entry["timings_ms"]))
+                log(f"[autotune] {name} bucket {b} node {r['node']} "
+                    f"{r['op']} ({r['channels']} ch): {r['backend']} "
+                    f"{r['tile'] or ''} {won_ms:.4f} ms"
+                    + (" (bucket 8's)" if rows[-1]["transferred"] else "")
+                    + f"; default {dflt} {dflt_ms} ms; sweep "
+                    f"{entry['timings_ms']}")
+            log(f"[autotune] {name} bucket {b}: tuned in {tune_s:.3f} s, "
+                f"outcomes {outcomes}, launches a forward "
+                f"{ {k: v for k, v in launches.items() if v} }, output == "
+                f"cross_check")
+            out["runs"].append(dict(workload=name, bucket=b, tune_s=tune_s,
+                                    outcomes=outcomes, nodes=rows))
+            if b == 1 and len(buckets) > 1:
+                out["runs"][-1]["fresh"] = fresh_sweep(eng, exe, types, b)
+        # A second engine in this process re-times nothing.
+        again = workloads.get(name, seed=0, matmul_mode="auto").engine.engine
+        with obs_metrics.use_registry() as reg:
+            for b in buckets:
+                again.compile(b)
+            seen = set(e["outcome"] for e in reg.events("autotune"))
+        if not seen <= {"hit", "disk_hit"}:
+            raise AssertionError(f"[autotune] {name} second engine: {seen}")
+        log(f"[autotune] {name} second engine, buckets {buckets}: outcomes "
+            f"{sorted(seen)} (nothing re-timed)")
+    wl = workloads.get("alexnet_imagenet", seed=0, matmul_mode="auto")
+    out["profile"] = phase_profile(wl)
+    return out
+
+
+def runtime_types(eng, b: int):
+    from repro_torch.runtime.graph import infer_types
+    return infer_types(eng._graph, eng._plan_shape(b))
+
+
+def fresh_sweep(eng, exe, types, b: int) -> list[dict]:
+    """At bucket ``b``, time each K3 node's transferred winner beside a
+    fresh sweep's fastest (a tuner with empty caches, persisting
+    nothing): the cost of the transfer rule."""
+    from repro_torch.runtime import autotune
+    fresh = autotune.Autotuner(cache={}, agnostic_cache={}, persist=False,
+                               device=eng.device)
+    rows = []
+    for r in exe.backend_report():
+        if r["backend"] not in ("cuda_direct", "cuda_direct_pool"):
+            continue
+        node = eng._graph.nodes[r["node"]]
+        t = types[node.inputs[0]]
+        entry = fresh._tune_node(node, t.shape, t.dtype)
+        x = torch.zeros(t.shape, dtype=t.dtype, device=eng.device)
+        kept_ms = fresh._time_node(node, x, r["backend"], r["tile"]) * 1e3
+        best = min(entry["timings_ms"].items(), key=lambda kv: kv[1])
+        dflt, dflt_ms = default_ms(node, t.shape, entry)
+        rows.append(dict(node=r["node"], transferred=r["backend"],
+                         tile=r["tile"], transferred_ms=kept_ms,
+                         fresh_winner=best[0], fresh_ms=best[1],
+                         default=dflt, default_ms=dflt_ms))
+        log(f"[autotune] bucket {b} node {r['node']}: transferred "
+            f"{r['backend']} {r['tile']} {kept_ms:.4f} ms; a fresh sweep's "
+            f"fastest {best[0]} {best[1]:.4f} ms, its default {dflt} "
+            f"{dflt_ms} ms")
+    return rows
+
+
+def check_chain_tiles(engine, inp: Inputs) -> int:
+    """Every tile ``tune_chains`` timed for the regions of ``engine``'s
+    compiled buckets, run through K5 and its plain version on random
+    entry words, bit for bit.  Returns the tiles checked."""
+    from repro_torch.runtime import autotune
+    params = {str(nid): n.params for nid, n in engine._graph.nodes.items()
+              if n.params}
+    checked = 0
+    for (b, _), exe in sorted(engine._compiled.items()):
+        for chain in exe.regions:
+            # Entry words of random bits with 0 pad bits, as K4 or a
+            # packed node leaves them.
+            n, h, w, _ = chain.in_shape
+            if chain.stages[0].first:
+                x = inp.channel_words((n, h, w, bitplanes.NUM_PLANES),
+                                      engine._plan_shape(n)[3])
+            else:
+                src = engine._graph.nodes[chain.head].inputs[0]
+                x = inp.channel_words(
+                    (n, h, w), engine._graph.nodes[src].attrs["channels"])
+            x = x.reshape(chain.in_shape).contiguous()
+            ops = chain.operands(params)
+            entry = engine._tuner.chain_entry(chain)
+            tiles = autotune.chain_tile_candidates(chain)
+            for tile in tiles:
+                offs, words = chain.arena(tile)
+                kw = dict(tile, arena_offsets=offs, arena_words=words)
+                check_equal(f"chain tile {tile} bucket {b}",
+                            k5.chain_conv(x, chain.stages, ops, **kw),
+                            k5.chain_conv_plain(x, chain.stages, ops, **kw))
+                checked += 1
+            log(f"[chain tiles] bucket {b} region "
+                f"{'+'.join(map(str, chain.node_ids))} {chain.in_shape}: "
+                f"{len(tiles)} tiles == plain version; sweep "
+                f"{entry['timings_ms']}, chosen {chain.tile or 'whole map'}")
+    return checked
+
+
+def phase_traced_serve(wl, rng: np.random.Generator) -> list[str]:
+    """One batch of 8 served untraced, then traced: equal rows, and the
+    Chrome export passes ``validate_trace``.  Returns the span names."""
+    from repro_torch.obs import trace as obs_trace
+    imgs = [rng.integers(0, 256, (227, 227, 3), dtype=np.uint8)
+            for _ in range(BATCH)]
+
+    def serve():
+        server = wl.server(max_batch=BATCH, buckets=(BATCH,))
+        reqs = [server.submit(im) for im in imgs]
+        server.drain()
+        if not all(r.outcome == "served" for r in reqs):
+            raise AssertionError("[trace] a request was not served")
+        return np.stack([r.result for r in reqs]), server
+    plain, _ = serve()
+    tracer = obs_trace.install()
+    try:
+        traced, server = serve()
+    finally:
+        obs_trace.uninstall()
+    if not np.array_equal(plain, traced):
+        raise AssertionError("[trace] traced rows != untraced rows")
+    doc = tracer.to_chrome()
+    spans = obs_trace.validate_trace(doc)
+    names = sorted({e["name"] for e in doc["traceEvents"]})
+    need = {"serve.submit", "serve.assemble", "serve.stage",
+            "serve.dispatch", "serve.device", "serve.scatter",
+            "executor.call"}
+    if not need <= set(names):
+        raise AssertionError(f"[trace] missing {need - set(names)}")
+    log(f"[trace] {wl.matmul_mode} batch of {BATCH} traced: rows == "
+        f"untraced, {len(spans)} spans + "
+        f"{len(doc['traceEvents']) - len(spans)} instants validate, names "
+        f"{names}; device {doc['metadata']['device_kind']}; flight "
+        f"recorder {len(server.flight)} records, last "
+        f"{server.flight.last()[0]}")
+    return names
 
 
 def rel_err(got, want) -> float:
@@ -1482,6 +1766,12 @@ def phase_timing(device, launches: dict, per_forward: dict,
         kernel_ms(lambda: k4.bitplane_pack(x), 50),
         time_ms(lambda: k4.bitplane_pack_plain(x), 10),
         x.numel() + out.numel() * 4, 0.0)
+    # K4 at bucket 1 (the serving buckets below 8): timed, not summed.
+    x1 = x[:1].contiguous()
+    ms, dev = kernel_ms(lambda: k4.bitplane_pack(x1), 50)
+    b, by = bound_ms(x1.numel() + out[:1].numel() * 4, 0.0)
+    log(f"[timing] bitplane_pack {tuple(x1.shape)} (bucket 1): kernel "
+        f"{ms:.4f} ms, device {dev:.4f} ms, bound {b:.5f} ms ({by})")
     # conv1 on the main path: K3's bit-plane variant (u8 x s8 over every
     # bit position of each input word); conv2-conv5: K3 without word
     # weights.  conv1 with random plane weights takes the generic weighted
@@ -1615,20 +1905,8 @@ def phase_timing(device, launches: dict, per_forward: dict,
             f"clusters at once, the grid has {BATCH}): kernel {ms:.4f} ms"
             + (" (the wrapper's)" if c == k5.cluster_size(words, BATCH)
                else ""))
-    # Off the main path, for the tile search to come: the same region at
-    # smaller final tiles (more blocks, more halo recompute).
-    for tile in (dict(block_h=3, block_w=3), dict(block_h=2, block_w=2),
-                 dict(block_h=1, block_w=1)):
-        plan = regions.plan_chain_vmem(ALEXNET_CHAIN, tuple(x.shape),
-                                       tile=tile)
-        tkw = dict(tile, arena_offsets=tuple(o // 4 for o in plan.offsets),
-                   arena_words=plan.arena_bytes // 4)
-        if not torch.equal(k5.chain_conv(x, ALEXNET_CHAIN, ops, **tkw), out):
-            raise AssertionError(f"[timing] chain_conv tile {tile} != "
-                                 f"the whole-map tile")
-        ms = time_ms(lambda: k5.chain_conv(x, ALEXNET_CHAIN, ops, **tkw), 10)
-        log(f"[timing] chain_conv alexnet region, tile {tile} (off the "
-            f"main path): kernel {ms:.4f} ms, arena {plan.arena_bytes} B")
+    # The region's other tiles: timed by tune_chains under cuda_chain, and
+    # each held against the plain version there (check_chain_tiles).
 
     # K7 at minitron's prefill layer, beside one SDPA call on the same
     # tensors (in its (B, H, S, hd) layout, as views).
@@ -1677,17 +1955,32 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    # The autotuner's winners persist to a file of this run alone.
+    cache_dir = tempfile.TemporaryDirectory(prefix="chip-smoke-autotune-")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name,
+                                                      "autotune.json")
     smi = phase_build()
     errs = phase_kernels(device)
     rng = np.random.default_rng(0)
     launches, per_forward, numbers = {}, {}, {}
+    chain_inputs = Inputs(device, seed=6)
     for mode in WANT_LAUNCHES:
         wl, launches[mode], per_forward[mode], numbers[mode] = \
             phase_serve(rng, mode)
         numbers[mode]["profile"] = phase_profile(wl)
+        if mode == "cuda_chain":
+            numbers["chain_tiles_checked"] = check_chain_tiles(
+                wl.engine.engine, chain_inputs)
+        if mode == "cuda_direct_pool":
+            numbers["trace_names"] = phase_traced_serve(wl, rng)
     images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
               for hw in [(375, 500), (416, 416)]]
-    rows = {mode: phase_detect(images, mode) for mode in WANT_DETECT}
+    rows = {}
+    for mode in WANT_DETECT:
+        rows[mode], wl = phase_detect(images, mode)
+        if mode == "cuda_chain":
+            numbers["chain_tiles_checked"] += check_chain_tiles(
+                wl.engine.engine, chain_inputs)
     first = next(iter(rows.values()))
     if not all(torch.equal(r, first) for r in rows.values()):
         raise AssertionError("[detect] the paths' rows differ on the same "
@@ -1698,7 +1991,12 @@ def main() -> int:
     lm_launches, numbers["lm"] = phase_lm(device)
     launches.update(lm_launches)
     per_forward.update(lm_launches)
+    auto = phase_autotune(device)
+    launches.update(auto["launches"])
+    per_forward.update(auto["launches"])
+    cache_dir.cleanup()
     kernels = phase_timing(device, launches, per_forward, errs)
+    log(f"[autotune] json {json.dumps(auto)}")
     log(f"[serve] numbers {json.dumps(numbers)}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -2,7 +2,9 @@
 
 Port of ``repro.kernels.bitplane_pack.bitplane_pack``; the CUDA kernel is
 ``csrc/bitplane_pack.cu``.  (N, H, W, C) uint8 -> (N, H, W, 8*Cw) int32,
-plane-major per pixel (plane p occupies words [p*Cw, (p+1)*Cw)).
+plane-major per pixel (plane p occupies words [p*Cw, (p+1)*Cw)).  Each
+block of the kernel stages a span of pixels' bytes in shared memory, so a
+pixel's C bytes must fit a span: C is at most :data:`MAX_CHANNELS`.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ import torch
 
 from repro_torch.core import bitplanes, packing
 from repro_torch.kernels import build
+
+# csrc/bitplane_pack.cu kSpanBytes: the input bytes a block stages.
+MAX_CHANNELS = 16384
 
 
 def bitplane_pack_plain(x: torch.Tensor) -> torch.Tensor:
@@ -33,6 +38,9 @@ def bitplane_pack(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bitplane_pack: unsupported device {x.device}")
     build.require(x, "x", torch.uint8, 4, x.device)
     n, h, w, c = x.shape
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"bitplane_pack: {c} channels, the kernel takes 1 "
+                         f"to {MAX_CHANNELS}")
     out = torch.empty((n, h, w, bitplanes.NUM_PLANES * packing.num_words(c)),
                       dtype=torch.int32, device=x.device)
     lib = build.library()

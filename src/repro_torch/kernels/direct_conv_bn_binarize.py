@@ -158,7 +158,25 @@ def plan_mma(n: int, fh: int, fw: int, o: int, *, kh: int, kw: int,
                                      -c[1].nw_block))[1]
 
 
-def _geometry(h, w, kh, kw, stride, pad, pool):
+@functools.lru_cache(maxsize=None)
+def plan_mma_tile(tile: tuple[int, int, int], n: int, fh: int, fw: int,
+                  o: int, *, kh: int, kw: int, stride: int, cw: int, pool,
+                  planes: bool, limits: MmaLimits) -> MmaPlan:
+    """The plan of a given ``(tile_h, tile_w, nw_block)`` — one of
+    :func:`mma_candidates` — in place of :func:`plan_mma`'s pick (an
+    autotuned tile); raises for a tile that is not a candidate here."""
+    for _, plan in mma_candidates(n, fh, fw, o, kh=kh, kw=kw, stride=stride,
+                                  cw=cw, pool=pool, planes=planes,
+                                  limits=limits):
+        if (plan.tile_h, plan.tile_w, plan.nw_block) == tuple(tile):
+            return plan
+    raise ValueError(f"direct conv: tile {tuple(tile)} is not a candidate "
+                     f"for a {fh}x{fw}x{o} output (K = {kh * kw * cw} "
+                     f"words)")
+
+
+def conv_geometry(h, w, kh, kw, stride, pad, pool):
+    """(conv rows, conv cols, final rows, final cols) of one K3 call."""
     oh = binary_conv.conv_out_size(h, kh, stride, pad)
     ow = binary_conv.conv_out_size(w, kw, stride, pad)
     if pool is None:
@@ -178,7 +196,7 @@ def direct_conv_bn_binarize_plain(x, w_packed, threshold, sign_flip, *,
     0-word pool padding — the kernel's padding and pool geometry."""
     n, h, w_in, cw = x.shape
     o = w_packed.shape[0]
-    oh, ow, _, _ = _geometry(h, w_in, kh, kw, stride, pad, pool)
+    oh, ow, _, _ = conv_geometry(h, w_in, kh, kw, stride, pad, pool)
     xp = F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
     cnt = torch.zeros((n * oh * ow, o), dtype=torch.int32, device=x.device)
     for di in range(kh):
@@ -204,7 +222,9 @@ def direct_conv_bn_binarize(x: torch.Tensor, w_packed: torch.Tensor,
                             pad: int = 0,
                             word_weights: torch.Tensor | None = None,
                             pool: tuple[int, int, tuple[int, int]] | None
-                            = None) -> torch.Tensor:
+                            = None,
+                            tile: tuple[int, int, int] | None = None
+                            ) -> torch.Tensor:
     """Direct fused conv(+pool): packed NHWC in, packed NHWC out.
 
     x: (N, H, W, Cw) int32 (for the bit-plane first layer, Cw is the
@@ -215,8 +235,10 @@ def direct_conv_bn_binarize(x: torch.Tensor, w_packed: torch.Tensor,
     (N, OH', OW', ceil(O/32)) int32, pooled dims when ``pool`` is given.
 
     Launches a CUDA kernel for CUDA tensors — the tensor-core kernel
-    without word weights, the CUDA-core kernel with them; CPU tensors take
-    the plain version.
+    without word weights, at ``tile`` (``(tile_h, tile_w, nw_block)``,
+    :func:`plan_mma_tile`) or :func:`plan_mma`'s pick, the CUDA-core
+    kernel with them (which takes no tile); CPU tensors take the plain
+    version, whose result no tile changes.
     """
     if x.device.type == "cpu":
         return direct_conv_bn_binarize_plain(
@@ -244,12 +266,15 @@ def direct_conv_bn_binarize(x: torch.Tensor, w_packed: torch.Tensor,
             raise ValueError(f"word_weights has {word_weights.shape[0]} "
                              f"entries, want {k}")
         ww_ptr = word_weights.data_ptr()
+        if tile is not None:
+            raise ValueError("direct_conv_bn_binarize: the word-weighted "
+                             "kernel takes no tile")
     if ww_ptr is None:
         out = _launch_mma(x, w_packed, None, threshold, sign_flip, cw, kh,
-                          kw, stride, pad, pool, planes=False)
+                          kw, stride, pad, pool, planes=False, tile=tile)
         direct_conv_bn_binarize.launches += 1
         return out
-    oh, ow, fh, fw = _geometry(h, w_in, kh, kw, stride, pad, pool)
+    oh, ow, fh, fw = conv_geometry(h, w_in, kh, kw, stride, pad, pool)
     window, pstride, lo = _pool_args(pool)
     out = torch.empty((n, fh, fw, packing.num_words(o)), dtype=torch.int32,
                       device=dev)
@@ -272,18 +297,21 @@ def _pool_args(pool) -> tuple[int, int, int]:
 
 def _launch_mma(x, signs, const, threshold, sign_flip, cw: int, kh: int,
                 kw: int, stride: int, pad: int, pool, planes: bool,
-                plan: MmaPlan | None = None) -> torch.Tensor:
-    """One launch of the tensor-core kernel on validated operands, with
-    the planner's tile unless ``plan`` is given (the tile sweep)."""
+                plan: MmaPlan | None = None,
+                tile: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """One launch of the tensor-core kernel on validated operands: at
+    ``plan`` (the tile sweep's), else at ``tile``'s plan, else at the
+    planner's pick."""
     n, h, w_in, _ = x.shape
     o = signs.shape[0]
     if pool is not None:
         pool = (pool[0], pool[1], tuple(pool[2]))
-    oh, ow, fh, fw = _geometry(h, w_in, kh, kw, stride, pad, pool)
+    oh, ow, fh, fw = conv_geometry(h, w_in, kh, kw, stride, pad, pool)
     if plan is None:
-        plan = plan_mma(n, fh, fw, o, kh=kh, kw=kw, stride=stride, cw=cw,
-                        pool=pool, planes=planes,
-                        limits=mma_limits(x.device))
+        geo = dict(kh=kh, kw=kw, stride=stride, cw=cw, pool=pool,
+                   planes=planes, limits=mma_limits(x.device))
+        plan = (plan_mma(n, fh, fw, o, **geo) if tile is None
+                else plan_mma_tile(tuple(tile), n, fh, fw, o, **geo))
     window, pstride, lo = _pool_args(pool)
     out = torch.empty((n, fh, fw, packing.num_words(o)), dtype=torch.int32,
                       device=x.device)
@@ -308,7 +336,7 @@ def direct_conv_bn_binarize_planes_plain(
     threshold + pack and the OR-pool, as the generic version."""
     n, h, w_in, _ = x.shape
     o = filters.signs.shape[0]
-    oh, ow, _, _ = _geometry(h, w_in, kh, kw, stride, pad, pool)
+    oh, ow, _, _ = conv_geometry(h, w_in, kh, kw, stride, pad, pool)
     u = bitplanes.plane_bytes(x)                          # N, H, W, Cw·32
     cb = u.shape[-1]
     up = F.pad(u, (0, 0, pad, pad, pad, pad)) if pad else u
@@ -335,15 +363,15 @@ def direct_conv_bn_binarize_planes(
         x: torch.Tensor, filters: bitplanes.PlaneFilters,
         threshold: torch.Tensor, sign_flip: torch.Tensor, *, kh: int,
         kw: int, stride: int = 1, pad: int = 0,
-        pool: tuple[int, int, tuple[int, int]] | None = None
-        ) -> torch.Tensor:
+        pool: tuple[int, int, tuple[int, int]] | None = None,
+        tile: tuple[int, int, int] | None = None) -> torch.Tensor:
     """The bit-plane first layer's direct fused conv(+pool): x (N, H, W,
     8·Cw) plane words, ``filters`` from ``bitplanes.plane_filters`` ->
     the words :func:`direct_conv_bn_binarize` gives for the converter's
     filters and plane word weights, bit for bit.
 
-    Launches the tensor-core kernel on plane bytes for CUDA tensors; CPU
-    tensors take the plain version.
+    Launches the tensor-core kernel on plane bytes for CUDA tensors, at
+    ``tile`` or the planner's pick; CPU tensors take the plain version.
     """
     if x.device.type == "cpu":
         return direct_conv_bn_binarize_planes_plain(
@@ -370,7 +398,7 @@ def direct_conv_bn_binarize_planes(
                          f"{kh}x{kw}")
     out = _launch_mma(x, filters.signs, filters.const, threshold, sign_flip,
                       planes_cw // bitplanes.NUM_PLANES, kh, kw, stride, pad,
-                      pool, planes=True)
+                      pool, planes=True, tile=tile)
     direct_conv_bn_binarize_planes.launches += 1
     return out
 

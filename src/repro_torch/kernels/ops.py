@@ -151,21 +151,27 @@ def fused_binary_conv2d(x_packed: torch.Tensor, w_packed: torch.Tensor,
                         kh: int, kw: int, stride: int = 1, pad: int = 0,
                         word_weights=None, mode: str = "cuda_direct",
                         pool: tuple[int, int, tuple[int, int]] | None = None,
-                        planes=None) -> torch.Tensor:
+                        planes=None, tile: tuple[int, int, int] | None = None
+                        ) -> torch.Tensor:
     """Fused conv+BN+binarize(+OR-pool) dispatch — one call site for every
     backend.  ``pool`` = ``(window, stride, (pad_lo, pad_hi))``: on
     ``cuda_direct`` it rides the kernel's epilogue, on the im2col backends
     it runs as a separate packed-domain OR-pool after the conv.
     ``planes``: the first layer's u8 x s8 filters, taken by ``cuda_direct``
-    and ``cuda_pm1`` (the other modes keep the weighted words)."""
+    and ``cuda_pm1`` (the other modes keep the weighted words).  ``tile``:
+    K3's ``(tile_h, tile_w, nw_block)`` in place of ``plan_mma``'s pick,
+    ``cuda_direct`` only."""
+    if tile is not None and mode != "cuda_direct":
+        raise ValueError(f"mode {mode!r} takes no tile")
     if mode == "cuda_direct":
         if planes is not None:
             return direct_conv_bn_binarize_planes(
                 x_packed, planes, p.threshold, p.sign_flip, kh=kh, kw=kw,
-                stride=stride, pad=pad, pool=pool)
+                stride=stride, pad=pad, pool=pool, tile=tile)
         return direct_conv_bn_binarize(
             x_packed, w_packed, p.threshold, p.sign_flip, kh=kh, kw=kw,
-            stride=stride, pad=pad, word_weights=word_weights, pool=pool)
+            stride=stride, pad=pad, word_weights=word_weights, pool=pool,
+            tile=tile)
     if mode in ("cuda_popcount", "cuda_pm1"):
         flat, (n, oh, ow) = binary_conv.im2col_matmul(x_packed, kh, kw,
                                                       stride, pad)

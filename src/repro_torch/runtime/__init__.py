@@ -1,7 +1,8 @@
 """Graph runtime (counterpart of ``repro.runtime``): operator IR and its two
-lowerings, the rewrite passes, the memory planner, chain-fusion regions and
-the per-node backend executor."""
+lowerings, the rewrite passes, the memory planner, chain-fusion regions,
+the per-node backend executor and its autotuner."""
 
+from repro_torch.runtime.autotune import Autotuner, default_candidates
 from repro_torch.runtime.executor import (ALL_MODES, BACKENDS, CHAIN_BACKEND,
                                           GraphExecutor, eval_node,
                                           resolve_backend, valid_backends)
@@ -19,10 +20,11 @@ from repro_torch.runtime.regions import (DEFAULT_SMEM_BUDGET, Chain,
                                          plan_chain_vmem)
 
 __all__ = [
-    "ALL_MODES", "BACKENDS", "CHAIN_BACKEND", "DEFAULT_SMEM_BUDGET",
-    "DISPATCHABLE_OPS", "PACKED_OPS", "Chain", "Graph", "GraphExecutor",
-    "MemoryPlan", "Node", "TensorType", "VmemPlan", "absorb_pools",
-    "assign_layouts", "build_chain", "chain_executor", "chain_report",
+    "ALL_MODES", "Autotuner", "BACKENDS", "CHAIN_BACKEND",
+    "DEFAULT_SMEM_BUDGET", "DISPATCHABLE_OPS", "PACKED_OPS", "Chain",
+    "Graph", "GraphExecutor", "MemoryPlan", "Node", "TensorType",
+    "VmemPlan", "absorb_pools", "assign_layouts", "build_chain",
+    "chain_executor", "chain_report", "default_candidates",
     "default_pipeline", "eval_node", "fuse_epilogues", "fuse_pool_epilogue",
     "infer_types", "integrate_bn", "lower_packed", "lower_trained",
     "partition_chains", "plan_chain_vmem", "plan_memory", "resolve_backend",

@@ -35,9 +35,16 @@ one K5 launch with on-chip intermediates; member nodes are skipped in the
 schedule and nodes outside every region degrade per node along
 ``_FALLBACK``.
 
-All backends are bit-exact with one another.  A mode string that does
-not apply to an op degrades along ``_FALLBACK``; an explicit per-node
-backend that does not apply is rejected.
+All backends are bit-exact with one another, which is what makes
+per-node autotuning (:mod:`repro_torch.runtime.autotune`) safe.  A mode
+string that does not apply to an op degrades along ``_FALLBACK``; an
+explicit per-node backend that does not apply is rejected.
+
+``tiles`` maps a node to its kernel tile, as the reference's
+``tile_configs``: for a ``cuda_direct``/``cuda_direct_pool`` node, K3's
+tensor-core tile ``{"tile_h", "tile_w", "nw_block"}`` in place of
+``plan_mma``'s pick (the autotuner's sweep).  Tiles change the launch
+geometry only, never the result.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 from repro_torch.core import (binary_conv, binary_ops, bitplanes,
                               bnn_model, layer_integration, packing)
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as _trace
 from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import DISPATCHABLE_OPS, Graph
 
@@ -65,6 +73,8 @@ _FALLBACK = {"cuda_chain": "cuda_direct_pool",
              "cuda_direct": "cuda_popcount"}
 # Backends whose first-layer conv runs a bit-plane variant (K3's or K1's).
 _PLANE_BACKENDS = ("cuda_direct", "cuda_direct_pool", "cuda_pm1")
+# Backends that take a per-node tile (K3's tensor-core tile).
+TILE_BACKENDS = ("cuda_direct", "cuda_direct_pool")
 
 
 def valid_backends(op: str) -> tuple[str, ...]:
@@ -90,26 +100,55 @@ def resolve_backend(op: str, backend: str) -> str:
     return backend
 
 
-def _pool_attrs(a: dict) -> tuple[int, int, tuple[int, int]] | None:
+def pool_attrs(a: dict) -> tuple[int, int, tuple[int, int]] | None:
+    """A conv+pool node's ``(window, stride, (pad_lo, pad_hi))``, or None."""
     if "pool_window" not in a:
         return None
     return (a["pool_window"], a["pool_stride"],
             tuple(a.get("pool_pad", (0, 0))))
 
 
-def _eval_packed_conv(a: dict, p: dict, x, backend: str):
+def uses_planes(node, backend: str | None) -> bool:
+    """Whether ``node`` runs a bit-plane variant under ``backend``: a
+    first-layer node with plane word weights, as a count node or on a
+    backend that has the variant."""
+    return bool(node.attrs.get("first")) and "word_weights" in node.params \
+        and (node.op == "conv_counts" or backend in _PLANE_BACKENDS)
+
+
+def node_params(node, backend: str | None) -> dict:
+    """``node``'s params as ``eval_node`` takes them under ``backend``:
+    with the first layer's u8 x s8 filters where the node runs a
+    bit-plane variant (``bitplanes.plane_filters`` raises if the filters
+    lack the converter's structure)."""
+    if not uses_planes(node, backend):
+        return node.params
+    return dict(node.params, planes=bitplanes.plane_filters(
+        node.params["w_packed"], node.params["word_weights"],
+        node.attrs["kernel"] ** 2))
+
+
+def _mma_tile(tile: Mapping[str, int] | None):
+    """A K3 tile dict as the kernel wrapper takes it, or None."""
+    if not tile:
+        return None
+    return (tile["tile_h"], tile["tile_w"], tile["nw_block"])
+
+
+def _eval_packed_conv(a: dict, p: dict, x, backend: str, tile):
     k, s, pad = a["kernel"], a["stride"], a["pad"]
     ww = p.get("word_weights")
-    pool = _pool_attrs(a)
+    pool = pool_attrs(a)
     planes = p.get("planes")
+    mma_tile = _mma_tile(tile) if backend in TILE_BACKENDS else None
     if backend == "cuda_direct_pool":
         # The pool rides the direct kernel's epilogue.
         return kops.fused_binary_conv2d(
             x, p["w_packed"], p["thresh"], k, k, s, pad, word_weights=ww,
-            mode="cuda_direct", pool=pool, planes=planes)
+            mode="cuda_direct", pool=pool, planes=planes, tile=mma_tile)
     out = kops.fused_binary_conv2d(
         x, p["w_packed"], p["thresh"], k, k, s, pad, word_weights=ww,
-        mode=backend, planes=planes)
+        mode=backend, planes=planes, tile=mma_tile)
     if pool is not None:
         out = binary_conv.binary_or_maxpool(out, pool[0], pool[1],
                                             pad=pool[2])
@@ -140,8 +179,9 @@ def _eval_maxpool_pm1(a: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
-              backend: str = "torch"):
-    """Evaluate one node given its already-computed input values."""
+              backend: str = "torch", tile: Mapping[str, int] | None = None):
+    """Evaluate one node given its already-computed input values; ``tile``
+    (a K3 tile dict) goes to the direct kernel under ``TILE_BACKENDS``."""
     a, p = attrs, params
     if node_op == "bitplane_expand":
         return kops.bitplane_pack(inputs[0])
@@ -167,7 +207,7 @@ def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
     if node_op == "concat_packed":
         return torch.cat(inputs, dim=-1)
     if node_op in ("packed_conv", "packed_conv_pool"):
-        return _eval_packed_conv(a, p, inputs[0], backend)
+        return _eval_packed_conv(a, p, inputs[0], backend, tile)
     if node_op == "packed_dense":
         return kops.fused_binary_dense(inputs[0], p["w_packed"], p["thresh"],
                                        mode=backend)
@@ -189,13 +229,14 @@ def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
 
 
 class GraphExecutor:
-    """Topological evaluator with frozen per-node backends and fused
-    regions: serving calls reuse the executor the engine built for their
-    bucket."""
+    """Topological evaluator with frozen per-node backends, per-node
+    tiles and fused regions: serving calls reuse the executor the engine
+    built for their bucket."""
 
     def __init__(self, graph: Graph,
                  backends: str | Mapping[int, str] = "torch",
-                 regions: Sequence[_regions.Chain] | None = None):
+                 regions: Sequence[_regions.Chain] | None = None,
+                 tiles: Mapping[int, Mapping[str, int]] | None = None):
         graph.validate()
         self.graph = graph
         # Fused regions (runtime.regions.Chain): each is evaluated whole
@@ -223,22 +264,25 @@ class GraphExecutor:
             if b not in valid_backends(op):
                 raise ValueError(f"backend {b!r} does not apply to node "
                                  f"{nid} ({op})")
+        self.tiles: dict[int, dict] = {
+            nid: dict(t) for nid, t in (tiles or {}).items()
+            if nid in self.backends and t}
+        for nid in self.tiles:
+            if self.backends[nid] not in TILE_BACKENDS:
+                raise ValueError(f"node {nid} on {self.backends[nid]!r} "
+                                 f"takes no tile")
         self.params = {str(nid): n.params for nid, n in graph.nodes.items()
                        if n.params}
         # First-layer nodes that run a bit-plane variant: their params with
         # the u8 x s8 filters, built once here.
         self._node_params = {
-            nid: dict(n.params, planes=bitplanes.plane_filters(
-                n.params["w_packed"], n.params["word_weights"],
-                n.attrs["kernel"] ** 2))
+            nid: node_params(n, self.backends.get(nid))
             for nid, n in graph.nodes.items()
-            if n.attrs.get("first") and "word_weights" in n.params
-            and nid not in self._region_members
-            and (n.op == "conv_counts"
-                 or self.backends.get(nid) in _PLANE_BACKENDS)}
+            if nid not in self._region_members
+            and uses_planes(n, self.backends.get(nid))}
         self._schedule = graph.topo_order()
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
         g = self.graph
         env: dict[int, torch.Tensor] = {}
         for nid in self._schedule:
@@ -255,12 +299,22 @@ class GraphExecutor:
             env[nid] = eval_node(node.op, node.attrs,
                                  self._node_params.get(nid, node.params),
                                  [env[i] for i in node.inputs],
-                                 backend=self.backends.get(nid, "torch"))
+                                 backend=self.backends.get(nid, "torch"),
+                                 tile=self.tiles.get(nid))
         return env[g.output_id]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        # The disabled-tracing fast path is one global read.
+        if _trace._TRACER is None:
+            return self._run(x)
+        with _trace.span("executor.call", "runtime",
+                         nodes=len(self._schedule),
+                         regions=len(self.regions)):
+            return self._run(x)
 
     def backend_report(self) -> list[dict]:
         """One row per dispatchable node outside every region, and one per
-        region (``op="chain"``), in schedule order."""
+        region (``op="chain"``), in schedule order, each with its tile."""
         rows = []
         for nid in self._schedule:
             node = self.graph.nodes[nid]
@@ -276,5 +330,6 @@ class GraphExecutor:
             if nid in self.backends:
                 rows.append(dict(node=nid, op=node.op,
                                  channels=node.attrs.get("channels"),
-                                 backend=self.backends[nid]))
+                                 backend=self.backends[nid],
+                                 tile=dict(self.tiles.get(nid, {}))))
         return rows

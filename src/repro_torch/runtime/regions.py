@@ -268,15 +268,20 @@ def eval_chain(chain: Chain, params_by_node: Mapping[str, Mapping],
 
 
 def chain_executor(graph: Graph, input_shape: Sequence[int],
-                   *, vmem_budget: int | None = DEFAULT_SMEM_BUDGET):
+                   *, vmem_budget: int | None = DEFAULT_SMEM_BUDGET,
+                   tuner=None):
     """The region-fused executor: partition the schedule into
-    budget-fitting chains and freeze them into a
+    budget-fitting chains, optionally sweep each chain's tile with an
+    :class:`~repro_torch.runtime.autotune.Autotuner` (``tune_chains``,
+    which keeps a tile only if it fits the chain's budget; without one
+    every chain runs at the whole-map tile), and freeze them into a
     :class:`~repro_torch.runtime.executor.GraphExecutor` whose leftover
-    per-node ops degrade along the normal fallback order.  (Per-chain tile
-    tuning is not ported: every chain runs at the whole-map tile.)"""
+    per-node ops degrade along the normal fallback order."""
     from repro_torch.runtime.executor import CHAIN_BACKEND, GraphExecutor
 
     chains = partition_chains(graph, input_shape, vmem_budget=vmem_budget)
+    if tuner is not None:
+        tuner.tune_chains(graph, chains)
     return GraphExecutor(graph, CHAIN_BACKEND, regions=chains)
 
 

@@ -12,16 +12,21 @@ walk stays as the ``legacy_call`` / ``cross_check`` oracle.
 
 ``matmul_mode`` is a port backend (``torch``, ``torch_pm1``, ``cuda_pm1``,
 ``cuda_popcount``, ``cuda_direct``, ``cuda_direct_pool``; default
-``cuda_direct_pool``) or the region mode ``cuda_chain``: chains of packed
+``cuda_direct_pool``), the region mode ``cuda_chain`` — chains of packed
 convs and pools run as one K5 launch each
 (:mod:`repro_torch.runtime.regions`), the rest per node along the
-fallback order.  Under the pm1 modes the flat oracle takes the +-1 matmul
-count form too.
+fallback order; on the card each chain's tile is autotuned — or
+``"auto"``: each node's backend, and K3's tile, chosen by measurement on
+the engine's device (:mod:`repro_torch.runtime.autotune`; one tuner an
+engine, winners shared process-wide and persisted to disk, where
+``REPRO_AUTOTUNE_CACHE=0`` opts out).  Under the pm1 modes the flat
+oracle takes the +-1 matmul count form too.
 
 Batched serving goes through the per-bucket executor cache:
-``compile(batch_size)`` builds an executor once per (bucket, mode).
-``build_count`` — executors built plus kernel-library loads — must stay
-flat while requests flow.
+``compile(batch_size)`` builds an executor once per (bucket, mode); under
+``"auto"`` each bucket is tuned at its own batch shape, and winners
+transfer across buckets.  ``build_count`` — executors built plus
+kernel-library loads — must stay flat while requests flow.
 
     engine = PhoneBitEngine.from_artifact("model.npz", spec, (227, 227))
     logits = engine(images_uint8)
@@ -39,6 +44,9 @@ import torch
 from repro_torch.core import bnn_model, converter, layer_integration
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build as _build
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import trace as _trace
+from repro_torch.runtime import autotune as _autotune
 from repro_torch.runtime import executor as _executor
 from repro_torch.runtime import memory as _memory
 from repro_torch.runtime import regions as _regions
@@ -47,6 +55,11 @@ from repro_torch.runtime.passes import fuse_pool_epilogue
 
 # Modes whose flat-path count form is the +-1 matmul.
 _PM1_MODES = ("cuda_pm1", "torch_pm1")
+# Process-wide autotune caches: engines serving structurally identical
+# layers share measurements; the batchless cache carries winners across
+# buckets.
+_AUTOTUNE_CACHE: dict = {}
+_AUTOTUNE_AGNOSTIC: dict = {}
 
 
 def _to_device(v, device: torch.device):
@@ -104,24 +117,55 @@ class PhoneBitEngine:
         return fuse_pool_epilogue(
             lower_packed(self.spec, self.packed, self.input_hw))
 
+    @functools.cached_property
+    def _tuner(self) -> _autotune.Autotuner:
+        """One Autotuner an engine (the disk cache is read once), over the
+        process-wide caches."""
+        return _autotune.Autotuner(cache=_AUTOTUNE_CACHE,
+                                   agnostic_cache=_AUTOTUNE_AGNOSTIC,
+                                   device=self.device)
+
     def compile(self, batch_size: int | None = None, *,
                 mode: str | None = None) -> _executor.GraphExecutor:
-        """The cached executor for one serving bucket, built on first
-        request.  ``mode`` overrides ``matmul_mode`` for this executor."""
+        """The cached executor for one serving bucket, built (and under
+        ``"auto"`` tuned) on first request.  ``mode`` overrides
+        ``matmul_mode`` for this executor."""
         mode = mode or self.matmul_mode
         bs = batch_size if batch_size is not None else 1
         if bs < 1:
             raise ValueError(f"batch_size must be >= 1, got {bs}")
         key = (bs, mode)
         if key not in self._compiled:
-            if mode == _executor.CHAIN_BACKEND:
-                # Regions are planned at this bucket's shape.
-                exe = _regions.chain_executor(self._graph,
-                                              self._plan_shape(bs))
-            else:
-                exe = _executor.GraphExecutor(self._graph, mode)
+            with _trace.span("compile.executor", "compile", bucket=bs,
+                             mode=mode):
+                if mode == "auto":
+                    exe = self._tuner.tuned_executor(self._graph,
+                                                     self._plan_shape(bs))
+                elif mode == _executor.CHAIN_BACKEND:
+                    # Regions are planned at this bucket's shape; their
+                    # tiles are tuned on the card only, as the reference
+                    # tunes them on its accelerator only.
+                    exe = _regions.chain_executor(
+                        self._graph, self._plan_shape(bs),
+                        tuner=(self._tuner if self.device.type == "cuda"
+                               else None))
+                else:
+                    exe = _executor.GraphExecutor(self._graph, mode)
+            self._record_compile_metrics(exe, bs)
             self._compiled[key] = exe
         return self._compiled[key]
+
+    def _record_compile_metrics(self, exe: _executor.GraphExecutor,
+                                bs: int) -> None:
+        """Publish a freshly built bucket's memory series to the process
+        registry: the arena plan's peak and, for a region executor, the
+        device traffic its chains keep on chip."""
+        reg = _obs_metrics.get_registry()
+        plan = _memory.plan_memory(exe.graph, self._plan_shape(bs))
+        reg.gauge("runtime.arena_peak_bytes").set(plan.peak_bytes())
+        if exe.regions:
+            reg.gauge("runtime.chain_hbm_bytes_avoided").set(
+                sum(c.hbm_bytes_avoided() for c in exe.regions))
 
     @property
     def build_count(self) -> int:
@@ -173,7 +217,8 @@ class PhoneBitEngine:
 
     @property
     def backend_choices(self) -> list[dict]:
-        """Per-node backends and fused regions of the batch-1 executor."""
+        """Per-node backends and tiles (fixed by the mode or frozen by the
+        autotuner) and fused regions of the batch-1 executor."""
         return self.compile().backend_report()
 
     @property

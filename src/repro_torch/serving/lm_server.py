@@ -26,11 +26,14 @@ request is admitted: every tick rewrites every slot's row at ``pos``, so
 no row a new sequence attends to predates the reset, and it decodes as in
 a fresh server.  A server therefore outlives ``max_seq``.
 Token state lives on the card; each tick reads back one argmax vector.
-The reference's resilience — decode retry, KV checkpoints and restore,
-the request journal, evacuation to another lane, the flight recorder and
-trace spans — is not ported: a fault that still escapes a prefill or a
-decode tick resolves every in-flight request ``error`` and frees its
-slot, and the server goes on with the queue.
+``flight`` keeps the last requests' records (served, shed, rejected,
+error), and the ``serve.submit`` / ``serve.reject`` / ``serve.error``
+trace instants mark the same sites as the reference's.  The reference's
+resilience — decode retry, KV checkpoints and restore, the request
+journal, evacuation to another lane, and their instants — is not ported:
+a fault that still escapes a prefill or a decode tick resolves every
+in-flight request ``error`` and frees its slot, and the server goes on
+with the queue.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.metrics import ServingMetrics
 from repro_torch.serving.kv_cache import KVCacheManager
 from repro_torch.serving.scheduler import Request, shed_expired_requests
@@ -78,6 +83,7 @@ class LMServer:
         self.dropped = 0          # deadline-shed requests (overload stat)
         self._by_seq: dict[int, tuple[Request, Any]] = {}
         self._metrics = ServingMetrics(self.clock)
+        self.flight = FlightRecorder()
 
     # ---- admission ---------------------------------------------------------
     @torch.inference_mode()
@@ -151,8 +157,13 @@ class LMServer:
         if err is not None:
             r.resolve("rejected", error=err)
             self._metrics.record_rejected()
+            self.flight.record(id=r.id, outcome="rejected", error=err,
+                               arrival_s=now, deadline_s=deadline_s,
+                               done_s=now, latency_s=0.0)
+            _trace.instant("serve.reject", "serve", req=r.id, reason=err)
             return r
         self._waiting.append(r)
+        _trace.instant("serve.submit", "serve", req=r.id)
         return r
 
     def poll(self, request: Request) -> bool:
@@ -164,6 +175,12 @@ class LMServer:
         # must not protect queued requests from their deadlines.
         self._waiting, shed = shed_expired_requests(self._waiting, now)
         self.dropped += len(shed)
+        self._metrics.record_dropped(len(shed))
+        for r in shed:
+            self.flight.record(id=r.id, outcome="shed",
+                               arrival_s=r.arrival_s,
+                               deadline_s=r.deadline_s, done_s=now,
+                               latency_s=now - r.arrival_s)
         while self._waiting and self.manager.can_admit():
             prompt, max_new = self._waiting[0].payload
             if not self._fits(len(prompt), max_new):
@@ -196,15 +213,24 @@ class LMServer:
 
     def _fail_inflight(self, reason: str) -> list[Request]:
         """Resolve every in-flight sequence ``error`` and free its slot."""
+        now = self.clock()
         failed: list[Request] = []
-        for seq_id, (r, _) in list(self._by_seq.items()):
+        for seq_id, (r, seq) in list(self._by_seq.items()):
             r.resolve("error", error=reason)
             self._metrics.record_error()
+            self._record_error(r, now, n_tokens=len(seq.tokens))
             if seq_id in self.manager.active:
                 self.manager.release(seq_id)
             del self._by_seq[seq_id]
             failed.append(r)
+        _trace.instant("serve.error", "serve", n=len(failed))
         return failed
+
+    def _record_error(self, r: Request, now: float, **fields) -> None:
+        self.flight.record(id=r.id, outcome="error", error=r.error,
+                           arrival_s=r.arrival_s, deadline_s=r.deadline_s,
+                           done_s=now, latency_s=now - r.arrival_s,
+                           **fields)
 
     def serve_tick(self, now: float | None = None) -> list[Request]:
         """One serving tick: admit waiting prompts into free slots, run a
@@ -222,6 +248,10 @@ class LMServer:
             if seq_id not in self.manager.active:    # finished + released
                 r.resolve("served", list(seq.tokens))
                 self._metrics.record([now - r.arrival_s])
+                self.flight.record(
+                    id=r.id, outcome="served", arrival_s=r.arrival_s,
+                    deadline_s=r.deadline_s, done_s=now,
+                    latency_s=now - r.arrival_s, n_tokens=len(seq.tokens))
                 del self._by_seq[seq_id]
                 done.append(r)
         return done
@@ -242,9 +272,11 @@ class LMServer:
                 reason = "drain wedged: step budget exhausted"
                 wedged = list(self._waiting)
                 self._waiting.clear()
+                t = self.clock() if now is None else now
                 for r in wedged:
                     r.resolve("error", error=reason)
                     self._metrics.record_error()
+                    self._record_error(r, t)
                 done += wedged + self._fail_inflight(reason)
                 break
             steps += 1

@@ -11,7 +11,16 @@ Counterpart of ``repro.serving.server`` for the serving core:
   memory, then an event; ``step()`` queues batch k+1 before it waits on
   batch k's event (the one blocking point), so the device works on k+1
   while the host scatters k;
-* ``metrics()``: p50/p95 latency, served, dropped, queue depth, throughput.
+* ``metrics()``: p50/p95 latency, served, dropped, queue depth, throughput;
+* ``flight``: a :class:`~repro_torch.obs.flight.FlightRecorder` of the
+  last requests (served, shed, rejected, error) with their arrival,
+  bucket and stage timings;
+* trace spans on the reference's sites (``compile.bucket``,
+  ``serve.assemble``, ``serve.stage``, ``serve.dispatch``,
+  ``serve.device``, ``serve.scatter``; instants ``serve.submit``,
+  ``serve.reject``, ``serve.shed``, ``serve.error``): with tracing off a
+  site costs one global read, and on it adds host-side spans only, so
+  served rows are bit-exact either way.
 
 The ``preprocess=`` hook runs per payload before a batch is staged; the
 workloads' hook returns a tensor on the engine's device, so on the card
@@ -22,8 +31,8 @@ validator does (array-like, numeric, finite, and the engine's input shape
 when there is no preprocess hook) and resolves a bad one ``rejected``
 alone; a batch whose preprocess, dispatch or readback still raises
 resolves each of its rows ``error``, and serving goes on.  Fault
-injection, retry and degradation ladders, the request journal, tracing,
-placement and multiplexing are not ported.
+injection, retry and degradation ladders, the request journal, placement
+and multiplexing are not ported.
 """
 
 from __future__ import annotations
@@ -34,22 +43,30 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.metrics import ServingMetrics
 from repro_torch.serving.scheduler import BatchScheduler, Request
 
 
 class _InFlight:
     """One dispatched batch: its requests, the host tensor its output is
-    being copied into, and the event that marks the copy done (None on the
-    CPU, where the work is already done)."""
+    being copied into, the event that marks the copy done (None on the
+    CPU, where the work is already done), its bucket, when its dispatch
+    returned and how long staging and dispatch took."""
 
-    __slots__ = ("batch", "host", "event")
+    __slots__ = ("batch", "host", "event", "bucket", "t_dispatch",
+                 "stage_s")
 
     def __init__(self, batch: list[Request], host: torch.Tensor,
-                 event: torch.cuda.Event | None):
+                 event: torch.cuda.Event | None, bucket: int,
+                 t_dispatch: float, stage_s: float):
         self.batch = batch
         self.host = host
         self.event = event
+        self.bucket = bucket
+        self.t_dispatch = t_dispatch
+        self.stage_s = stage_s
 
 
 class InferenceServer:
@@ -79,6 +96,7 @@ class InferenceServer:
         self.clock = clock
         self._pending: _InFlight | None = None
         self._metrics = ServingMetrics(clock)
+        self.flight = FlightRecorder()
 
     # ---- executor cache ---------------------------------------------------
     def compile_buckets(self) -> dict[int, float]:
@@ -87,14 +105,15 @@ class InferenceServer:
         stays flat)."""
         timings: dict[int, float] = {}
         for b in self.scheduler.buckets:
-            t0 = time.perf_counter()
-            exe = self.engine.compile(b)
-            x = torch.zeros(self.engine._plan_shape(b), dtype=torch.uint8,
-                            device=self.engine.device)
-            exe(x)
-            if self.engine.device.type == "cuda":
-                torch.cuda.synchronize(self.engine.device)
-            timings[b] = time.perf_counter() - t0
+            with _trace.span("compile.bucket", "compile", bucket=b):
+                t0 = time.perf_counter()
+                exe = self.engine.compile(b)
+                x = torch.zeros(self.engine._plan_shape(b),
+                                dtype=torch.uint8, device=self.engine.device)
+                exe(x)
+                if self.engine.device.type == "cuda":
+                    torch.cuda.synchronize(self.engine.device)
+                timings[b] = time.perf_counter() - t0
         return timings
 
     # ---- request lifecycle ------------------------------------------------
@@ -109,8 +128,13 @@ class InferenceServer:
             r.arrival_s = now
             r.resolve("rejected", error=err)
             self._metrics.record_rejected()
+            self.flight.record(id=r.id, outcome="rejected", error=err,
+                               arrival_s=now, done_s=now, latency_s=0.0)
+            _trace.instant("serve.reject", "serve", req=r.id, reason=err)
             return r
-        return self.scheduler.submit(payload, deadline_s=deadline_s, now=now)
+        r = self.scheduler.submit(payload, deadline_s=deadline_s, now=now)
+        _trace.instant("serve.submit", "serve", req=r.id)
+        return r
 
     def _payload_error(self, payload: Any) -> str | None:
         """Why this payload cannot be served, or None when it can: checked
@@ -133,8 +157,14 @@ class InferenceServer:
         return None
 
     def _fail(self, batch: list[Request], e: Exception) -> list[Request]:
+        now = self.clock()
         for r in batch:
             r.resolve("error", error=f"batch failed: {e!r}")
+            self.flight.record(id=r.id, outcome="error", error=r.error,
+                               arrival_s=r.arrival_s,
+                               deadline_s=r.deadline_s, done_s=now,
+                               latency_s=now - r.arrival_s)
+            _trace.instant("serve.error", "serve", req=r.id)
         self._metrics.record_error(len(batch))
         return batch
 
@@ -144,33 +174,62 @@ class InferenceServer:
     # ---- dispatch / scatter ----------------------------------------------
     def _dispatch(self, batch: list[Request],
                   payloads: list[Any]) -> _InFlight:
-        if self.preprocess is not None:
-            x = torch.stack([torch.as_tensor(self.preprocess(np.asarray(p)))
-                             for p in payloads])
-        else:
-            x = torch.from_numpy(np.stack([np.asarray(p) for p in payloads]))
-        exe = self.engine.compile(len(payloads))
-        self._metrics.mark_dispatch()
-        if self.engine.device.type != "cuda":
-            return _InFlight(batch, exe(x.to(self.engine.device)), None)
-        if not x.is_cuda:                         # a host batch
-            x = x.pin_memory().to(self.engine.device, non_blocking=True)
-        out = exe(x)                              # queued: returns now
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return _InFlight(batch, host, event)
+        t0 = self.clock()
+        with _trace.span("serve.stage", "serve", bucket=len(payloads),
+                         n_real=len(batch)):
+            if self.preprocess is not None:
+                x = torch.stack([torch.as_tensor(
+                    self.preprocess(np.asarray(p))) for p in payloads])
+            else:
+                x = torch.from_numpy(np.stack([np.asarray(p)
+                                               for p in payloads]))
+        with _trace.span("serve.dispatch", "serve", bucket=len(payloads)):
+            exe = self.engine.compile(len(payloads))
+            self._metrics.mark_dispatch(bucket=len(payloads))
+            if self.engine.device.type != "cuda":
+                host, event = exe(x.to(self.engine.device)), None
+            else:
+                if not x.is_cuda:                     # a host batch
+                    x = x.pin_memory().to(self.engine.device,
+                                          non_blocking=True)
+                out = exe(x)                          # queued: returns now
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+        t1 = self.clock()
+        return _InFlight(batch, host, event, len(payloads), t1, t1 - t0)
 
     def _scatter(self, flight: _InFlight) -> list[Request]:
-        if flight.event is not None:
-            flight.event.synchronize()            # the one blocking point
-        host = flight.host.numpy()
+        with _trace.span("serve.device", "serve", bucket=flight.bucket):
+            if flight.event is not None:
+                flight.event.synchronize()            # the one blocking point
+            host = flight.host.numpy()
         now = self.clock()
-        for i, r in enumerate(flight.batch):
-            r.resolve("served", host[i])
+        with _trace.span("serve.scatter", "serve",
+                         n_real=len(flight.batch)):
+            for i, r in enumerate(flight.batch):
+                r.resolve("served", host[i])
         self._metrics.record([now - r.arrival_s for r in flight.batch])
+        for r in flight.batch:
+            self.flight.record(
+                id=r.id, outcome="served", bucket=flight.bucket,
+                arrival_s=r.arrival_s, deadline_s=r.deadline_s,
+                dispatched_s=flight.t_dispatch, done_s=now,
+                queue_s=flight.t_dispatch - r.arrival_s,
+                stage_s=flight.stage_s, latency_s=now - r.arrival_s,
+                mode=self.engine.matmul_mode)
         return flight.batch
+
+    def _record_shed(self, shed: list[Request], now: float) -> None:
+        self._metrics.record_dropped(len(shed))
+        for r in shed:
+            self.flight.record(id=r.id, outcome="shed",
+                               arrival_s=r.arrival_s,
+                               deadline_s=r.deadline_s, done_s=now,
+                               latency_s=now - r.arrival_s)
+            _trace.instant("serve.shed", "serve", req=r.id)
 
     def step(self, now: float | None = None,
              force: bool = False) -> list[Request]:
@@ -178,9 +237,16 @@ class InferenceServer:
         then scatter the previously in-flight one.  Returns the requests
         completed this tick."""
         now = self.clock() if now is None else now
+        # Shed before assembly, so the flight recorder sees every deadline
+        # outcome (padded_batch sheds too, at the same ``now``: nothing is
+        # left for it to shed).
+        shed = self.scheduler.shed_expired(now)
+        if shed:
+            self._record_shed(shed, now)
         flight = None
         done: list[Request] = []
-        got = self.scheduler.padded_batch(now, force=force)
+        with _trace.span("serve.assemble", "serve"):
+            got = self.scheduler.padded_batch(now, force=force)
         if got is not None:
             try:
                 flight = self._dispatch(*got)

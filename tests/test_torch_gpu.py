@@ -78,6 +78,23 @@ def test_bitplane_pack_on_card(cuda, shape):
     assert torch.equal(k4.bitplane_pack(x), k4.bitplane_pack_plain(x))
 
 
+@pytest.mark.parametrize("shape", [(1, 37, 41, c) for c in (
+    1, 8, 31, 32, 33, 64, 100, 200)] + [(3, 1, 1, 33), (2, 333, 1, 5),
+                                        (8, 227, 227, 3), (1, 1, 2, 16384)])
+def test_bitplane_pack_every_width_on_card(cuda, shape):
+    """K4 at every C path (Cw 1 with the warp's shuffled stores, 2-4 from
+    registers, above by words), at pixel counts no multiple of a block's
+    256, from an aligned start and from a start off a 16-byte boundary."""
+    n = shape[0]
+    big = torch.from_numpy(RNG.integers(0, 256, (n + 1,) + shape[1:],
+                                        dtype=np.uint8)).to(cuda)
+    for x in (big[:n].contiguous(), big[1:]):
+        assert torch.equal(k4.bitplane_pack(x), k4.bitplane_pack_plain(x))
+    with pytest.raises(ValueError, match="channels"):
+        k4.bitplane_pack(torch.zeros((1, 1, 1, k4.MAX_CHANNELS + 1),
+                                     dtype=torch.uint8, device=cuda))
+
+
 @pytest.mark.parametrize("m,n,w,weighted", [(8, 4096, 288, False),
                                             (13, 48, 7, True),
                                             (1, 96, 30, False),
@@ -292,6 +309,62 @@ def test_direct_conv_mma_on_card(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(got, k3.direct_conv_bn_binarize_plain(*args, **kw))
     assert_mixed(got, o)
+
+
+@pytest.mark.parametrize("case", [
+    ((8, 27, 27, 96), 5, 1, 2, 256, (3, 2, (0, 0))),     # AlexNet conv2
+    ((1, 13, 13, 384), 3, 1, 1, 384, None),              # conv4, bucket 1
+])
+def test_direct_conv_every_tuned_tile_on_card(cuda, case):
+    """K3 at each tile the autotuner sweeps (``plan_mma``'s pick and the
+    next three by its model), forced through the wrapper's ``tile``: the
+    planner's output, bit for bit."""
+    (n, h, w, c), k, st, pad, o, pool = case
+    cw = packing.num_words(c)
+    args = (words(cuda, n, h, w, cw), words(cuda, o, k * k * cw),
+            *epilogue(cuda, o, torch.ones(k * k * cw),
+                      pool[0] ** 2 if pool else 1))
+    kw = dict(kh=k, kw=k, stride=st, pad=pad, pool=pool)
+    want = k3.direct_conv_bn_binarize(*args, **kw)
+    _, _, fh, fw = k3.conv_geometry(h, w, k, k, st, pad, pool)
+    cands = sorted(k3.mma_candidates(n, fh, fw, o, kh=k, kw=k, stride=st,
+                                     cw=cw, pool=pool, planes=False,
+                                     limits=k3.mma_limits(cuda)),
+                   key=lambda c: c[0])[:4]
+    for _, plan in cands:
+        tile = (plan.tile_h, plan.tile_w, plan.nw_block)
+        assert torch.equal(k3.direct_conv_bn_binarize(*args, **kw,
+                                                      tile=tile), want)
+    with pytest.raises(ValueError, match="not a candidate"):
+        k3.direct_conv_bn_binarize(*args, **kw, tile=(99, 1, 1))
+
+
+@pytest.mark.parametrize("name", ["alexnet_imagenet", "vgg16_imagenet",
+                                  "yolov2_tiny_voc"])
+def test_auto_engine_on_card(cuda, name, tmp_path, monkeypatch):
+    """``matmul_mode="auto"`` on the card: the tuned graph equals
+    ``cross_check``, no node is won by a plain backend, every K3 node
+    carries its tile, and bucket 1 reuses bucket 2's winners."""
+    from repro_torch.obs import metrics
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    wl = workloads.get(name, variant="tiny", matmul_mode="auto")
+    eng = wl.engine.engine
+    h, w = wl.input_hw
+    x = torch.from_numpy(RNG.integers(0, 256, (2, h, w, 3),
+                                      dtype=np.uint8)).to(cuda)
+    eng.cross_check(x)
+    with metrics.use_registry() as reg:
+        eng.cross_check(x[:1])
+    # Nothing re-timed: transfers, and plain hits for a node identical to
+    # an earlier one of the graph.
+    seen = {e["outcome"] for e in reg.events("autotune")}
+    assert "xfer_hit" in seen and seen <= {"xfer_hit", "hit"}
+    rows = eng.backend_choices
+    assert rows and not {r["backend"] for r in rows} & {"torch",
+                                                        "torch_pm1"}
+    for r in rows:
+        if r["backend"] in ("cuda_direct", "cuda_direct_pool"):
+            assert set(r["tile"]) == {"tile_h", "tile_w", "nw_block"}
 
 
 @pytest.mark.parametrize("m,taps,cw,o", [(24200, 121, 1, 96), (84, 9, 1, 33),

@@ -254,8 +254,7 @@ def test_lm_server_protocol(proto, mesh_rules):
     assert [r.outcome for r in ref_reqs] == ["served"] * 3
     assert [r.result for r in reqs] == [r.result for r in ref_reqs]
     ref_m = ref.metrics()
-    assert {k for k in ref_m if k not in ("retries", "degraded")} \
-        == set(m)
+    assert set(ref_m) == set(m)
     # invalid requests resolve ``rejected`` at the protocol edge
     bad = server.submit(list(range(1, 31)), max_new=8)
     assert bad.done and bad.outcome == "rejected" and "max_seq" in bad.error

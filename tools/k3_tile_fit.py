@@ -50,7 +50,8 @@ def calls_of(sweep: dict) -> list[dict]:
         pool = None if c["pool"] is None else (
             c["pool"][0], c["pool"][1], tuple(c["pool"][2]))
         k = c["kernel"]
-        _, _, fh, fw = k3._geometry(h, w, k, k, c["stride"], c["pad"], pool)
+        _, _, fh, fw = k3.conv_geometry(h, w, k, k, c["stride"], c["pad"],
+                                        pool)
         out.append(dict(
             forward=c["forward"], args=(n, fh, fw, c["o"]),
             geo=dict(kh=k, kw=k, stride=c["stride"],

@@ -113,7 +113,7 @@ def sweep(call: dict, limits: k3.MmaLimits) -> dict:
     x, signs, const, thr, sgn, cw, kh, kw, stride, pad, pool, planes = \
         call["args"]
     n, h, w, _ = x.shape
-    oh, ow, fh, fw = k3._geometry(h, w, kh, kw, stride, pad, pool)
+    oh, ow, fh, fw = k3.conv_geometry(h, w, kh, kw, stride, pad, pool)
     o = signs.shape[0]
     geo = dict(kh=kh, kw=kw, stride=stride, cw=cw, pool=pool, planes=planes,
                limits=limits)
