@@ -47,27 +47,47 @@ Phases, each fatal on failure:
               ``cuda_direct_pool`` (launches per forward K4 1, K3's
               bit-plane variant 1 for conv1, K3 4, K2 2), ``cuda_chain`` (K4
               1, K5 1, K2 2, no K3) and ``cuda_pm1`` (K4 1, K1's bit-plane
-              variant 1 for conv1, K6 6, no K2, K3 or K5).  Each: mixed-size
-              raw images in mixed group sizes through buckets (1, 2, 4, 8),
-              every row equal to ``cross_check`` on the same padded batch,
-              ``build_count`` flat, the launch counts read around that run
-              alone; then a steady run of 64 images and the preprocess time
-              per image (copy and resize on the card).  Under cuda_chain
+              variant 1 for conv1, K6 6, no K2, K3 or K5).  Each bucket is
+              one CUDA graph of the forward and the head.  The executors
+              are built first; then the counted run: the server's boot,
+              which captures every bucket, and mixed-size raw images in
+              mixed group sizes through buckets (1, 2, 4, 8).  Every row
+              equals ``cross_check`` on the same padded batch (the graph's
+              raw output against the flat oracle) and the captured output
+              the eager executor's; ``build_count`` and ``capture_count``
+              stay flat; the wrapper launches over the boot are the
+              captured forwards (warm-up calls and the captured one, per
+              bucket) times the path's launches a forward, the traffic
+              adds none (a replay calls no wrapper), and a torch.profiler
+              trace of the traffic counts its replays' kernels: the groups
+              served times the path's launches a forward; then a steady run
+              of 64 images eager and captured, and the preprocess time per
+              image (copy and resize on the card).  Under cuda_chain
               each bucket's region tile is tuned (``tune_chains``), and
               every tile the sweep timed is held against K5's plain
               version (also YOLOv2-Tiny's two regions below); under
               cuda_direct_pool one batch of 8 is served again with tracing
               on: equal rows, a Chrome export that passes
               ``validate_trace``, the span names printed;
-   profile  — one AlexNet forward at bucket 8 per path: host wall time,
-              device time per kernel (torch.profiler), the busy share;
+   profile  — one AlexNet forward and head at bucket 8 per path, eager
+              then captured: host wall time, device time per kernel
+              (torch.profiler), the busy share, peak device memory;
 4. detect   — paper YOLOv2-Tiny at 416² for one batch of 2 through the
-              engine and ``detect_head`` on each path, the same images on
-              every path, cross-checked and the four paths' rows equal
+              engine and ``detect_head`` on each path, one captured graph,
+              the same images on every path, cross-checked, equal to the
+              eager executor's and the four paths' rows equal (launches
+              counted over the capture and in the profile of 10 replays);
+              under
+              ``cuda_direct_pool`` a bucket-8 forward and head profiled as
+              AlexNet's are;
               (conv1 through a bit-plane variant on the first three:
               ``cuda_chain``: K4 1, K3's 1, K5 2; ``cuda_pm1``: K4 1,
               K1's 1, K6 7; ``cuda_popcount``: K4 1, K2 8, one a conv
               node of the executor, conv1 on its weighted kernel);
+   multiplex — paper AlexNet and YOLOv2-Tiny as two lanes of one
+              ``MultiTenantServer`` at weights 3:1, saturated: device rows
+              48:16 over 8 ticks, every row equal to its lane's
+              ``cross_check``;
 5. trained  — paper AlexNet built from seeded float params
               (``bnn_model.to_graph``): the unfused graph (``assign_layouts``)
               on the card, K4 1, K1's bit-plane variant 1 and K1 6, against
@@ -89,12 +109,18 @@ Phases, each fatal on failure:
               device time, peak memory); the same prompt fed token by token
               through ``make_decode_step`` into a fresh cache, at the depth
               of the first 8 layers (a step costs ~39 ms at 32: the full
-              depth would hold the phase past a minute), its last logits
+              depth would hold the phase past a minute; the step
+              ``LMServer`` captures), its last logits
               and cache rows held against the prefill of those 8 layers (no
-              K7 launch in the decode); full-depth decode steps at B 4 timed
-              and profiled (host wall, device time, busy share); and
-              ``LMServer`` answering 8 requests (4 slots, max_seq 256; one
-              over-long prompt rejected; no K7 launch);
+              K7 launch in the decode); full-depth decode steps at B 4, eager
+              and captured (``LMServer``'s step as one CUDA graph), timed
+              and profiled (host wall, device time, busy share, peak
+              memory); ``LMServer`` answering 8 requests through the
+              captured step (4 slots, max_seq 256; one over-long prompt
+              rejected; no K7 launch), and an eager server giving the same
+              tokens; captured logits equal to eager ones bit for bit at
+              every position of a generated sequence on the first 8
+              layers;
 7. autotune — engines under ``matmul_mode="auto"`` (a temporary cache
               file): paper AlexNet and YOLOv2-Tiny tuned at bucket 8 then
               1, VGG16 (224²) at 1; each node's winner, tile and sweep
@@ -103,7 +129,18 @@ Phases, each fatal on failure:
               plain backend wins; bucket 1 reuses bucket 8's winners
               (``xfer_hit``), and at bucket 1 a fresh sweep times each
               transferred K3 winner beside the fastest; a second engine
-              re-times nothing; AlexNet's tuned forward profiled;
+              re-times nothing; each tuned bucket captured (launches counted
+              over the capture and in 10 replays); AlexNet's tuned forward
+              profiled;
+   artifact — paper AlexNet booted live in this process under ``"auto"``
+              (the tuner's caches emptied, so it tunes) and
+              ``cuda_direct_pool``, exported at buckets (1, 2, 4, 8),
+              captured and serving 8 images; a fresh interpreter
+              (``python3 -c``, repro_torch alone) boots a server from each
+              artifact and serves the same images: every bucket loaded and
+              captured, no tuner outcome, no nvcc build, ``build_count``
+              flat, rows equal to the live boot's; both boot-to-result
+              times printed;
 8. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events
               around one call, warmed up, median; and the device time a
               call, torch.profiler's kernel time over 20 calls / 20)
@@ -339,6 +376,26 @@ KERNEL_NAMES = ("bitplane_pack", "direct_conv_bn_binarize",
 
 def launch_counts(**kw) -> dict[str, int]:
     return {name: kw.get(name, 0) for name in KERNEL_NAMES}
+
+
+# Each wrapper's device kernels, by a substring of the name torch.profiler
+# gives them: how a replay, which calls no wrapper, is counted.
+DEVICE_KERNELS = (
+    ("bitplane_pack_kernel", "bitplane_pack"),
+    ("conv_mma_kernel<true", "direct_conv_bn_binarize_planes"),
+    ("conv_mma_kernel<false", "direct_conv_bn_binarize"),
+    ("direct_conv_bn_binarize_kernel", "direct_conv_bn_binarize"),
+    ("ThresholdPackEpilogue", "fused_matmul_bn_binarize"),
+    ("fused_matmul_bn_binarize_kernel", "fused_matmul_bn_binarize"),
+    ("chain_conv_kernel", "chain_conv"),
+    ("gemm_mma_kernel<true", "xnor_popcount_matmul_planes"),
+    ("gemm_mma_kernel<false", "xnor_popcount_matmul"),
+    ("xnor_popcount_matmul_kernel", "xnor_popcount_matmul"),
+    ("DotEpilogue", "mxu_pm1_matmul"),
+    ("flash_fwd_kernel", "flash_attention"),
+)
+# The serving buckets; each is captured once, on its first use.
+BUCKETS = (1, 2, 4, 8)
 
 
 # conv1 goes through a bit-plane variant on every path that has one.
@@ -914,19 +971,86 @@ def read_launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def capture_calls() -> int:
+    """Calls of a bucket's forward while it is captured: the warm-up
+    calls and the captured one.  Each runs every wrapper of the forward
+    once; a replay runs none.  (Imported here, not at the top:
+    tools/kernel_times.py imports this script against trees whose
+    executor predates capture.)"""
+    from repro_torch.runtime.executor import WARMUP_CALLS
+    return WARMUP_CALLS + 1
+
+
+def device_launches(prof) -> dict[str, int]:
+    """Launches of each wrapper's kernels in a profiler session's kept
+    step, matched by ``DEVICE_KERNELS``: how replays, which call no
+    wrapper, are counted."""
+    counts = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        for part, name in DEVICE_KERNELS:
+            if part in e.key:
+                counts[name] += e.count
+                break
+    return launch_counts(**counts)
+
+
+def scaled(counts: dict[str, int], n: int) -> dict[str, int]:
+    return {k: v * n for k, v in counts.items()}
+
+
+# Replays of a captured bucket traced to count its kernels.
+REPLAYS = 10
+
+
+def replay_launches(exe) -> dict[str, int]:
+    """Launches of each wrapper's kernels in ``REPLAYS`` replays of a
+    captured bucket, from a torch.profiler trace."""
+    return device_launches(profiled(
+        lambda: [exe.replay() for _ in range(REPLAYS)]))
+
+
+def check_captured(wl, x: torch.Tensor, tag: str) -> None:
+    """The workload's captured bucket on ``x``: its raw output equals the
+    eager executor's, and its rows the eager head's on it, bit for bit."""
+    exe = wl.engine.compile(x.shape[0])
+    rows, raw = exe.run(x)
+    eager = wl.engine.engine.compile(x.shape[0], capture=False)(x)
+    if not torch.equal(raw, eager) \
+            or not torch.equal(rows, wl.postprocess(eager)):
+        raise AssertionError(f"[{tag}] bucket {x.shape[0]}: captured "
+                             f"output != the eager executor's")
+
+
+def steady_run(wl, frames, capture) -> dict:
+    """64 network-size images through a fresh server at bucket 8 (the
+    buckets already built): served/s, p50, p95."""
+    server = wl.server(max_batch=8, buckets=BUCKETS, capture=capture)
+    builds = wl.engine.build_count
+    torch.cuda.synchronize()
+    for im in frames:
+        server.submit(im)
+    server.drain()
+    m = server.metrics()
+    if m["served"] != len(frames) or wl.engine.build_count != builds:
+        raise AssertionError("[serve] steady run failed")
+    return dict(served_per_s=m["throughput"], p50_ms=m["p50_ms"],
+                p95_ms=m["p95_ms"])
+
+
 def phase_serve(rng: np.random.Generator, mode: str):
-    """AlexNet behind InferenceServer on one serving path.  Returns (the
-    workload, launches in the run, launches per forward, serving
-    numbers)."""
+    """AlexNet behind InferenceServer on one serving path, each bucket
+    captured.  The executors are built (and under cuda_chain their region
+    tiles tuned) first; the main path's run — the server's boot, which
+    captures every bucket, and the mixed traffic — is counted from there.
+    Returns (the workload, launches in the run, launches per forward,
+    serving numbers)."""
     t0 = time.perf_counter()
     wl = workloads.get("alexnet_imagenet", seed=0, matmul_mode=mode)
-    server = wl.server(max_batch=8, buckets=(1, 2, 4, 8))
-    timings = server.compile_buckets()
-    log(f"[serve] alexnet_imagenet paper on {wl.engine.device} "
-        f"({wl.matmul_mode}), model {wl.model_bytes} B, set-up "
-        f"{time.perf_counter() - t0:.3f} s, bucket compile+first run "
-        + ", ".join(f"{b}: {s * 1e3:.1f} ms" for b, s in timings.items()))
-    builds = wl.engine.build_count
+    for b in BUCKETS:
+        wl.engine.engine.compile(b, capture=False)
+    setup_s = time.perf_counter() - t0
     sizes = [(240, 320), (300, 300), (227, 227), (480, 360), (256, 341)]
     groups = [1, 2, 3, 5, 7]          # buckets 1, 2, 4, 8, 8
     imgs = [rng.integers(0, 256, (*sizes[i % len(sizes)], 3), dtype=np.uint8)
@@ -935,20 +1059,42 @@ def phase_serve(rng: np.random.Generator, mode: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    server = wl.server(max_batch=8, buckets=BUCKETS)
+    timings = server.compile_buckets()
+    booted = read_launches()
+    builds, captures = wl.engine.build_count, wl.engine.capture_count
     record: list[tuple[list, list]] = []
-    served = 0
-    for g in groups:
-        batch = imgs[served:served + g]
-        reqs = [server.submit(im) for im in batch]
-        server.drain()
-        served += g
-        bucket = server.scheduler.bucket_for(g)
-        record.append((reqs, batch + [np.zeros_like(batch[-1])]
-                       * (bucket - g)))
+
+    def traffic():
+        served = 0
+        for g in groups:
+            batch = imgs[served:served + g]
+            reqs = [server.submit(im) for im in batch]
+            server.drain()
+            served += g
+            bucket = server.scheduler.bucket_for(g)
+            record.append((reqs, batch + [np.zeros_like(batch[-1])]
+                           * (bucket - g)))
+
+    def rehearse():
+        # The profiler's dropped step: the traffic's replays, unserved.
+        for g in groups:
+            wl.engine.compile(server.scheduler.bucket_for(g)).replay()
+
+    # The traffic, traced: its replays call no wrapper, so the profiler
+    # counts the kernels they launch.
+    replayed = device_launches(profiled(traffic, first=rehearse))
     torch.cuda.synchronize()
-    launches = read_launches()
+    counted = read_launches()
     peak = torch.cuda.max_memory_allocated()
     metrics = server.metrics()
+    capture_s = {b: wl.engine.compile(b).capture_s for b in BUCKETS}
+    log(f"[serve] alexnet_imagenet paper on {wl.engine.device} "
+        f"({wl.matmul_mode}), model {wl.model_bytes} B, executors built in "
+        f"{setup_s:.3f} s; boot (capture + first run) a bucket "
+        + ", ".join(f"{b}: {s * 1e3:.1f} ms" for b, s in timings.items())
+        + ", capture alone "
+        + ", ".join(f"{b}: {s * 1e3:.1f} ms" for b, s in capture_s.items()))
 
     if not all(r.done and r.outcome == "served" for reqs, _ in record
                for r in reqs):
@@ -956,14 +1102,26 @@ def phase_serve(rng: np.random.Generator, mode: str):
     if metrics["served"] != len(imgs):
         raise AssertionError(f"[serve] served {metrics['served']} of "
                              f"{len(imgs)}")
-    if wl.engine.build_count != builds:
-        raise AssertionError("[serve] build_count moved while serving")
-    forwards = len(record)
-    per_forward = {k: v / forwards for k, v in launches.items()}
+    if captures != len(BUCKETS) or (wl.engine.build_count,
+                                    wl.engine.capture_count) \
+            != (builds, captures):
+        raise AssertionError(f"[serve] {captures} captures; build_count or "
+                             f"capture_count moved while serving")
+    # The boot captured every bucket, each capture calling the forward
+    # capture_calls() times; the traffic replayed one forward a group and
+    # called no wrapper.
+    calls = capture_calls() * len(BUCKETS)
     want = WANT_LAUNCHES[mode]
-    if per_forward != want:
-        raise AssertionError(f"[serve] launches per forward {per_forward}, "
-                             f"want {want}")
+    if booted != scaled(want, calls) or counted != booted:
+        raise AssertionError(f"[serve] wrapper launches over the boot "
+                             f"{booted}, after the traffic {counted}; want "
+                             f"{calls} x {want} for both")
+    if replayed != scaled(want, len(groups)):
+        raise AssertionError(f"[serve] the traffic's {len(groups)} replays "
+                             f"launched {replayed}, want {len(groups)} x "
+                             f"{want}")
+    launches = {k: booted[k] + replayed[k] for k in booted}
+    per_forward = {k: v / calls for k, v in booted.items()}
     for reqs, padded in record:
         x = torch.stack([wl.preprocess_hook(p) for p in padded])
         ref = wl.engine.cross_check(x).cpu().numpy()
@@ -972,30 +1130,31 @@ def phase_serve(rng: np.random.Generator, mode: str):
                 raise AssertionError("[serve] served row != cross_check")
         if not np.isfinite(ref).all() or ref.shape[1:] != (5, 2):
             raise AssertionError(f"[serve] bad rows {ref.shape}")
+        check_captured(wl, x, "serve")
     log(f"[serve] {mode}: {len(imgs)} requests in groups {groups} through "
-        f"buckets "
+        f"captured buckets "
         f"{sorted({server.scheduler.bucket_for(g) for g in groups})}: all "
-        f"served, each row == cross_check; build_count flat at {builds}; "
-        f"launches {launches} over {forwards} forwards")
-    log(f"[serve] {mode} mixed run: served/s {metrics['throughput']:.3f}, p50 "
-        f"{metrics['p50_ms']:.3f} ms, p95 {metrics['p95_ms']:.3f} ms, peak "
-        f"device memory {peak} B")
+        f"served, each row == cross_check (the graph's raw output == the "
+        f"flat oracle) and the captured output == the eager executor's; "
+        f"build_count flat at {builds}, capture_count at {captures}; "
+        f"wrapper launches over the boot {booted} = {calls} captured "
+        f"forwards x WANT_LAUNCHES, none in the traffic; the traffic's "
+        f"traced replays launched {replayed} = {len(groups)} x "
+        f"WANT_LAUNCHES")
+    log(f"[serve] {mode} mixed run (traced by the profiler): served/s "
+        f"{metrics['throughput']:.3f}, p50 {metrics['p50_ms']:.3f} ms, p95 "
+        f"{metrics['p95_ms']:.3f} ms, peak device memory {peak} B")
 
-    # Steady traffic: 64 network-size images, 8 full batches.
-    steady = wl.server(max_batch=8, buckets=(1, 2, 4, 8))
+    # Steady traffic: 64 network-size images, 8 full batches, eager then
+    # captured.
     frames = [rng.integers(0, 256, (227, 227, 3), dtype=np.uint8)
               for _ in range(64)]
-    torch.cuda.synchronize()
-    for im in frames:
-        steady.submit(im)
-    steady.drain()
-    sm = steady.metrics()
-    if sm["served"] != len(frames) or wl.engine.build_count != builds:
-        raise AssertionError("[serve] steady run failed")
-    log(f"[serve] {mode} steady run, 64 requests of 227x227 at bucket 8: "
-        f"served/s "
-        f"{sm['throughput']:.3f}, p50 {sm['p50_ms']:.3f} ms, p95 "
-        f"{sm['p95_ms']:.3f} ms")
+    steady = {label: steady_run(wl, frames, capture)
+              for label, capture in (("eager", False), ("captured", None))}
+    for label, sm in steady.items():
+        log(f"[serve] {mode} steady run, {label}, 64 requests of 227x227 at "
+            f"bucket 8: served/s {sm['served_per_s']:.3f}, p50 "
+            f"{sm['p50_ms']:.3f} ms, p95 {sm['p95_ms']:.3f} ms")
     # The server's hook copies each image to the card and resizes it
     # there; this is the wall time per image of that work alone.
     torch.cuda.synchronize()
@@ -1010,46 +1169,58 @@ def phase_serve(rng: np.random.Generator, mode: str):
                               p50_ms=metrics["p50_ms"],
                               p95_ms=metrics["p95_ms"],
                               peak_bytes=peak),
-                   steady=dict(served_per_s=sm["throughput"],
-                               p50_ms=sm["p50_ms"], p95_ms=sm["p95_ms"],
-                               preprocess_ms=pre_ms))
+                   steady=dict(steady["captured"], preprocess_ms=pre_ms),
+                   steady_eager=steady["eager"],
+                   capture_ms={b: t * 1e3 for b, t in capture_s.items()})
     return wl, launches, per_forward, numbers
 
 
-def phase_profile(wl) -> dict:
-    """Where one AlexNet forward at bucket 8 on the workload's serving path
-    spends its time: host wall per forward (no profiler), device time per
-    kernel and the device's busy share (torch.profiler over the same
-    forwards)."""
-    exe = wl.engine.compile(BATCH)
-    x = torch.randint(0, 256, (BATCH, 227, 227, 3), dtype=torch.uint8,
-                      device=wl.engine.device)
-    reps = 20
+def profile_forward(fn, x: torch.Tensor, reps: int = 20) -> dict:
+    """Host wall a call of ``fn`` (no profiler), device time by kernel and
+    the busy share (torch.profiler over the same calls), and the peak
+    device memory while it runs."""
     for _ in range(3):
-        exe(x)
+        fn(x)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(reps):
-        exe(x)
+        fn(x)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            exe(x)
-        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prof = profiled(lambda: [fn(x) for _ in range(reps)])
     rows = device_time_by_kernel(prof, reps)
     device_ms = sum(r[0] for r in rows)
-    log(f"[profile] {wl.matmul_mode} alexnet forward at batch {BATCH}: "
-        f"host wall "
-        f"{wall_ms:.4f} ms/forward (no profiler), device "
-        f"{device_ms:.4f} ms/forward, busy share "
-        f"{device_ms / wall_ms:.3f}")
-    for ms, n, key in rows:
-        log(f"[profile]   {ms:.4f} ms  x{n:g}  {key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, peak_bytes=peak,
                 rows=[dict(ms=ms, per_forward=n, kernel=key[:90])
                       for ms, n, key in rows])
+
+
+def phase_profile(wl) -> dict:
+    """Where one forward of the workload and its head at bucket 8 on its
+    serving path spend their time, eager (the frozen executor
+    and the head, launch by launch) then captured (one replay, the copy
+    into the static input and of the rows out included) where the tree
+    captures: host wall per forward, device time per kernel, busy share,
+    peak device memory."""
+    eng = wl.engine.engine
+    x = torch.randint(0, 256, (BATCH, *wl.input_hw, 3), dtype=torch.uint8,
+                      device=eng.device)
+    forms = {"eager": wl.engine.compile(BATCH, capture=False),
+             "captured": wl.engine.compile(BATCH)}
+    out = {}
+    for label, fn in forms.items():
+        out[label] = r = profile_forward(fn, x)
+        log(f"[profile] {wl.matmul_mode} {wl.name} forward + head at batch "
+            f"{BATCH}, {label}: host wall {r['wall_ms']:.4f} ms/forward (no "
+            f"profiler), device {r['device_ms']:.4f} ms/forward, busy share "
+            f"{r['busy_share']:.3f}, peak device memory {r['peak_bytes']} B")
+        for row in r["rows"]:
+            log(f"[profile]   {row['ms']:.4f} ms  x{row['per_forward']:g}  "
+                f"{row['kernel']}")
+    return out
 
 
 def phase_detect(images: list[np.ndarray], mode: str):
@@ -1060,17 +1231,24 @@ def phase_detect(images: list[np.ndarray], mode: str):
     x = torch.stack([wl.preprocess_hook(im) for im in images])
     # Built first: under cuda_chain the build times each region's tiles,
     # launches that are not the forward's.
-    wl.engine.compile(x.shape[0])
+    wl.engine.engine.compile(x.shape[0], capture=False)
     reset_launches()
-    rows = wl.engine(x)
+    rows = wl.engine(x)                  # captures the bucket, then replays
     torch.cuda.synchronize()
-    launches = read_launches()
+    counted = read_launches()
+    launches = WANT_DETECT[mode]
     ref = wl.engine.cross_check(x)
     if not torch.equal(rows, ref) or rows.shape != (2, 16, 6) \
             or not torch.isfinite(rows).all():
         raise AssertionError("[detect] yolov2_tiny_voc rows disagree")
-    if launches != WANT_DETECT[mode]:
-        raise AssertionError(f"[detect] {mode} launches {launches}")
+    if counted != scaled(launches, capture_calls()):
+        raise AssertionError(f"[detect] {mode} launches {counted} over "
+                             f"{capture_calls()} captured forwards")
+    replayed = replay_launches(wl.engine.compile(x.shape[0]))
+    if replayed != scaled(launches, REPLAYS):
+        raise AssertionError(f"[detect] {mode} {REPLAYS} replays launched "
+                             f"{replayed}")
+    check_captured(wl, x, "detect")
     if mode == "cuda_popcount":
         convs = [r for r in wl.engine.engine.backend_choices
                  if r["op"] in ("packed_conv", "packed_conv_pool")
@@ -1078,11 +1256,210 @@ def phase_detect(images: list[np.ndarray], mode: str):
         if len(convs) != launches["fused_matmul_bn_binarize"]:
             raise AssertionError(f"[detect] {len(convs)} conv nodes on "
                                  f"{mode}, K2 launches {launches}")
-    log(f"[detect] {mode} yolov2_tiny_voc 416x416 batch 2: rows "
+    log(f"[detect] {mode} yolov2_tiny_voc 416x416 batch 2, captured: rows "
         f"{tuple(rows.shape)}"
-        f" == cross_check, {int((rows[..., 4] > 0).sum())} detections, "
-        f"launches {launches}")
+        f" == cross_check and == the eager executor's, "
+        f"{int((rows[..., 4] > 0).sum())} detections, launches a forward "
+        f"{launches} (counted over the capture, and in the profile of "
+        f"{REPLAYS} replays)")
     return rows, wl
+
+
+def phase_multiplex(rng: np.random.Generator) -> dict:
+    """Paper AlexNet and YOLOv2-Tiny as two lanes of one
+    ``MultiTenantServer`` at weights 3:1, both saturated, bucket 8: over
+    the first 8 ticks the lanes dispatch device rows 3:1 (48 and 16), and
+    every served row equals its lane's ``cross_check`` on the same batch.
+    Returns the split and each lane's metrics."""
+    from repro_torch.serving import MultiTenantServer
+    wls = {"alexnet": workloads.get("alexnet_imagenet", seed=0),
+           "yolov2_tiny": workloads.get("yolov2_tiny_voc", seed=0)}
+    mux = MultiTenantServer(max_batch=BATCH, buckets=(BATCH,))
+    for t, weight in (("alexnet", 3.0), ("yolov2_tiny", 1.0)):
+        mux.add_workload(t, wls[t], weight=weight)
+        mux.server(t).compile_buckets()
+    sizes = {"alexnet": (240, 320), "yolov2_tiny": (375, 500)}
+    imgs = {t: [rng.integers(0, 256, sizes[t] + (3,), dtype=np.uint8)
+                for _ in range(n)]
+            for t, n in (("alexnet", 48), ("yolov2_tiny", 16))}
+    reqs = {t: [mux.submit(t, im) for im in imgs[t]] for t in wls}
+    t0 = time.perf_counter()
+    order = []
+    for _ in range(8):
+        mux.step(force=True)
+        order.append(tuple(mux.server(t).dispatched_rows for t in wls))
+    split = {t: mux.server(t).dispatched_rows for t in wls}
+    mux.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if split != {"alexnet": 48, "yolov2_tiny": 16}:
+        raise AssertionError(f"[multiplex] rows after 8 ticks {split}, "
+                             f"want 48:16")
+    for t, wl in wls.items():
+        if not all(r.outcome == "served" for r in reqs[t]):
+            raise AssertionError(f"[multiplex] {t}: a request was not "
+                                 f"served")
+        for k in range(0, len(imgs[t]), BATCH):
+            x = torch.stack([wl.preprocess_hook(im)
+                             for im in imgs[t][k:k + BATCH]])
+            ref = wl.engine.cross_check(x).cpu().numpy()
+            for r, want in zip(reqs[t][k:k + BATCH], ref):
+                if not np.array_equal(r.result, want):
+                    raise AssertionError(f"[multiplex] {t}: served row != "
+                                         f"cross_check")
+    m = mux.metrics()
+    log(f"[multiplex] alexnet (weight 3) and yolov2_tiny (weight 1), "
+        f"saturated, bucket {BATCH}: device rows after each of 8 ticks "
+        f"{order}; split {split} (3:1); all {sum(map(len, reqs.values()))} "
+        f"rows == their lane's cross_check; drained in {wall_s:.3f} s")
+    for t, tm in m["tenants"].items():
+        log(f"[multiplex] {t}: served {tm['served']}, served/s "
+            f"{tm['throughput']:.3f}, p50 {tm['p50_ms']:.3f} ms, p95 "
+            f"{tm['p95_ms']:.3f} ms, vtime {m['fairness'][t]['vtime']}")
+    return dict(split=split, order=order, wall_s=wall_s,
+                tenants={t: {k: tm[k] for k in ("served", "throughput",
+                                                "p50_ms", "p95_ms")}
+                         for t, tm in m["tenants"].items()})
+
+
+# A fresh interpreter that boots AlexNet servers from artifacts and serves
+# 8 images, for the artifact phase: it imports repro_torch alone and
+# prints one line, ``BOOT {json}``.
+BOOT_SCRIPT = """
+import time
+t_start = time.perf_counter()
+import collections, json, os, sys
+os.environ["REPRO_AUTOTUNE_CACHE"] = "0"
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+from repro_torch import workloads
+from repro_torch.kernels import build
+from repro_torch.obs import metrics
+out = dict(import_s=time.perf_counter() - t_start, runs=[])
+io = np.load({io!r})
+for mode, art in {runs!r}:
+    t0 = time.perf_counter()
+    with metrics.use_registry() as reg:
+        wl = workloads.get("alexnet_imagenet", seed=0, matmul_mode=mode)
+        server = wl.server(max_batch=8, buckets=(1, 2, 4, 8), artifact=art)
+        builds = wl.engine.build_count
+        reqs = [server.submit(im) for im in io["imgs"]]
+        server.drain()
+        first_s = time.perf_counter() - t0
+        tuner = collections.Counter(e["outcome"]
+                                    for e in reg.events("autotune"))
+    report = server.artifact_report
+    out["runs"].append(dict(
+        mode=mode, boot_to_result_s=first_s,
+        since_start_s=time.perf_counter() - t_start,
+        loaded=report.get("loaded"), missed=sorted(report.get("missed", [])),
+        tuner=dict(tuner), nvcc_s=build.build()[1],
+        capture_count=wl.engine.capture_count,
+        build_count_flat=wl.engine.build_count == builds,
+        rows_equal=bool(np.array_equal(np.stack([r.result for r in reqs]),
+                                       io[mode]))))
+out["foreign"] = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "repro")]
+print("BOOT " + json.dumps(out))
+"""
+
+
+def run_boot(io: str, runs: list) -> dict:
+    """Run BOOT_SCRIPT in a fresh interpreter; returns its result and the
+    subprocess's wall time."""
+    script = BOOT_SCRIPT.format(src=str(ROOT / "src"), io=io, runs=runs)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    line = next((ln for ln in r.stdout.splitlines()
+                 if ln.startswith("BOOT ")), None)
+    if r.returncode != 0 or line is None:
+        raise AssertionError(f"[artifact] boot subprocess failed "
+                             f"({r.returncode}):\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    return dict(json.loads(line[5:]), process_wall_s=wall_s)
+
+
+def phase_artifact(rng: np.random.Generator) -> dict:
+    """Paper AlexNet booted live under ``"auto"`` (the tuner's caches
+    emptied and its disk cache off, so every bucket is tuned) and under
+    ``cuda_direct_pool``, exported at buckets (1, 2, 4, 8), captured and
+    serving 8 images; then a fresh interpreter boots a server from each
+    artifact (the ``"auto"`` one first) and serves the same images: every
+    bucket loaded and captured, no tuner outcome, no nvcc build,
+    ``build_count`` flat, rows equal to the live boot's."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving import engine as serving_engine
+    imgs = np.stack([rng.integers(0, 256, (227, 227, 3), dtype=np.uint8)
+                     for _ in range(BATCH)])
+    serving_engine._AUTOTUNE_CACHE.clear()
+    serving_engine._AUTOTUNE_AGNOSTIC.clear()
+    disk = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = "0"
+    live = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-artifact-") as tmp:
+        want, arts = {}, {}
+        for mode in ("auto", "cuda_direct_pool"):
+            arts[mode] = os.path.join(tmp, mode)
+            t0 = time.perf_counter()
+            wl = workloads.get("alexnet_imagenet", seed=0, matmul_mode=mode)
+            with obs_metrics.use_registry() as reg:
+                meta = wl.engine.export_artifact(arts[mode], buckets=BUCKETS,
+                                                 workload=wl.name)
+            export_s = time.perf_counter() - t0
+            tuner = dict(collections.Counter(e["outcome"]
+                                             for e in reg.events("autotune")))
+            if mode == "auto" and "miss" not in tuner:
+                raise AssertionError(f"[artifact] live auto boot: tuner "
+                                     f"outcomes {tuner}, want it to tune")
+            server = wl.server(max_batch=BATCH, buckets=BUCKETS)
+            capture_s = sum(server.compile_buckets().values())
+            reqs = [server.submit(im) for im in imgs]
+            server.drain()
+            want[mode] = np.stack([r.result for r in reqs])
+            live[mode] = dict(boot_to_result_s=time.perf_counter() - t0,
+                              build_export_s=export_s, capture_s=capture_s,
+                              tuner=tuner)
+            files = sorted(os.listdir(arts[mode]))
+            size = sum(os.path.getsize(os.path.join(arts[mode], f))
+                       for f in files)
+            log(f"[artifact] {mode} live in this process: built"
+                + (" and tuned" if mode == "auto" else "")
+                + f" and exported buckets "
+                f"{sorted(int(b) for b in meta['buckets'])} in "
+                f"{export_s:.3f} s ({', '.join(files)}; {size} B; tuner "
+                f"outcomes {tuner}), "
+                f"captured and first-run in {capture_s:.3f} s, boot to the "
+                f"8 results {live[mode]['boot_to_result_s']:.3f} s; "
+                f"device_kind {meta['device_kind']}, kernels "
+                f"{meta['kernels']}")
+        os.environ["REPRO_AUTOTUNE_CACHE"] = disk
+        io = os.path.join(tmp, "io.npz")
+        np.savez(io, imgs=imgs, **want)
+        fresh = run_boot(io, [("auto", arts["auto"]),
+                              ("cuda_direct_pool", arts["cuda_direct_pool"])])
+    for run in fresh["runs"]:
+        ok = (run["loaded"] == list(BUCKETS) and not run["missed"]
+              and not run["tuner"] and run["nvcc_s"] == 0.0
+              and run["capture_count"] == len(BUCKETS)
+              and run["build_count_flat"] and run["rows_equal"])
+        if not ok or fresh["foreign"]:
+            raise AssertionError(f"[artifact] fresh boot: {run}, foreign "
+                                 f"modules {fresh['foreign']}")
+    for i, run in enumerate(fresh["runs"]):
+        where = "fresh process" if i == 0 else "the same process, next"
+        log(f"[artifact] {where}, {run['mode']} from the artifact: boot to "
+            f"the 8 results {run['boot_to_result_s']:.3f} s "
+            f"({run['since_start_s']:.3f} s since the interpreter's first "
+            f"line, imports {fresh['import_s']:.3f} s; the process "
+            f"{fresh['process_wall_s']:.3f} s); loaded {run['loaded']}, "
+            f"tuner outcomes {run['tuner']}, nvcc {run['nvcc_s']} s, "
+            f"captures {run['capture_count']}, build_count flat "
+            f"{run['build_count_flat']}, rows == the live boot's "
+            f"{run['rows_equal']}")
+    return dict(fresh=fresh, live=live)
 
 
 def packed_tail(g):
@@ -1215,7 +1592,7 @@ def phase_autotune(device) -> dict:
         for b in buckets:
             with obs_metrics.use_registry() as reg:
                 t0 = time.perf_counter()
-                exe = eng.compile(b)
+                eng.compile(b, capture=False)     # tuned, eagerly timed
                 tune_s = time.perf_counter() - t0
                 outcomes = dict(collections.Counter(
                     e["outcome"] for e in reg.events("autotune")))
@@ -1229,16 +1606,18 @@ def phase_autotune(device) -> dict:
                                      f"{outcomes}, want xfer_hit")
             x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
                               device=device, generator=g)
-            exe(x)
-            torch.cuda.synchronize()
             reset_launches()
-            exe(x)
+            exe = eng.compile(b)                   # the winners, captured
             torch.cuda.synchronize()
-            launches = read_launches()
-            want = auto_launches(eng, exe)
-            if launches != want:
+            counted = read_launches()
+            launches = auto_launches(eng, exe)
+            replayed = replay_launches(exe)
+            if counted != scaled(launches, capture_calls()) \
+                    or replayed != scaled(launches, REPLAYS):
                 raise AssertionError(f"[autotune] {name} bucket {b} "
-                                     f"launches {launches}, want {want}")
+                                     f"launches {counted} over the "
+                                     f"capture, {replayed} in {REPLAYS} "
+                                     f"replays; want {launches} a forward")
             eng.cross_check(x)
             out["launches"][f"auto_{name}_{b}"] = launches
             types = runtime_types(eng, b)
@@ -1279,7 +1658,7 @@ def phase_autotune(device) -> dict:
         again = workloads.get(name, seed=0, matmul_mode="auto").engine.engine
         with obs_metrics.use_registry() as reg:
             for b in buckets:
-                again.compile(b)
+                again.compile(b, capture=False)
             seen = set(e["outcome"] for e in reg.events("autotune"))
         if not seen <= {"hit", "disk_hit"}:
             raise AssertionError(f"[autotune] {name} second engine: {seen}")
@@ -1407,6 +1786,32 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+# Idle host time at each end of a profiler session's kept step.
+PROFILE_MARGIN_S = 0.05
+
+
+def profiled(run, first=None) -> profile:
+    """A torch.profiler session (CPU and CUDA) over two steps, each closed
+    by a synchronize: ``first`` (default: ``run``) is traced and dropped,
+    then ``run`` is kept, with ``PROFILE_MARGIN_S`` of idle time before
+    and after it.  The profiler keeps a device record only if its time,
+    mapped from the card's clock to the host's, falls inside the kept
+    step; late in a long run that mapping drifts, and sessions without
+    the margins lost their first records (3 of 20 a kernel in the timing
+    phase, and once all 20)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=1)) as prof:
+        (first or run)()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_MARGIN_S)
+        run()                         # the session ends on this step
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return prof
+
+
 def device_time_by_kernel(prof, reps: int) -> list[tuple[float, float, str]]:
     """(ms per rep, records per rep, name) of each device-side event.
 
@@ -1422,7 +1827,9 @@ def device_time_by_kernel(prof, reps: int) -> list[tuple[float, float, str]]:
         # Device-side events only (kernels, copies): a CPU op may report
         # its kernels' time too, which would count them twice.
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us <= 0 or e.device_type == torch.autograd.DeviceType.CPU:
+        # ProfilerStep* is the session step's own range (see profiled).
+        if us <= 0 or e.device_type == torch.autograd.DeviceType.CPU \
+                or e.key.startswith("ProfilerStep"):
             continue
         per_rep = round(e.count / reps)
         if per_rep >= 1:
@@ -1477,10 +1884,7 @@ def phase_lm(device) -> tuple[dict, dict]:
             or not torch.isfinite(logits).all() \
             or not torch.isfinite(cache["k"]).all():
         raise AssertionError(f"[lm] bad prefill output {tuple(logits.shape)}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prefill(params, tokens)
-        torch.cuda.synchronize()
+    prof = profiled(lambda: prefill(params, tokens))
     rows = device_time_by_kernel(prof, 1)
     device_ms = sum(r[0] for r in rows)
     k7_ms = sum(r[0] for r in rows if "flash_fwd" in r[2])
@@ -1496,21 +1900,27 @@ def phase_lm(device) -> tuple[dict, dict]:
     del logits, cache
 
     # The same prompt, token by token, through the decode step, at the
-    # depth of the first LM_CHECK_LAYERS layers (the same weights).
+    # depth of the first LM_CHECK_LAYERS layers (the same weights): the
+    # step LMServer captures, with LM_BATCH slots (captured logits equal
+    # eager ones bit for bit: checked below).
     check_cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
     check_params = dict(params, layers={
         n: t[:LM_CHECK_LAYERS] for n, t in params["layers"].items()})
     logits, cache = transformer.make_prefill_step(check_cfg, LM_MAX_SEQ)(
         check_params, tokens)
-    decode = transformer.make_decode_step(check_cfg, LM_MAX_SEQ)
-    dcache = transformer.init_cache(check_cfg, LM_BATCH, LM_MAX_SEQ, device)
     torch.cuda.synchronize()
     reset_launches()
+    filler = LMServer(check_cfg, check_params, n_slots=LM_BATCH,
+                      max_seq=LM_MAX_SEQ, device=device)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(LM_SEQ):
-        dlogits, dcache = decode(check_params, dcache, tokens[:, i:i + 1], i)
+    with torch.inference_mode():
+        for i in range(LM_SEQ):
+            filler.tokens.copy_(tokens[:, i:i + 1])
+            dlogits = filler._run_decode(i)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    dcache = filler.cache
     launches["lm_decode"] = read_launches()
     if launches["lm_decode"] != launch_counts():
         raise AssertionError(f"[lm] decode launches {launches['lm_decode']}")
@@ -1520,7 +1930,8 @@ def phase_lm(device) -> tuple[dict, dict]:
                              dcache[name][:, :, :, :LM_SEQ])
     same_argmax = (logits.argmax(-1) == dlogits.argmax(-1)).float().mean()
     log(f"[lm] decode fill of the same {LM_SEQ} tokens, first "
-        f"{LM_CHECK_LAYERS} layers: {decode_s / LM_SEQ * 1e3:.3f} ms a step "
+        f"{LM_CHECK_LAYERS} layers, captured step: "
+        f"{decode_s / LM_SEQ * 1e3:.3f} ms a step "
         f"at B {LM_BATCH}, K7 launches 0; prefill vs decode relative max "
         f"error: last logits {errs['logits']:.4e} (bound {LM_LOGIT_BOUND}), "
         f"cache K {errs['k']:.4e}, V {errs['v']:.4e} (bound "
@@ -1531,74 +1942,145 @@ def phase_lm(device) -> tuple[dict, dict]:
         raise AssertionError(f"[lm] prefill and decode disagree: {errs}")
     if not torch.isfinite(dlogits).all():
         raise AssertionError("[lm] decode logits not finite")
-    del logits, cache, dlogits, dcache, check_params
+    del logits, cache, dlogits, dcache, check_params, filler
 
-    # Full-depth decode steps at the server's shape: host wall per step
-    # (no profiler), then device time and busy share under the profiler.
-    decode = transformer.make_decode_step(cfg, LM_SERVER_MAX_SEQ)
-    dcache = transformer.init_cache(cfg, LM_SERVER_SLOTS, LM_SERVER_MAX_SEQ,
-                                    device)
+    # Full-depth decode steps at the server's shape, eager then captured,
+    # each a server's step over its own cache: host wall per step (no
+    # profiler), device time and busy share under the profiler, and the
+    # peak device memory above what was allocated before the server.
     step_tokens = tokens[:, :1].repeat(LM_SERVER_SLOTS // LM_BATCH, 1)
     reps = 5
-    decode(params, dcache, step_tokens, 0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(reps):
-        decode(params, dcache, step_tokens, 1 + i)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            decode(params, dcache, step_tokens, 1 + reps + i)
-        torch.cuda.synchronize()
-    drows = device_time_by_kernel(prof, reps)
-    step_device_ms = sum(r[0] for r in drows)
-    step_kernels = sum(r[1] for r in drows)
-    log(f"[lm] full-depth decode step at B {LM_SERVER_SLOTS}, max_seq "
-        f"{LM_SERVER_MAX_SEQ}: host wall {step_ms:.3f} ms (no profiler), "
-        f"device {step_device_ms:.3f} ms in {step_kernels:g} device events, "
-        f"busy share {step_device_ms / step_ms:.3f}; weights alone take "
-        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
-    for ms, n, key in drows[:6]:
-        log(f"[lm]   {ms:.4f} ms  x{n:g}  {key[:90]}")
-    del dcache
+    steps, servers = {}, {}
+    for label, capture in (("eager", False), ("captured", True)):
+        # The server's buffers are inference tensors, written as its own
+        # methods write them.
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            srv = LMServer(cfg, params, n_slots=LM_SERVER_SLOTS,
+                           max_seq=LM_SERVER_MAX_SEQ, device=device,
+                           capture=capture)
+            torch.cuda.synchronize()
+            boot_s = time.perf_counter() - t0
+            srv.tokens.copy_(step_tokens)
+            srv._run_decode(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(reps):
+                srv._run_decode(1 + i)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / reps * 1e3
+            step_peak = torch.cuda.max_memory_allocated() - base
+            prof = profiled(lambda: [srv._run_decode(1 + reps + i)
+                                     for i in range(reps)])
+            drows = device_time_by_kernel(prof, reps)
+            dev_ms = sum(r[0] for r in drows)
+            steps[label] = dict(batch=LM_SERVER_SLOTS, wall_ms=step_ms,
+                                device_ms=dev_ms, busy_share=dev_ms / step_ms,
+                                device_events=sum(r[1] for r in drows),
+                                peak_bytes_above=step_peak, boot_s=boot_s)
+            log(f"[lm] full-depth decode step at B {LM_SERVER_SLOTS}, "
+                f"max_seq {LM_SERVER_MAX_SEQ}, {label}: host wall "
+                f"{step_ms:.3f} ms (no profiler), device {dev_ms:.3f} ms in "
+                f"{steps[label]['device_events']:g} device events, busy "
+                f"share {dev_ms / step_ms:.3f}; server boot {boot_s:.3f} s, "
+                f"peak device memory {step_peak} B above the weights (cache "
+                f"and the step's temporaries"
+                f"{', its graph pool' if capture else ''}); weights alone "
+                f"take {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 "
+                f"TB/s")
+            for ms, n, key in drows[:6]:
+                log(f"[lm]   {ms:.4f} ms  x{n:g}  {key[:90]}")
+            # Back to a fresh server's state for the requests below.
+            srv._restart()
+            for t in srv.cache.values():
+                t.zero_()
+            servers[label] = srv
 
-    # LMServer answers requests (decode only: no K7).
-    server = LMServer(cfg, params, n_slots=LM_SERVER_SLOTS,
-                      max_seq=LM_SERVER_MAX_SEQ, device=device)
+    # LMServer answers requests through its captured step (decode only: no
+    # K7), then the eager server answers the same ones: equal tokens.
     rng = np.random.default_rng(1)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    reqs = [server.submit([int(t) for t in rng.integers(0, cfg.vocab, n)],
-                          max_new=m) for n, m in LM_REQUESTS]
-    too_long = server.submit([1] * (LM_SERVER_MAX_SEQ - 8), max_new=16)
-    server.drain()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches["lm_server"] = read_launches()
-    m = server.metrics()
-    generated = sum(len(r.result or []) for r in reqs)
-    if not all(r.outcome == "served" and len(r.result) == mn
-               for r, (_, mn) in zip(reqs, LM_REQUESTS)) \
-            or m["served"] != len(LM_REQUESTS):
-        raise AssertionError(f"[lm] LMServer: "
-                             f"{[r.outcome for r in reqs]}, {m}")
-    if too_long.outcome != "rejected" or m["rejected"] != 1:
-        raise AssertionError(f"[lm] over-long prompt {too_long.outcome}")
-    if launches["lm_server"] != launch_counts():
-        raise AssertionError(f"[lm] LMServer launches "
-                             f"{launches['lm_server']}")
-    if not all(0 <= t < cfg.vocab for r in reqs for t in r.result):
-        raise AssertionError("[lm] LMServer produced an out-of-vocab token")
-    log(f"[lm] LMServer {LM_SERVER_SLOTS} slots, max_seq "
-        f"{LM_SERVER_MAX_SEQ}: {len(reqs)} requests served, 1 rejected "
-        f"({too_long.error}); served/s {m['throughput']:.3f}, p50 "
-        f"{m['p50_ms']:.3f} ms, p95 {m['p95_ms']:.3f} ms; {generated} "
-        f"tokens in {serve_s:.3f} s ({generated / serve_s:.2f} generated "
-        f"tokens/s), {server.pos} decode steps "
-        f"({serve_s / server.pos * 1e3:.3f} ms a step); K7 launches 0")
+    prompts = [([int(t) for t in rng.integers(0, cfg.vocab, n)], m)
+               for n, m in LM_REQUESTS]
+    served = {}
+    for label in ("captured", "eager"):
+        server = servers[label]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = [server.submit(p, max_new=m) for p, m in prompts]
+        too_long = server.submit([1] * (LM_SERVER_MAX_SEQ - 8), max_new=16)
+        server.drain()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches[f"lm_server_{label}"] = read_launches()
+        m = server.metrics()
+        generated = sum(len(r.result or []) for r in reqs)
+        if not all(r.outcome == "served" and len(r.result) == mn
+                   for r, (_, mn) in zip(reqs, LM_REQUESTS)) \
+                or m["served"] != len(LM_REQUESTS):
+            raise AssertionError(f"[lm] LMServer: "
+                                 f"{[r.outcome for r in reqs]}, {m}")
+        if too_long.outcome != "rejected" or m["rejected"] != 1:
+            raise AssertionError(f"[lm] over-long prompt {too_long.outcome}")
+        if launches[f"lm_server_{label}"] != launch_counts():
+            raise AssertionError(f"[lm] LMServer launches "
+                                 f"{launches[f'lm_server_{label}']}")
+        if not all(0 <= t < cfg.vocab for r in reqs for t in r.result):
+            raise AssertionError("[lm] LMServer produced an out-of-vocab "
+                                 "token")
+        served[label] = dict(
+            tokens=[r.result for r in reqs], served_per_s=m["throughput"],
+            p50_ms=m["p50_ms"], p95_ms=m["p95_ms"],
+            generated_tokens_per_s=generated / serve_s,
+            ms_per_step=serve_s / server.pos * 1e3)
+        log(f"[lm] LMServer {label}, {LM_SERVER_SLOTS} slots, max_seq "
+            f"{LM_SERVER_MAX_SEQ}: {len(reqs)} requests served, 1 rejected "
+            f"({too_long.error}); served/s {m['throughput']:.3f}, p50 "
+            f"{m['p50_ms']:.3f} ms, p95 {m['p95_ms']:.3f} ms; {generated} "
+            f"tokens in {serve_s:.3f} s ({generated / serve_s:.2f} generated "
+            f"tokens/s), {server.pos} decode steps "
+            f"({serve_s / server.pos * 1e3:.3f} ms a step); K7 launches 0")
+    if served["captured"]["tokens"] != served["eager"]["tokens"]:
+        raise AssertionError("[lm] the captured server's tokens differ from "
+                             "the eager server's")
+    launches["lm_server"] = launches.pop("lm_server_captured")
+    del launches["lm_server_eager"]
+    log(f"[lm] captured and eager LMServer: the same "
+        f"{sum(len(t) for t in served['eager']['tokens'])} tokens")
+    del servers, server
+
+    # Captured logits against eager logits, bit for bit, at every position
+    # of one generated sequence, on the first LM_CHECK_LAYERS layers.
+    check_params = dict(params, layers={
+        n: t[:LM_CHECK_LAYERS] for n, t in params["layers"].items()})
+    logits_at = {}
+    for label, capture in (("captured", True), ("eager", False)):
+        srv = LMServer(check_cfg, check_params, n_slots=LM_SERVER_SLOTS,
+                       max_seq=LM_SERVER_MAX_SEQ, device=device,
+                       capture=capture)
+        run, log_ = srv._run_decode, []
+
+        def record(pos, run=run, log_=log_):
+            out = run(pos)
+            log_.append(out.clone())
+            return out
+        srv._run_decode = record
+        srv.generate(prompts[0][0], max_new=16)
+        logits_at[label] = torch.stack(log_)
+        del srv
+    same = torch.equal(logits_at["captured"], logits_at["eager"])
+    log(f"[lm] captured vs eager decode step, first {LM_CHECK_LAYERS} "
+        f"layers, {LM_SERVER_SLOTS} slots: logits at "
+        f"{logits_at['eager'].shape[0]} positions "
+        + ("equal bit for bit" if same else "DIFFER"))
+    if not same:
+        diff = (logits_at["captured"].float()
+                - logits_at["eager"].float()).abs().max().item()
+        raise AssertionError(f"[lm] captured logits != eager (max |diff| "
+                             f"{diff})")
     numbers = dict(
         prefill=dict(tokens_per_s=LM_BATCH * LM_SEQ / prefill_s,
                      wall_ms=prefill_s * 1e3, device_ms=device_ms,
@@ -1607,14 +2089,12 @@ def phase_lm(device) -> tuple[dict, dict]:
         decode_fill=dict(layers=LM_CHECK_LAYERS,
                          ms_per_step=decode_s / LM_SEQ * 1e3,
                          rel_err=errs),
-        decode_step=dict(batch=LM_SERVER_SLOTS, wall_ms=step_ms,
-                         device_ms=step_device_ms,
-                         busy_share=step_device_ms / step_ms),
-        server=dict(served_per_s=m["throughput"], p50_ms=m["p50_ms"],
-                    p95_ms=m["p95_ms"],
-                    generated_tokens_per_s=generated / serve_s,
-                    ms_per_step=serve_s / server.pos * 1e3))
-    del server, params
+        decode_step=steps["eager"], decode_step_captured=steps["captured"],
+        server={k: v for k, v in served["captured"].items()
+                if k != "tokens"},
+        server_eager={k: v for k, v in served["eager"].items()
+                      if k != "tokens"})
+    del params, check_params, logits_at
     torch.cuda.empty_cache()
     return launches, numbers
 
@@ -1701,11 +2181,7 @@ def device_ms(fn, reps: int = DEVICE_REPS) -> float:
     (:func:`device_time_by_kernel`)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(lambda: [fn() for _ in range(reps)])
     rows = device_time_by_kernel(prof, reps)
     if not rows:
         raise RuntimeError("torch.profiler recorded no kernel")
@@ -1978,6 +2454,8 @@ def main() -> int:
     rows = {}
     for mode in WANT_DETECT:
         rows[mode], wl = phase_detect(images, mode)
+        if mode == "cuda_direct_pool":
+            numbers["yolo_profile"] = phase_profile(wl)
         if mode == "cuda_chain":
             numbers["chain_tiles_checked"] += check_chain_tiles(
                 wl.engine.engine, chain_inputs)
@@ -1986,6 +2464,7 @@ def main() -> int:
         raise AssertionError("[detect] the paths' rows differ on the same "
                              "images")
     log(f"[detect] the same images on {list(rows)}: rows equal bit for bit")
+    numbers["multiplex"] = phase_multiplex(rng)
     for name, counts in phase_trained(device).items():
         launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
     lm_launches, numbers["lm"] = phase_lm(device)
@@ -1994,6 +2473,7 @@ def main() -> int:
     auto = phase_autotune(device)
     launches.update(auto["launches"])
     per_forward.update(auto["launches"])
+    numbers["artifact"] = phase_artifact(rng)
     cache_dir.cleanup()
     kernels = phase_timing(device, launches, per_forward, errs)
     log(f"[autotune] json {json.dumps(auto)}")

@@ -245,8 +245,9 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
     if v_pad == cfg.vocab:
         return logits
     mask = torch.arange(v_pad, device=logits.device) < cfg.vocab
-    return torch.where(mask, logits, torch.tensor(-1e30, dtype=logits.dtype,
-                                                  device=logits.device))
+    # A scalar fill, not a tensor made from a host value: that would be a
+    # host-to-device copy, which a captured decode step cannot hold.
+    return torch.where(mask, logits, -1e30)
 
 
 @torch.inference_mode()
@@ -318,25 +319,41 @@ def make_decode_step(cfg: LMConfig, max_seq: int) -> Callable:
     """One decode step: (params, cache, tokens (B, 1), pos) -> (logits
     (B, Vp), cache).  Every row writes its K/V at ``pos`` (one global
     position, as the reference) and attends to cache positions <= pos
-    through a float32 masked softmax; the cache is updated in place."""
+    through a float32 masked softmax; the cache is updated in place.
+
+    ``pos`` is a Python int (checked against ``max_seq`` here) or a 0-dim
+    int64 tensor on the cache's device, the form a captured step reads:
+    the K/V row is then written by ``index_copy_`` at the device index,
+    the counterpart of the reference's ``dynamic_update_slice``, and the
+    caller, which knows the position as an int, checks its range.  Both
+    forms give the same bits."""
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // kvh
 
     @torch.inference_mode()
-    def decode_step(params, cache, tokens, pos: int):
-        if not 0 <= pos < max_seq:
+    def decode_step(params, cache, tokens, pos):
+        on_device = torch.is_tensor(pos)
+        if not on_device and not 0 <= pos < max_seq:
             raise ValueError(f"decode position {pos} outside [0, "
                              f"{max_seq})")
         b = tokens.shape[0]
         dev = tokens.device
         x = _embed(params, tokens[:, 0])
-        positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+        if on_device:
+            positions = pos.to(torch.int32).reshape(1, 1).expand(b, 1)
+            index = pos.reshape(1)
+        else:
+            positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
         valid = torch.arange(max_seq, device=dev) <= pos
         for i, lp in enumerate(_layer_params(params, cfg)):
             hnorm = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = _qkv(hnorm[:, None], lp, cfg, positions)
-            cache["k"][i, :, :, pos] = k[:, 0]
-            cache["v"][i, :, :, pos] = v[:, 0]
+            for name, new in (("k", k), ("v", v)):
+                if on_device:        # (B, KV, 1, hd) into (B, KV, S, hd)
+                    cache[name][i].index_copy_(2, index,
+                                               new.transpose(1, 2))
+                else:
+                    cache[name][i, :, :, pos] = new[:, 0]
             qf = q.reshape(b, kvh, g, hd).float() / math.sqrt(hd)
             s = torch.einsum("bhgd,bhsd->bhgs", qf, cache["k"][i].float())
             s = torch.where(valid, s, -1e30)

@@ -17,15 +17,20 @@ from collections import deque
 class FlightRecorder:
     """Keeps the most recent ``capacity`` request records."""
 
-    def __init__(self, capacity: int = 256):
+    def __init__(self, capacity: int = 256, tags: dict | None = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
+        # Fields stamped onto every record — how a multi-tenant server
+        # marks each lane's records with its tenant name.
+        self.tags = dict(tags) if tags else {}
         self._records: deque[dict] = deque(maxlen=capacity)
 
     def record(self, **fields) -> dict:
         """Append one request record (free-form fields; the servers write
         id/arrival_s/bucket/outcome/latency_s and stage timings)."""
+        if self.tags:
+            fields = {**self.tags, **fields}
         self._records.append(fields)
         return fields
 

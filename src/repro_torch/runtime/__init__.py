@@ -4,8 +4,9 @@ the per-node backend executor and its autotuner."""
 
 from repro_torch.runtime.autotune import Autotuner, default_candidates
 from repro_torch.runtime.executor import (ALL_MODES, BACKENDS, CHAIN_BACKEND,
-                                          GraphExecutor, eval_node,
-                                          resolve_backend, valid_backends)
+                                          CapturedExecutor, GraphExecutor,
+                                          eval_node, resolve_backend,
+                                          valid_backends)
 from repro_torch.runtime.graph import (DISPATCHABLE_OPS, PACKED_OPS, Graph,
                                        Node, TensorType, infer_types,
                                        lower_packed, lower_trained)
@@ -20,7 +21,7 @@ from repro_torch.runtime.regions import (DEFAULT_SMEM_BUDGET, Chain,
                                          plan_chain_vmem)
 
 __all__ = [
-    "ALL_MODES", "Autotuner", "BACKENDS", "CHAIN_BACKEND",
+    "ALL_MODES", "Autotuner", "BACKENDS", "CHAIN_BACKEND", "CapturedExecutor",
     "DEFAULT_SMEM_BUDGET", "DISPATCHABLE_OPS", "PACKED_OPS", "Chain",
     "Graph", "GraphExecutor", "MemoryPlan", "Node", "TensorType",
     "VmemPlan", "absorb_pools", "assign_layouts", "build_chain",

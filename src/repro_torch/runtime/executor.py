@@ -45,11 +45,17 @@ explicit per-node backend that does not apply is rejected.
 tensor-core tile ``{"tile_h", "tile_w", "nw_block"}`` in place of
 ``plan_mma``'s pick (the autotuner's sweep).  Tiles change the launch
 geometry only, never the result.
+
+:class:`CapturedExecutor` is the counterpart of the reference's compiled
+bucket executable: a frozen executor (and, for a workload, its head)
+captured at one input shape as one CUDA graph, so a forward's launches
+replay in one host call.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+import time
+from typing import Callable, Mapping, Sequence
 
 import torch
 
@@ -333,3 +339,91 @@ class GraphExecutor:
                                  backend=self.backends[nid],
                                  tile=dict(self.tiles.get(nid, {}))))
         return rows
+
+
+# --------------------------------------------------------------------------
+# CUDA-graph capture
+# --------------------------------------------------------------------------
+
+#: Eager calls on a side stream before a capture.  The first does every
+#: first-use piece of host work a capture cannot hold: it builds and loads
+#: the kernel library, sets each kernel's shared-memory attribute, fills
+#: the tile planners' caches, queries K5's cluster occupancy and builds its
+#: operands; the second runs with all of that done, as the PyTorch
+#: CUDA-graphs notes prescribe.
+WARMUP_CALLS = 2
+
+
+def capture(fn: Callable, args: tuple, device: torch.device, *,
+            pool=None, warmup: int = WARMUP_CALLS):
+    """Run ``fn(*args)`` ``warmup`` times on a side stream, then capture one
+    call as a CUDA graph into the memory pool ``pool``.  Returns (graph,
+    what the captured call returned: its static output).  A capture that
+    fails raises; nothing falls back to eager calls."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn(*args)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn(*args)
+    return graph, out
+
+
+class CapturedExecutor:
+    """A frozen executor captured at one input shape (DESIGN.md §12).
+
+    ``fn`` maps a uint8 batch of ``input_shape`` to a tensor, or to a tuple
+    whose first element is the output and whose others are kept for the
+    caller to read (a workload bucket keeps the forward's raw output
+    beside its decoded rows).  Construction warms ``fn`` up and captures
+    it reading a static input buffer; graphs of one engine share a memory
+    pool (``pool``, from ``torch.cuda.graph_pool_handle()``).
+
+    A graph's outputs live in the pool: a later replay of any graph of
+    that pool may overwrite them.  So :meth:`__call__` returns copies, and
+    a caller of :meth:`replay` (the server, staging into
+    ``static_input``) queues its copy of the output on the same stream
+    before the next replay.  ``executor`` is the frozen
+    :class:`GraphExecutor` inside, for introspection."""
+
+    def __init__(self, fn: Callable, input_shape: Sequence[int],
+                 device: torch.device, *, pool=None,
+                 executor: GraphExecutor | None = None,
+                 warmup: int = WARMUP_CALLS):
+        self.executor = executor
+        self.static_input = torch.zeros(tuple(input_shape),
+                                        dtype=torch.uint8, device=device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            self.graph, out = capture(fn, (self.static_input,), device,
+                                      pool=pool, warmup=warmup)
+        self.capture_s = time.perf_counter() - t0
+        self.static_outputs = out if isinstance(out, tuple) else (out,)
+        self.static_output = self.static_outputs[0]
+
+    def replay(self) -> torch.Tensor:
+        """Replay on the current stream; returns the static output (see
+        the class docstring for how long it holds)."""
+        if _trace._TRACER is None:
+            self.graph.replay()
+        else:
+            with _trace.span("executor.call", "runtime", captured=True,
+                             bucket=self.static_input.shape[0]):
+                self.graph.replay()
+        return self.static_output
+
+    def run(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Copies of every output of one replay on ``x``."""
+        self.static_input.copy_(x)
+        self.replay()
+        return tuple(t.clone() for t in self.static_outputs)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.static_input.copy_(x)
+        return self.replay().clone()
+
+    def backend_report(self) -> list[dict]:
+        return self.executor.backend_report()

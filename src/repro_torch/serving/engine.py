@@ -25,8 +25,17 @@ oracle takes the +-1 matmul count form too.
 Batched serving goes through the per-bucket executor cache:
 ``compile(batch_size)`` builds an executor once per (bucket, mode); under
 ``"auto"`` each bucket is tuned at its own batch shape, and winners
-transfer across buckets.  ``build_count`` — executors built plus
-kernel-library loads — must stay flat while requests flow.
+transfer across buckets.  On the card the frozen executor is then
+captured as one CUDA graph (:class:`~repro_torch.runtime.executor.
+CapturedExecutor`, the counterpart of the reference's compiled bucket
+executable; ``capture=False`` keeps the eager executor, for debugging);
+the tuner times its candidates eagerly before that.  ``build_count`` —
+executors built, graphs captured (``capture_count``) and kernel-library
+loads — must stay flat while requests flow.
+
+``export_artifact`` / ``load_artifact`` (:mod:`repro_torch.serving.
+artifact`) carry each bucket's frozen executor to a fresh process, which
+then captures without tuning, planning or building.
 
     engine = PhoneBitEngine.from_artifact("model.npz", spec, (227, 227))
     logits = engine(images_uint8)
@@ -87,6 +96,8 @@ class PhoneBitEngine:
         self.packed = [{k: _to_device(v, self.device)
                         for k, v in layer.items()} for layer in self.packed]
         self._compiled: dict[tuple[int, str], _executor.GraphExecutor] = {}
+        # Keyed (bucket, mode, head): a head is captured with its forward.
+        self._captured: dict[tuple, _executor.CapturedExecutor] = {}
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -126,14 +137,23 @@ class PhoneBitEngine:
                                    device=self.device)
 
     def compile(self, batch_size: int | None = None, *,
-                mode: str | None = None) -> _executor.GraphExecutor:
+                mode: str | None = None, capture: bool | None = None,
+                head=None):
         """The cached executor for one serving bucket, built (and under
         ``"auto"`` tuned) on first request.  ``mode`` overrides
-        ``matmul_mode`` for this executor."""
+        ``matmul_mode`` for this executor.  ``capture`` (default: on for a
+        CUDA device, off for the CPU) returns it captured as one CUDA
+        graph (:class:`~repro_torch.runtime.executor.CapturedExecutor`);
+        ``capture=False`` returns the eager :class:`GraphExecutor`.
+
+        ``head`` (a workload's postprocess) is composed onto the forward:
+        eagerly a callable ``head(forward(x))``; captured, one graph of
+        both whose second output keeps the forward's raw result."""
         mode = mode or self.matmul_mode
         bs = batch_size if batch_size is not None else 1
         if bs < 1:
             raise ValueError(f"batch_size must be >= 1, got {bs}")
+        capture = self.resolve_capture(capture)
         key = (bs, mode)
         if key not in self._compiled:
             with _trace.span("compile.executor", "compile", bucket=bs,
@@ -153,7 +173,35 @@ class PhoneBitEngine:
                     exe = _executor.GraphExecutor(self._graph, mode)
             self._record_compile_metrics(exe, bs)
             self._compiled[key] = exe
-        return self._compiled[key]
+        exe = self._compiled[key]
+        if not capture:
+            return exe if head is None else (lambda x: head(exe(x)))
+        ckey = (bs, mode, head)
+        if ckey not in self._captured:
+            def forward_and_head(x):
+                raw = exe(x)
+                return head(raw), raw
+            with _trace.span("compile.capture", "compile", bucket=bs):
+                self._captured[ckey] = _executor.CapturedExecutor(
+                    exe if head is None else forward_and_head,
+                    self._plan_shape(bs), self.device,
+                    pool=self._graph_pool, executor=exe)
+        return self._captured[ckey]
+
+    def resolve_capture(self, capture: bool | None) -> bool:
+        """``capture=None`` is on for a CUDA device and off for the CPU; a
+        graph needs the card."""
+        if capture is None:
+            return self.device.type == "cuda"
+        if capture and self.device.type != "cuda":
+            raise ValueError(f"capture=True needs a CUDA device; this "
+                             f"engine is on {self.device}")
+        return bool(capture)
+
+    @functools.cached_property
+    def _graph_pool(self):
+        """One CUDA-graph memory pool for every bucket of this engine."""
+        return torch.cuda.graph_pool_handle()
 
     def _record_compile_metrics(self, exe: _executor.GraphExecutor,
                                 bs: int) -> None:
@@ -168,10 +216,46 @@ class PhoneBitEngine:
                 sum(c.hbm_bytes_avoided() for c in exe.regions))
 
     @property
+    def capture_count(self) -> int:
+        """CUDA graphs captured (one a bucket, mode and head)."""
+        return len(self._captured)
+
+    @property
     def build_count(self) -> int:
-        """Executors built plus kernel-library loads: the serve-time
-        no-rebuild hook (it must stay flat while requests flow)."""
-        return len(self._compiled) + _build.loads()
+        """Executors built, graphs captured and kernel-library loads: the
+        serve-time no-rebuild hook (it must stay flat while requests
+        flow)."""
+        return len(self._compiled) + self.capture_count + _build.loads()
+
+    # ---- executable artifacts (DESIGN.md §12) -----------------------------
+    def _install_executable(self, batch_size: int,
+                            exe: _executor.GraphExecutor, *,
+                            mode: str | None = None) -> None:
+        """Register a prebuilt frozen bucket executor under the key
+        :meth:`compile` uses — the artifact loader's entry point (the
+        loader then captures it through :meth:`compile`)."""
+        self._compiled[(int(batch_size), mode or self.matmul_mode)] = exe
+
+    def export_artifact(self, path, buckets=(1, 2, 4, 8)) -> dict:
+        """Write each bucket's frozen executor, the autotune winner table
+        and a provenance meta block into the directory ``path``: the
+        offline half of zero-warm-up serving.  Distinct from
+        :meth:`from_artifact`, which reads the packed *weights*."""
+        from repro_torch.serving import artifact as _artifact
+
+        return _artifact.export_artifact(self, path, buckets)
+
+    def load_artifact(self, path, *, buckets=None,
+                      capture: bool | None = None) -> dict:
+        """Restore the buckets of an :meth:`export_artifact` directory
+        (and, as ``capture`` says, capture them) with no tuning, planning
+        or building; per-bucket environment mismatches fall back to the
+        live compile path, integrity failures raise
+        :class:`~repro_torch.serving.artifact.ArtifactError`."""
+        from repro_torch.serving import artifact as _artifact
+
+        return _artifact.load_artifact(self, path, buckets=buckets,
+                                       capture=capture)
 
     def _plan_shape(self, batch: int | None = None
                     ) -> tuple[int, int, int, int]:
@@ -201,7 +285,8 @@ class PhoneBitEngine:
                                         self._input(x_uint8), impl=impl)
 
     def cross_check(self, x_uint8) -> torch.Tensor:
-        """Run the graph path and assert bit-exactness vs the flat path."""
+        """Run the graph path (captured on the card) and assert
+        bit-exactness vs the flat path."""
         got = self(x_uint8)
         ref = self.legacy_call(x_uint8)
         if not torch.equal(got, ref):
@@ -219,7 +304,7 @@ class PhoneBitEngine:
     def backend_choices(self) -> list[dict]:
         """Per-node backends and tiles (fixed by the mode or frozen by the
         autotuner) and fused regions of the batch-1 executor."""
-        return self.compile().backend_report()
+        return self.compile(capture=False).backend_report()
 
     @property
     def model_bytes(self) -> int:

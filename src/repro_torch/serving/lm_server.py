@@ -26,6 +26,16 @@ request is admitted: every tick rewrites every slot's row at ``pos``, so
 no row a new sequence attends to predates the reset, and it decodes as in
 a fresh server.  A server therefore outlives ``max_seq``.
 Token state lives on the card; each tick reads back one argmax vector.
+
+On the card the decode step is captured once, at construction, as one
+CUDA graph at ``(n_slots, 1)`` tokens (``capture=None``; ``capture=False``
+keeps the eager step, for debugging): it reads the static ``tokens``
+buffer and a 0-dim position buffer on the card, writes the K/V rows at
+that position in place, and leaves the logits and their argmax in static
+outputs.  A prefill, a tick and :meth:`LMServer.generate` write the token
+they feed into ``tokens``, set the position and replay; the list of
+active slots stays outside the graph.  Prefill runs through the same
+step, token by token.
 ``flight`` keeps the last requests' records (served, shed, rejected,
 error), and the ``serve.submit`` / ``serve.reject`` / ``serve.error``
 trace instants mark the same sites as the reference's.  The reference's
@@ -51,6 +61,7 @@ from repro_torch.models import transformer
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.metrics import ServingMetrics
+from repro_torch.runtime import executor as _executor
 from repro_torch.serving.kv_cache import KVCacheManager
 from repro_torch.serving.scheduler import Request, shed_expired_requests
 
@@ -65,9 +76,15 @@ class LMServer:
     clock: Callable[[], float] = time.monotonic
     max_queue: int | None = None
     device: str | torch.device = "cuda"
+    capture: bool | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.capture is None:
+            self.capture = self.device.type == "cuda"
+        elif self.capture and self.device.type != "cuda":
+            raise ValueError(f"capture=True needs a CUDA device; this "
+                             f"server is on {self.device}")
         where = self.params["embed"].device
         if where.type != self.device.type:
             raise ValueError(f"params on {where}, server on {self.device}")
@@ -84,6 +101,51 @@ class LMServer:
         self._by_seq: dict[int, tuple[Request, Any]] = {}
         self._metrics = ServingMetrics(self.clock)
         self.flight = FlightRecorder()
+        self._graph = None
+        if self.capture:
+            self._capture_decode()
+
+    # ---- the decode step ---------------------------------------------------
+    @property
+    def capture_count(self) -> int:
+        """CUDA graphs captured: 1 with a captured decode step, else 0."""
+        return int(self._graph is not None)
+
+    @torch.inference_mode()
+    def _capture_decode(self) -> None:
+        self._pos_buf = torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
+
+        def step():
+            logits, _ = self._decode(self.params, self.cache, self.tokens,
+                                     self._pos_buf)
+            return logits, logits.argmax(-1)
+        self._graph, (self._logits, self._argmax) = _executor.capture(
+            step, (), self.device)
+        # The warm-up wrote token 0's K/V at position 0 of every slot: the
+        # cache is zeroed again, as a fresh server's.
+        for t in self.cache.values():
+            t.zero_()
+
+    def _run_decode(self, pos: int) -> torch.Tensor:
+        """One decode step of every slot's token in ``tokens`` at ``pos``;
+        returns the logits (a captured step's static output, valid until
+        the next step)."""
+        if self._graph is None:
+            logits, self.cache = self._decode(self.params, self.cache,
+                                              self.tokens, pos)
+            return logits
+        if not 0 <= pos < self.max_seq:
+            raise ValueError(f"decode position {pos} outside [0, "
+                             f"{self.max_seq})")
+        self._pos_buf.fill_(pos)
+        self._graph.replay()
+        return self._logits
+
+    def _next_tokens(self, logits: torch.Tensor) -> torch.Tensor:
+        """Each slot's greedy next token (computed inside the captured
+        step)."""
+        return logits.argmax(-1) if self._graph is None else self._argmax
 
     # ---- admission ---------------------------------------------------------
     @torch.inference_mode()
@@ -98,12 +160,10 @@ class LMServer:
     @torch.inference_mode()
     def _prefill(self, seq, prompt: list[int]) -> None:
         for i, tok in enumerate(prompt):
-            toks = self.tokens.clone()
-            toks[seq.slot, 0] = tok
-            logits, self.cache = self._decode(self.params, self.cache, toks,
-                                              self.pos + i)
+            self.tokens[seq.slot, 0] = tok
+            logits = self._run_decode(self.pos + i)
         self.pos += len(prompt)
-        nxt = int(logits[seq.slot].argmax())
+        nxt = int(self._next_tokens(logits)[seq.slot])
         # The first generated token goes through the manager, so a
         # max_new=1 sequence finishes right here.
         self.manager.record_token(seq.seq_id, nxt, self.eos_id)
@@ -116,10 +176,8 @@ class LMServer:
         {seq_id: new_token} for the sequences that were active."""
         if not self.manager.active:
             return {}
-        logits, self.cache = self._decode(self.params, self.cache,
-                                          self.tokens, self.pos)
+        nxt = self._next_tokens(self._run_decode(self.pos))
         self.pos += 1
-        nxt = logits.argmax(-1)
         slots = torch.tensor(self.manager.active_slots(), device=self.device)
         self.tokens[slots, 0] = nxt[slots]
         host = nxt.cpu().numpy()                 # the one readback a tick
@@ -295,26 +353,25 @@ class LMServer:
 
     @torch.inference_mode()
     def generate(self, prompt: list[int], max_new: int = 16) -> list[int]:
-        """Convenience: run one sequence to completion."""
+        """Convenience: run one sequence to completion.  The slot's token
+        in ``tokens`` is restored afterwards, as the reference leaves it."""
         seq = self.manager.admit(len(prompt), max_new)
         sid = seq.slot
+        before = self.tokens[sid, 0].clone()
         out: list[int] = []
         for tok in prompt:
-            toks = self.tokens.clone()
-            toks[sid, 0] = tok
-            logits, self.cache = self._decode(self.params, self.cache, toks,
-                                              self.pos)
+            self.tokens[sid, 0] = tok
+            logits = self._run_decode(self.pos)
             self.pos += 1
         for _ in range(max_new):
-            nxt = int(logits[sid].argmax())
+            nxt = int(self._next_tokens(logits)[sid])
             out.append(nxt)
-            toks = self.tokens.clone()
-            toks[sid, 0] = nxt
-            logits, self.cache = self._decode(self.params, self.cache, toks,
-                                              self.pos)
+            self.tokens[sid, 0] = nxt
+            logits = self._run_decode(self.pos)
             self.pos += 1
             if self.eos_id is not None and nxt == self.eos_id:
                 break
+        self.tokens[sid, 0] = before
         if seq.seq_id in self.manager.active:
             self.manager.release(seq.seq_id)
         return out

@@ -5,12 +5,23 @@ Counterpart of ``repro.serving.server`` for the serving core:
 * a :class:`~repro_torch.serving.scheduler.BatchScheduler` assembling
   deadline-aware, bucket-padded batches;
 * the engine's per-bucket executor cache — ``compile_buckets()`` builds
-  one executor per bucket up front, so serving builds nothing;
+  one executor per bucket up front, so serving builds nothing.  On the
+  card each bucket is one captured CUDA graph (``capture=False`` serves
+  the eager executors, for debugging); a batch is staged straight into
+  the bucket's static input, the counterpart of the reference's donated
+  input buffer, and ``artifact=`` restores the buckets from an
+  :func:`~repro_torch.serving.artifact.export_artifact` directory at
+  construction (``artifact_report``);
 * async dispatch: torch launches return before the device finishes.  A
-  batch's kernels are queued, then the copy of its output into pinned host
-  memory, then an event; ``step()`` queues batch k+1 before it waits on
-  batch k's event (the one blocking point), so the device works on k+1
-  while the host scatters k;
+  batch's replay (or kernels) is queued, then the copy of its output into
+  pinned host memory, then an event, all on one stream, so the copy is
+  queued before the next replay can overwrite the graph's output;
+  ``step()`` queues batch k+1 before it waits on batch k's event (the one
+  blocking point), so the device works on k+1 while the host scatters k;
+* multi-tenant lanes (:mod:`repro_torch.serving.multiplex`): ``tenant=``
+  stamps flight records and ``metrics()``, ``dispatched_rows`` counts the
+  padded rows dispatched (the fair-share charge), and
+  ``step(dispatch=False)`` runs the housekeeping half only;
 * ``metrics()``: p50/p95 latency, served, dropped, queue depth, throughput;
 * ``flight``: a :class:`~repro_torch.obs.flight.FlightRecorder` of the
   last requests (served, shed, rejected, error) with their arrival,
@@ -31,8 +42,8 @@ validator does (array-like, numeric, finite, and the engine's input shape
 when there is no preprocess hook) and resolves a bad one ``rejected``
 alone; a batch whose preprocess, dispatch or readback still raises
 resolves each of its rows ``error``, and serving goes on.  Fault
-injection, retry and degradation ladders, the request journal, placement
-and multiplexing are not ported.
+injection, retry and degradation ladders, the request journal and
+placement are not ported.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import torch
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.metrics import ServingMetrics
+from repro_torch.runtime.executor import CapturedExecutor
 from repro_torch.serving.scheduler import BatchScheduler, Request
 
 
@@ -72,7 +84,7 @@ class _InFlight:
 class InferenceServer:
     """Batched image-inference front end.
 
-    engine:          anything with ``compile(bs, mode=) -> callable``,
+    engine:          anything with ``compile(bs, capture=) -> callable``,
                      ``_plan_shape``, ``device`` and ``matmul_mode`` (a
                      :class:`PhoneBitEngine` or a ``WorkloadEngine``).
     buckets:         batch sizes the engine is compiled for; mixed-size
@@ -81,22 +93,44 @@ class InferenceServer:
                      network-size uint8 image out (numpy or a tensor on
                      any device; the batch is moved to the engine's).
     clock:           injectable monotonic clock.
+    tenant:          optional tenant name stamped onto flight records and
+                     ``metrics()`` (how a multiplexer labels its lanes).
+    artifact:        optional :func:`~repro_torch.serving.artifact.
+                     export_artifact` directory: the buckets are restored
+                     (and captured on the card) at construction with no
+                     tuning, planning or building; a bucket whose
+                     environment differs takes the live compile path.
+    capture:         the engine's ``compile(capture=)``: None captures
+                     each bucket on the card; False serves eagerly.
     """
 
     def __init__(self, engine, *, max_batch: int = 8,
                  max_wait_s: float = 0.0,
                  buckets: tuple[int, ...] = (1, 2, 4, 8),
                  preprocess: Callable[[np.ndarray], Any] | None = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 tenant: str | None = None, artifact: str | None = None,
+                 capture: bool | None = None):
         self.engine = engine
         self.preprocess = preprocess
         self.scheduler = BatchScheduler(max_batch=max_batch,
                                         max_wait_s=max_wait_s,
                                         buckets=tuple(buckets))
         self.clock = clock
+        self.tenant = tenant
+        self.capture = capture
         self._pending: _InFlight | None = None
         self._metrics = ServingMetrics(clock)
-        self.flight = FlightRecorder()
+        self.flight = FlightRecorder(
+            tags={"tenant": tenant} if tenant is not None else None)
+        # Padded bucket rows dispatched since construction (what the card
+        # paid for): the cost a multiplexer charges each tenant's vtime.
+        self.dispatched_rows = 0
+        self.artifact_report: dict | None = None
+        if artifact is not None:
+            self.artifact_report = engine.load_artifact(
+                artifact, buckets=tuple(self.scheduler.buckets),
+                capture=capture)
 
     # ---- executor cache ---------------------------------------------------
     def compile_buckets(self) -> dict[int, float]:
@@ -107,7 +141,7 @@ class InferenceServer:
         for b in self.scheduler.buckets:
             with _trace.span("compile.bucket", "compile", bucket=b):
                 t0 = time.perf_counter()
-                exe = self.engine.compile(b)
+                exe = self.engine.compile(b, capture=self.capture)
                 x = torch.zeros(self.engine._plan_shape(b),
                                 dtype=torch.uint8, device=self.engine.device)
                 exe(x)
@@ -172,34 +206,62 @@ class InferenceServer:
         return request.done
 
     # ---- dispatch / scatter ----------------------------------------------
+    def _stage(self, payloads: list[Any], exe) -> torch.Tensor:
+        """The batch as one tensor: for a captured bucket, written straight
+        into its static input (a host batch through pinned memory).  Rows
+        of another shape or dtype than that input raise, as the eager
+        path's K4 refuses them: a copy would cast them silently."""
+        if self.preprocess is not None:
+            rows = [torch.as_tensor(self.preprocess(np.asarray(p)))
+                    for p in payloads]
+        else:
+            rows = [torch.from_numpy(np.asarray(p)) for p in payloads]
+        if not isinstance(exe, CapturedExecutor):
+            return torch.stack(rows)
+        dst = exe.static_input
+        if tuple(rows[0].shape) != tuple(dst.shape[1:]) \
+                or rows[0].dtype != dst.dtype:
+            raise ValueError(f"staged rows {tuple(rows[0].shape)} "
+                             f"{rows[0].dtype} do not fit the bucket's "
+                             f"input {tuple(dst.shape)} {dst.dtype}")
+        if rows[0].device == dst.device:
+            torch.stack(rows, out=dst)
+        elif rows[0].is_cuda:
+            dst.copy_(torch.stack(rows))
+        else:
+            dst.copy_(torch.stack(rows).pin_memory(), non_blocking=True)
+        return dst
+
     def _dispatch(self, batch: list[Request],
                   payloads: list[Any]) -> _InFlight:
         t0 = self.clock()
-        with _trace.span("serve.stage", "serve", bucket=len(payloads),
+        bucket = len(payloads)
+        exe = self.engine.compile(bucket, capture=self.capture)
+        with _trace.span("serve.stage", "serve", bucket=bucket,
                          n_real=len(batch)):
-            if self.preprocess is not None:
-                x = torch.stack([torch.as_tensor(
-                    self.preprocess(np.asarray(p))) for p in payloads])
-            else:
-                x = torch.from_numpy(np.stack([np.asarray(p)
-                                               for p in payloads]))
-        with _trace.span("serve.dispatch", "serve", bucket=len(payloads)):
-            exe = self.engine.compile(len(payloads))
-            self._metrics.mark_dispatch(bucket=len(payloads))
+            x = self._stage(payloads, exe)
+        with _trace.span("serve.dispatch", "serve", bucket=bucket):
+            self._metrics.mark_dispatch(bucket=bucket)
             if self.engine.device.type != "cuda":
                 host, event = exe(x.to(self.engine.device)), None
             else:
-                if not x.is_cuda:                     # a host batch
-                    x = x.pin_memory().to(self.engine.device,
-                                          non_blocking=True)
-                out = exe(x)                          # queued: returns now
+                if isinstance(exe, CapturedExecutor):
+                    out = exe.replay()                # queued: returns now
+                else:
+                    if not x.is_cuda:                 # a host batch
+                        x = x.pin_memory().to(self.engine.device,
+                                              non_blocking=True)
+                    out = exe(x)
+                # Queued on the replay's stream, so before the next replay
+                # can overwrite the graph's output.
                 host = torch.empty(out.shape, dtype=out.dtype,
                                    pin_memory=True)
                 host.copy_(out, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
+        self.dispatched_rows += bucket
         t1 = self.clock()
-        return _InFlight(batch, host, event, len(payloads), t1, t1 - t0)
+        return _InFlight(batch, host, event, bucket, t1, t1 - t0)
 
     def _scatter(self, flight: _InFlight) -> list[Request]:
         with _trace.span("serve.device", "serve", bucket=flight.bucket):
@@ -231,11 +293,13 @@ class InferenceServer:
                                latency_s=now - r.arrival_s)
             _trace.instant("serve.shed", "serve", req=r.id)
 
-    def step(self, now: float | None = None,
-             force: bool = False) -> list[Request]:
+    def step(self, now: float | None = None, force: bool = False,
+             dispatch: bool = True) -> list[Request]:
         """One serving tick: dispatch the next batch (policy permitting),
         then scatter the previously in-flight one.  Returns the requests
-        completed this tick."""
+        completed this tick.  ``dispatch=False`` runs the housekeeping
+        half only — shed expired requests, scatter the in-flight batch —
+        as a multiplexer does on the lanes it did not pick."""
         now = self.clock() if now is None else now
         # Shed before assembly, so the flight recorder sees every deadline
         # outcome (padded_batch sheds too, at the same ``now``: nothing is
@@ -245,8 +309,10 @@ class InferenceServer:
             self._record_shed(shed, now)
         flight = None
         done: list[Request] = []
-        with _trace.span("serve.assemble", "serve"):
-            got = self.scheduler.padded_batch(now, force=force)
+        got = None
+        if dispatch:
+            with _trace.span("serve.assemble", "serve"):
+                got = self.scheduler.padded_batch(now, force=force)
         if got is not None:
             try:
                 flight = self._dispatch(*got)
@@ -278,7 +344,8 @@ class InferenceServer:
         """p50/p95 request latency (submit→scatter, ms), served/dropped
         counts, live queue depth, and throughput over the busy window
         (first dispatch → last scatter)."""
+        extra = {"tenant": self.tenant} if self.tenant is not None else {}
         return self._metrics.snapshot(
             dropped=self.scheduler.dropped, queue_depth=self.queue_depth,
             mode=self.engine.matmul_mode,
-            buckets=list(self.scheduler.buckets))
+            buckets=list(self.scheduler.buckets), **extra)

@@ -19,7 +19,9 @@ ties; exact ties (e.g. saturated softmax) may order differently.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 # YOLOv2-Tiny VOC anchor priors, in grid-cell units (darknet cfg).
@@ -57,6 +59,14 @@ def topk_head(logits: torch.Tensor, k: int) -> torch.Tensor:
     return torch.stack([idx.to(torch.float32), vals], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _anchors(anchors: tuple[tuple[float, float], ...],
+             device: torch.device) -> torch.Tensor:
+    """The anchor priors on ``device``, made once: a tensor made from host
+    values is a host-to-device copy, which a captured head cannot hold."""
+    return torch.tensor(anchors, dtype=torch.float32, device=device)
+
+
 def decode_yolo(feat: torch.Tensor, cfg: DetectConfig,
                 input_hw: tuple[int, int]
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -74,7 +84,7 @@ def decode_yolo(feat: torch.Tensor, cfg: DetectConfig,
     cy = torch.arange(hg, dtype=torch.float32, device=dev)[None, :, None, None]
     bx = (xy[..., 0] + cx) / wg
     by = (xy[..., 1] + cy) / hg
-    anchors = torch.tensor(cfg.anchors, dtype=torch.float32, device=dev)
+    anchors = _anchors(cfg.anchors, dev)
     bw = anchors[:, 0] * torch.exp(f[..., 2]) / wg
     bh = anchors[:, 1] * torch.exp(f[..., 3]) / hg
 
@@ -168,3 +178,16 @@ def detect_head(feat: torch.Tensor, cfg: DetectConfig,
     boxes, scores, classes = decode_yolo(feat, cfg, input_hw)
     return _nms_batched(boxes, scores, classes, iou_thresh=cfg.iou_thresh,
                         score_thresh=cfg.score_thresh, max_det=cfg.max_det)
+
+
+def detections_to_dicts(rows, cfg: DetectConfig) -> list[dict]:
+    """One image's (max_det, 6) rows -> readable dicts (valid rows only)."""
+    out = []
+    for x1, y1, x2, y2, score, cls in np.asarray(rows):
+        if score <= 0:
+            continue
+        cls = int(cls)
+        name = (cfg.class_names[cls] if cfg.class_names else str(cls))
+        out.append(dict(box=[float(x1), float(y1), float(x2), float(y2)],
+                        score=float(score), class_id=cls, label=name))
+    return out

@@ -41,6 +41,26 @@ def letterbox_params(in_hw: tuple[int, int], out_hw: tuple[int, int]
     return scale, (top, left), (nh, nw)
 
 
+def letterbox_boxes(boxes: np.ndarray, in_hw: tuple[int, int],
+                    out_hw: tuple[int, int]) -> np.ndarray:
+    """Map (..., 4) x1y1x2y2 boxes from original-image pixels to
+    letterboxed network pixels."""
+    scale, (top, left), _ = letterbox_params(in_hw, out_hw)
+    boxes = np.asarray(boxes, np.float32)
+    return boxes * scale + np.array([left, top, left, top], np.float32)
+
+
+def unletterbox_boxes(boxes: np.ndarray, in_hw: tuple[int, int],
+                      out_hw: tuple[int, int]) -> np.ndarray:
+    """Inverse of :func:`letterbox_boxes`: network-frame boxes back to
+    original-image pixels, clipped to the image bounds."""
+    scale, (top, left), _ = letterbox_params(in_hw, out_hw)
+    boxes = np.asarray(boxes, np.float32)
+    out = (boxes - np.array([left, top, left, top], np.float32)) / scale
+    h, w = in_hw
+    return np.clip(out, 0, np.array([w, h, w, h], np.float32))
+
+
 def resize_bilinear(img: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     """(H, W, C) -> (nh, nw, C) float32, antialiased bilinear."""
     x = torch.as_tensor(img).to(torch.float32).permute(2, 0, 1)[None]

@@ -10,8 +10,9 @@ everything between an arbitrary-size uint8 image and a prediction row:
   :class:`~repro_torch.serving.engine.PhoneBitEngine` on the workload's
   device;
 * the postprocess head (top-k / YOLO decode + fixed-size NMS), composed
-  onto the engine's per-bucket executors by :class:`WorkloadEngine`, so
-  the server scatters decoded rows.
+  onto the engine's per-bucket executors by :class:`WorkloadEngine` — on
+  the card captured in the same CUDA graph as the forward, one graph a
+  bucket — so the server scatters decoded rows.
 
     wl = workloads.get("alexnet_imagenet")            # on the card
     server = wl.server(max_batch=8)
@@ -34,6 +35,7 @@ from repro_torch.core import bnn_model
 from repro_torch.core.bnn_model import (BConv, BDense, FloatConv,
                                         FloatDense, Pool)
 from repro_torch.models import paper_nets
+from repro_torch.runtime.executor import CapturedExecutor
 from repro_torch.serving.engine import PhoneBitEngine
 from repro_torch.serving.server import InferenceServer
 from repro_torch.workloads import postprocess as post
@@ -63,21 +65,23 @@ class WorkloadEngine:
     """A PhoneBitEngine with the workload's postprocess head composed onto
     its per-bucket executors (the engine surface ``InferenceServer``
     consumes: ``compile`` / ``_plan_shape`` / ``device`` / ``matmul_mode``
-    / ``build_count``)."""
+    / ``build_count``, and the artifact loader's ``_graph`` / ``_tuner`` /
+    ``_install_executable``).
+
+    On the card a bucket is one CUDA graph of the frozen forward and the
+    head (the reference exports the head per bucket beside the forward);
+    the graph keeps the forward's raw output too, which :meth:`cross_check`
+    holds against the flat oracle."""
 
     def __init__(self, engine: PhoneBitEngine,
                  head: Callable[[torch.Tensor], torch.Tensor]):
         self.engine = engine
         self.head = head
-        self._compiled: dict[tuple, Callable] = {}
 
     def compile(self, batch_size: int | None = None, *,
-                mode: str | None = None):
-        key = (batch_size, mode or self.matmul_mode)
-        if key not in self._compiled:
-            fwd = self.engine.compile(batch_size, mode=mode)
-            self._compiled[key] = lambda x, fwd=fwd: self.head(fwd(x))
-        return self._compiled[key]
+                mode: str | None = None, capture: bool | None = None):
+        return self.engine.compile(batch_size, mode=mode, capture=capture,
+                                   head=self.head)
 
     def _plan_shape(self, batch: int | None = None):
         return self.engine._plan_shape(batch)
@@ -91,9 +95,46 @@ class WorkloadEngine:
         return self.engine.matmul_mode
 
     @property
+    def capture_count(self) -> int:
+        return self.engine.capture_count
+
+    @property
     def build_count(self) -> int:
         return self.engine.build_count
 
+    # ---- executable artifacts (DESIGN.md §12) -----------------------------
+    @property
+    def _graph(self):
+        return self.engine._graph
+
+    @property
+    def _tuner(self):
+        return self.engine._tuner
+
+    def _install_executable(self, batch_size: int, exe, **kw) -> None:
+        """The frozen forward goes to the wrapped engine; the head is
+        composed (and captured) by :meth:`compile`."""
+        self.engine._install_executable(batch_size, exe, **kw)
+
+    def export_artifact(self, path, buckets=(1, 2, 4, 8), *,
+                        workload: str | None = None) -> dict:
+        """Export the buckets' frozen forwards marked as carrying the
+        postprocess head, so a loaded workload serves decoded rows."""
+        from repro_torch.serving import artifact as _artifact
+
+        return _artifact.export_artifact(
+            self.engine, path, buckets, head=True, workload=workload)
+
+    def load_artifact(self, path, *, buckets=None,
+                      capture: bool | None = None) -> dict:
+        """Restore the forwards into the wrapped engine and capture each
+        with the head (one graph a bucket on the card)."""
+        from repro_torch.serving import artifact as _artifact
+
+        return _artifact.load_artifact(self, path, buckets=buckets,
+                                       head=True, capture=capture)
+
+    # ---- direct calls -------------------------------------------------------
     def __call__(self, x_uint8) -> torch.Tensor:
         x = self.engine._input(x_uint8)
         return self.compile(x.shape[0])(x)
@@ -103,9 +144,21 @@ class WorkloadEngine:
         return self.engine(x_uint8)
 
     def cross_check(self, x_uint8) -> torch.Tensor:
-        """Decoded predictions via the engine's graph path, asserting the
-        graph == flat-oracle bit-exactness on the raw output first."""
-        return self.head(self.engine.cross_check(x_uint8))
+        """The bucket's raw output (on the card: the same graph that
+        serves) asserted equal to the flat oracle bit for bit; returns the
+        head applied eagerly to the oracle's output."""
+        x = self.engine._input(x_uint8)
+        exe = self.compile(x.shape[0])
+        if isinstance(exe, CapturedExecutor):
+            raw = exe.run(x)[1]
+        else:
+            raw = self.engine.compile(x.shape[0], capture=False)(x)
+        ref = self.engine.legacy_call(x)
+        if not torch.equal(raw, ref):
+            raise AssertionError(
+                f"graph path ({self.matmul_mode}) diverges from the flat "
+                f"oracle: max |diff| {(raw - ref).abs().max().item()}")
+        return self.head(ref)
 
 
 @dataclasses.dataclass
@@ -159,6 +212,22 @@ class Workload:
     def server(self, **kw) -> InferenceServer:
         kw.setdefault("preprocess", self.preprocess_hook)
         return InferenceServer(self.engine, **kw)
+
+    def predict(self, images) -> np.ndarray:
+        """End-to-end convenience: raw uint8 HWC images (any sizes) ->
+        stacked prediction rows."""
+        x = torch.stack([self.preprocess_hook(np.asarray(i))
+                         for i in images])
+        return self.engine(x).cpu().numpy()
+
+    def format(self, row) -> list[dict]:
+        """One request's prediction rows -> readable dicts."""
+        if self.task == "detect":
+            return post.detections_to_dicts(row, self.detect)
+        return [dict(class_id=int(c), prob=float(p),
+                     label=(self.class_names[int(c)]
+                            if self.class_names else str(int(c))))
+                for c, p in np.asarray(row)]
 
     @property
     def model_bytes(self) -> int:

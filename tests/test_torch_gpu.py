@@ -30,11 +30,15 @@ from repro_torch.kernels import xnor_popcount_matmul as k1
 from repro_torch.models import transformer
 from repro_torch.runtime import (GraphExecutor, assign_layouts,
                                  default_pipeline, lower_trained, regions)
+from repro_torch.runtime.executor import WARMUP_CALLS, CapturedExecutor
 from repro_torch.serving.lm_server import LMServer
 
 pytestmark = pytest.mark.gpu
 
 RNG = np.random.default_rng(23)
+# On the card a bucket is captured on its first call: its kernel wrappers
+# run once a warm-up call and once while captured; a replay runs none.
+CAPTURE_CALLS = WARMUP_CALLS + 1
 
 
 @pytest.fixture
@@ -64,6 +68,22 @@ def epilogue(dev, n: int, ww: torch.Tensor, pool_positions: int = 1):
     thr = np.round(mean + sd * (np.where(sgn, -z, z) + RNG.uniform(-1, 1, n)))
     return (torch.from_numpy(thr.astype(np.int32)).to(dev),
             torch.from_numpy(sgn).to(dev))
+
+
+def captured_launches(call, x, fns) -> tuple[int, ...]:
+    """Launches of ``fns`` a forward, counted while ``call(x)`` builds and
+    captures its bucket (the counts over that first call, divided by
+    ``CAPTURE_CALLS``); a second call, a replay, must add none."""
+    for fn in fns:
+        fn.launches = 0
+    call(x)
+    torch.cuda.synchronize()
+    first = tuple(fn.launches for fn in fns)
+    call(x)
+    torch.cuda.synchronize()
+    assert tuple(fn.launches for fn in fns) == first, "a replay launched"
+    assert all(n % CAPTURE_CALLS == 0 for n in first), first
+    return tuple(n // CAPTURE_CALLS for n in first)
 
 
 def assert_mixed(out: torch.Tensor, channels: int) -> None:
@@ -426,15 +446,9 @@ def test_engine_default_path_takes_the_plane_variant(cuda):
     assert wl.engine.engine.matmul_mode == "cuda_direct_pool"
     x = torch.from_numpy(RNG.integers(0, 256, (2, 227, 227, 3),
                                       dtype=np.uint8)).to(cuda)
-    wl.engine(x)
-    for fn in (k3.direct_conv_bn_binarize, k3.direct_conv_bn_binarize_planes,
-               k1.xnor_popcount_matmul_planes):
-        fn.launches = 0
-    wl.engine.engine.cross_check(x)
-    torch.cuda.synchronize()
-    assert (k3.direct_conv_bn_binarize_planes.launches,
-            k3.direct_conv_bn_binarize.launches,
-            k1.xnor_popcount_matmul_planes.launches) == (1, 4, 0)
+    assert captured_launches(wl.engine.engine.cross_check, x, (
+        k3.direct_conv_bn_binarize_planes, k3.direct_conv_bn_binarize,
+        k1.xnor_popcount_matmul_planes)) == (1, 4, 0)
 
 
 def channel_words(dev, rows: int, channels: int, positions: int
@@ -543,17 +557,11 @@ def test_tiny_workload_on_card_matches_cpu(cuda, name, backend):
 def test_tiny_alexnet_launch_counts(cuda):
     wl = workloads.get("alexnet_imagenet", variant="tiny")
     x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
-    wl.engine(x)
-    for fn in (k4.bitplane_pack, k3.direct_conv_bn_binarize,
-               k3.direct_conv_bn_binarize_planes,
-               k2.fused_matmul_bn_binarize):
-        fn.launches = 0
-    wl.engine(x)
-    torch.cuda.synchronize()
     # conv1 through K3's bit-plane variant, conv2 through K3.
-    assert (k4.bitplane_pack.launches, k3.direct_conv_bn_binarize.launches,
-            k3.direct_conv_bn_binarize_planes.launches,
-            k2.fused_matmul_bn_binarize.launches) == (1, 1, 1, 2)
+    assert captured_launches(wl.engine, x, (
+        k4.bitplane_pack, k3.direct_conv_bn_binarize,
+        k3.direct_conv_bn_binarize_planes,
+        k2.fused_matmul_bn_binarize)) == (1, 1, 1, 2)
 
 
 def test_tiny_alexnet_chain_launch_counts(cuda):
@@ -561,15 +569,12 @@ def test_tiny_alexnet_chain_launch_counts(cuda):
     wl = workloads.get("alexnet_imagenet", variant="tiny",
                        matmul_mode="cuda_chain")
     x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
-    wl.engine(x)
-    for fn in (k4.bitplane_pack, k3.direct_conv_bn_binarize,
-               k2.fused_matmul_bn_binarize, k5.chain_conv):
-        fn.launches = 0
-    wl.engine(x)
-    torch.cuda.synchronize()
-    assert (k4.bitplane_pack.launches, k5.chain_conv.launches,
-            k2.fused_matmul_bn_binarize.launches,
-            k3.direct_conv_bn_binarize.launches) == (1, 1, 2, 0)
+    # Built first: the build times the region's tiles, launches that are
+    # not the forward's.
+    wl.engine.engine.compile(2, capture=False)
+    assert captured_launches(wl.engine, x, (
+        k4.bitplane_pack, k5.chain_conv, k2.fused_matmul_bn_binarize,
+        k3.direct_conv_bn_binarize)) == (1, 1, 2, 0)
 
 
 def test_tiny_alexnet_pm1_launch_counts(cuda):
@@ -578,18 +583,11 @@ def test_tiny_alexnet_pm1_launch_counts(cuda):
     wl = workloads.get("alexnet_imagenet", variant="tiny",
                        matmul_mode="cuda_pm1")
     x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
-    wl.engine(x)
-    for fn in (k4.bitplane_pack, k1.xnor_popcount_matmul,
-               k1.xnor_popcount_matmul_planes,
-               k6.mxu_pm1_matmul, k2.fused_matmul_bn_binarize,
-               k3.direct_conv_bn_binarize):
-        fn.launches = 0
-    wl.engine.engine.cross_check(x)
-    torch.cuda.synchronize()
-    assert (k4.bitplane_pack.launches, k1.xnor_popcount_matmul.launches,
-            k1.xnor_popcount_matmul_planes.launches,
-            k6.mxu_pm1_matmul.launches, k2.fused_matmul_bn_binarize.launches,
-            k3.direct_conv_bn_binarize.launches) == (1, 0, 1, 3, 0, 0)
+    assert captured_launches(wl.engine.engine.cross_check, x, (
+        k4.bitplane_pack, k1.xnor_popcount_matmul,
+        k1.xnor_popcount_matmul_planes, k6.mxu_pm1_matmul,
+        k2.fused_matmul_bn_binarize,
+        k3.direct_conv_bn_binarize)) == (1, 0, 1, 3, 0, 0)
 
 
 @pytest.mark.parametrize("name", ["alexnet_imagenet", "yolov2_tiny_voc"])
@@ -722,3 +720,163 @@ def test_lm_server_on_card(cuda, lm_params):
                for r, m in zip(reqs, (3, 4, 2)))
     assert k7.flash_attention.launches == 0
     assert server.metrics()["served"] == 3
+
+
+# --------------------------------------------------------------------------
+# Captured buckets, artifacts, the multiplexer and the captured decode step
+# --------------------------------------------------------------------------
+
+CAPTURE_MODES = ["cuda_direct_pool", "cuda_chain", "cuda_pm1",
+                 "cuda_popcount", "auto"]
+
+
+@pytest.mark.parametrize("mode", CAPTURE_MODES)
+@pytest.mark.parametrize("name", ["alexnet_imagenet", "yolov2_tiny_voc"])
+def test_captured_bucket_equals_eager(cuda, name, mode, tmp_path,
+                                      monkeypatch):
+    """Every mode and bucket: the captured graph's rows and raw output
+    equal the eager executor's and head's bit for bit, the raw equals the
+    flat oracle (``cross_check``), and replays capture nothing more."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    wl = workloads.get(name, variant="tiny", matmul_mode=mode)
+    h, w = wl.input_hw
+    for b in (1, 2, 4):
+        x = torch.from_numpy(RNG.integers(0, 256, (b, h, w, 3),
+                                          dtype=np.uint8)).to(cuda)
+        exe = wl.engine.compile(b)
+        assert isinstance(exe, CapturedExecutor)
+        rows, raw = exe.run(x)
+        eager = wl.engine.engine.compile(b, capture=False)(x)
+        assert torch.equal(raw, eager)
+        assert torch.equal(rows, wl.postprocess(eager))
+        assert torch.equal(wl.engine(x), rows)
+        wl.engine.cross_check(x)
+    captures = wl.engine.capture_count
+    assert captures == 3
+    wl.engine(x)
+    assert wl.engine.capture_count == captures
+
+
+def test_captured_server_on_card(cuda):
+    """Mixed-size traffic through captured buckets: every row equals
+    ``cross_check``, and nothing is built or captured while serving."""
+    wl = workloads.get("yolov2_tiny_voc", variant="tiny")
+    server = wl.server(max_batch=4, buckets=(1, 2, 4))
+    server.compile_buckets()
+    builds, captures = wl.engine.build_count, wl.engine.capture_count
+    assert captures == 3
+    imgs = [RNG.integers(0, 256, (40, 50, 3), dtype=np.uint8)
+            for _ in range(7)]
+    groups, served = [], 0
+    for g in (1, 2, 4):
+        batch = imgs[served:served + g]
+        reqs = [server.submit(im) for im in batch]
+        server.drain()
+        served += g
+        pad = server.scheduler.bucket_for(g) - g
+        groups.append((reqs, batch + [np.zeros_like(batch[-1])] * pad))
+    assert (wl.engine.build_count, wl.engine.capture_count) == \
+        (builds, captures)
+    for reqs, padded in groups:
+        x = torch.stack([wl.preprocess_hook(p) for p in padded])
+        ref = wl.engine.cross_check(x).cpu().numpy()
+        for r, want in zip(reqs, ref):
+            assert r.outcome == "served"
+            np.testing.assert_array_equal(r.result, want)
+
+
+@pytest.mark.parametrize("capture", [None, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.int64])
+def test_server_refuses_a_payload_of_another_dtype(cuda, dtype, capture):
+    """A payload of the input's shape but not uint8 resolves ``error``,
+    captured as eager (K4 refuses it there; a copy into the static input
+    would cast it); the uint8 payload after it is served."""
+    wl = workloads.get("alexnet_imagenet", variant="tiny")
+    server = wl.server(preprocess=None, max_batch=1, buckets=(1,),
+                       capture=capture)
+    img = RNG.integers(0, 256, (*wl.input_hw, 3), dtype=np.uint8)
+    bad = server.submit(img.astype(dtype) * (1 if dtype == np.float32
+                                             else 300))
+    good = server.submit(img)
+    server.drain()
+    assert bad.outcome == "error"
+    assert good.outcome == "served"
+    np.testing.assert_array_equal(
+        good.result,
+        wl.engine.cross_check(torch.from_numpy(img[None])).cpu().numpy()[0])
+
+
+@pytest.mark.parametrize("mode", ["cuda_direct_pool", "cuda_chain", "auto"])
+def test_artifact_load_captures_on_card(cuda, mode, tmp_path, monkeypatch):
+    """A workload loaded from an artifact captures every bucket at load,
+    asks the tuner nothing, builds nothing while serving, and serves the
+    exporter's rows."""
+    from repro_torch.obs import metrics
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    src = workloads.get("alexnet_imagenet", variant="tiny", matmul_mode=mode)
+    src.engine.export_artifact(tmp_path / "art", buckets=(1, 2))
+    dst = workloads.get("alexnet_imagenet", variant="tiny", matmul_mode=mode)
+    with metrics.use_registry() as reg:
+        server = dst.server(artifact=str(tmp_path / "art"), buckets=(1, 2),
+                            max_batch=2)
+        assert server.artifact_report["loaded"] == [1, 2]
+        assert dst.engine.capture_count == 2
+        builds = dst.engine.build_count
+        imgs = [RNG.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+                for _ in range(2)]
+        reqs = [server.submit(im) for im in imgs]
+        server.drain()
+    assert reg.events("autotune") == []
+    assert dst.engine.build_count == builds
+    x = torch.stack([src.preprocess_hook(im) for im in imgs])
+    want = src.engine(x).cpu().numpy()
+    for r, row in zip(reqs, want):
+        np.testing.assert_array_equal(r.result, row)
+
+
+def test_multiplexed_lanes_on_card(cuda):
+    from repro_torch.serving import MultiTenantServer
+    mux = MultiTenantServer(buckets=(1, 2), max_batch=2)
+    wls = {"alex": workloads.get("alexnet_imagenet", variant="tiny"),
+           "yolo": workloads.get("yolov2_tiny_voc", variant="tiny")}
+    mux.add_workload("alex", wls["alex"], weight=3.0)
+    mux.add_workload("yolo", wls["yolo"])
+    imgs = {t: [RNG.integers(0, 256, (30, 30, 3), dtype=np.uint8)
+                for _ in range(4)] for t in wls}
+    reqs = {t: [mux.submit(t, im) for im in imgs[t]] for t in wls}
+    mux.drain()
+    for t, wl in wls.items():
+        for r, im in zip(reqs[t], imgs[t]):
+            x = torch.stack([wl.preprocess_hook(im)])
+            np.testing.assert_array_equal(
+                r.result, wl.engine.cross_check(x).cpu().numpy()[0])
+
+
+def test_captured_decode_equals_eager(cuda, lm_params):
+    """``LMServer`` with its decode step captured gives the eager server's
+    logits bit for bit at every step and the same tokens."""
+    cfg, _, card = lm_params
+    servers = {c: LMServer(cfg, card, n_slots=2, max_seq=64, capture=c)
+               for c in (True, False)}
+    assert servers[True].capture_count == 1
+    assert servers[False].capture_count == 0
+    logits = {c: [] for c in servers}
+    for c, server in servers.items():
+        run = server._run_decode
+
+        def record(pos, run=run, log=logits[c]):
+            out = run(pos)
+            log.append(out.clone())
+            return out
+        server._run_decode = record
+    prompts = [(list(RNG.integers(1, cfg.vocab, n)), m)
+               for n, m in ((5, 3), (8, 4), (3, 2))]
+    out = {}
+    for c, server in servers.items():
+        reqs = [server.submit(p, max_new=m) for p, m in prompts]
+        server.drain()
+        out[c] = [r.result for r in reqs]
+    assert len(logits[True]) == len(logits[False]) > 0
+    for a, b in zip(logits[True], logits[False]):
+        assert torch.equal(a, b)
+    assert out[True] == out[False]

@@ -152,6 +152,38 @@ def test_prefill_then_decode(smoke, mesh_rules):
         decode(tp, cache, torch.from_numpy(tok), MAX_SEQ)
 
 
+@pytest.mark.parametrize("positions", [(0, 1, 2), (PROMPT, PROMPT + 5,
+                                                MAX_SEQ - 1)])
+def test_decode_step_with_a_device_position(smoke, mesh_rules, positions):
+    """``pos`` as a 0-dim int64 tensor (the captured step's form, its K/V
+    row written by ``index_copy_``) gives the int form's logits and cache
+    bit for bit, and the reference's within ``REL_TOL``, at positions from
+    the cache's start to its last row."""
+    jp, tp = smoke
+    mesh, rules = mesh_rules
+    cfg = j_minitron.SMOKE
+    with mesh:
+        j_decode = jax.jit(j_tf.make_decode_step(cfg, rules, MAX_SEQ))
+    decode = t_tf.make_decode_step(t_minitron.SMOKE, MAX_SEQ)
+    j_cache = j_tf.init_cache(cfg, 2, MAX_SEQ)
+    by_int = t_tf.init_cache(t_minitron.SMOKE, 2, MAX_SEQ, "cpu")
+    by_tensor = t_tf.init_cache(t_minitron.SMOKE, 2, MAX_SEQ, "cpu")
+    for pos in positions:
+        tok = RNG.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+        want, _ = decode(tp, by_int, torch.from_numpy(tok), pos)
+        got, _ = decode(tp, by_tensor, torch.from_numpy(tok),
+                        torch.tensor(pos, dtype=torch.int64))
+        assert torch.equal(got, want)
+        for name in ("k", "v"):
+            assert torch.equal(by_tensor[name], by_int[name])
+        with mesh:
+            j_logits, j_cache = j_decode(jp, j_cache, jnp.asarray(tok),
+                                         jnp.int32(pos))
+        assert rel_err(got, j_logits) <= REL_TOL
+        for name in ("k", "v"):
+            assert rel_err(by_tensor[name], j_cache[name]) <= REL_TOL
+
+
 # --------------------------------------------------------------------------
 # KV cache manager and the server
 # --------------------------------------------------------------------------
@@ -444,6 +476,18 @@ def test_entry_points_need_a_card(monkeypatch, proto):
             call()
     assert LMServer(cfg, params, n_slots=1, max_seq=8,
                     device="cpu").device.type == "cpu"
+
+
+def test_capture_needs_a_card(smoke):
+    """``capture=None`` is off on the CPU; ``capture=True`` there is a
+    ValueError (a CUDA graph needs the card)."""
+    _, params = smoke
+    server = LMServer(t_minitron.SMOKE, params, n_slots=1, max_seq=8,
+                      device="cpu")
+    assert server.capture is False and server.capture_count == 0
+    with pytest.raises(ValueError, match="capture=True needs a CUDA"):
+        LMServer(t_minitron.SMOKE, params, n_slots=1, max_seq=8,
+                 device="cpu", capture=True)
 
 
 def test_lm_modules_import_no_jax():

@@ -338,3 +338,70 @@ def test_entry_points_default_to_the_card():
     with (pytest.raises(RuntimeError, match="no CUDA device") if no_card
           else contextlib.nullcontext()):
         assert wl.engine.device.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# Box mapping, readable rows and the end-to-end convenience calls
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("in_hw,out_hw", [((100, 50), (64, 64)),
+                                          ((375, 500), (416, 416)),
+                                          ((32, 32), (32, 32))])
+def test_letterbox_boxes_as_reference(in_hw, out_hw):
+    from repro.workloads import preprocess as j_pre
+    from repro_torch.workloads import preprocess as t_pre
+
+    rng = np.random.default_rng(harness.SEED)
+    h, w = in_hw
+    boxes = np.sort(rng.uniform(0, 1, (5, 2, 2)), axis=1).reshape(5, 4) \
+        * np.array([w, h, w, h])
+    fwd = t_pre.letterbox_boxes(boxes, in_hw, out_hw)
+    np.testing.assert_array_equal(
+        fwd, np.asarray(j_pre.letterbox_boxes(boxes, in_hw, out_hw)))
+    # Network-frame boxes past the content map back clipped to the image.
+    net = np.concatenate([fwd, [[-5, -5, out_hw[1] + 5, out_hw[0] + 5]]])
+    back = t_pre.unletterbox_boxes(net, in_hw, out_hw)
+    np.testing.assert_array_equal(
+        back, np.asarray(j_pre.unletterbox_boxes(net, in_hw, out_hw)))
+    np.testing.assert_allclose(back[:5], boxes, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", harness.CONFORMANCE_NAMES)
+def test_predict_and_format_as_reference(name):
+    """``predict`` on off-size images equals the JAX engine on the same
+    network-size inputs (the preprocess hook's own parity is
+    ``tests/test_torch_preprocess.py``'s), and ``format`` — with
+    ``detections_to_dicts`` for detection — gives the reference's dicts
+    for the same rows."""
+    ref = reference(name)
+    wl = port_workload(name, "cuda_direct_pool")
+    with jax.threefry_partitionable(False):
+        jwl = harness.conformance_workload(name)
+    rng = np.random.default_rng(harness.SEED)
+    imgs = [rng.integers(0, 256, (40 + 7 * i, 30 + 5 * i, 3),
+                         dtype=np.uint8) for i in range(3)]
+    got = wl.predict(imgs)
+    x = np.stack([wl.preprocess_hook(im).numpy() for im in imgs])
+    want = np.asarray(jwl.engine(x))
+    assert_decoded_close(got, want, ref["task"])
+    for row in want:
+        mine, theirs = wl.format(row), jwl.format(row)
+        assert mine == theirs
+    if ref["task"] == "detect":
+        from repro.workloads import postprocess as j_post
+        from repro_torch.workloads import postprocess as t_post
+        for row in want:
+            assert t_post.detections_to_dicts(row, wl.detect) == \
+                j_post.detections_to_dicts(row, jwl.detect)
+        assert any(wl.format(row) for row in want)
+
+
+def test_capture_needs_a_card():
+    """On the CPU ``compile`` captures nothing; ``capture=True`` there is
+    a ValueError (a CUDA graph needs the card)."""
+    wl = port_workload("alexnet_imagenet")
+    wl.engine(torch.zeros((1, 16, 16, 3), dtype=torch.uint8))
+    assert wl.engine.capture_count == 0
+    for eng in (wl.engine, wl.engine.engine):
+        with pytest.raises(ValueError, match="capture=True needs a CUDA"):
+            eng.compile(1, capture=True)

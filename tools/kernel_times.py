@@ -2,9 +2,11 @@
 """Kernel and forward times of one tree's port, by ``chip_smoke.py``.
 
 Runs this checkout's ``chip_smoke.py`` against the ``repro_torch`` package
-under ``--src``: its profile phase (one AlexNet forward at batch 8 on each
-image serving path: host wall, device time a forward by kernel, busy
-share), then its timing phase (each kernel at AlexNet's batch-8 shapes and
+under ``--src``: one AlexNet forward and head at batch 8 on each image
+serving path, as that tree serves it (its ``compile(8)``: eager, or one
+CUDA-graph replay where the tree captures its buckets), through the
+script's ``profile_forward`` (host wall, device time a forward by kernel,
+busy share, peak memory), then its timing phase (each kernel at AlexNet's batch-8 shapes and
 K7 at minitron's prefill layer: the single-call CUDA-event median and the
 device time a call from torch.profiler, beside the plain version and the
 bound).  Two trees (a parent and a change) are so timed by one method, in
@@ -59,6 +61,24 @@ def bucket_times(cs, device) -> list[dict]:
     return rows
 
 
+def served_forward(cs, workloads, mode: str) -> dict:
+    """AlexNet's bucket-8 forward and head on ``mode`` as the tree under
+    test serves it, profiled by ``chip_smoke.profile_forward``."""
+    import torch
+    wl = workloads.get("alexnet_imagenet", seed=0, matmul_mode=mode)
+    x = torch.randint(0, 256, (cs.BATCH, *wl.input_hw, 3),
+                      dtype=torch.uint8, device=wl.engine.device)
+    r = cs.profile_forward(wl.engine.compile(cs.BATCH), x)
+    cs.log(f"[profile] {mode} forward + head at batch {cs.BATCH}, served "
+           f"form: host wall {r['wall_ms']:.4f} ms/forward (no profiler), "
+           f"device {r['device_ms']:.4f} ms/forward, busy share "
+           f"{r['busy_share']:.3f}, peak device memory {r['peak_bytes']} B")
+    for row in r["rows"]:
+        cs.log(f"[profile]   {row['ms']:.4f} ms  x{row['per_forward']:g}  "
+               f"{row['kernel']}")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -83,9 +103,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[kernel_times] {src}: {smi}", flush=True)
-    forwards = {mode: chip_smoke.phase_profile(repro_torch.workloads.get(
-        "alexnet_imagenet", seed=0, matmul_mode=mode))
-        for mode in chip_smoke.WANT_LAUNCHES}
+    forwards = {mode: served_forward(chip_smoke, repro_torch.workloads,
+                                     mode)
+                for mode in chip_smoke.WANT_LAUNCHES}
     rows = chip_smoke.phase_timing(torch.device("cuda", 0), {}, {},
                                    collections.defaultdict(int))
     buckets = bucket_times(chip_smoke, torch.device("cuda", 0))
