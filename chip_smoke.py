@@ -88,6 +88,21 @@ Phases, each fatal on failure:
               ``MultiTenantServer`` at weights 3:1, saturated: device rows
               48:16 over 8 ticks, every row equal to its lane's
               ``cross_check``;
+   faults   — the resilience layer on paper AlexNet at 227², buckets
+              (1, 8) captured under ``cuda_chain``, with a seeded fault
+              plan: a latency spike past the watchdog resolves ``error``
+              (``retry=None``) and the next batch is served; two dispatch
+              faults demote bucket 8 to ``cuda_direct_pool``, whose rung is
+              captured at its next dispatch (bucket 1 stays); the demoted
+              traffic's traced replays launch exactly that path's kernels
+              and no K5; after the probe interval a probe promotes the
+              bucket and K5 launches again; an ``executor.call`` and a
+              ``server.device`` fault at bucket 1 are retried and served;
+              every row equals ``cross_check``, the wrappers count the
+              captures of both rungs from the servers' boot (K4, K5, K3 and
+              its bit-plane variant, K2).  Every other phase's servers
+              report no retry, no demotion and every bucket at its base
+              mode;
 5. trained  — paper AlexNet built from seeded float params
               (``bnn_model.to_graph``): the unfused graph (``assign_layouts``)
               on the card, K4 1, K1's bit-plane variant 1 and K1 6, against
@@ -118,7 +133,12 @@ Phases, each fatal on failure:
               memory); ``LMServer`` answering 8 requests through the
               captured step (4 slots, max_seq 256; one over-long prompt
               rejected; no K7 launch), and an eager server giving the same
-              tokens; captured logits equal to eager ones bit for bit at
+              tokens; the captured server again with ``checkpoint_every=8``
+              under ``lm.step`` faults that spend the retries (a restore
+              into the captured step's buffers, the ticks since replayed)
+              and one cadence snapshot fault: the same tokens, each
+              snapshot's host and device time and bytes, the restore's
+              time; captured logits equal to eager ones bit for bit at
               every position of a generated sequence on the first 8
               layers;
 7. autotune — engines under ``matmul_mode="auto"`` (a temporary cache
@@ -140,7 +160,9 @@ Phases, each fatal on failure:
               artifact and serves the same images: every bucket loaded and
               captured, no tuner outcome, no nvcc build, ``build_count``
               flat, rows equal to the live boot's; both boot-to-result
-              times printed;
+              times printed; the fresh process also replays a request
+              journal the live boot left with 3 unresolved submits, each
+              result equal to the exporter's row;
 8. timing   — each kernel at AlexNet's batch-8 shapes (CUDA events
               around one call, warmed up, median; and the device time a
               call, torch.profiler's kernel time over 20 calls / 20)
@@ -197,7 +219,11 @@ from repro_torch.kernels import xnor_popcount_matmul as k1  # noqa: E402
 from repro_torch.models import paper_nets, transformer  # noqa: E402
 from repro_torch.runtime import (GraphExecutor, assign_layouts,  # noqa: E402
                                  default_pipeline, regions)
+from repro_torch.serving import faults  # noqa: E402
+from repro_torch.serving.faults import (FaultPlan, FaultSpec,  # noqa: E402
+                                        RetryPolicy)
 from repro_torch.serving.lm_server import LMServer  # noqa: E402
+from repro_torch.serving.recovery import RequestJournal  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the dense int8
 # tensor-core rate at which a ±1 product could run, and the dense bf16
@@ -1000,6 +1026,17 @@ def scaled(counts: dict[str, int], n: int) -> dict[str, int]:
     return {k: v * n for k, v in counts.items()}
 
 
+def check_healthy(tag: str, m: dict, base: str) -> None:
+    """A server that ran with no fault plan installed: no retry, no
+    demotion, every bucket's ladder at the base mode."""
+    modes = {b: h["mode"] for b, h in m.get("bucket_health", {}).items()}
+    if m["retries"] or m["degraded"] or m["mode"] != base \
+            or any(mode != base for mode in modes.values()):
+        raise AssertionError(f"[{tag}] with no fault plan: retries "
+                             f"{m['retries']}, degraded {m['degraded']}, "
+                             f"mode {m['mode']}, buckets {modes}")
+
+
 # Replays of a captured bucket traced to count its kernels.
 REPLAYS = 10
 
@@ -1035,6 +1072,7 @@ def steady_run(wl, frames, capture) -> dict:
     m = server.metrics()
     if m["served"] != len(frames) or wl.engine.build_count != builds:
         raise AssertionError("[serve] steady run failed")
+    check_healthy("serve", m, wl.matmul_mode)
     return dict(served_per_s=m["throughput"], p50_ms=m["p50_ms"],
                 p95_ms=m["p95_ms"])
 
@@ -1102,6 +1140,7 @@ def phase_serve(rng: np.random.Generator, mode: str):
     if metrics["served"] != len(imgs):
         raise AssertionError(f"[serve] served {metrics['served']} of "
                              f"{len(imgs)}")
+    check_healthy("serve", metrics, mode)
     if captures != len(BUCKETS) or (wl.engine.build_count,
                                     wl.engine.capture_count) \
             != (builds, captures):
@@ -1308,6 +1347,8 @@ def phase_multiplex(rng: np.random.Generator) -> dict:
                     raise AssertionError(f"[multiplex] {t}: served row != "
                                          f"cross_check")
     m = mux.metrics()
+    for t, tm in m["tenants"].items():
+        check_healthy("multiplex", tm, wls[t].matmul_mode)
     log(f"[multiplex] alexnet (weight 3) and yolov2_tiny (weight 1), "
         f"saturated, bucket {BATCH}: device rows after each of 8 ticks "
         f"{order}; split {split} (3:1); all {sum(map(len, reqs.values()))} "
@@ -1320,6 +1361,201 @@ def phase_multiplex(rng: np.random.Generator) -> dict:
                 tenants={t: {k: tm[k] for k in ("served", "throughput",
                                                 "p50_ms", "p95_ms")}
                          for t, tm in m["tenants"].items()})
+
+
+# The [faults] phase: the watchdog's bound and the latency spike that
+# outlives it, the re-probe interval of a demoted bucket (long enough that
+# the profiled demoted traffic cannot reach it; then the phase waits it
+# out), and the groups of 8 profiled on each rung.
+WATCHDOG_S, SPIKE_S, PROBE_S, FAULT_GROUPS = 0.25, 0.6, 2.0, 2
+
+
+def phase_faults(chain_wl) -> dict:
+    """The resilience layer on paper AlexNet at 227², buckets (1, 8)
+    captured, base mode ``cuda_chain``, a seeded fault plan: a latency
+    spike past ``watchdog_s`` resolves ``error`` on a server with
+    ``retry=None`` and its next batch is served; two dispatch faults of
+    ``cuda_chain`` at bucket 8 demote that bucket to ``cuda_direct_pool``,
+    whose rung is captured at its next dispatch (capture ms printed) while
+    bucket 1 stays; the demoted traffic's replays, profiled, launch
+    exactly ``cuda_direct_pool``'s kernels a group and no K5; after
+    ``PROBE_S`` a probe promotes bucket 8 and its replays launch
+    ``cuda_chain``'s again; one ``executor.call`` and one ``server.device``
+    fault at bucket 1 are retried and served.  Every served row equals
+    ``cross_check``.  The wrappers count the run from the servers' boot:
+    each bucket's ``cuda_chain`` capture and the lazy ``cuda_direct_pool``
+    one (K4, K5, K3 and its bit-plane variant, K2)."""
+    from repro_torch.serving import InferenceServer, PhoneBitEngine
+    from repro_torch.workloads.workload import WorkloadEngine
+
+    base = chain_wl.engine.engine
+    engine = WorkloadEngine(
+        PhoneBitEngine(spec=base.spec, packed=base.packed,
+                       input_hw=base.input_hw, matmul_mode="cuda_chain",
+                       device=base.device), chain_wl.postprocess)
+    for b in (1, BATCH):                 # regions planned, tiles tuned
+        engine.engine.compile(b, capture=False)
+    hook = chain_wl.preprocess_hook
+    rng = np.random.default_rng(20)
+    imgs = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
+            for _ in range(BATCH * (2 * FAULT_GROUPS + 1) + 4)]
+    feed = iter(imgs)
+    served: list[tuple[list, list]] = []
+
+    def serve(server, n):
+        batch = [next(feed) for _ in range(n)]
+        reqs = [server.submit(im) for im in batch]
+        server.drain()
+        pad = server.scheduler.bucket_for(n) - n
+        served.append((reqs, batch + [np.zeros_like(batch[-1])] * pad))
+        return reqs
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t_phase = time.perf_counter()
+    kw = dict(preprocess=hook, max_batch=BATCH, buckets=(1, BATCH))
+    guarded = InferenceServer(engine, retry=None, watchdog_s=WATCHDOG_S,
+                              **kw)
+    server = InferenceServer(engine, demote_after=2, probe_after_s=PROBE_S,
+                             watchdog_s=1.0,
+                             retry=RetryPolicy(max_attempts=3,
+                                               backoff_base_s=0.001,
+                                               jitter=0.0), **kw)
+    server.compile_buckets()
+    out: dict = {}
+
+    # The watchdog: a readback wedged past watchdog_s is an error (no
+    # retry on this server), and the next batch is served.
+    with faults.inject([FaultSpec("server.device", "latency_spike",
+                                  times=1, duration_s=SPIKE_S)],
+                       sleep=time.sleep):
+        t0 = time.perf_counter()
+        wedged = guarded.submit(next(feed))
+        guarded.drain()
+        out["watchdog_s"] = time.perf_counter() - t0
+        after = serve(guarded, 1)
+    if wedged.outcome != "error" or "WatchdogTimeout" not in wedged.error \
+            or after[0].outcome != "served" \
+            or out["watchdog_s"] >= SPIKE_S:
+        raise AssertionError(f"[faults] watchdog: {wedged.outcome} "
+                             f"({wedged.error}), next {after[0].outcome}, "
+                             f"{out['watchdog_s']:.3f} s")
+
+    plan = faults.install(FaultPlan([
+        FaultSpec("server.dispatch", "device_fault", times=2,
+                  match={"mode": "cuda_chain", "bucket": BATCH}),
+        FaultSpec("executor.call", "device_fault", times=1,
+                  match={"bucket": 1}),
+        FaultSpec("server.device", "device_fault", times=1, after=1,
+                  match={"bucket": 1}),
+    ], seed=7, sleep=time.sleep))
+    try:
+        # Two dispatch faults demote bucket 8; the third attempt captures
+        # the demoted rung and serves.
+        t0 = time.perf_counter()
+        serve(server, BATCH)
+        out["demote_serve_s"] = time.perf_counter() - t0
+        demoted = engine.compile(BATCH, mode="cuda_direct_pool")
+        out["demoted_capture_ms"] = demoted.capture_s * 1e3
+        t_demote = server.health.ladder(BATCH).demotions[-1]["t"]
+        if server.health.mode_for(BATCH) != "cuda_direct_pool" \
+                or server.health.mode_for(1) != "cuda_chain" \
+                or server.health.ladder(BATCH).floor != faults.CUDA_FLOOR:
+            raise AssertionError(f"[faults] after the dispatch faults: "
+                                 f"{server.metrics()['bucket_health']}")
+
+        def traffic():
+            for _ in range(FAULT_GROUPS):
+                serve(server, BATCH)
+
+        def rehearse(exe):
+            return lambda: [exe.replay() for _ in range(FAULT_GROUPS)]
+
+        # The demoted traffic: cuda_direct_pool's launches, no K5.
+        replayed = device_launches(profiled(traffic,
+                                            first=rehearse(demoted)))
+        if time.monotonic() - t_demote >= PROBE_S:
+            raise AssertionError("[faults] the demoted traffic outlasted "
+                                 "the probe interval")
+        want = scaled(WANT_LAUNCHES["cuda_direct_pool"], FAULT_GROUPS)
+        if replayed != want:
+            raise AssertionError(f"[faults] demoted replays launched "
+                                 f"{replayed}, want {want}")
+        out["demoted_launches"] = replayed
+        # Past the quarantine the next bucket-8 batch probes cuda_chain
+        # and promotes the bucket; its replays launch K5 again.
+        time.sleep(max(0.0, t_demote + PROBE_S - time.monotonic()) + 0.01)
+        chain = engine.compile(BATCH)
+        replayed = device_launches(profiled(traffic, first=rehearse(chain)))
+        want = scaled(WANT_LAUNCHES["cuda_chain"], FAULT_GROUPS)
+        if replayed != want or server.health.mode_for(BATCH) != \
+                "cuda_chain":
+            raise AssertionError(f"[faults] after the probe: launched "
+                                 f"{replayed}, want {want}; mode "
+                                 f"{server.health.mode_for(BATCH)}")
+        out["promoted_launches"] = replayed
+        # Transient faults at bucket 1: a replay, then a readback.
+        transient = serve(server, 1) + serve(server, 1)
+    finally:
+        faults.uninstall()
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t_phase
+    counted = read_launches()
+    calls = capture_calls()
+    want = {k: 2 * calls * v + calls * WANT_LAUNCHES["cuda_direct_pool"][k]
+            for k, v in WANT_LAUNCHES["cuda_chain"].items()}
+    if counted != want:
+        raise AssertionError(f"[faults] wrapper launches {counted}, want "
+                             f"{want} (two cuda_chain buckets and the "
+                             f"demoted rung captured)")
+    missing = [k for k in ("bitplane_pack", "chain_conv",
+                           "direct_conv_bn_binarize",
+                           "direct_conv_bn_binarize_planes",
+                           "fused_matmul_bn_binarize") if not counted[k]]
+    if missing:
+        raise AssertionError(f"[faults] no launch of {missing}")
+    out["launches"] = counted
+    sites = [f["site"] for f in plan.log]
+    m = server.metrics()
+    flights = [f for f in server.flight.dump() if f.get("kind")]
+    if sites != ["server.dispatch"] * 2 + ["executor.call", "server.device"] \
+            or [r.attempts for r in transient] != [1, 1] \
+            or m["degraded"] != 1 \
+            or m["retries"] != 2 * BATCH + 2 or m["errors"] \
+            or [f["kind"] for f in flights] != ["demotion", "promotion"]:
+        raise AssertionError(f"[faults] fault log {plan.log}, attempts "
+                             f"{[r.attempts for r in transient]}, metrics "
+                             f"{m}, flights {flights}")
+    for reqs, padded in served:
+        x = torch.stack([hook(p) for p in padded])
+        ref = engine.cross_check(x).cpu().numpy()
+        for r, row in zip(reqs, ref):
+            if r.outcome != "served" or not np.array_equal(r.result, row):
+                raise AssertionError("[faults] served row != cross_check")
+    out.update(retries=m["retries"], degraded=m["degraded"],
+               served=m["served"] + guarded.metrics()["served"],
+               captures=engine.capture_count)
+    log(f"[faults] watchdog: a {SPIKE_S} s spike at server.device past "
+        f"watchdog_s {WATCHDOG_S} resolved error (WatchdogTimeout, "
+        f"retry=None) in {out['watchdog_s']:.3f} s; the next batch served")
+    log(f"[faults] two server.dispatch faults of cuda_chain at bucket "
+        f"{BATCH} demoted it to cuda_direct_pool (degraded 1; bucket 1 "
+        f"stays on cuda_chain); that rung captured at the next dispatch in "
+        f"{out['demoted_capture_ms']:.3f} ms, the batch served "
+        f"{out['demote_serve_s']:.3f} s after its submit (2 faulted "
+        f"dispatches, 2 backoffs, the capture); {FAULT_GROUPS} demoted "
+        f"groups' traced replays launched {out['demoted_launches']} = "
+        f"{FAULT_GROUPS} x WANT_LAUNCHES['cuda_direct_pool'], no K5; "
+        f"after {PROBE_S} s a probe promoted the bucket, {FAULT_GROUPS} "
+        f"groups launched {out['promoted_launches']} = {FAULT_GROUPS} x "
+        f"WANT_LAUNCHES['cuda_chain']")
+    log(f"[faults] executor.call and server.device faults at bucket 1: "
+        f"retried once each and served; fault log sites {sites}; retries "
+        f"{m['retries']}, errors {m['errors']}, {out['served']} rows "
+        f"served, each == cross_check; wrapper launches from the boot "
+        f"{counted} (2 cuda_chain buckets and the demoted rung captured, "
+        f"{calls} calls each); phase {out['phase_s']:.3f} s")
+    return out
 
 
 # A fresh interpreter that boots AlexNet servers from artifacts and serves
@@ -1336,6 +1572,7 @@ import torch
 from repro_torch import workloads
 from repro_torch.kernels import build
 from repro_torch.obs import metrics
+from repro_torch.serving.recovery import RequestJournal, replay_journal
 out = dict(import_s=time.perf_counter() - t_start, runs=[])
 io = np.load({io!r})
 for mode, art in {runs!r}:
@@ -1350,6 +1587,7 @@ for mode, art in {runs!r}:
         tuner = collections.Counter(e["outcome"]
                                     for e in reg.events("autotune"))
     report = server.artifact_report
+    m = server.metrics()
     out["runs"].append(dict(
         mode=mode, boot_to_result_s=first_s,
         since_start_s=time.perf_counter() - t_start,
@@ -1357,18 +1595,42 @@ for mode, art in {runs!r}:
         tuner=dict(tuner), nvcc_s=build.build()[1],
         capture_count=wl.engine.capture_count,
         build_count_flat=wl.engine.build_count == builds,
+        retries=m["retries"], degraded=m["degraded"],
         rows_equal=bool(np.array_equal(np.stack([r.result for r in reqs]),
                                        io[mode]))))
+    if mode == {journal_mode!r}:
+        # The parent left submits unresolved in this journal: replay them
+        # through the booted buckets.
+        t0 = time.perf_counter()
+        server = wl.server(max_batch=8, buckets=(1, 2, 4, 8),
+                           journal=RequestJournal({jpath!r}))
+        replayed = replay_journal(server, {jpath!r})
+        server.drain()
+        server.journal.close()
+        out["journal"] = dict(
+            replayed=[r.jid for r in replayed],
+            outcomes=[r.outcome for r in replayed],
+            replay_s=time.perf_counter() - t0,
+            rows_equal=bool(np.array_equal(
+                np.stack([r.result for r in replayed]), io["journal"])),
+            unresolved_after=len(RequestJournal.scan({jpath!r}).unresolved),
+            build_count_flat=wl.engine.build_count == builds)
 out["foreign"] = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "repro")]
 print("BOOT " + json.dumps(out))
 """
 
 
-def run_boot(io: str, runs: list) -> dict:
+# The artifact boot that replays the parent's journal, and the images the
+# parent journaled (indices into the phase's 8).
+JOURNAL_MODE, JOURNAL_IMAGES = "cuda_direct_pool", (0, 2, 5)
+
+
+def run_boot(io: str, runs: list, jpath: str) -> dict:
     """Run BOOT_SCRIPT in a fresh interpreter; returns its result and the
     subprocess's wall time."""
-    script = BOOT_SCRIPT.format(src=str(ROOT / "src"), io=io, runs=runs)
+    script = BOOT_SCRIPT.format(src=str(ROOT / "src"), io=io, runs=runs,
+                                jpath=jpath, journal_mode=JOURNAL_MODE)
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        text=True, timeout=600)
@@ -1389,7 +1651,13 @@ def phase_artifact(rng: np.random.Generator) -> dict:
     serving 8 images; then a fresh interpreter boots a server from each
     artifact (the ``"auto"`` one first) and serves the same images: every
     bucket loaded and captured, no tuner outcome, no nvcc build,
-    ``build_count`` flat, rows equal to the live boot's."""
+    ``build_count`` flat, no retry or demotion, rows equal to the live
+    boot's.  A live ``cuda_direct_pool`` server also journals 3 of the
+    images as one batch (its rows kept), and the journal is cut back to
+    their submits, as a process killed before their readback leaves it:
+    the fresh process replays them through its booted buckets with
+    ``replay_journal``, each result equal to the exporter's row, and the
+    journal is closed after."""
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serving import engine as serving_engine
     imgs = np.stack([rng.integers(0, 256, (227, 227, 3), dtype=np.uint8)
@@ -1419,6 +1687,22 @@ def phase_artifact(rng: np.random.Generator) -> dict:
             reqs = [server.submit(im) for im in imgs]
             server.drain()
             want[mode] = np.stack([r.result for r in reqs])
+            check_healthy("artifact", server.metrics(), mode)
+            if mode == JOURNAL_MODE:
+                jpath = os.path.join(tmp, "requests.jsonl")
+                journal = RequestJournal(jpath)
+                jserver = wl.server(max_batch=BATCH, buckets=BUCKETS,
+                                    journal=journal)
+                jreqs = [jserver.submit(imgs[i]) for i in JOURNAL_IMAGES]
+                jserver.drain()
+                want["journal"] = np.stack([r.result for r in jreqs])
+                journal.close()
+                # What a process killed before their readback leaves: the
+                # submits without their resolves.
+                with open(jpath, encoding="utf-8") as f:
+                    lines = [ln for ln in f if '"op":"submit"' in ln]
+                with open(jpath, "w", encoding="utf-8") as f:
+                    f.writelines(lines)
             live[mode] = dict(boot_to_result_s=time.perf_counter() - t0,
                               build_export_s=export_s, capture_s=capture_s,
                               tuner=tuner)
@@ -1439,15 +1723,29 @@ def phase_artifact(rng: np.random.Generator) -> dict:
         io = os.path.join(tmp, "io.npz")
         np.savez(io, imgs=imgs, **want)
         fresh = run_boot(io, [("auto", arts["auto"]),
-                              ("cuda_direct_pool", arts["cuda_direct_pool"])])
+                              ("cuda_direct_pool", arts["cuda_direct_pool"])],
+                         jpath)
     for run in fresh["runs"]:
         ok = (run["loaded"] == list(BUCKETS) and not run["missed"]
               and not run["tuner"] and run["nvcc_s"] == 0.0
               and run["capture_count"] == len(BUCKETS)
-              and run["build_count_flat"] and run["rows_equal"])
+              and run["build_count_flat"] and run["rows_equal"]
+              and run["retries"] == 0 and run["degraded"] == 0)
         if not ok or fresh["foreign"]:
             raise AssertionError(f"[artifact] fresh boot: {run}, foreign "
                                  f"modules {fresh['foreign']}")
+    jr = fresh.get("journal", {})
+    if len(jr.get("replayed", [])) != len(JOURNAL_IMAGES) \
+            or jr["outcomes"] != ["served"] * len(JOURNAL_IMAGES) \
+            or not jr["rows_equal"] or jr["unresolved_after"] \
+            or not jr["build_count_flat"]:
+        raise AssertionError(f"[artifact] journal replay in the fresh "
+                             f"process: {jr}")
+    log(f"[artifact] journal: the fresh process replayed the "
+        f"{len(jr['replayed'])} submits the live server left unresolved "
+        f"(jids {jr['replayed']}) through its {JOURNAL_MODE} buckets in "
+        f"{jr['replay_s']:.3f} s: all served, rows == the exporter's, "
+        f"journal closed, nothing built")
     for i, run in enumerate(fresh["runs"]):
         where = "fresh process" if i == 0 else "the same process, next"
         log(f"[artifact] {where}, {run['mode']} from the artifact: boot to "
@@ -1845,6 +2143,87 @@ def device_time_by_kernel(prof, reps: int) -> list[tuple[float, float, str]]:
     return rows
 
 
+# The [faults] phase's LM run: the cut cadence and the tick the decode
+# faults start at (in the second wave of requests, all four slots busy).
+LM_CHECKPOINT_EVERY, LM_FAULT_AFTER = 8, 20
+
+
+def lm_faults(server: LMServer, prompts, want_tokens, step_ms: float) -> dict:
+    """The captured ``LMServer`` (full depth) serving ``prompts`` again with
+    ``checkpoint_every=8`` under a plan: ``lm.step`` faults from tick
+    ``LM_FAULT_AFTER`` as many times as the retry budget, so the server
+    restores the last cut into the captured step's buffers and replays
+    the ticks since; one cadence ``kv.snapshot`` fault keeps the cut
+    before it.  The tokens must equal the unfaulted captured run's, with
+    one restore; no K7 launch.  Each snapshot is timed (host time to queue
+    its copies, their device time, bytes)."""
+    with torch.inference_mode():
+        server._restart()
+        for t in server.cache.values():
+            t.zero_()
+    server.checkpoint_every = LM_CHECKPOINT_EVERY
+    ck, stats = server.checkpointer, []
+    take = ck.take
+
+    def timed_take(*a, **kw):
+        cut = take(*a, **kw)
+        stats.append(dict(reason=cut.reason, seqs=len(cut.seqs),
+                          bytes=ck.last_bytes,
+                          enqueue_ms=ck.last_enqueue_s * 1e3,
+                          copy_ms=ck.last_copy_ms()))
+        return cut
+    ck.take = timed_take
+    plan = FaultPlan([
+        FaultSpec("lm.step", "device_fault", after=LM_FAULT_AFTER,
+                  times=server.retry.max_attempts),
+        FaultSpec("kv.snapshot", "device_fault", times=1,
+                  match={"reason": "cadence"})], seed=7)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with faults.inject(plan):
+        reqs = [server.submit(p, max_new=m) for p, m in prompts]
+        server.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    del ck.take
+    tokens = [r.result for r in reqs]
+    restored = [f for f in server.flight.dump()
+                if f.get("outcome") == "restored"]
+    if tokens != want_tokens or server.restores != 1 or len(restored) != 1 \
+            or ck.failed != 1 or launches != launch_counts() \
+            or [f["site"] for f in plan.log] \
+            != ["kv.snapshot"] + ["lm.step"] * server.retry.max_attempts:
+        raise AssertionError(f"[lm] faulted run: tokens equal "
+                             f"{tokens == want_tokens}, restores "
+                             f"{server.restores}, snapshot faults "
+                             f"{ck.failed}, launches {launches}, fault log "
+                             f"{plan.log}")
+    full = [st for st in stats if st["seqs"] == LM_SERVER_SLOTS]
+    out = dict(snapshots=len(stats), snapshot_faults=ck.failed,
+               full_cut=full[-1] if full else None,
+               replayed=restored[0]["replayed"],
+               restore_ms=restored[0]["restore_s"] * 1e3,
+               retries=server.metrics()["retries"], wall_s=wall_s)
+    cut = out["full_cut"]
+    log(f"[lm] faulted run, checkpoint_every {LM_CHECKPOINT_EVERY}: "
+        f"lm.step faulted {server.retry.max_attempts} times from tick "
+        f"{LM_FAULT_AFTER} (retries {out['retries']}), one restore replayed "
+        f"{out['replayed']} ticks through the captured step in "
+        f"{out['restore_ms']:.3f} ms (copies back, replay, synchronize); "
+        f"one cadence snapshot fault kept the cut; {len(stats)} snapshots; "
+        f"the {sum(map(len, tokens))} tokens == the unfaulted captured "
+        f"run's; K7 launches 0; {wall_s:.3f} s")
+    if cut is not None:
+        log(f"[lm] a {cut['seqs']}-slot cut ({cut['reason']}): "
+            f"{cut['bytes']} B, {cut['enqueue_ms']:.3f} ms of host time to "
+            f"queue its copies, {cut['copy_ms']:.3f} ms of device time for "
+            f"them, beside a {step_ms:.3f} ms decode step")
+    server.checkpoint_every = None
+    return out
+
+
 def phase_lm(device) -> tuple[dict, dict]:
     """minitron-8b at full width and depth: prefill through K7, the same
     prompt through the decode step, and LMServer answering requests.
@@ -2025,6 +2404,8 @@ def phase_lm(device) -> tuple[dict, dict]:
                                  f"{[r.outcome for r in reqs]}, {m}")
         if too_long.outcome != "rejected" or m["rejected"] != 1:
             raise AssertionError(f"[lm] over-long prompt {too_long.outcome}")
+        if m["retries"] or m["errors"]:
+            raise AssertionError(f"[lm] with no fault plan: {m}")
         if launches[f"lm_server_{label}"] != launch_counts():
             raise AssertionError(f"[lm] LMServer launches "
                                  f"{launches[f'lm_server_{label}']}")
@@ -2050,6 +2431,9 @@ def phase_lm(device) -> tuple[dict, dict]:
     del launches["lm_server_eager"]
     log(f"[lm] captured and eager LMServer: the same "
         f"{sum(len(t) for t in served['eager']['tokens'])} tokens")
+    recovery = lm_faults(servers["captured"], prompts,
+                         served["captured"]["tokens"],
+                         steps["captured"]["wall_ms"])
     del servers, server
 
     # Captured logits against eager logits, bit for bit, at every position
@@ -2093,7 +2477,8 @@ def phase_lm(device) -> tuple[dict, dict]:
         server={k: v for k, v in served["captured"].items()
                 if k != "tokens"},
         server_eager={k: v for k, v in served["eager"].items()
-                      if k != "tokens"})
+                      if k != "tokens"},
+        recovery=recovery)
     del params, check_params, logits_at
     torch.cuda.empty_cache()
     return launches, numbers
@@ -2445,6 +2830,7 @@ def main() -> int:
             phase_serve(rng, mode)
         numbers[mode]["profile"] = phase_profile(wl)
         if mode == "cuda_chain":
+            chain_wl = wl
             numbers["chain_tiles_checked"] = check_chain_tiles(
                 wl.engine.engine, chain_inputs)
         if mode == "cuda_direct_pool":
@@ -2465,6 +2851,8 @@ def main() -> int:
                              "images")
     log(f"[detect] the same images on {list(rows)}: rows equal bit for bit")
     numbers["multiplex"] = phase_multiplex(rng)
+    numbers["faults"] = phase_faults(chain_wl)
+    del chain_wl
     for name, counts in phase_trained(device).items():
         launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
     lm_launches, numbers["lm"] = phase_lm(device)

@@ -1,0 +1,6 @@
+"""Launchers (counterpart of ``repro.launch``).
+
+serve     the serving launcher: BNN engines, workloads, multi-tenant lanes
+          and the LM decode server behind the servers' protocol, with
+          artifacts, the request journal and a seeded fault storm
+"""

@@ -6,6 +6,9 @@
                 percentile/summary implementation, and the ServingMetrics
                 view both servers share
     flight      bounded ring of recent request records (postmortems)
+    inject      the fault-injection slot: typed faults, seeded plans and
+                the one hook every instrumented site calls; disabled by
+                default behind the same one-read fast path
     provenance  the ``meta`` block a stamped report carries
 
 The contract: with tracing disabled (the default) a hot-path site costs

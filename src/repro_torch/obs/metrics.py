@@ -185,9 +185,9 @@ class ServingMetrics:
     degraded counters and the busy window, on the owner's (injectable)
     clock.  Each instance keeps a private registry, ``.registry``
     (``serve.latency_s``, ``serve.bucket_size``, ...), so two servers in
-    one process never sum each other's counts.  The port has no retry or
-    degradation ladder yet: the ``retries`` and ``degraded`` series stay
-    0, reported under the reference's keys."""
+    one process never sum each other's counts.  ``retries`` counts the
+    attempts a retry policy requeued and ``degraded`` the demotions down
+    a bucket's backend ladder (:mod:`repro_torch.serving.faults`)."""
 
     def __init__(self, clock: Callable[[], float] = time.monotonic):
         self._clock = clock
@@ -228,11 +228,17 @@ class ServingMetrics:
     def record_dropped(self, n: int = 1) -> None:
         self._dropped.inc(n)
 
+    def record_retry(self, n: int = 1) -> None:
+        self._retries.inc(n)
+
     def record_error(self, n: int = 1) -> None:
         self._errors.inc(n)
 
     def record_rejected(self, n: int = 1) -> None:
         self._rejected.inc(n)
+
+    def record_degraded(self, n: int = 1) -> None:
+        self._degraded.inc(n)
 
     def snapshot(self, *, dropped: int, queue_depth: int, **extra) -> dict:
         """The ``metrics()`` keys; ``dropped`` is the owner's shed count

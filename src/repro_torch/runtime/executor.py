@@ -50,6 +50,12 @@ geometry only, never the result.
 bucket executable: a frozen executor (and, for a workload, its head)
 captured at one input shape as one CUDA graph, so a forward's launches
 replay in one host call.
+
+The ``executor.call`` fault site (:mod:`repro_torch.obs.inject`) sits
+host side at the start of :meth:`GraphExecutor.__call__` (ctx ``nodes``)
+and of :meth:`CapturedExecutor.replay` (ctx ``bucket``), never inside a
+captured graph.  :meth:`GraphExecutor.traced_call` is the diagnostic
+walk: one span a node or region, each closed by a device synchronize.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ import torch
 from repro_torch.core import (binary_conv, binary_ops, bitplanes,
                               bnn_model, layer_integration, packing)
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import inject as _inject
 from repro_torch.obs import trace as _trace
 from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import DISPATCHABLE_OPS, Graph
@@ -234,6 +241,18 @@ def eval_node(node_op: str, attrs: dict, params: dict, inputs: list,
     raise ValueError(f"cannot evaluate op {node_op!r}")
 
 
+def _synced_span(name: str, attrs: dict, fn: Callable, *args, **kw
+                 ) -> torch.Tensor:
+    """``traced_call``'s per-node wrapper: ``fn`` inside one span that a
+    device synchronize closes, stamped with the output's shape."""
+    with _trace.span(name, "executor", **attrs) as sp:
+        out = fn(*args, **kw)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        sp.set(shape=list(out.shape))
+    return out
+
+
 class GraphExecutor:
     """Topological evaluator with frozen per-node backends, per-node
     tiles and fused regions: serving calls reuse the executor the engine
@@ -288,7 +307,12 @@ class GraphExecutor:
             and uses_planes(n, self.backends.get(nid))}
         self._schedule = graph.topo_order()
 
-    def _run(self, x: torch.Tensor) -> torch.Tensor:
+    def _run(self, x: torch.Tensor,
+             node_span: Callable | None = None) -> torch.Tensor:
+        """The schedule walk.  ``node_span`` (``traced_call``'s
+        :func:`_synced_span`) wraps each node's or region's evaluation as
+        ``node_span(name, attrs, fn, *args, **kw)``; None, the serving
+        path, calls ``fn`` directly."""
         g = self.graph
         env: dict[int, torch.Tensor] = {}
         for nid in self._schedule:
@@ -299,17 +323,32 @@ class GraphExecutor:
             if nid in self._region_members:
                 if nid in self._region_head:
                     chain = self._region_head[nid]
-                    env[chain.tail] = _regions.eval_chain(
-                        chain, self.params, env[node.inputs[0]])
+                    args = (chain, self.params, env[node.inputs[0]])
+                    env[chain.tail] = (
+                        _regions.eval_chain(*args) if node_span is None
+                        else node_span(
+                            "region." + "+".join(map(str, chain.node_ids)),
+                            dict(op="chain", stages=len(chain.stages)),
+                            _regions.eval_chain, *args))
                 continue
-            env[nid] = eval_node(node.op, node.attrs,
-                                 self._node_params.get(nid, node.params),
-                                 [env[i] for i in node.inputs],
-                                 backend=self.backends.get(nid, "torch"),
-                                 tile=self.tiles.get(nid))
+            args = (node.op, node.attrs,
+                    self._node_params.get(nid, node.params),
+                    [env[i] for i in node.inputs])
+            backend = self.backends.get(nid, "torch")
+            tile = self.tiles.get(nid)
+            env[nid] = (
+                eval_node(*args, backend=backend, tile=tile)
+                if node_span is None
+                else node_span(f"node.{node.op}",
+                               dict(node=nid,
+                                    backend=self.backends.get(nid)),
+                               eval_node, *args, backend=backend, tile=tile))
         return env[g.output_id]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        # Fault site, host side before any launch; disabled, one read.
+        if _inject._PLAN is not None:
+            _inject.maybe_fault("executor.call", nodes=len(self._schedule))
         # The disabled-tracing fast path is one global read.
         if _trace._TRACER is None:
             return self._run(x)
@@ -317,6 +356,17 @@ class GraphExecutor:
                          nodes=len(self._schedule),
                          regions=len(self.regions)):
             return self._run(x)
+
+    def traced_call(self, x: torch.Tensor) -> torch.Tensor:
+        """The schedule walked node by node, one span per node
+        (``node.<op>``) or region (``region.<ids>``), each closed by a
+        device synchronize so its duration is the node's own time.  The
+        same walk as :meth:`__call__`, so bit-exact with it; a
+        diagnostic, never captured and never a serving path (the
+        synchronizes forfeit all overlap)."""
+        with _trace.span("executor.traced_call", "runtime",
+                         nodes=len(self._schedule)):
+            return self._run(x, node_span=_synced_span)
 
     def backend_report(self) -> list[dict]:
         """One row per dispatchable node outside every region, and one per
@@ -359,7 +409,13 @@ def capture(fn: Callable, args: tuple, device: torch.device, *,
     """Run ``fn(*args)`` ``warmup`` times on a side stream, then capture one
     call as a CUDA graph into the memory pool ``pool``.  Returns (graph,
     what the captured call returned: its static output).  A capture that
-    fails raises; nothing falls back to eager calls."""
+    fails raises; nothing falls back to eager calls.
+
+    The capture is ``thread_local``: a serving thread may capture a
+    demoted bucket's rung while an abandoned watchdog reader still waits
+    on an earlier batch's event in another thread, and the default
+    ``global`` mode would make that reader's CUDA call void the
+    capture."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -367,7 +423,8 @@ def capture(fn: Callable, args: tuple, device: torch.device, *,
             fn(*args)
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
         out = fn(*args)
     return graph, out
 
@@ -407,6 +464,9 @@ class CapturedExecutor:
     def replay(self) -> torch.Tensor:
         """Replay on the current stream; returns the static output (see
         the class docstring for how long it holds)."""
+        if _inject._PLAN is not None:
+            _inject.maybe_fault("executor.call",
+                                bucket=self.static_input.shape[0])
         if _trace._TRACER is None:
             self.graph.replay()
         else:

@@ -53,6 +53,7 @@ import torch
 from repro_torch.core import bnn_model, converter, layer_integration
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build as _build
+from repro_torch.obs import inject as _inject
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _trace
 from repro_torch.runtime import autotune as _autotune
@@ -148,7 +149,14 @@ class PhoneBitEngine:
 
         ``head`` (a workload's postprocess) is composed onto the forward:
         eagerly a callable ``head(forward(x))``; captured, one graph of
-        both whose second output keeps the forward's raw result."""
+        both whose second output keeps the forward's raw result.
+
+        The server's degradation ladder calls this with a demoted
+        ``mode`` at a bucket's next dispatch: the rung's executor is then
+        built and captured there, into the engine's one graph pool, and
+        counted in ``build_count`` and ``capture_count``.  The
+        ``engine.compile`` fault site fires before a new ``(bucket,
+        mode)`` executor is built."""
         mode = mode or self.matmul_mode
         bs = batch_size if batch_size is not None else 1
         if bs < 1:
@@ -156,6 +164,10 @@ class PhoneBitEngine:
         capture = self.resolve_capture(capture)
         key = (bs, mode)
         if key not in self._compiled:
+            # Fault site: a build that fails (the resilience layer demotes
+            # a bucket through it; nothing is cached).
+            if _inject._PLAN is not None:
+                _inject.maybe_fault("engine.compile", bucket=bs, mode=mode)
             with _trace.span("compile.executor", "compile", bucket=bs,
                              mode=mode):
                 if mode == "auto":

@@ -4,9 +4,10 @@ Counterpart of ``repro.serving.kv_cache`` (plain Python): the decode step
 runs on a fixed (n_slots, max_seq) cache on the card; this host-side
 object owns the slot lifecycle — admit a sequence into a free slot, track
 its length, release it on EOS, ``max_new`` or a full slot.  Slots are
-whole sequences (page granularity 1).  The reference's ``adopt`` and the
-prompt it keeps on each sequence serve crash recovery and migration,
-which the port does not have yet.
+whole sequences (page granularity 1).  Each sequence keeps its prompt, so
+a sequence evacuated from one server can be replay-prefilled on another
+(``LMServer.adopt_sequence``), and :meth:`KVCacheManager.adopt` admits a
+sequence that has generated tokens already.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ class Sequence:
     max_new: int
     generated: int = 0
     tokens: list = dataclasses.field(default_factory=list)
+    # Kept for a replay prefill on another server (migration); an
+    # in-place restore needs no prompt: the KV pages carry it.
+    prompt: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -37,14 +41,38 @@ class KVCacheManager:
     def can_admit(self) -> bool:
         return bool(self._free)
 
-    def admit(self, prompt_len: int, max_new: int) -> Sequence:
+    def admit(self, prompt_len: int, max_new: int,
+              prompt: list | None = None) -> Sequence:
         if not self._free:
             raise RuntimeError("no free KV slots")
         if prompt_len + max_new > self.max_seq:
             raise ValueError(f"sequence too long: {prompt_len} + {max_new} "
                              f"> max_seq {self.max_seq}")
         slot = self._free.pop()
-        seq = Sequence(self._next_id, slot, prompt_len, max_new)
+        seq = Sequence(self._next_id, slot, prompt_len, max_new,
+                       prompt=list(prompt) if prompt is not None else [])
+        self._next_id += 1
+        self.active[seq.seq_id] = seq
+        return seq
+
+    def adopt(self, length: int, max_new: int, generated: int,
+              tokens: list, prompt: list | None = None) -> Sequence:
+        """Admit a sequence that has generated tokens already (on this
+        server or another) into a free slot; the caller rebuilds the
+        slot's KV pages (a replay prefill for a migration)."""
+        if not self._free:
+            raise RuntimeError("no free KV slots")
+        if length + (max_new - generated) > self.max_seq:
+            raise ValueError(f"sequence too long: {length} + "
+                             f"{max_new - generated} > max_seq "
+                             f"{self.max_seq}")
+        if not (0 < generated <= max_new and len(tokens) == generated):
+            raise ValueError(f"adopted sequence has {len(tokens)} tokens, "
+                             f"generated {generated} of {max_new}")
+        slot = self._free.pop()
+        seq = Sequence(self._next_id, slot, length, max_new,
+                       generated=generated, tokens=list(tokens),
+                       prompt=list(prompt) if prompt is not None else [])
         self._next_id += 1
         self.active[seq.seq_id] = seq
         return seq

@@ -2,14 +2,20 @@
 
 Counterpart of ``repro.serving.multiplex``.  One front end serving several
 models (AlexNet + VGG16 + YOLOv2-Tiny behind one process) without letting
-any tenant starve the others.  Each tenant gets a full
+any tenant starve or poison the others.  Each tenant gets a full
 :class:`~repro_torch.serving.server.InferenceServer` **lane** — its own
-scheduler, bucket executors (captured graphs on the card) and flight
-recorder — and :class:`MultiTenantServer` arbitrates which lane may
-*dispatch* each tick.  Every lane's metrics snapshot and flight records
-carry its tenant name (``InferenceServer(tenant=...)``), and a batch that
-fails resolves ``error`` inside its lane: the arbiter never sees the
-exception.
+scheduler, bucket executors (captured graphs on the card), retry policy,
+per-bucket degradation ladders and flight recorder — and
+:class:`MultiTenantServer` arbitrates which lane may *dispatch* each tick.
+Composition gives the isolation:
+
+* **degradation isolation** — a demotion of one model's bucket lives in
+  that lane's ``BucketHealth`` and cannot demote another lane;
+* **per-tenant observability** — every lane's metrics snapshot, flight
+  records and fault contexts carry its tenant name
+  (``InferenceServer(tenant=...)``);
+* **failure isolation** — a faulted batch retries or errors inside its
+  lane: the arbiter never sees the exception.
 
 Admission across lanes is **strict priority, then weighted-fair**:
 
@@ -25,11 +31,11 @@ Admission across lanes is **strict priority, then weighted-fair**:
 
 Lanes not chosen still run their housekeeping half each tick
 (``step(dispatch=False)``): shedding expired requests and retiring the
-in-flight batch never wait on winning admission.
-
-Not ported yet (they wait for the port's resilience layer): the per-lane
-retry backoff the reference's arbiter skips and sleeps through (and its
-``sleep=`` hook), and the per-tenant degradation ladders.
+in-flight batch never wait on winning admission.  A lane whose whole
+queue is in retry backoff is not ready: it would win, dispatch nothing,
+never be charged and win every later tick.  When every queued lane is
+starved by backoff alone, ``drain`` waits out the soonest through the
+injectable ``sleep``, and its step bound counts the lanes' retry budget.
 """
 
 from __future__ import annotations
@@ -69,8 +75,11 @@ class MultiTenantServer:
     """
 
     def __init__(self, *, clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], None] | None = None,
                  **default_server_kw):
         self.clock = clock
+        self._sleep = sleep if sleep is not None \
+            else (lambda s: time.sleep(min(s, 0.05)))
         self._default_kw = dict(default_server_kw)
         self.lanes: dict[str, TenantLane] = {}
         # Arbiter virtual clock: the largest vtime ever charged.  Lanes
@@ -123,10 +132,17 @@ class MultiTenantServer:
         return request.done
 
     # ---- arbitration ------------------------------------------------------
-    def _pick(self) -> TenantLane | None:
+    def _pick(self, now: float) -> TenantLane | None:
         """The lane allowed to dispatch this tick: top priority class,
-        then smallest vtime (name-ordered tiebreak for determinism)."""
-        ready = [l for l in self.lanes.values() if len(l.server.scheduler)]
+        then smallest vtime (name-ordered tiebreak for determinism), among
+        lanes with a request out of retry backoff."""
+        def eligible(l: TenantLane) -> bool:
+            if not len(l.server.scheduler):
+                return False
+            wait = l.server.scheduler.backoff_wait(now)
+            return wait is None or wait <= 0
+
+        ready = [l for l in self.lanes.values() if eligible(l)]
         if not ready:
             return None
         top = max(l.priority for l in ready)
@@ -140,7 +156,7 @@ class MultiTenantServer:
         lane runs housekeeping only.  Returns all requests completed this
         tick, across lanes."""
         now = self.clock() if now is None else now
-        chosen = self._pick()
+        chosen = self._pick(now)
         done: list[Request] = []
         for lane in self.lanes.values():
             if lane is chosen:
@@ -158,13 +174,38 @@ class MultiTenantServer:
         return any(len(l.server.scheduler) or l.server._pending is not None
                    for l in self.lanes.values())
 
-    def drain(self, now: float | None = None) -> list[Request]:
+    def drain(self, now: float | None = None,
+              max_steps: int | None = None) -> list[Request]:
         """Serve until every lane's queue is empty and nothing is in
-        flight (the batch-wait policy is skipped: drain is a flush).  Each
-        tick the chosen lane dispatches, so the loop ends."""
+        flight (the batch-wait policy is skipped: drain is a flush).
+        Bounded as ``InferenceServer.drain`` is: past ``max_steps`` (by
+        default generous for the queues and the largest retry budget)
+        each lane resolves its stragglers ``error``."""
+        if max_steps is None:
+            budget = max([(l.server.retry.max_attempts if l.server.retry
+                           else 1) for l in self.lanes.values()] or [1])
+            queued = sum(len(l.server.scheduler)
+                         for l in self.lanes.values())
+            max_steps = 4 * (queued + 2 * max(len(self.lanes), 1) + 2) \
+                * budget + 16
         done: list[Request] = []
+        steps = 0
         while self._busy():
-            done += self.step(now, force=True)
+            if steps >= max_steps:
+                t = self.clock() if now is None else now
+                for lane in self.lanes.values():
+                    done += lane.server._abort_wedged(t)
+                break
+            steps += 1
+            t = self.clock() if now is None else now
+            done += self.step(t, force=True)
+            if all(l.server._pending is None for l in self.lanes.values()):
+                # Starved by retry backoff alone: wait out the soonest.
+                waits = [l.server.scheduler.backoff_wait(t)
+                         for l in self.lanes.values()
+                         if len(l.server.scheduler)]
+                if waits and all(w is not None and w > 0 for w in waits):
+                    self._sleep(min(waits))
         return done
 
     # ---- observability ----------------------------------------------------

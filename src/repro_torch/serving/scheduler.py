@@ -12,6 +12,11 @@ tolerate); expired requests are shed — resolved ``shed`` with
 ``result=None`` and counted in ``dropped``.  :func:`shed_expired_requests`
 is the one shed policy, shared with the LM server's admission queue.
 
+A request in retry backoff (``not_before`` in the future) keeps its place
+in the queue but is passed over by batch assembly until its delay has
+passed; ``requeue`` puts a failed batch's requests back at the head and
+``backoff_wait`` says how long a queue starved only by backoff must wait.
+
 Every time-dependent method takes an injectable ``now=`` (monotonic
 seconds) so policy is testable with a fake clock.
 """
@@ -26,8 +31,8 @@ from typing import Any
 
 import numpy as np
 
-#: The terminal request outcomes: ``rejected`` at the protocol edge (LM
-#: server), ``error`` when a bounded drain gives up.
+#: The terminal request outcomes: every submitted request ends
+#: ``done=True`` with exactly one of these.
 OUTCOMES = ("served", "shed", "error", "rejected")
 
 
@@ -42,10 +47,18 @@ class Request:
     done: bool = False
     outcome: str | None = None        # one of OUTCOMES once done
     error: str | None = None          # why, for rejected / error
+    attempts: int = 0                 # dispatch tries so far
+    not_before: float | None = None   # retry backoff: ineligible until
+    jid: int | None = None            # request-journal id, if journaled
 
     def expired(self, now: float) -> bool:
         return (self.deadline_s is not None
                 and (now - self.arrival_s) >= self.deadline_s)
+
+    def eligible(self, now: float) -> bool:
+        """A request in retry backoff sits in the queue but skips
+        assembly."""
+        return self.not_before is None or now >= self.not_before
 
     def resolve(self, outcome: str, result: Any = None,
                 error: str | None = None) -> "Request":
@@ -132,14 +145,40 @@ class BatchScheduler:
 
     def next_batch(self, now: float | None = None,
                    force: bool = False) -> list[Request] | None:
-        """Shed expired requests, then pop up to max_batch requests if the
-        policy says go (``force=True`` skips the wait policy)."""
+        """Shed expired requests, then pop up to max_batch *eligible*
+        requests if the policy says go (``force=True`` skips the wait
+        policy).  Requests in retry backoff keep their place and are
+        passed over until their delay has passed."""
         now = time.monotonic() if now is None else now
         self.shed_expired(now)
         if not (self._queue if force else self.ready(now)):
             return None
-        n = min(self.max_batch, len(self._queue))
-        return [self._queue.popleft() for _ in range(n)]
+        take: list[Request] = []
+        keep: deque[Request] = deque()
+        for r in self._queue:
+            if len(take) < self.max_batch and r.eligible(now):
+                take.append(r)
+            else:
+                keep.append(r)
+        if not take:
+            return None
+        self._queue = keep
+        return take
+
+    def requeue(self, requests: list[Request]) -> None:
+        """Put a failed batch's requests back at the head for retry, in
+        their order (they were at the head when popped)."""
+        for r in reversed(requests):
+            self._queue.appendleft(r)
+
+    def backoff_wait(self, now: float) -> float | None:
+        """Seconds until the soonest queued request leaves retry
+        backoff; None when the queue is empty or something is eligible
+        already (only meaningful when assembly is starved by backoff
+        alone)."""
+        if not self._queue or any(r.eligible(now) for r in self._queue):
+            return None
+        return min(r.not_before for r in self._queue) - now
 
     def padded_batch(self, now: float | None = None, force: bool = False
                      ) -> tuple[list[Request], list[Any]] | None:

@@ -789,8 +789,9 @@ def test_captured_server_on_card(cuda):
 @pytest.mark.parametrize("dtype", [np.float32, np.int64])
 def test_server_refuses_a_payload_of_another_dtype(cuda, dtype, capture):
     """A payload of the input's shape but not uint8 resolves ``error``,
-    captured as eager (K4 refuses it there; a copy into the static input
-    would cast it); the uint8 payload after it is served."""
+    captured as eager: staging refuses its row (a copy into the static
+    input would cast it), alone, once its retries are spent; the uint8
+    payload after it is served and no bucket demotes."""
     wl = workloads.get("alexnet_imagenet", variant="tiny")
     server = wl.server(preprocess=None, max_batch=1, buckets=(1,),
                        capture=capture)
@@ -801,6 +802,7 @@ def test_server_refuses_a_payload_of_another_dtype(cuda, dtype, capture):
     server.drain()
     assert bad.outcome == "error"
     assert good.outcome == "served"
+    assert server.metrics()["degraded"] == 0
     np.testing.assert_array_equal(
         good.result,
         wl.engine.cross_check(torch.from_numpy(img[None])).cpu().numpy()[0])
@@ -880,3 +882,130 @@ def test_captured_decode_equals_eager(cuda, lm_params):
     for a, b in zip(logits[True], logits[False]):
         assert torch.equal(a, b)
     assert out[True] == out[False]
+
+
+# --------------------------------------------------------------------------
+# Resilience on the card: a demoted bucket captured lazily, a restore
+# through the captured decode step
+# --------------------------------------------------------------------------
+
+def test_demoted_bucket_captured_lazily_with_watchdog(cuda):
+    """Tiny AlexNet under ``cuda_chain``, captured, with the watchdog on:
+    a latency spike wedges a readback past ``watchdog_s`` (its reader
+    thread is abandoned asleep) and a dispatch fault follows, so bucket 2
+    demotes to ``cuda_direct_pool`` and that rung is built and captured at
+    the next dispatch, while the abandoned reader is still alive (the
+    capture is thread-local).  The rows equal ``cross_check``; bucket 1
+    stays on ``cuda_chain``."""
+    import threading
+    import time
+    from repro_torch.serving import faults
+    from repro_torch.serving.faults import FaultSpec, RetryPolicy
+
+    wl = workloads.get("alexnet_imagenet", variant="tiny",
+                       matmul_mode="cuda_chain")
+    server = wl.server(preprocess=None, buckets=(1, 2), max_batch=2,
+                       watchdog_s=0.3, demote_after=2, probe_after_s=60.0,
+                       retry=RetryPolicy(max_attempts=3,
+                                         backoff_base_s=0.001, jitter=0.0))
+    server.compile_buckets()
+    captures = wl.engine.capture_count
+    compile_, alive = wl.engine.compile, []
+
+    def watched(bs=None, *, mode=None, capture=None):
+        if mode == "cuda_direct_pool":
+            alive.append(threading.active_count())
+        return compile_(bs, mode=mode, capture=capture)
+    wl.engine.compile = watched
+    n0 = threading.active_count()
+    imgs = [RNG.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+            for _ in range(3)]
+    with faults.inject([
+            FaultSpec("server.device", "latency_spike", times=1,
+                      duration_s=2.0, match={"bucket": 2}),
+            FaultSpec("server.dispatch", "device_fault", times=1, after=1,
+                      match={"mode": "cuda_chain", "bucket": 2})],
+            sleep=time.sleep):
+        reqs = [server.submit(im) for im in imgs[:2]]
+        server.drain()
+        one = server.submit(imgs[2])
+        server.drain()
+    assert [r.outcome for r in reqs + [one]] == ["served"] * 3
+    assert alive and alive[0] > n0                # the reader was alive
+    assert server.health.mode_for(2) == "cuda_direct_pool"
+    assert server.health.mode_for(1) == "cuda_chain"
+    assert server.metrics()["degraded"] == 1
+    assert wl.engine.capture_count == captures + 1
+    want = wl.engine.cross_check(torch.from_numpy(np.stack(imgs[:2])))
+    np.testing.assert_array_equal(np.stack([r.result for r in reqs]),
+                                  want.cpu().numpy())
+    np.testing.assert_array_equal(
+        one.result,
+        wl.engine.cross_check(torch.from_numpy(imgs[2][None])).cpu()
+        .numpy()[0])
+
+
+@pytest.mark.parametrize("base", ["cuda_chain", "cuda_pm1"])
+def test_card_bucket_never_reaches_a_torch_mode(cuda, base):
+    """On the card a bucket's ladder ends at ``cuda_popcount``, the last
+    hand-written rung: with every dispatch faulted, the bucket walks only
+    ``cuda_*`` rungs, rests at the floor and its request resolves
+    ``error`` after its retries; with the plan gone it serves there, its
+    rung captured lazily, equal to ``cross_check``."""
+    import time
+    from repro_torch.serving import faults
+    from repro_torch.serving.faults import FaultSpec, RetryPolicy
+
+    wl = workloads.get("alexnet_imagenet", variant="tiny",
+                       matmul_mode=base)
+    server = wl.server(preprocess=None, buckets=(1,), max_batch=1,
+                       demote_after=1, probe_after_s=60.0,
+                       retry=RetryPolicy(max_attempts=8,
+                                         backoff_base_s=0.001, jitter=0.0))
+    server.compile_buckets()
+    img = RNG.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+    with faults.inject([FaultSpec("server.dispatch", "device_fault")],
+                       sleep=time.sleep) as plan:
+        r = server.submit(img)
+        server.drain()
+    assert r.outcome == "error"
+    tried = [f["mode"] for f in plan.log]
+    assert tried[-1] == server.health.mode_for(1) == "cuda_popcount"
+    assert all(m.startswith("cuda_") for m in tried), tried
+    ok = server.submit(img)
+    server.drain()
+    assert ok.outcome == "served"
+    (rec,) = [f for f in server.flight.dump() if f.get("outcome") == "served"]
+    assert rec["mode"] == "cuda_popcount"
+    np.testing.assert_array_equal(
+        ok.result,
+        wl.engine.cross_check(torch.from_numpy(img[None])).cpu().numpy()[0])
+
+
+def test_restore_through_the_captured_decode_step(cuda, lm_params):
+    """A decode fault that spends the retries restores the last cut into
+    the buffers the captured step reads and replays through the same
+    graph: the tokens equal an unfaulted captured server's; the cut's
+    pages are pinned host copies with a device time."""
+    from repro_torch.serving import faults
+    from repro_torch.serving.faults import FaultSpec
+
+    cfg, _, card = lm_params
+    prompts = [(list(RNG.integers(1, cfg.vocab, n)), m)
+               for n, m in ((5, 12), (8, 12))]
+    out = {}
+    for label, kw in (("clean", {}), ("faulted", {"checkpoint_every": 3})):
+        server = LMServer(cfg, card, n_slots=2, max_seq=64, **kw)
+        assert server.capture_count == 1
+        with faults.inject([FaultSpec("lm.step", "device_fault", times=3,
+                                      after=5)]
+                           if label == "faulted" else []):
+            reqs = [server.submit(p, max_new=m) for p, m in prompts]
+            server.drain()
+        out[label] = [r.result for r in reqs]
+        assert [r.outcome for r in reqs] == ["served"] * 2
+    assert out["faulted"] == out["clean"]
+    assert server.restores == 1
+    ck = server.checkpointer
+    assert ck.last_copy_ms() > 0 and ck.last_bytes > 0
+    assert all(c.k_pages.is_pinned() for c in ck.set.seqs.values())

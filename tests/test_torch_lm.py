@@ -387,11 +387,12 @@ def test_lm_server_outlives_max_seq(smoke):
 
 
 def test_lm_server_fault_frees_slots(smoke):
-    """A decode fault resolves the in-flight requests ``error`` and frees
-    their slots; the server goes on and serves the queue."""
+    """With no retry and no checkpoints, a decode fault resolves the
+    in-flight requests ``error`` and frees their slots; the server goes on
+    and serves the queue."""
     _, params = smoke
     server = LMServer(t_minitron.SMOKE, params, n_slots=2, max_seq=32,
-                      device="cpu")
+                      device="cpu", retry=None)
     decode, calls = server._decode, []
 
     def faulty(params, cache, toks, pos):

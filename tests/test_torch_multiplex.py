@@ -7,8 +7,8 @@ per-tenant metrics and flight tags; multiplexed rows equal each engine's
 own and each workload's ``cross_check``; and the same traffic through the
 JAX ``MultiTenantServer`` and the port's dispatches the lanes in the same
 order and serves equal rows (float head within 1e-4).  The reference's
-degradation-isolation test waits for the port's fault injection and
-health ladders (ROADMAP Queue 1 item 3).
+degradation-isolation test and the arbiter's backoff sleep are held in
+``tests/test_torch_resilience.py``.
 """
 
 import functools

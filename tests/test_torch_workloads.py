@@ -177,8 +177,10 @@ def test_malformed_payload_resolves_alone():
 
 
 def test_failed_batch_resolves_error_and_serving_goes_on():
-    """A batch whose preprocess raises resolves each of its rows
-    ``error``; the next batch is served."""
+    """A row whose preprocess raises resolves ``error`` alone once its
+    retries are spent (the row is zero-filled at staging, as the
+    reference's ``_stage_rows`` does); the other row of its batch and the
+    next batch are served."""
     wl = port_workload("alexnet_imagenet")
     hook = wl.preprocess_hook
 
@@ -191,11 +193,14 @@ def test_failed_batch_resolves_error_and_serving_goes_on():
     server.drain()
     ok = server.submit(np.zeros((20, 20, 3), np.uint8))
     server.drain()
-    assert [r.outcome for r in bad] == ["error", "error"]
+    assert [r.outcome for r in bad] == ["error", "served"]
     assert "corrupt image" in bad[0].error
+    assert bad[0].attempts == server.retry.max_attempts
     assert ok.outcome == "served"
     m = server.metrics()
-    assert m["errors"] == 2 and m["served"] == 1 and m["queue_depth"] == 0
+    assert m["errors"] == 1 and m["served"] == 2 and m["queue_depth"] == 0
+    assert m["retries"] == server.retry.max_attempts - 1
+    assert m["degraded"] == 0         # a row's failure is not the bucket's
 
 
 def test_deadline_sheds_and_counts():
