@@ -112,10 +112,12 @@ Phases, each fatal on failure:
               within 1e-3 of ``float_forward``;
 6. lm       — K7 flash_attention against its plain version on the card
               at minitron-8b's prefill layer (B 2, S 2048, H 32, KV 8, hd
-              128, bf16, causal) and at edge cases of its 128-row, 128-key
+              128, bf16, causal), at granite-moe-3b-a800m's (H 24, hd 64)
+              and at edge cases of its 128-row, 128-key
               tiles (non-causal, G = 1 at S 512 and 256, part of one tile,
               ragged tiles at S 100 and 129, non-causal Sq 100 against
-              Skv 300) within the stated tolerance,
+              Skv 300; at hd 64 ragged S 100, S 129 non-causal with G = 1,
+              Sq 100 against Skv 300) within the stated tolerance,
               and its refusal of float32 (the kernel takes bf16, the LM
               path's dtype); then minitron-8b at full width and depth
               (32 layers, d_model 4096, vocab 256,000; bf16 weights drawn on
@@ -141,6 +143,23 @@ Phases, each fatal on failure:
               time; captured logits equal to eager ones bit for bit at
               every position of a generated sequence on the first 8
               layers;
+   moe      — once minitron's weights are freed, qwen3-moe-30b-a3b,
+              granite-moe-3b-a800m and command-r-35b in turn at full width
+              and depth (bf16 weights drawn on the card, the MoE router
+              float32; device memory allocated printed before each, peak
+              memory after): ``make_prefill_step`` at B 2, S 2048 (K7 48,
+              32 and 40 launches, finite logits and cache, tokens/s, K7's
+              share of the device time); for the two MoE archs layer 0's
+              MoE on the prefill's 4,096 normed tokens at a capacity factor
+              that drops nothing against the dense ``moe_reference``
+              (relative max error within ``LM_LOGIT_BOUND``), and at the
+              published 1.25 the kept assignments and their destinations
+              equal to a host recount of the same ids, exactly; the
+              full-depth decode step on 4 slots captured and eager, logits
+              equal bit for bit at every position of one generated
+              sequence, the captured step's host wall and device time; qwen3
+              ``LMServer`` (captured) serving the 8 requests (no K7
+              launch);
 7. autotune — engines under ``matmul_mode="auto"`` (a temporary cache
               file): paper AlexNet and YOLOv2-Tiny tuned at bucket 8 then
               1, VGG16 (224²) at 1; each node's winner, tile and sweep
@@ -172,8 +191,9 @@ Phases, each fatal on failure:
               weighted kernel off it); K5
               also at every cluster size the card can schedule; K1 and K6
               also beside one library call on the unpacked +-1 operands; K7
-              at the prefill layer's shapes beside
-              ``F.scaled_dot_product_attention`` on the same tensors.
+              at minitron's and granite's prefill layers (hd 128 and 64)
+              beside ``F.scaled_dot_product_attention`` on the same
+              tensors.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -185,6 +205,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -204,6 +225,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Fails without the repository's src/ beside the script.
 from repro_torch import workloads  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.configs import minitron_8b  # noqa: E402
 from repro_torch.core import (binary_conv, binary_ops, bitplanes,  # noqa: E402
                               bnn_model, layer_integration, packing)
@@ -216,7 +238,8 @@ from repro_torch.kernels import flash_attention as k7  # noqa: E402
 from repro_torch.kernels import fused_conv_bn_binarize as k2  # noqa: E402
 from repro_torch.kernels import mxu_pm1_matmul as k6  # noqa: E402
 from repro_torch.kernels import xnor_popcount_matmul as k1  # noqa: E402
-from repro_torch.models import paper_nets, transformer  # noqa: E402
+from repro_torch.models import layers, moe, paper_nets  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.runtime import (GraphExecutor, assign_layouts,  # noqa: E402
                                  default_pipeline, regions)
 from repro_torch.serving import faults  # noqa: E402
@@ -347,12 +370,23 @@ K6_CASES = [
     ("12 rows at fc6, the swapped 16-row tile", (12, 1, 1, 9216), 1, 1, 0,
      4096, False),
 ]
-# K7 cases, bf16: (name, B, Sq, Skv, H, KV, hd, causal).  The first is
-# minitron-8b's prefill layer, the shape the LM path gives K7; the kernel
-# tiles by 128 q rows and 128 keys.
+# K7 cases, bf16: (name, B, Sq, Skv, H, KV, hd, causal).  The first four
+# are the prefill layers the LM path gives K7, one for each LM arch:
+# minitron-8b's (hd 128, G = H / KV = 4), granite-moe-3b-a800m's (hd 64,
+# G = 3), qwen3-moe-30b-a3b's and command-r-35b's (hd 128, G = 8); the
+# kernel tiles by 128 q rows and 128 keys.
 FLASH_PREFILL = ("minitron prefill layer", 2, 2048, 2048, 32, 8, 128, True)
+FLASH_PREFILL_64 = ("granite prefill layer", 2, 2048, 2048, 24, 8, 64, True)
+# The K7 shapes the timing phase times.
+FLASH_TIMED = (FLASH_PREFILL, FLASH_PREFILL_64)
 FLASH_CASES = [
     FLASH_PREFILL,
+    FLASH_PREFILL_64,
+    ("qwen3 prefill layer", 2, 2048, 2048, 32, 4, 128, True),
+    ("command-r prefill layer", 2, 2048, 2048, 64, 8, 128, True),
+    ("hd 64, ragged last tile, S = 100", 1, 100, 100, 24, 8, 64, True),
+    ("hd 64, S = 129, G = 1, non-causal", 1, 129, 129, 8, 8, 64, False),
+    ("hd 64, non-causal Sq 100, Skv 300", 1, 100, 300, 24, 8, 64, False),
     ("non-causal", 2, 1024, 1024, 32, 8, 128, False),
     ("G = 1", 1, 512, 512, 8, 8, 128, True),
     ("S = 64, part of one tile", 2, 64, 64, 32, 8, 128, True),
@@ -386,6 +420,19 @@ LM_CACHE_BOUND = 0.04
 LM_SERVER_SLOTS, LM_SERVER_MAX_SEQ = 4, 256
 LM_REQUESTS = [(16, 16), (16, 16), (16, 16), (16, 16), (16, 20), (16, 24),
                (16, 32), (64, 32)]
+# The MoE phase: the three other LM archs at full width and depth, each
+# prefilled as minitron-8b is (B 2, S 2048; K7 once a layer), its decode
+# step captured and held against the eager step bit for bit at every
+# position of one generated sequence (a prompt of 4, 4 new tokens) on
+# LM_SERVER_SLOTS slots; the MoE archs' layer 0 also against the dense
+# oracle, and qwen3-moe-30b-a3b serves LM_REQUESTS.
+MOE_PHASE_ARCHS = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m",
+                   "command-r-35b")
+MOE_SERVE_ARCH = "qwen3-moe-30b-a3b"
+MOE_DECODE_PROMPT, MOE_DECODE_NEW = 4, 4
+# moe_reference runs every expert on every token: it takes the prefill's
+# tokens this many at a time (its result does not depend on the split).
+MOE_ORACLE_CHUNK = 1024
 # K4: the main path's shapes (batch 8 and 1), then every C kernel path
 # (Cw 1-4 and above) at pixel counts that are no multiple of a block's
 # 256 pixels.
@@ -776,10 +823,11 @@ def phase_build() -> str:
                              f"opt-in shared memory per block {optin} B")
     log(f"[build] region budget {regions.DEFAULT_SMEM_BUDGET} B == "
         f"cudaDevAttrMaxSharedMemoryPerBlockOptin")
-    info = k7.kernel_info()
-    log(f"[build] flash_attention: {info['registers']} registers a thread "
-        f"as compiled, {info['smem_bytes']} B of shared memory a block, "
-        f"{info['threads']} threads a block")
+    for hd in k7.KERNEL_HEAD_DIMS:
+        info = k7.kernel_info(hd)
+        log(f"[build] flash_attention at hd {hd}: {info['registers']} "
+            f"registers a thread as compiled, {info['smem_bytes']} B of "
+            f"shared memory a block, {info['threads']} threads a block")
     info = k5.kernel_info()
     words = alexnet_arena_words()
     active = {c: k5.max_clusters(words, c) for c in k5.CLUSTER_SIZES}
@@ -2224,6 +2272,63 @@ def lm_faults(server: LMServer, prompts, want_tokens, step_ms: float) -> dict:
     return out
 
 
+def decode_step_numbers(srv: LMServer, reps: int = 5) -> tuple[dict, list]:
+    """Host wall a step of ``srv``'s decode step (no profiler) and its
+    device time, busy share and device events under the profiler, over
+    ``reps`` steps each at its own position (the tokens as they are).
+    Returns (those numbers, the profile's rows by kernel)."""
+    srv._run_decode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        srv._run_decode(1 + i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    prof = profiled(lambda: [srv._run_decode(1 + reps + i)
+                             for i in range(reps)])
+    rows = device_time_by_kernel(prof, reps)
+    dev_ms = sum(r[0] for r in rows)
+    return dict(batch=srv.n_slots, wall_ms=wall_ms, device_ms=dev_ms,
+                busy_share=dev_ms / wall_ms,
+                device_events=sum(r[1] for r in rows)), rows
+
+
+def captured_vs_eager(cfg, params, device, prompt: list[int],
+                      max_new: int) -> LMServer:
+    """``LMServer``'s decode step on ``LM_SERVER_SLOTS`` slots, captured
+    and eager: the logits at every position of one generated sequence
+    (``prompt``, then ``max_new`` tokens) equal bit for bit, or it
+    raises.  Returns the captured server."""
+    logits_at = {}
+    for capture in (True, False):
+        srv = LMServer(cfg, params, n_slots=LM_SERVER_SLOTS,
+                       max_seq=LM_SERVER_MAX_SEQ, device=device,
+                       capture=capture)
+        run, log_ = srv._run_decode, []
+
+        def record(pos, run=run, log_=log_):
+            out = run(pos)
+            log_.append(out.clone())
+            return out
+        srv._run_decode = record
+        srv.generate(prompt, max_new=max_new)
+        del srv._run_decode     # the method again (and no cycle)
+        logits_at[capture] = torch.stack(log_)
+        if capture:
+            captured = srv
+    same = torch.equal(logits_at[True], logits_at[False])
+    log(f"[lm] {cfg.name} ({cfg.n_layers} layers) captured vs eager decode "
+        f"step, {LM_SERVER_SLOTS} slots: logits at "
+        f"{logits_at[False].shape[0]} positions "
+        + ("equal bit for bit" if same else "DIFFER"))
+    if not same or not torch.isfinite(logits_at[False]).all():
+        diff = (logits_at[True].float()
+                - logits_at[False].float()).abs().max().item()
+        raise AssertionError(f"[lm] {cfg.name}: captured logits != eager "
+                             f"(max |diff| {diff})")
+    return captured
+
+
 def phase_lm(device) -> tuple[dict, dict]:
     """minitron-8b at full width and depth: prefill through K7, the same
     prompt through the decode step, and LMServer answering requests.
@@ -2344,22 +2449,11 @@ def phase_lm(device) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             boot_s = time.perf_counter() - t0
             srv.tokens.copy_(step_tokens)
-            srv._run_decode(0)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(reps):
-                srv._run_decode(1 + i)
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) / reps * 1e3
+            st, drows = decode_step_numbers(srv, reps)
+            step_ms, dev_ms = st["wall_ms"], st["device_ms"]
             step_peak = torch.cuda.max_memory_allocated() - base
-            prof = profiled(lambda: [srv._run_decode(1 + reps + i)
-                                     for i in range(reps)])
-            drows = device_time_by_kernel(prof, reps)
-            dev_ms = sum(r[0] for r in drows)
-            steps[label] = dict(batch=LM_SERVER_SLOTS, wall_ms=step_ms,
-                                device_ms=dev_ms, busy_share=dev_ms / step_ms,
-                                device_events=sum(r[1] for r in drows),
-                                peak_bytes_above=step_peak, boot_s=boot_s)
+            steps[label] = dict(st, peak_bytes_above=step_peak,
+                                boot_s=boot_s)
             log(f"[lm] full-depth decode step at B {LM_SERVER_SLOTS}, "
                 f"max_seq {LM_SERVER_MAX_SEQ}, {label}: host wall "
                 f"{step_ms:.3f} ms (no profiler), device {dev_ms:.3f} ms in "
@@ -2440,31 +2534,7 @@ def phase_lm(device) -> tuple[dict, dict]:
     # of one generated sequence, on the first LM_CHECK_LAYERS layers.
     check_params = dict(params, layers={
         n: t[:LM_CHECK_LAYERS] for n, t in params["layers"].items()})
-    logits_at = {}
-    for label, capture in (("captured", True), ("eager", False)):
-        srv = LMServer(check_cfg, check_params, n_slots=LM_SERVER_SLOTS,
-                       max_seq=LM_SERVER_MAX_SEQ, device=device,
-                       capture=capture)
-        run, log_ = srv._run_decode, []
-
-        def record(pos, run=run, log_=log_):
-            out = run(pos)
-            log_.append(out.clone())
-            return out
-        srv._run_decode = record
-        srv.generate(prompts[0][0], max_new=16)
-        logits_at[label] = torch.stack(log_)
-        del srv
-    same = torch.equal(logits_at["captured"], logits_at["eager"])
-    log(f"[lm] captured vs eager decode step, first {LM_CHECK_LAYERS} "
-        f"layers, {LM_SERVER_SLOTS} slots: logits at "
-        f"{logits_at['eager'].shape[0]} positions "
-        + ("equal bit for bit" if same else "DIFFER"))
-    if not same:
-        diff = (logits_at["captured"].float()
-                - logits_at["eager"].float()).abs().max().item()
-        raise AssertionError(f"[lm] captured logits != eager (max |diff| "
-                             f"{diff})")
+    captured_vs_eager(check_cfg, check_params, device, prompts[0][0], 16)
     numbers = dict(
         prefill=dict(tokens_per_s=LM_BATCH * LM_SEQ / prefill_s,
                      wall_ms=prefill_s * 1e3, device_ms=device_ms,
@@ -2479,7 +2549,216 @@ def phase_lm(device) -> tuple[dict, dict]:
         server_eager={k: v for k, v in served["eager"].items()
                       if k != "tokens"},
         recovery=recovery)
-    del params, check_params, logits_at
+    del params, check_params
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def recount_dispatch(flat: np.ndarray, n_experts: int, cap: int):
+    """The capacity drops, counted on the host one assignment at a time in
+    token-major order: (dest, keep) as ``moe._dispatch_indices`` gives
+    them."""
+    seen = np.zeros(n_experts, np.int64)
+    dest = np.empty(len(flat), np.int64)
+    keep = np.empty(len(flat), bool)
+    for i, e in enumerate(flat):
+        keep[i] = seen[e] < cap
+        dest[i] = e * cap + seen[e] if keep[i] else n_experts * cap
+        seen[e] += 1
+    return dest, keep
+
+
+@torch.inference_mode()
+def moe_layer_check(cfg, params, tokens) -> dict:
+    """Layer 0's MoE on the prefill's B·S normed tokens: at a capacity
+    factor that drops nothing (the capacity covers the fullest bucket)
+    against the dense oracle ``moe_reference`` within ``LM_LOGIT_BOUND``;
+    at the published factor, ``_dispatch_indices``' destinations and keep
+    mask against a host recount of the same ids, exactly."""
+    lp = {n: t[0] for n, t in params["layers"].items()}
+    x = transformer._embed(params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    x, _, _ = transformer._attention(x, lp, cfg, positions)
+    h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    t, k = h.shape[0], cfg.top_k
+    experts = (lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"])
+    e_pad = experts[1].shape[0]
+    kw = dict(n_experts=cfg.n_experts, top_k=k, act=cfg.mlp_act)
+    _, ids, _ = moe._route(h, lp["router"], n_real=cfg.n_experts, top_k=k)
+    flat = ids.reshape(-1).cpu().numpy()
+    load = int(np.bincount(flat, minlength=e_pad).max())
+    factor = load * e_pad / (t * k)
+    cap = moe.capacity(t, k, e_pad, factor)
+    _, keep = moe._dispatch_indices(ids, n_experts=e_pad, cap=cap)
+    out, aux = moe.moe_apply(h, *experts, capacity_factor=factor, **kw)
+    want = torch.cat([moe.moe_reference(h[i:i + MOE_ORACLE_CHUNK], *experts,
+                                        **kw)
+                      for i in range(0, t, MOE_ORACLE_CHUNK)])
+    err = rel_err(out, want)
+    pub = moe.capacity(t, k, e_pad, cfg.capacity_factor)
+    dest, pkeep = moe._dispatch_indices(ids, n_experts=e_pad, cap=pub)
+    want_dest, want_keep = recount_dispatch(flat, e_pad, pub)
+    exact = bool(np.array_equal(dest.cpu().numpy(), want_dest)
+                 and np.array_equal(pkeep.cpu().numpy(), want_keep))
+    kept = int(pkeep.sum())
+    log(f"[moe] {cfg.name} layer 0 on {t} prefill tokens, top-{k} of "
+        f"{cfg.n_experts} experts ({e_pad} slots): fullest bucket {load}; "
+        f"at factor {factor:.4f} (capacity {cap}, nothing dropped: "
+        f"{bool(keep.all())}) moe_apply vs moe_reference relative max "
+        f"error {err:.4e} (bound {LM_LOGIT_BOUND}), aux {float(aux):.4f}; "
+        f"at the published {cfg.capacity_factor} (capacity {pub}): "
+        f"{kept} of {t * k} assignments kept, {t * k - kept} dropped, dest "
+        f"and keep == the host recount: {exact}")
+    if not keep.all() or err > LM_LOGIT_BOUND or not exact \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"[moe] {cfg.name} MoE layer check failed")
+    return dict(tokens=t, fullest_bucket=load, no_drop_factor=factor,
+                rel_err=err, aux=float(aux), capacity=pub, kept=kept,
+                dropped=t * k - kept, recount_exact=exact)
+
+
+def serve_requests(server: LMServer, cfg) -> dict:
+    """``LMServer`` (captured) answering ``LM_REQUESTS``: every request
+    served with its tokens, no K7 launch."""
+    rng = np.random.default_rng(3)
+    prompts = [([int(t) for t in rng.integers(0, cfg.vocab, n)], m)
+               for n, m in LM_REQUESTS]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [server.submit(p, max_new=m) for p, m in prompts]
+    server.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    m = server.metrics()
+    generated = sum(len(r.result or []) for r in reqs)
+    if not all(r.outcome == "served" and len(r.result) == mn
+               for r, (_, mn) in zip(reqs, LM_REQUESTS)) \
+            or m["served"] != len(LM_REQUESTS) or m["retries"] \
+            or m["errors"] or launches != launch_counts() \
+            or not all(0 <= t < cfg.vocab for r in reqs for t in r.result):
+        raise AssertionError(f"[moe] {cfg.name} LMServer: "
+                             f"{[r.outcome for r in reqs]}, {m}, launches "
+                             f"{launches}")
+    log(f"[moe] {cfg.name} LMServer captured, {LM_SERVER_SLOTS} slots, "
+        f"max_seq {LM_SERVER_MAX_SEQ}: {len(reqs)} requests served; "
+        f"served/s {m['throughput']:.3f}, p50 {m['p50_ms']:.3f} ms, p95 "
+        f"{m['p95_ms']:.3f} ms; {generated} tokens in {serve_s:.3f} s "
+        f"({generated / serve_s:.2f} generated tokens/s), {server.pos} "
+        f"decode steps ({serve_s / server.pos * 1e3:.3f} ms a step); K7 "
+        f"launches 0")
+    return dict(served=m["served"], served_per_s=m["throughput"],
+                p50_ms=m["p50_ms"], p95_ms=m["p95_ms"],
+                generated_tokens_per_s=generated / serve_s,
+                ms_per_step=serve_s / server.pos * 1e3)
+
+
+def phase_moe(device) -> tuple[dict, dict]:
+    """qwen3-moe-30b-a3b, granite-moe-3b-a800m and command-r-35b at full
+    width and depth, one at a time (each alone fills most of the card):
+    weights drawn on the card, prefill through K7, the MoE layer against
+    its oracle and its drops recounted, the captured decode step against
+    the eager one, and qwen3 serving requests.  Returns (the prefills'
+    launches, numbers)."""
+    launches, numbers = {}, {}
+    for arch in MOE_PHASE_ARCHS:
+        cfg = configs.get(arch).full
+        t_arch = time.perf_counter()
+        # The previous model's weights (minitron's first) go before this
+        # one's are drawn: a server kept in a reference cycle holds them
+        # until the collector runs.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        log(f"[moe] {cfg.name}: device memory allocated before "
+            f"{torch.cuda.memory_allocated()} B")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = transformer.init_params(cfg, gen, device)
+        tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ),
+                               device=device, generator=gen)
+        torch.cuda.synchronize()
+        weight_bytes = sum(t.numel() * t.element_size() for t in
+                           [params["embed"], *params["layers"].values()]
+                           + ([params["lm_head"]] if "lm_head" in params
+                              else []))
+        log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+            f"{cfg.d_head}, "
+            + (f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+               f"{cfg.d_ff_expert}" if cfg.moe else f"d_ff {cfg.d_ff}")
+            + f", vocab {cfg.vocab}: {cfg.param_count()} params "
+            f"({cfg.active_param_count()} active), {weight_bytes} B on the "
+            f"card, drawn in {time.perf_counter() - t0:.3f} s")
+
+        prefill = transformer.make_prefill_step(cfg, LM_MAX_SEQ)
+        prefill(params, tokens)                   # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches[f"moe_phase_prefill_{arch}"] = read_launches()
+        prefill_peak = torch.cuda.max_memory_allocated() - base
+        want = launch_counts(flash_attention=cfg.n_layers)
+        if launches[f"moe_phase_prefill_{arch}"] != want:
+            raise AssertionError(f"[moe] {cfg.name} prefill launches "
+                                 f"{launches[f'moe_phase_prefill_{arch}']}, "
+                                 f"want {want}")
+        if logits.shape != (LM_BATCH, cfg.vocab) \
+                or not torch.isfinite(logits).all() \
+                or not torch.isfinite(cache["k"]).all() \
+                or not torch.isfinite(cache["v"]).all():
+            raise AssertionError(f"[moe] {cfg.name}: bad prefill output")
+        del logits, cache
+        prof = profiled(lambda: prefill(params, tokens))
+        rows = device_time_by_kernel(prof, 1)
+        device_ms = sum(r[0] for r in rows)
+        k7_ms = sum(r[0] for r in rows if "flash_fwd" in r[2])
+        log(f"[moe] {cfg.name} prefill B {LM_BATCH} x S {LM_SEQ} (max_seq "
+            f"{LM_MAX_SEQ}): {prefill_s * 1e3:.3f} ms wall, "
+            f"{LM_BATCH * LM_SEQ / prefill_s:.1f} tokens/s; K7 launches "
+            f"{cfg.n_layers}; device {device_ms:.3f} ms (profiled), K7 "
+            f"{k7_ms:.3f} ms = {k7_ms / device_ms:.4f} of it; peak device "
+            f"memory {prefill_peak} B above the weights")
+        for ms, n, key in rows[:8]:
+            log(f"[moe]   {ms:.4f} ms  x{n:g}  {key[:90]}")
+        out = dict(prefill=dict(tokens_per_s=LM_BATCH * LM_SEQ / prefill_s,
+                                wall_ms=prefill_s * 1e3,
+                                device_ms=device_ms, k7_ms=k7_ms,
+                                k7_share=k7_ms / device_ms,
+                                peak_bytes_above=prefill_peak),
+                   weight_bytes=weight_bytes)
+        if cfg.moe:
+            out["moe_layer"] = moe_layer_check(cfg, params, tokens)
+        prompt = [int(t) for t in tokens[0, :MOE_DECODE_PROMPT]]
+        server = captured_vs_eager(cfg, params, device, prompt,
+                                   MOE_DECODE_NEW)
+        with torch.inference_mode():
+            out["decode"], _ = decode_step_numbers(server)
+            server._restart()
+            for t in server.cache.values():
+                t.zero_()
+        st = out["decode"]
+        log(f"[moe] {cfg.name} full-depth decode step at B "
+            f"{LM_SERVER_SLOTS}, captured: host wall {st['wall_ms']:.3f} "
+            f"ms, device {st['device_ms']:.3f} ms in "
+            f"{st['device_events']:g} device events, busy share "
+            f"{st['busy_share']:.3f}")
+        if arch == MOE_SERVE_ARCH:
+            out["server"] = serve_requests(server, cfg)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["phase_s"] = time.perf_counter() - t_arch
+        log(f"[moe] {cfg.name}: peak device memory {out['peak_bytes']} B "
+            f"(weights, prefill and both servers); {out['phase_s']:.3f} s")
+        numbers[arch] = out
+        del params, tokens, server, prefill, prof
+    gc.collect()
     torch.cuda.empty_cache()
     return launches, numbers
 
@@ -2769,26 +3048,30 @@ def phase_timing(device, launches: dict, per_forward: dict,
     # The region's other tiles: timed by tune_chains under cuda_chain, and
     # each held against the plain version there (check_chain_tiles).
 
-    # K7 at minitron's prefill layer, beside one SDPA call on the same
-    # tensors (in its (B, H, S, hd) layout, as views).
-    q, k, v = flash_inputs(inp, FLASH_PREFILL)
-    _, b, s_len, _, h, kvh, hd, _ = FLASH_PREFILL
-    out = k7.flash_attention(q, k, v, True)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # K7 at minitron's prefill layer (head width 128) and granite's (64),
+    # each beside one SDPA call on the same tensors (in its (B, H, S, hd)
+    # layout, as views).
+    for case in FLASH_TIMED:
+        q, k, v = flash_inputs(inp, case)
+        _, b, s_len, _, h, kvh, hd, _ = case
+        out = k7.flash_attention(q, k, v, True)
+        flash_error(f"flash_attention {case[0]}", out,
+                    k7.flash_attention_plain(q, k, v, True))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    flash_error("F.scaled_dot_product_attention", sdpa().transpose(1, 2),
-                out)
-    add("flash_attention", FLASH_PREFILL[0],
-        kernel_ms(lambda: k7.flash_attention(q, k, v, True), 20),
-        time_ms(lambda: k7.flash_attention_plain(q, k, v, True), 3),
-        (q.numel() + k.numel() + v.numel() + out.numel()) * 2,
-        4.0 * b * h * hd * s_len * (s_len + 1) / 2,
-        library=(time_ms(sdpa, 20), "F.scaled_dot_product_attention "
-                 "(is_causal, enable_gqa)"),
-        ops_per_s=BF16_FLOPS_PER_S)
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        flash_error("F.scaled_dot_product_attention",
+                    sdpa().transpose(1, 2), out)
+        add("flash_attention", case[0],
+            kernel_ms(lambda: k7.flash_attention(q, k, v, True), 20),
+            time_ms(lambda: k7.flash_attention_plain(q, k, v, True), 3),
+            (q.numel() + k.numel() + v.numel() + out.numel()) * 2,
+            4.0 * b * h * hd * s_len * (s_len + 1) / 2,
+            library=(time_ms(sdpa, 20), "F.scaled_dot_product_attention "
+                     "(is_causal, enable_gqa)"),
+            ops_per_s=BF16_FLOPS_PER_S)
 
     kernels = []
     for name, r in rows.items():
@@ -2858,6 +3141,9 @@ def main() -> int:
     lm_launches, numbers["lm"] = phase_lm(device)
     launches.update(lm_launches)
     per_forward.update(lm_launches)
+    moe_launches, numbers["moe"] = phase_moe(device)
+    launches.update(moe_launches)
+    per_forward.update(moe_launches)
     auto = phase_autotune(device)
     launches.update(auto["launches"])
     per_forward.update(auto["launches"])

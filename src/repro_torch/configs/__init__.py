@@ -1,5 +1,5 @@
 """Architecture registry (counterpart of ``repro.configs``) for the
-architectures the port runs.
+architectures the port runs: the reference's four LM archs.
 
 Each arch module exports FULL (the published config), SMOKE (a reduced
 config of the same family for CPU tests) and FAMILY.  ``get(arch_id)``
@@ -14,7 +14,8 @@ import importlib
 from typing import Any
 
 #: Archs the port runs.
-ARCH_IDS = ("minitron-8b",)
+ARCH_IDS = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "minitron-8b",
+            "command-r-35b")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,35 +21,44 @@
 // Bound on the H100: at minitron-8b's prefill layer (B 2, S 2048, H 32,
 // KV 8, hd 128, bf16, causal) operations — 4·B·H·hd·S(S+1)/2 = 68.8 GFLOP
 // take 0.070 ms at the bf16 tensor-core rate, the 84 MB of q, k, v and out
-// 0.025 ms.  So the products must run at the tensor cores' full rate, which
-// only wgmma reaches, and the tensor cores must not wait on the loads.
+// 0.025 ms; at granite-moe-3b-a800m's (H 24, hd 64) 25.8 GFLOP take 0.026
+// ms and 33.6 MB 0.010 ms.  So the products must run at the tensor cores'
+// full rate, which only wgmma reaches, and the tensor cores must not wait
+// on the loads.
+//
+// The kernel is a template on the head width HD, 128 (minitron, qwen3,
+// command-r) or 64 (granite): every count below is for 128, with 64's in
+// brackets where it differs.
 //
 // Design.  One block per (q head, batch, 128 q rows), issued longest causal
 // sweep first over the whole grid; 384 threads in three warpgroups.
 //   * Producer warpgroup: gives up its registers (setmaxnreg 40); one
 //     elected thread issues every copy with TMA (cp.async.bulk.tensor) from
 //     4-D tensor maps over the (B, S, heads, hd) layouts as they lie, so a
-//     box cuts one head's rows with no copy.  Q (128 x 128 bf16, 32 KB) is
-//     loaded once; K and V tiles of 128 keys (32 KB each) go through a ring
-//     of kStages stages, each with a full and an empty mbarrier, so the
-//     copy of tile j+1 runs while the consumers compute tile j.  A box is
-//     64 bf16 wide (the 128-byte swizzle's row), so a 128-wide row is two
-//     boxes; TMA fills rows past S with zeros, and those keys are masked.
+//     box cuts one head's rows with no copy.  Q (128 x 128 bf16, 32 KB
+//     [16 KB]) is loaded once; K and V tiles of 128 keys (32 KB [16 KB]
+//     each) go through a ring of kStages stages, each with a full and an
+//     empty mbarrier, so the copy of tile j+1 runs while the consumers
+//     compute tile j.  A box is 64 bf16 wide (the 128-byte swizzle's row),
+//     so a 128-wide row is two boxes [one]; TMA fills rows past S with
+//     zeros, and those keys are masked.
 //   * Two consumer warpgroups (setmaxnreg 232), 64 q rows each.
-//     S = Q·Kᵀ is 8 wgmma.m64n128k16 (bf16 in, f32 out), both operands read
-//     from shared memory through 128-byte-swizzle descriptors, K-major (no
-//     transpose).  The online softmax runs on S in registers; the f32
+//     S = Q·Kᵀ is 8 [4] wgmma.m64n128k16 (bf16 in, f32 out), both operands
+//     read from shared memory through 128-byte-swizzle descriptors, K-major
+//     (no transpose).  The online softmax runs on S in registers; the f32
 //     accumulator layout, rounded to bf16 and packed in pairs, is the
-//     register A-fragment layout, so O += P·V is 8 wgmma with A = P from
-//     registers and B = V from shared memory, MN-major (the descriptor's
-//     transpose bit).  Each consumer thread then arrives on the stage's
-//     empty barrier.  One warpgroup's softmax runs beside the other's
-//     products; issuing tile j+1's QKᵀ before tile j's softmax within a
-//     warpgroup (with a 3-stage ring) measured slower on the H100 without a
-//     ping-pong order between the two warpgroups, so it is not done here.
-// Shared memory: 32 KB of Q + kStages x 64 KB of K/V + barriers, so one
-// block an SM; registers 168 a thread as compiled, then 40 for the
-// producer and 232 for the consumers.
+//     register A-fragment layout, so O += P·V is 8 wgmma.m64n128k16
+//     [m64n64k16] with A = P from registers and B = V from shared memory,
+//     MN-major (the descriptor's transpose bit).  Each consumer thread then
+//     arrives on the stage's empty barrier.  One warpgroup's softmax runs
+//     beside the other's products; issuing tile j+1's QKᵀ before tile j's
+//     softmax within a warpgroup (with a 3-stage ring) measured slower on
+//     the H100 without a ping-pong order between the two warpgroups, so it
+//     is not done here.
+// Shared memory: 32 KB of Q + kStages x 64 KB of K/V + barriers [half of
+// each], so one block an SM (the consumers' 232 registers allow no
+// second); registers 168 a thread as compiled, then 40 for the producer
+// and 232 for the consumers.
 
 #include <cstdint>
 #include <cuda.h>
@@ -58,17 +67,24 @@
 
 namespace {
 
-constexpr int kHD = 128;         // head width (the wrapper checks)
 constexpr int kBQ = 128;         // q rows a block, 64 a consumer warpgroup
 constexpr int kBK = 128;         // keys a ring stage
 constexpr int kStages = 2;
 constexpr int kThreads = 384;    // producer + 2 consumer warpgroups
 constexpr int kBox = 64;         // bf16 columns a TMA box: one 128-B row
-constexpr int kTileBytes = kBQ * kHD * 2;      // 32 KB, a 128 x 128 tile
-constexpr int kBoxBytes = kTileBytes / 2;      // one 64-column box
-constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
-constexpr int kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+constexpr int kBoxBytes = kBQ * kBox * 2;      // 16 KB, one 64-column box
 constexpr float kNegInf = -1e30f;
+
+// Sizes that follow the head width HD (64 or 128; the wrapper checks).
+template <int HD>
+struct Tile {
+  static_assert(HD == 64 || HD == 128, "head width 64 or 128");
+  static constexpr int kBoxes = HD / kBox;             // boxes a row
+  static constexpr int kBytes = kBQ * HD * 2;          // a 128 x HD tile
+  static constexpr int kBarOffset = kBytes * (1 + 2 * kStages);
+  static constexpr int kSmemBytes =
+      kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -160,8 +176,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define D32 D8(0), D8(8), D8(16), D8(24)
+#define R32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31}"
+
+// The same at N = 64 (head width 64): d (64 x 64 f32) += A · B (16 x 64).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef D8
+#undef D32
 #undef D64
+#undef R32
 #undef R64
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -174,9 +210,10 @@ __device__ __forceinline__ void wgmma_commit_and_wait() {
 }
 
 // Keeps the compiler from moving reads of wgmma results above the wait.
-__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // 2^x on the special-function unit (what __expf runs after scaling x by
@@ -198,6 +235,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // fragment of one k16 step is {row g cols 2t.., row g+8 cols 2t.., row g
 // cols 2t+8.., row g+8 cols 2t+8..}: for keys 16kk.. that is d[8kk..8kk+7]
 // packed in pairs.
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -207,9 +245,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 B: tiles start on that grain.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  using T = Tile<HD>;
   const uint32_t sq = base;
-  const uint32_t q_full = base + kBarOffset;
-  auto stage_k = [&](int s) { return base + kTileBytes * (1 + 2 * s); };
+  const uint32_t q_full = base + T::kBarOffset;
+  auto stage_k = [&](int s) { return base + T::kBytes * (1 + 2 * s); };
   auto full = [&](int s) { return q_full + 8 * (1 + s); };
   auto empty = [&](int s) { return q_full + 8 * (1 + kStages + s); };
 
@@ -236,19 +275,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     // round r - 1 (parity (r & 1) ^ 1: round 0 passes at once).
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, kTileBytes);
-      tma_load(sq, &qmap, q_full, 0, h, q0, b);
-      tma_load(sq + kBoxBytes, &qmap, q_full, kBox, h, q0, b);
+      mbar_expect_tx(q_full, T::kBytes);
+#pragma unroll
+      for (int x = 0; x < T::kBoxes; ++x)
+        tma_load(sq + x * kBoxBytes, &qmap, q_full, x * kBox, h, q0, b);
       for (int i = 0; i < n_kt; ++i) {
         const int s = i % kStages;
         mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
-        const uint32_t sk = stage_k(s), sv = sk + kTileBytes;
+        const uint32_t sk = stage_k(s), sv = sk + T::kBytes;
         const int k0 = i * kBK;
-        mbar_expect_tx(full(s), 2 * kTileBytes);
-        tma_load(sk, &kmap, full(s), 0, kvh, k0, b);
-        tma_load(sk + kBoxBytes, &kmap, full(s), kBox, kvh, k0, b);
-        tma_load(sv, &vmap, full(s), 0, kvh, k0, b);
-        tma_load(sv + kBoxBytes, &vmap, full(s), kBox, kvh, k0, b);
+        mbar_expect_tx(full(s), 2 * T::kBytes);
+#pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x) {
+          tma_load(sk + x * kBoxBytes, &kmap, full(s), x * kBox, kvh, k0, b);
+          tma_load(sv + x * kBoxBytes, &vmap, full(s), x * kBox, kvh, k0, b);
+        }
       }
     }
     return;
@@ -264,9 +305,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   const int r1 = r0 + 8;          // this thread's rows: r0, r1
   const uint32_t sq_c = sq + c * (kBoxBytes / 2);   // 64 rows of 128 B
 
-  float o[64], s[64];
+  float o[HD / 2], s[64];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) o[e] = s[e] = 0.f;
+  for (int e = 0; e < 64; ++e) s[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
   const float scale_log2 = scale * 1.4426950408889634f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};        // this thread's share of each row's sum
@@ -275,13 +318,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   for (int i = 0; i < n_kt; ++i) {
     const int st = i % kStages;
     mbar_wait(full(st), (i / kStages) & 1);
-    const uint32_t sk = stage_k(st), sv = sk + kTileBytes;
+    const uint32_t sk = stage_k(st), sv = sk + T::kBytes;
 
-    // S = Q · Kᵀ: 8 k16 steps over hd; the first four in the first box,
-    // 32 B apart inside the swizzled 128-B rows.
+    // S = Q · Kᵀ: HD / 16 k16 steps over hd, four to a box, 32 B apart
+    // inside the swizzled 128-B rows.
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
       wgmma_ss(s, desc_sw128(sq_c + off, 16, 1024),
                desc_sw128(sk + off, 16, 1024), kk > 0);
@@ -325,11 +368,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     l[0] = l[0] * corr[0] + ls[0];
     l[1] = l[1] * corr[1] + ls[1];
 #pragma unroll
-    for (int e = 0; e < 64; ++e) o[e] *= corr[(e >> 1) & 1];
+    for (int e = 0; e < HD / 2; ++e) o[e] *= corr[(e >> 1) & 1];
 
     // O += P · V over 16-key steps: p rounded to bf16 in the A layout;
-    // V's 16 rows of a step lie 2048 B apart, its two 64-wide boxes
-    // 16 KB apart (the leading byte offset).
+    // V's 16 rows of a step lie 2048 B apart, its 64-wide boxes 16 KB
+    // apart (the leading byte offset, unused at HD 64).
     uint32_t pa[kBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
@@ -351,10 +394,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
-  const long long q_step = (long long)H * kHD;   // between positions
-  __nv_bfloat16* ob = out + ((long long)b * Sq * H + h) * kHD;
+  const long long q_step = (long long)H * HD;    // between positions
+  __nv_bfloat16* ob = out + ((long long)b * Sq * H + h) * HD;
 #pragma unroll
-  for (int j = 0; j < kHD / 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (r0 < Sq) {
       *reinterpret_cast<uint32_t*>(ob + r0 * q_step + col) =
@@ -397,11 +440,11 @@ EncodeTiled encode_tiled() {
 
 // A 4-D map (hd, heads, S, B) over a (B, S, heads, hd) bf16 tensor, boxes
 // of 64 x 1 x 128 x 1 with the 128-byte swizzle; out-of-range rows read 0.
-bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads,
-              int S, int B) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kHD, (cuuint64_t)heads,
+bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd,
+              int heads, int S, int B) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)kHD * 2;
+  const cuuint64_t row = (cuuint64_t)hd * 2;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
   const cuuint32_t box[4] = {kBox, 1, kBK, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
@@ -411,49 +454,68 @@ bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HD>
+int launch(const CUtensorMap& qmap, const CUtensorMap& kmap,
+           const CUtensorMap& vmap, void* out, int B, int Sq, int Skv, int H,
+           int KV, int causal, float scale, cudaStream_t stream) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Tile<HD>::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + kBQ - 1) / kBQ));
+  flash_fwd_kernel<HD><<<grid, kThreads, Tile<HD>::kSmemBytes, stream>>>(
+      qmap, kmap, vmap, (__nv_bfloat16*)out, Sq, Skv, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int info(int* regs, int* smem_bytes, int* threads) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel<HD>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *smem_bytes = Tile<HD>::kSmemBytes;
+  *threads = kThreads;
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
-// bf16 only (the LM path's dtype); hd must be 128 (minitron's and
-// command-r's head width); q, k, v contiguous and 16-byte aligned.
+// bf16 only (the LM path's dtype); hd 128 (minitron's, qwen3's and
+// command-r's head width) or 64 (granite's); q, k, v contiguous and
+// 16-byte aligned.
 extern "C" int launch_flash_attention(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Skv, int H, int KV, int hd,
                                       int causal, float scale, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || Skv <= 0 || hd != kHD) {
+  if (KV <= 0 || H % KV != 0 || Skv <= 0 || (hd != 64 && hd != 128)) {
     return (int)cudaErrorInvalidValue;
   }
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(fn, &qmap, q, H, Sq, B) || !make_map(fn, &kmap, k, KV, Skv, B)
-      || !make_map(fn, &vmap, v, KV, Skv, B)) {
+  if (!make_map(fn, &qmap, q, hd, H, Sq, B)
+      || !make_map(fn, &kmap, k, hd, KV, Skv, B)
+      || !make_map(fn, &vmap, v, hd, KV, Skv, B)) {
     return (int)cudaErrorInvalidValue;
   }
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    sized = true;
-  }
-  const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + kBQ - 1) / kBQ));
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      qmap, kmap, vmap, (__nv_bfloat16*)out, Sq, Skv, H, KV, causal, scale);
-  return (int)cudaGetLastError();
+  return hd == 64 ? launch<64>(qmap, kmap, vmap, out, B, Sq, Skv, H, KV,
+                               causal, scale, (cudaStream_t)stream)
+                  : launch<128>(qmap, kmap, vmap, out, B, Sq, Skv, H, KV,
+                                causal, scale, (cudaStream_t)stream);
 }
 
-// The kernel's registers a thread as compiled (before setmaxnreg moves
-// them between warpgroups), its dynamic shared memory a block, and its
-// threads a block.
-extern "C" int flash_attention_info(int* regs, int* smem_bytes,
+// The kernel's registers a thread as compiled at head width hd (before
+// setmaxnreg moves them between warpgroups), its dynamic shared memory a
+// block, and its threads a block.
+extern "C" int flash_attention_info(int hd, int* regs, int* smem_bytes,
                                     int* threads) {
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel);
-  if (err != cudaSuccess) return (int)err;
-  *regs = a.numRegs;
-  *smem_bytes = kSmemBytes;
-  *threads = kThreads;
-  return (int)cudaSuccess;
+  if (hd == 64) return info<64>(regs, smem_bytes, threads);
+  if (hd == 128) return info<128>(regs, smem_bytes, threads);
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@ Port of ``repro.kernels.flash_attention.flash_attention`` (``_flash_fwd``,
 ``_kernel``); the CUDA kernel is ``csrc/flash_attention.cu``: a
 warp-specialised Hopper kernel in which a producer warpgroup feeds a ring
 of K/V tiles through TMA and two consumer warpgroups run both products on
-``wgmma`` (bf16 in, float32 accumulation; bf16 inputs, head width 128).
+``wgmma`` (bf16 in, float32 accumulation; bf16 inputs, head width 64 or
+128: one template instantiation each).
 For q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) with H = KV·G:
 
     out = softmax(q·kᵀ / sqrt(hd) [causal mask]) · v     in q's dtype
@@ -15,8 +16,10 @@ output is divided by ``max(l, 1e-30)``.  Causal assumes Sq == Skv.  The
 plain version keeps the reference's block contract: ``block_q``
 (``block_k``), cut to Sq (Skv), must divide it.  The CUDA kernel tiles by
 128 rows and keys and masks ragged tiles, so it ignores the blocks.  The
-plain version also takes float32 (the CPU tests); on the card the kernel
-takes bf16 only, the LM path's dtype.
+plain version also takes float32 and any head width (the CPU tests); on
+the card the kernel takes bf16 only, the LM path's dtype, at the LM
+archs' head widths: 128 (minitron-8b, qwen3-moe-30b-a3b, command-r-35b)
+and 64 (granite-moe-3b-a800m).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-_HEAD_DIM = 128
+#: Head widths the CUDA kernel is instantiated for.
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -112,17 +116,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_k: int = 512) -> torch.Tensor:
     """(B, Sq, H, hd) attention of q over k, v in q's dtype.
 
-    Launches the CUDA kernel for CUDA tensors (bf16, hd 128; the blocks
-    shape only the plain version); CPU tensors take the plain version.
+    Launches the CUDA kernel for CUDA tensors (bf16, hd in
+    ``KERNEL_HEAD_DIMS``; the blocks shape only the plain version); CPU
+    tensors take the plain version.  Anything else raises.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, block_q, block_k)
+    _check_shapes(q, k, v, causal)
+    if q.dtype != torch.bfloat16 or q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes bf16 with hd 64 "
+                         f"or hd 128, got {q.dtype} hd {q.shape[3]}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_shapes(q, k, v, causal)
-    if q.dtype != torch.bfloat16 or q.shape[3] != _HEAD_DIM:
-        raise ValueError(f"flash_attention: the kernel takes bf16 with hd "
-                         f"{_HEAD_DIM}, got {q.dtype} hd {q.shape[3]}")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.require(t, name, q.dtype, 4, dev)
@@ -144,11 +149,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def kernel_info() -> dict[str, int]:
-    """The CUDA kernel's registers a thread as compiled, dynamic shared
-    memory a block and threads a block (``cudaFuncGetAttributes``)."""
+def kernel_info(hd: int = 128) -> dict[str, int]:
+    """The CUDA kernel's registers a thread as compiled at head width
+    ``hd``, dynamic shared memory a block and threads a block
+    (``cudaFuncGetAttributes``)."""
     vals = [ctypes.c_int() for _ in range(3)]
     build.check(build.library().flash_attention_info(
-        *(ctypes.addressof(v) for v in vals)), "flash_attention_info")
+        hd, *(ctypes.addressof(v) for v in vals)), "flash_attention_info")
     return dict(zip(("registers", "smem_bytes", "threads"),
                     (v.value for v in vals)))

@@ -1,8 +1,9 @@
-"""Decoder-only transformer LM: dense inference on one device.
+"""Decoder-only transformer LM: dense and MoE inference on one device.
 
-Counterpart of ``repro.models.transformer`` for serving a dense model:
-GQA with RoPE, ``relu2`` / ``swiglu`` MLPs, a full-sequence forward, the
-serving prefill that fills the KV cache, and the one-token decode step.
+Counterpart of ``repro.models.transformer`` for serving: GQA with RoPE,
+``relu2`` / ``swiglu`` MLPs or a Mixture-of-Experts layer
+(``models.moe``), a full-sequence forward, the serving prefill that fills
+the KV cache, and the one-token decode step.
 Parameters are stacked on a leading layer dim as in the reference; the
 layer loop is a Python loop over them (the reference's ``scan``).  One
 card has nothing to shard, so the reference's ``rules`` argument is gone.
@@ -10,15 +11,19 @@ card has nothing to shard, so the reference's ``rules`` argument is gone.
 Matrices, the embedding and the head are stored in bf16: the reference
 keeps float32 and casts to bf16 at every use, which gives the same values,
 so the port casts once (minitron-8b: 15.5 GB instead of 30.9).  The norm
-scales stay float32, as the reference's norms read them.  Attention over
-the full sequence runs through K7 (``layers.chunked_attention``); the
-projections, the MLP and the head are plain matmuls, as the reference
-leaves them to XLA, and so is the decode step's masked softmax over the
-cache.  The decode step writes the new K/V row into the cache in place
-(the reference returns an updated copy).
+scales stay float32, as the reference's norms read them, and so does the
+MoE router, which the reference routes with in float32 (a bf16 router
+changes the top-k picks).  Attention over the full sequence runs
+through K7 (``layers.chunked_attention``); the projections, the MLP and
+the head are plain matmuls, as the reference leaves them to XLA, and so
+is the decode step's masked softmax over the cache.  An MoE layer takes
+its capacity over the tokens of the call: B·S at prefill and in
+``forward``, B at decode, as the reference's.  The decode step writes
+the new K/V row into the cache in place (the reference returns an
+updated copy).
 
-Not ported yet: MoE (``models/moe.py``), training (loss, chunked
-cross-entropy, the train step) and the dry-run analytics.
+Not ported yet: training (loss, chunked cross-entropy, the train step),
+the dry-run analytics and the expert-parallel exchange of MoE.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +71,6 @@ class LMConfig:
     attn_step_remat: bool = True
 
     def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                f"{self.name}: MoE configs need models/moe.py, which the "
-                f"port does not have yet")
         if self.mlp_act not in ("swiglu", "relu2"):
             raise ValueError(f"unknown mlp_act {self.mlp_act!r}")
 
@@ -85,13 +86,30 @@ class LMConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.d_head
 
-    def param_count(self) -> int:
+    def padded_experts(self, ep: int) -> int:
+        return moe_lib.padded_experts(self.n_experts, ep)
+
+    def param_count(self, ep: int = 1) -> int:
         d, l = self.d_model, self.n_layers
         attn = d * self.qkv_dim + 2 * d * self.kv_dim + self.qkv_dim * d
-        mlp = (3 if self.mlp_act == "swiglu" else 2) * d * self.d_ff
+        if self.moe:
+            e = self.n_experts
+            mlp = d * e + 3 * e * d * self.d_ff_expert
+        else:
+            mlp = (3 if self.mlp_act == "swiglu" else 2) * d * self.d_ff
         norms = 2 * d + (2 * self.d_head if self.qk_norm else 0)
         embed = self.vocab * d * (1 if self.tie_embeddings else 2)
         return l * (attn + mlp + norms) + embed + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.param_count()
+        d, l = self.d_model, self.n_layers
+        attn = d * self.qkv_dim + 2 * d * self.kv_dim + self.qkv_dim * d
+        mlp = d * self.n_experts + 3 * self.top_k * d * self.d_ff_expert
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return l * (attn + mlp + 2 * d) + embed + d
 
 
 def padded_vocab(vocab: int, multiple: int) -> int:
@@ -102,8 +120,11 @@ def padded_vocab(vocab: int, multiple: int) -> int:
     return -(-vocab // multiple) * multiple
 
 
-# (name, shape without L, fan-in or None for a norm scale of ones)
-def _layer_shapes(cfg: LMConfig) -> list[tuple[str, tuple[int, ...], int]]:
+# (name, shape without L, fan-in or 0 for a norm scale of ones); fan-ins
+# are the reference's ``_stack``'s: shape[0] of a matrix, shape[1] of an
+# expert stack.
+def _layer_shapes(cfg: LMConfig, ep: int = 1
+                  ) -> list[tuple[str, tuple[int, ...], int]]:
     d = cfg.d_model
     shapes = [("ln1", (d,), 0), ("ln2", (d,), 0),
               ("wq", (d, cfg.qkv_dim), d), ("wk", (d, cfg.kv_dim), d),
@@ -112,6 +133,11 @@ def _layer_shapes(cfg: LMConfig) -> list[tuple[str, tuple[int, ...], int]]:
     if cfg.qk_norm:
         shapes += [("q_norm", (cfg.d_head,), 0),
                    ("k_norm", (cfg.d_head,), 0)]
+    if cfg.moe:
+        e, fe = cfg.padded_experts(ep), cfg.d_ff_expert
+        return shapes + [("router", (d, e), d), ("we_gate", (e, d, fe), d),
+                         ("we_up", (e, d, fe), d),
+                         ("we_down", (e, fe, d), fe)]
     if cfg.mlp_act == "swiglu":
         shapes.append(("w_gate", (d, cfg.d_ff), d))
     shapes += [("w_up", (d, cfg.d_ff), d), ("w_down", (cfg.d_ff, d),
@@ -119,34 +145,52 @@ def _layer_shapes(cfg: LMConfig) -> list[tuple[str, tuple[int, ...], int]]:
     return shapes
 
 
+# Kept in float32: the norm scales and the MoE router.
+_FLOAT32 = frozenset({"ln1", "ln2", "q_norm", "k_norm", "final_norm",
+                      "router"})
+
+
+# Elements of one float32 draw: each tensor is drawn in row blocks of at
+# most this size (command-r's (256000, 8192) embedding would otherwise
+# need an 8.4 GB float32 temporary beside the layers).
+_DRAW_ELEMENTS = 1 << 26
+
+
 @torch.inference_mode()
 def init_params(cfg: LMConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> dict:
-    """Stacked-layer parameters with the reference's shapes and scales
-    (matrices N(0, 1/fan_in), embedding and head N(0, 0.02²), norms 1),
-    drawn in float32 from ``generator`` (on ``device``) one layer at a
-    time and stored in bf16; norm scales float32."""
+    """Stacked-layer parameters with the reference's shapes at one device
+    (``ep = 1``) and its scales (matrices N(0, 1/fan_in), embedding and
+    head N(0, 0.02²), norms 1), drawn in float32 from ``generator`` (on
+    ``device``) one layer at a time, the embedding and head in row blocks,
+    and stored in bf16; norm scales and the MoE router float32."""
     device = resolve_device(device)
-    cd = layers.COMPUTE_DTYPE
     l, d = cfg.n_layers, cfg.d_model
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=generator, device=device)
-                .mul_(std).to(cd))
+    def empty(name, shape):
+        dtype = torch.float32 if name in _FLOAT32 else layers.COMPUTE_DTYPE
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def fill(t, std):            # t = N(0, std²), drawn in row blocks
+        rows = max(1, _DRAW_ELEMENTS // max(1, t[0].numel()))
+        for lo in range(0, t.shape[0], rows):
+            block = t[lo:lo + rows]
+            block.copy_(torch.randn(block.shape, generator=generator,
+                                    device=device).mul_(std))
+        return t
 
     lay: dict[str, torch.Tensor] = {}
     for name, shape, fan_in in _layer_shapes(cfg):
         if not fan_in:
             lay[name] = torch.ones((l, *shape), device=device)
             continue
-        t = torch.empty((l, *shape), dtype=cd, device=device)
+        lay[name] = empty(name, (l, *shape))
         for i in range(l):
-            t[i] = normal(shape, 1.0 / math.sqrt(fan_in))
-        lay[name] = t
-    params = {"embed": normal((cfg.vocab, d), 0.02), "layers": lay,
-              "final_norm": torch.ones((d,), device=device)}
+            fill(lay[name][i], 1.0 / math.sqrt(fan_in))
+    params = {"embed": fill(empty("embed", (cfg.vocab, d)), 0.02),
+              "layers": lay, "final_norm": torch.ones((d,), device=device)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab), 0.02)
+        params["lm_head"] = fill(empty("lm_head", (d, cfg.vocab)), 0.02)
     return params
 
 
@@ -156,17 +200,25 @@ def params_from_numpy(tree: dict, cfg: LMConfig,
     """The port's parameters from the reference's ``init_params`` pytree
     as numpy arrays (``jax.tree.map(np.asarray, params)``): the same
     values, matrices in bf16 (the reference's cast at use), norm scales
-    float32."""
+    and the MoE router float32.  An expert dim padded by a reference built
+    with ``ep > 1`` comes across as it is: the router masks the padding
+    experts by ``cfg.n_experts``."""
     device = resolve_device(device)
-    norms = {"ln1", "ln2", "q_norm", "k_norm", "final_norm"}
     want = {name for name, _, _ in _layer_shapes(cfg)}
     if set(tree["layers"]) != want:
         raise ValueError(f"layer params {sorted(tree['layers'])} do not "
                          f"match {cfg.name}'s {sorted(want)}")
+    if cfg.moe:
+        e_pad = np.shape(tree["layers"]["router"])[-1]
+        if e_pad < cfg.n_experts or any(
+                np.shape(tree["layers"][n])[1] != e_pad
+                for n in ("we_gate", "we_up", "we_down")):
+            raise ValueError(f"{cfg.name}: expert dims do not hold "
+                             f"{cfg.n_experts} experts")
 
     def conv(name, a):   # a copy: arrays from jax are read-only
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device, torch.float32 if name in norms
+        return t.to(device, torch.float32 if name in _FLOAT32
                     else layers.COMPUTE_DTYPE).contiguous()
 
     out = {name: conv(name, a) for name, a in tree.items()
@@ -226,9 +278,19 @@ def _mlp_dense(hnorm, lp, cfg: LMConfig):
     return hmid @ lp["w_down"]
 
 
-def _mlp(x, lp, cfg: LMConfig):
-    return x + _mlp_dense(layers.rms_norm(x, lp["ln2"], cfg.norm_eps), lp,
-                          cfg)
+def _mlp_or_moe(x, lp, cfg: LMConfig):
+    """x + the MLP or the MoE layer of the normed x; returns (x, aux), aux
+    None for a dense MLP.  An MoE layer routes the call's tokens flat: B·S
+    of them over (B, S, D), B over a decode step's (B, D)."""
+    hnorm = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if not cfg.moe:
+        return x + _mlp_dense(hnorm, lp, cfg), None
+    out, aux = moe_lib.moe_apply(
+        hnorm.reshape(-1, cfg.d_model), lp["router"], lp["we_gate"],
+        lp["we_up"], lp["we_down"], n_experts=cfg.n_experts,
+        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        act=cfg.mlp_act)
+    return x + out.reshape(x.shape), aux
 
 
 def _embed(params, tokens):
@@ -254,14 +316,19 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers + final norm.  Returns (x (B, S, D), aux); aux
-    is the MoE balance loss, 0 for a dense model."""
+    is the MoE balance loss averaged over the layers, 0 for a dense
+    model."""
     x = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    auxs = []
     for lp in _layer_params(params, cfg):
         x, _, _ = _attention(x, lp, cfg, positions)
-        x = _mlp(x, lp, cfg)
+        x, aux = _mlp_or_moe(x, lp, cfg)
+        if aux is not None:
+            auxs.append(aux)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, (torch.stack(auxs).mean() if auxs
+               else torch.zeros((), device=x.device))
 
 
 @torch.inference_mode()
@@ -305,7 +372,7 @@ def make_prefill_step(cfg: LMConfig, max_seq: int) -> Callable:
         positions = torch.arange(s, device=tokens.device)[None]
         for i, lp in enumerate(_layer_params(params, cfg)):
             x, k, v = _attention(x, lp, cfg, positions)
-            x = _mlp(x, lp, cfg)
+            x, _ = _mlp_or_moe(x, lp, cfg)
             cache["k"][i, :, :, :s] = k.transpose(1, 2)
             cache["v"][i, :, :, :s] = v.transpose(1, 2)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -361,7 +428,7 @@ def make_decode_step(cfg: LMConfig, max_seq: int) -> Callable:
             o = torch.einsum("bhgs,bhsd->bhgd", p / p.sum(-1, keepdim=True),
                              cache["v"][i].float())
             x = x + o.reshape(b, h * hd).to(x.dtype) @ lp["wo"]
-            x = _mlp(x, lp, cfg)
+            x, _ = _mlp_or_moe(x, lp, cfg)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _mask_pad_vocab(x @ _head(params, cfg), cfg), cache
 

@@ -219,10 +219,14 @@ class LMServer:
             _inject.maybe_fault("lm.step", active=len(self.manager.active),
                                 pos=self.pos, tenant=self.tenant)
         nxt = self._next_tokens(self._run_decode(self.pos))
+        host = nxt.cpu().numpy()                 # the one readback a tick
+        # The tick's state moves only once the step and its readback are
+        # through: a retry after a fault in either repeats the tick from
+        # the same position and tokens (it rewrites row ``pos`` with the
+        # same K/V), so no token is lost and a held cut stays consistent.
         self.pos += 1
         slots = torch.tensor(self.manager.active_slots(), device=self.device)
         self.tokens[slots, 0] = nxt[slots]
-        host = nxt.cpu().numpy()                 # the one readback a tick
         out: dict[int, int] = {}
         for seq_id, seq in list(self.manager.active.items()):
             out[seq_id] = int(host[seq.slot])

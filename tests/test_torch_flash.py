@@ -122,3 +122,40 @@ def test_shape_contract():
                    jnp.asarray(vl.numpy()), False, 32, 64, True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
                                atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [128, 200])
+def test_plain_at_head_width_64_vs_reference_attention(causal, s):
+    """granite-moe-3b-a800m's head width, 64, at the kernel's tiling (a
+    ragged second tile at S 200), G = 3: the plain version against the
+    JAX package's and the port's ``reference_attention``."""
+    q, k, v = qkv(1, s, 6, 2, 64)
+    block = 128 if s % 128 == 0 else s
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal,
+                          block, block).numpy()
+    want = j_layers.reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+    port = t_layers.reference_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(port.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [32, 96, 256])
+def test_kernel_refuses_other_head_widths(hd):
+    """Off the CPU the wrapper takes bf16 at hd 64 or 128 only: other
+    widths and float32 raise before any launch (checked on ``meta``
+    tensors, which reach the kernel's contract without a card)."""
+    q = torch.empty((1, 64, 4, hd), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="hd 64 or hd 128"):
+        flash_attention(q, q, q)
+    for ok in (64, 128):
+        q = torch.empty((1, 64, 4, ok), dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            flash_attention(q, q, q)
+    q = torch.empty((1, 64, 4, 64), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q, q, q)

@@ -10,13 +10,14 @@ Each kernel is held bit for bit against its plain PyTorch version (which
 and the tiny workloads on the card against the same port on the CPU.
 """
 
+import dataclasses
 from statistics import NormalDist
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import workloads
+from repro_torch import configs, workloads
 from repro_torch.core import bitplanes, packing
 from repro_torch.workloads import preprocess
 from repro_torch.kernels import bitplane_pack as k4
@@ -27,7 +28,7 @@ from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import fused_conv_bn_binarize as k2
 from repro_torch.kernels import mxu_pm1_matmul as k6
 from repro_torch.kernels import xnor_popcount_matmul as k1
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.runtime import (GraphExecutor, assign_layouts,
                                  default_pipeline, lower_trained, regions)
 from repro_torch.runtime.executor import WARMUP_CALLS, CapturedExecutor
@@ -630,6 +631,12 @@ K7_TOL = 1e-2
     (1, 192, 4, 2, 128, True),
     (1, 129, 4, 2, 128, True),      # one full 128-row tile and one row
     (1, 256, 4, 4, 128, True),      # G = 1, two full tiles
+    (2, 512, 16, 2, 128, True),     # G = 8 (qwen3, command-r)
+    (1, 100, 16, 2, 128, True),     # G = 8, ragged last tile
+    (1, 256, 16, 2, 64, True),      # hd 64, G = 8
+    (2, 512, 6, 2, 64, True),       # head width 64 (granite), G = 3
+    (1, 100, 4, 1, 64, True),       # hd 64, ragged last tile
+    (1, 129, 4, 4, 64, False),      # hd 64, G = 1, non-causal
 ])
 def test_flash_attention_on_card(cuda, b, s, h, kvh, hd, causal):
     q, k, v = (torch.from_numpy(RNG.standard_normal(shape)
@@ -663,7 +670,7 @@ def test_flash_attention_on_card_sq_ne_skv(cuda, sq, skv):
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
     q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="hd 128"):
+    with pytest.raises(ValueError, match="hd 64 or hd 128"):
         k7.flash_attention(q, q, q)
     q = torch.zeros((1, 64, 2, 128), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
@@ -706,6 +713,41 @@ def test_lm_prefill_on_card_matches_cpu(cuda, lm_params):
         ref = want_cache[name].float()
         err = (cache[name].cpu().float() - ref).abs().max()
         assert err <= 2e-2 * ref.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "granite-moe-3b-a800m"])
+def test_moe_decode_on_card(cuda, arch):
+    """An MoE arch's SMOKE at the published capacity factor (1.25, so
+    tokens drop): the captured decode step's logits equal the eager
+    step's bit for bit, and the MoE layer on the card equals the same
+    layer on the CPU within bf16 rounding."""
+    cfg = dataclasses.replace(configs.get(arch).smoke, capacity_factor=1.25)
+    params = transformer.init_params(cfg, torch.Generator(device=cuda)
+                                     .manual_seed(0), cuda)
+    logits = {}
+    for capture in (True, False):
+        server = LMServer(cfg, params, n_slots=4, max_seq=32,
+                          capture=capture)
+        run, seen = server._run_decode, []
+        server._run_decode = lambda pos: seen.append(run(pos).clone()) \
+            or seen[-1]
+        server.generate([1, 2, 3], max_new=5)
+        logits[capture] = torch.stack(seen)
+    assert torch.equal(logits[True], logits[False])
+    # the MoE layer on the card against the same layer on the CPU: the
+    # same routing, drops and (within bf16 rounding) outputs
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((64, cfg.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+    lay = {n: t[0] for n, t in params["layers"].items()}
+    experts = [lay[n] for n in ("router", "we_gate", "we_up", "we_down")]
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=1.25, act=cfg.mlp_act)
+    got, _ = moe.moe_apply(x.to(cuda), *experts, **kw)
+    want, _ = moe.moe_apply(x, *(t.cpu() for t in experts), **kw)
+    scale = want.float().abs().max()
+    assert (got.cpu().float() - want.float()).abs().max() <= 2e-2 * scale
 
 
 def test_lm_server_on_card(cuda, lm_params):

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as j_configs
 from repro.configs import minitron_8b as j_minitron
 from repro.distributed.sharding import rules_for_mesh
 from repro.launch.mesh import make_host_mesh
@@ -417,19 +418,32 @@ def test_lm_server_fault_frees_slots(smoke):
 # --------------------------------------------------------------------------
 
 def test_configs_as_reference():
+    """The four LM archs' FULL and SMOKE equal the reference's field by
+    field, with the same parameter counts (total, padded for 16-way
+    expert parallelism, active); the reference's other archs are not
+    ported."""
     rec = t_configs.get("minitron-8b")
     assert rec.full is t_minitron.FULL and rec.family == "lm"
-    for port, ref in ((t_minitron.FULL, j_minitron.FULL),
-                      (t_minitron.SMOKE, j_minitron.SMOKE)):
-        assert vars(port) == vars(ref)
-        assert port.param_count() == ref.param_count()
+    assert t_configs.ARCH_IDS == tuple(
+        a for a in j_configs.ARCH_IDS if j_configs.get(a).family == "lm")
+    for arch in t_configs.ARCH_IDS:
+        port, ref = t_configs.get(arch), j_configs.get(arch)
+        assert port.family == ref.family == "lm"
+        for p, r in ((port.full, ref.full), (port.smoke, ref.smoke)):
+            assert vars(p) == vars(r)
+            assert p.param_count() == r.param_count()
+            assert p.param_count(ep=16) == r.param_count(ep=16)
+            assert p.active_param_count() == r.active_param_count()
+            assert p.padded_experts(16) == r.padded_experts(16)
     assert t_minitron.FULL.param_count() == 7_734_562_816
+    full = {a: t_configs.get(a).full for a in t_configs.ARCH_IDS}
+    assert full["granite-moe-3b-a800m"].padded_experts(16) == 48
+    assert round(full["qwen3-moe-30b-a3b"].param_count() / 1e9, 2) == 30.53
+    assert round(full["qwen3-moe-30b-a3b"].active_param_count() / 1e9,
+                 2) == 3.35
+    assert round(full["command-r-35b"].param_count() / 1e9, 2) == 30.28
     with pytest.raises(KeyError, match="not ported"):
-        t_configs.get("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        t_tf.LMConfig(name="moe", n_layers=1, d_model=8, n_heads=1,
-                      n_kv_heads=1, d_head=8, d_ff=8, vocab=8, n_experts=4,
-                      top_k=1, d_ff_expert=8)
+        t_configs.get("vit-l16")
     assert t_tf.padded_vocab(49155, 16) == j_tf.padded_vocab(49155, 16)
 
 

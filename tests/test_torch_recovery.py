@@ -455,6 +455,62 @@ def test_restart_drops_the_cut(smoke):
     assert s.checkpointer.set.pos <= 5
 
 
+# Fault C's probe: minitron SMOKE drawn by the port from seed 0, one
+# request of prompt [1, 2, 3] and 6 new tokens through 2 slots.
+READBACK_PROMPT, READBACK_MAX_NEW = [1, 2, 3], 6
+READBACK_TOKENS = [238, 238, 219, 219, 167, 62]
+
+
+def _faulty_readback(server, fail_at: int) -> None:
+    """Make the ``fail_at``-th host readback of a tick's tokens raise once:
+    the fault comes after the step ran, where the ``lm.step`` site (which
+    fires before it) never reaches."""
+    real, seen = server._next_tokens, [0]
+
+    class Readback:
+        def __init__(self, t):
+            self.t = t
+
+        def __getitem__(self, i):
+            return self.t[i]
+
+        def cpu(self):
+            seen[0] += 1
+            if seen[0] == fail_at:
+                raise RuntimeError("injected readback fault")
+            return self.t.cpu()
+
+    server._next_tokens = lambda logits: Readback(real(logits))
+
+
+@pytest.mark.parametrize("every", [None, 4])
+def test_a_readback_fault_repeats_the_tick(every):
+    """Fault C: the third tick's readback raises once.  The retried tick
+    repeats from the same position and tokens, so the request gets the
+    unfaulted tokens; with ``checkpoint_every=4`` three later step faults
+    then restore the admission cut bit for bit (the position still counts
+    exactly the tokens past the cut)."""
+    params = t_tf.init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    base = LMServer(CFG, params, n_slots=2, max_seq=32, device="cpu")
+    want, = _served(base, [(READBACK_PROMPT, READBACK_MAX_NEW)])
+    assert want.result == READBACK_TOKENS
+    s = LMServer(CFG, params, n_slots=2, max_seq=32, device="cpu",
+                 checkpoint_every=every)
+    _faulty_readback(s, 3)
+    plan = None if every is None else FaultPlan(
+        [FaultSpec("lm.step", "device_fault", times=3, after=4)])
+    r, = _served(s, [(READBACK_PROMPT, READBACK_MAX_NEW)], plan)
+    assert r.outcome == "served" and r.result == READBACK_TOKENS
+    assert s.pos == base.pos == len(READBACK_PROMPT) + READBACK_MAX_NEW - 1
+    if every is None:
+        assert s.metrics()["retries"] == 1 and s.restores == 0
+    else:
+        assert s.restores == 1 and s.metrics()["retries"] == 3
+        restored, = [f for f in s.flight.dump()
+                     if f.get("outcome") == "restored"]
+        assert restored["replayed"] == 3
+
+
 def _evacuate_to(target):
     def hook(items):
         for r, seq in items:

@@ -6,10 +6,11 @@ under ``--src``: one AlexNet forward and head at batch 8 on each image
 serving path, as that tree serves it (its ``compile(8)``: eager, or one
 CUDA-graph replay where the tree captures its buckets), through the
 script's ``profile_forward`` (host wall, device time a forward by kernel,
-busy share, peak memory), then its timing phase (each kernel at AlexNet's batch-8 shapes and
-K7 at minitron's prefill layer: the single-call CUDA-event median and the
-device time a call from torch.profiler, beside the plain version and the
-bound).  Two trees (a parent and a change) are so timed by one method, in
+busy share, peak memory), then its timing phase (each kernel at
+AlexNet's batch-8 shapes and K7 at minitron's prefill layer, and at
+granite's where the tree takes head width 64: the single-call CUDA-event
+median and the device time a call from torch.profiler, beside the plain
+version and the bound).  Two trees (a parent and a change) are so timed by one method, in
 one process each.  Needs one CUDA card; builds that tree's kernels into
 its own ``build/``.
 
@@ -98,6 +99,12 @@ def main() -> int:
                            f"not {src}")
     sys.path.insert(0, str(ROOT))
     import chip_smoke                       # reuses the package above
+    from repro_torch.kernels import flash_attention as k7
+    # A tree from before K7's head width 64 has no KERNEL_HEAD_DIMS and
+    # takes hd 128 alone.
+    widths = getattr(k7, "KERNEL_HEAD_DIMS", (128,))
+    chip_smoke.FLASH_TIMED = tuple(c for c in chip_smoke.FLASH_TIMED
+                                   if c[6] in widths)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
