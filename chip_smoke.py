@@ -103,6 +103,35 @@ Phases, each fatal on failure:
               its bit-plane variant, K2).  Every other phase's servers
               report no retry, no demotion and every bucket at its base
               mode;
+   placement — multi-device serving on one card's terms (every device
+              list names cuda:0): paper AlexNet behind
+              ``InferenceServer(placement=Pipelined((cuda:0, cuda:0)))``
+              under ``cuda_direct_pool``, ``cuda_chain`` and ``cuda_pm1``,
+              each bucket captured as one graph a stage: the stage report
+              (nodes, costs, boundary) printed, launches over the boot =
+              the captured forwards x ``WANT_LAUNCHES`` summed over the
+              stages, the traffic's traced replays = its groups x
+              ``WANT_LAUNCHES``, rows == the single-device
+              ``cross_check``, the staged graphs' output == the
+              single-device graph's bit for bit, ``build_count`` and
+              ``capture_count`` flat; YOLOv2-Tiny (416², 3 stages, bucket
+              2) and VGG16 (224², 4 stages, bucket 1) under
+              ``cuda_direct_pool`` likewise, their launches a forward
+              summed over the stages == the single-device forward's;
+              ``ReplicaGroup(engine, [cuda:0] * 2)`` of AlexNet serving
+              64 mixed requests (rows == ``cross_check``, counts flat,
+              packed tensors shared, output buffers apart), then a plan
+              matching ``{"tenant": "r1"}`` at ``server.device`` demotes
+              r1's bucket 8 alone and unpinned traffic routes to r0; the
+              group's served/s over 2,048 unpinned requests; served/s at
+              bucket 8 over 4,096 requests a run, async dispatch against
+              the blocking baseline (printed, not asserted); (in the lm phase, before
+              minitron is freed) ``LMReplicaGroup`` of minitron-8b FULL,
+              2 lanes x 4 slots over one params dict, serving the 8
+              requests, then lm1's decode faults outlast its restore: its
+              sequences migrate to lm0 by replay prefill (its time
+              printed) with their emitted prefixes kept verbatim, every
+              request served, no K7 launch;
 5. trained  — paper AlexNet built from seeded float params
               (``bnn_model.to_graph``): the unfused graph (``assign_layouts``)
               on the card, K4 1, K1's bit-plane variant 1 and K1 6, against
@@ -1411,6 +1440,436 @@ def phase_multiplex(rng: np.random.Generator) -> dict:
                          for t, tm in m["tenants"].items()})
 
 
+# The [placement] phase: paper AlexNet pipelined over two stages of the
+# one card on these paths; YOLOv2-Tiny (416²) and VGG16 (224²) pipelined
+# under cuda_direct_pool as (name, stages, bucket); the replica group's
+# traffic in groups (64 requests); the distinct images of the timed
+# windows, cycled to RATE_REQUESTS a run (a window of seconds, not of a
+# few batches) for the sync/async comparison and half that for the
+# replica group.
+PLACEMENT_PATHS = ("cuda_direct_pool", "cuda_chain", "cuda_pm1")
+PLACEMENT_NETS = (("yolov2_tiny_voc", 3, 2), ("vgg16_imagenet", 4, 1))
+REPLICA_GROUPS = (1, 2, 3, 5, 7, 8, 6, 4, 8, 8, 5, 7)
+RATE_FRAMES = 64
+RATE_REQUESTS = 4096
+# The kernels of the pipelined paths (K1 through its bit-plane variant).
+PLACEMENT_KERNELS = sorted({k for m in PLACEMENT_PATHS
+                            for k, n in WANT_LAUNCHES[m].items() if n})
+
+
+def padded_rows(wl, payloads: list, bucket: int) -> torch.Tensor:
+    """A served batch as the server staged it: each payload through the
+    preprocess hook, zero images (``_zero_like`` of the last) up to the
+    bucket."""
+    padded = payloads + [np.zeros_like(payloads[-1])] * (bucket
+                                                         - len(payloads))
+    return torch.stack([wl.preprocess_hook(p) for p in padded])
+
+
+def check_rows(tag: str, wl, batches) -> None:
+    """Each (requests, payloads, bucket) batch: every served row equals
+    ``cross_check`` on the same padded batch (the single-device captured
+    graph's raw output == the flat oracle)."""
+    for reqs, payloads, bucket in batches:
+        x = padded_rows(wl, payloads, bucket)
+        ref = wl.engine.cross_check(x).cpu().numpy()
+        for r, want in zip(reqs, ref):
+            if r.outcome != "served" or not np.array_equal(r.result, want):
+                raise AssertionError(f"[placement] {tag}: served row != "
+                                     f"the single-device cross_check")
+
+
+def check_staged_raw(tag: str, wl, x: torch.Tensor, stages) -> list[dict]:
+    """The pipelined bucket's raw output and rows on ``x`` equal the
+    single-device captured bucket's bit for bit; returns its stage
+    report."""
+    staged = wl.engine.compile(x.shape[0], pipeline=stages)
+    single = wl.engine.compile(x.shape[0])
+    got, want = staged.run(x), single.run(x)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"[placement] {tag} bucket {x.shape[0]}: the "
+                             f"staged graphs' output != the single-device "
+                             f"graph's")
+    return staged.executor.stage_report()
+
+
+def log_stages(tag: str, report: list[dict]) -> None:
+    log(f"[placement] {tag} stages: " + "; ".join(
+        f"{r['stage']}: nodes {r['nodes'][0]}-{r['nodes'][-1]} cost "
+        f"{r['cost']:.4g} (share {r['share']}) boundary {r['boundary']}"
+        for r in report))
+
+
+def pipelined_alexnet(rng, device, mode: str) -> tuple[dict, dict]:
+    """Paper AlexNet behind ``InferenceServer(placement=Pipelined((cuda:0,
+    cuda:0)))`` under ``mode``: the executors (single and staged) are built
+    first; then the counted run — the boot, which captures each bucket as
+    one graph a stage, and mixed traffic; the wrappers count the boot's
+    forwards times ``WANT_LAUNCHES`` summed over the stages, the traffic
+    none, and the traffic's traced replays launch its groups times
+    ``WANT_LAUNCHES``.  Rows equal the single-device ``cross_check``; the
+    staged graphs' output equals the single-device graph's."""
+    from repro_torch.distributed import Pipelined
+
+    stages = (device, device)
+    wl = workloads.get("alexnet_imagenet", seed=0, matmul_mode=mode)
+    for b in BUCKETS:
+        wl.engine.engine.compile(b, capture=False)
+        wl.engine.engine.compile(b, pipeline=stages, capture=False)
+    sizes = [(240, 320), (300, 300), (227, 227), (480, 360), (256, 341)]
+    groups = [1, 2, 3, 5, 7]
+    imgs = [rng.integers(0, 256, (*sizes[i % len(sizes)], 3), dtype=np.uint8)
+            for i in range(sum(groups))]
+    torch.cuda.synchronize()
+    reset_launches()
+    server = wl.server(max_batch=8, buckets=BUCKETS,
+                       placement=Pipelined(stages))
+    timings = server.compile_buckets()
+    booted = read_launches()
+    builds, captures = wl.engine.build_count, wl.engine.capture_count
+    batches = []
+
+    def traffic():
+        served = 0
+        for g in groups:
+            batch = imgs[served:served + g]
+            reqs = [server.submit(im) for im in batch]
+            server.drain()
+            served += g
+            batches.append((reqs, batch, server.scheduler.bucket_for(g)))
+
+    def rehearse():
+        for g in groups:
+            wl.engine.compile(server.scheduler.bucket_for(g),
+                              pipeline=stages).replay()
+
+    t0 = time.perf_counter()
+    replayed = device_launches(profiled(traffic, first=rehearse))
+    torch.cuda.synchronize()
+    counted = read_launches()
+    wall_s = time.perf_counter() - t0
+    m = server.metrics()
+    calls = capture_calls() * len(BUCKETS)
+    want = WANT_LAUNCHES[mode]
+    staged = wl.engine.compile(8, pipeline=stages)
+    n_stages, graphs = staged.executor.plan.n_stages, staged.n_graphs
+    if booted != scaled(want, calls) or counted != booted:
+        raise AssertionError(f"[placement] {mode}: wrapper launches over "
+                             f"the boot {booted}, after the traffic "
+                             f"{counted}; want {calls} x {want} (summed "
+                             f"over the stages) for both")
+    if replayed != scaled(want, len(groups)):
+        raise AssertionError(f"[placement] {mode}: the traffic's "
+                             f"{len(groups)} staged replays launched "
+                             f"{replayed}, want {len(groups)} x {want}")
+    if n_stages != 2 or captures != graphs * len(BUCKETS) \
+            or (wl.engine.build_count, wl.engine.capture_count) \
+            != (builds, captures):
+        raise AssertionError(f"[placement] {mode}: {n_stages} stages, "
+                             f"{captures} captures; or a build while "
+                             f"serving")
+    if m["served"] != len(imgs) or m["placement"]["kind"] != "pipeline":
+        raise AssertionError(f"[placement] {mode}: {m}")
+    check_healthy("placement", m, mode)
+    check_rows(f"alexnet {mode}", wl, batches)
+    x = padded_rows(wl, imgs[:8], 8)
+    report = check_staged_raw(f"alexnet {mode}", wl, x, stages)
+    log_stages(f"alexnet 227² {mode}", report)
+    log(f"[placement] alexnet {mode}, Pipelined((cuda:0, cuda:0)): "
+        f"{len(imgs)} requests in groups {groups}, every row == the "
+        f"single-device cross_check and the staged graphs' output == the "
+        f"single-device graph's bit for bit; {captures} graphs ({graphs} a "
+        f"bucket, {len(BUCKETS)} buckets), build_count flat at {builds}; "
+        f"wrapper "
+        f"launches over the boot {booted} = {calls} forwards x "
+        f"WANT_LAUNCHES summed over the stages, the traffic's traced "
+        f"replays {replayed} = {len(groups)} x WANT_LAUNCHES; boot a bucket "
+        + ", ".join(f"{b}: {s * 1e3:.1f} ms" for b, s in timings.items())
+        + f"; traffic (profiled) {wall_s:.3f} s, served/s "
+        f"{m['throughput']:.3f}")
+    launches = {k: booted[k] + replayed[k] for k in booted}
+    return launches, dict(stages=report, served_per_s=m["throughput"],
+                          p50_ms=m["p50_ms"], p95_ms=m["p95_ms"])
+
+
+def pipelined_net(rng, device, name: str, n_stages: int,
+                  bucket: int) -> tuple[dict, dict, dict]:
+    """``name`` at its paper size under cuda_direct_pool, pipelined over
+    ``n_stages`` stages of the card, serving one bucket of images: the
+    launches over the boot summed over the stages equal the single-device
+    bucket's capture's, the rows equal the single-device cross_check and
+    the staged output the single-device graph's.  Returns (launches,
+    launches a forward, numbers)."""
+    from repro_torch.distributed import Pipelined
+
+    stages = (device,) * n_stages
+    wl = workloads.get(name, seed=0)
+    wl.engine.engine.compile(bucket, pipeline=stages, capture=False)
+    wl.engine.engine.compile(bucket, capture=False)
+    h, w = wl.input_hw
+    imgs = [rng.integers(0, 256, (h + 31 * i, w - 17 * i, 3),
+                         dtype=np.uint8) for i in range(bucket)]
+    torch.cuda.synchronize()
+    reset_launches()
+    server = wl.server(max_batch=bucket, buckets=(bucket,),
+                       placement=Pipelined(stages))
+    server.compile_buckets()
+    booted = read_launches()
+    builds = wl.engine.build_count
+    reqs = [server.submit(im) for im in imgs]
+    server.drain()
+    torch.cuda.synchronize()
+    counted = read_launches()
+    m = server.metrics()
+    reset_launches()
+    wl.engine.compile(bucket)               # the single-device capture
+    single = read_launches()
+    exe = wl.engine.compile(bucket, pipeline=stages)
+    if booted != single or counted != booted or not any(booted.values()):
+        raise AssertionError(f"[placement] {name}: launches over the "
+                             f"staged boot {booted} (after the traffic "
+                             f"{counted}) != the single-device capture's "
+                             f"{single}")
+    if exe.executor.plan.n_stages != n_stages \
+            or wl.engine.build_count != builds + 1 or m["served"] != bucket:
+        raise AssertionError(f"[placement] {name}: "
+                             f"{exe.executor.plan.n_stages} stages, "
+                             f"build_count {wl.engine.build_count} after "
+                             f"{builds} (+1: the single-device capture), "
+                             f"{m}")
+    check_healthy("placement", m, wl.matmul_mode)
+    check_rows(name, wl, [(reqs, imgs, bucket)])
+    report = check_staged_raw(name, wl, padded_rows(wl, imgs, bucket),
+                              stages)
+    log_stages(f"{name} {h}x{w}", report)
+    calls = capture_calls()
+    per_forward = {k: v // calls for k, v in booted.items()}
+    log(f"[placement] {name} {h}x{w}, {n_stages} stages of cuda:0, bucket "
+        f"{bucket}: rows == the single-device cross_check, staged output "
+        f"== the single-device graph's bit for bit; launches a forward "
+        f"summed over the stages {per_forward} == the single-device "
+        f"forward's")
+    return booted, per_forward, dict(stages=report)
+
+
+def served_batches(grp, wl, reqs: dict) -> list:
+    """The batches each replica served, from its flight recorder: the
+    requests a dispatch carried share its ``dispatched_s``; returns
+    (requests, payloads, bucket) in dispatch order."""
+    out = []
+    for rep in grp.replicas.values():
+        by_dispatch = collections.defaultdict(list)
+        for f in rep.server.flight.dump():
+            if f.get("outcome") == "served" and f.get("id") in reqs:
+                by_dispatch[(f["dispatched_s"], f["bucket"])].append(
+                    reqs[f["id"]])
+        for (_, bucket), rs in by_dispatch.items():
+            rs.sort(key=lambda r: r.id)
+            out.append((rs, [r.payload for r in rs], bucket))
+    return out
+
+
+def replica_group(rng, device) -> tuple[dict, dict]:
+    """``ReplicaGroup(engine, [cuda:0] * 2)`` of paper AlexNet
+    (cuda_direct_pool), buckets 1-8: 64 mixed requests routed in groups;
+    rows equal the single-device cross_check, build and capture counts
+    flat after ``compile_buckets``, the two replicas share the packed
+    tensors and not an output buffer.  Then a plan at ``server.device``
+    matching ``{"tenant": "r1"}`` demotes r1's bucket 8 alone; unpinned
+    traffic routes to r0."""
+    from repro_torch.distributed import ReplicaGroup
+
+    wl = workloads.get("alexnet_imagenet", seed=0)
+    # No jitter: a failed batch's requests come back together, so r1's
+    # second fault hits the same bucket and demotes it.
+    grp = ReplicaGroup(wl.engine, [device] * 2, buckets=BUCKETS,
+                       max_batch=BATCH, preprocess=wl.preprocess_hook,
+                       retry=RetryPolicy(jitter=0.0))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    grp.compile_buckets()
+    boot_s = time.perf_counter() - t0
+    booted = read_launches()
+    builds, captures = grp.build_count, grp.capture_count
+    r0, r1 = grp.replicas["r0"], grp.replicas["r1"]
+    e0, e1 = r0.server.engine.engine, r1.server.engine.engine
+    out0 = e0._captured[next(k for k in e0._captured if k[0] == 8)]
+    out1 = e1._captured[next(k for k in e1._captured if k[0] == 8)]
+    if e0.packed[0]["w_packed"] is not e1.packed[0]["w_packed"] \
+            or e0.packed[0]["w_packed"] is not \
+            wl.engine.engine.packed[0]["w_packed"] \
+            or out0.static_output.data_ptr() \
+            == out1.static_output.data_ptr():
+        raise AssertionError("[placement] replicas copy the packed tensors "
+                             "or share an output buffer")
+    sizes = [(240, 320), (300, 300), (227, 227), (480, 360), (256, 341)]
+    reqs = {}
+    t0 = time.perf_counter()
+    for i, g in enumerate(REPLICA_GROUPS):
+        for j in range(g):
+            im = rng.integers(0, 256, (*sizes[(i + j) % len(sizes)], 3),
+                              dtype=np.uint8)
+            r = grp.submit(im)
+            reqs[r.id] = r
+        grp.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counted = read_launches()
+    m = grp.metrics()
+    calls = capture_calls() * len(BUCKETS) * 2
+    want = WANT_LAUNCHES["cuda_direct_pool"]
+    if (grp.build_count, grp.capture_count) != (builds, captures) \
+            or captures != 2 * len(BUCKETS) \
+            or booted != scaled(want, calls) or counted != booted:
+        raise AssertionError(f"[placement] replicas: build/capture counts "
+                             f"{(grp.build_count, grp.capture_count)} after "
+                             f"{(builds, captures)}; launches over the boot "
+                             f"{booted}, after the traffic {counted}, want "
+                             f"{calls} x {want}")
+    served = {n: v["served"] for n, v in m["replicas"].items()}
+    if sum(served.values()) != len(reqs) or min(served.values()) == 0:
+        raise AssertionError(f"[placement] replicas served {served}")
+    for n, v in m["replicas"].items():
+        check_healthy(f"placement {n}", v, "cuda_direct_pool")
+    check_rows("replicas", wl, served_batches(grp, wl, reqs))
+    log(f"[placement] ReplicaGroup of alexnet, 2 replicas on cuda:0: "
+        f"{len(reqs)} requests in groups {list(REPLICA_GROUPS)} served "
+        f"{served}, every row == the single-device cross_check; "
+        f"build_count {builds} and capture_count {captures} flat; packed "
+        f"tensors shared, output buffers apart; boot {boot_s:.3f} s, "
+        f"traffic {serve_s:.3f} s (drained group by group: not a rate)")
+
+    # The group's rate over a window of seconds: RATE_REQUESTS // 2
+    # unpinned 227² requests submitted at once, then drained; replays
+    # launch no wrapper.
+    frames = [rng.integers(0, 256, (227, 227, 3), dtype=np.uint8)
+              for _ in range(RATE_FRAMES)]
+    before = {n: v["served"] for n, v in m["replicas"].items()}
+    reset_launches()
+    t0 = time.perf_counter()
+    steady = [grp.submit(frames[i % RATE_FRAMES])
+              for i in range(RATE_REQUESTS // 2)]
+    grp.drain()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    m = grp.metrics()
+    split = {n: v["served"] - before[n] for n, v in m["replicas"].items()}
+    if not all(r.outcome == "served" for r in steady) \
+            or (grp.build_count, grp.capture_count) != (builds, captures) \
+            or any(read_launches().values()):
+        raise AssertionError(f"[placement] replicas' timed window: "
+                             f"launches {read_launches()}, build/capture "
+                             f"counts {(grp.build_count, grp.capture_count)}"
+                             f", {m}")
+    log(f"[placement] ReplicaGroup timed window: {len(steady)} requests "
+        f"of 227x227 submitted at once, split {split}, in "
+        f"{steady_s:.3f} s ({len(steady) / steady_s:.3f} served/s)")
+
+    # r1's readbacks fault twice: its bucket 8 demotes (the rung captured
+    # at its next dispatch), r0 is untouched, and routing avoids r1.
+    plan = FaultPlan([FaultSpec("server.device", "device_fault", times=2,
+                                match={"tenant": "r1"})])
+    pinned = [rng.integers(0, 256, (256, 341, 3), dtype=np.uint8)
+              for _ in range(BATCH)]
+    r1_served = r1.server.metrics()["served"]
+    with faults.inject(plan):
+        faulted = [grp.submit(im, replica="r1") for im in pinned]
+        grp.drain()
+        demoted = r1.server.health.ladder(BATCH).mode
+        routed = [grp.submit(im) for im in pinned * 2]
+        r1_depth = r1.server.queue_depth
+        grp.drain()
+    m = grp.metrics()
+    if not all(r.outcome == "served" for r in faulted + routed) \
+            or demoted == "cuda_direct_pool" or r1.healthy \
+            or not r0.healthy or r1_depth \
+            or r1.server.metrics()["served"] != r1_served + BATCH \
+            or len(plan.log) != 2:
+        raise AssertionError(f"[placement] r1's fault plan: r1 at "
+                             f"{demoted}, healthy {r1.healthy}, r0 healthy "
+                             f"{r0.healthy}, r1 queue {r1_depth}, fired "
+                             f"{len(plan.log)}, {m['routing']}")
+    check_healthy("placement r0", m["replicas"]["r0"], "cuda_direct_pool")
+    check_rows("replicas, r1 demoted", wl,
+               [(faulted, pinned, BATCH), (routed[:BATCH], pinned, BATCH),
+                (routed[BATCH:], pinned, BATCH)])
+    log(f"[placement] fault plan {{'tenant': 'r1'}} at server.device, 2 "
+        f"faults: r1's bucket {BATCH} demoted to {demoted} (captured at "
+        f"its next dispatch), its {BATCH} requests served (retries "
+        f"{m['replicas']['r1']['retries']}); r0 untouched; "
+        f"{len(routed)} unpinned requests all routed to r0; rows == "
+        f"cross_check")
+    return booted, dict(served=served, boot_s=boot_s, serve_s=serve_s,
+                        steady_split=split, steady_s=steady_s,
+                        served_per_s=len(steady) / steady_s,
+                        r1_demoted_to=demoted)
+
+
+def sync_against_async(rng) -> dict:
+    """Served/s of RATE_REQUESTS network-size images (RATE_FRAMES
+    distinct ones, cycled) at bucket 8 on cuda_direct_pool, each bucket
+    captured, async dispatch against the blocking baseline, twice in
+    alternation (printed, not asserted)."""
+    wl = workloads.get("alexnet_imagenet", seed=0)
+    frames = [rng.integers(0, 256, (227, 227, 3), dtype=np.uint8)
+              for _ in range(RATE_FRAMES)]
+    out = collections.defaultdict(list)
+    for async_dispatch in (True, False, False, True):
+        server = wl.server(max_batch=BATCH, buckets=(BATCH,),
+                           async_dispatch=async_dispatch)
+        server.compile_buckets()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [server.submit(frames[i % RATE_FRAMES])
+                for i in range(RATE_REQUESTS)]
+        server.drain()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        m = server.metrics()
+        if not all(r.outcome == "served" for r in reqs) \
+                or m["async_dispatch"] is not async_dispatch:
+            raise AssertionError(f"[placement] sync/async: {m}")
+        check_healthy("placement", m, wl.matmul_mode)
+        out["async" if async_dispatch else "sync"].append(
+            dict(served_per_s=m["throughput"], wall_s=wall_s))
+    log(f"[placement] alexnet bucket {BATCH}, {RATE_REQUESTS} requests of "
+        f"227x227 ({RATE_FRAMES} distinct) submitted at once, "
+        f"cuda_direct_pool captured: served/s async "
+        + ", ".join(f"{r['served_per_s']:.3f} over {r['wall_s']:.3f} s"
+                    for r in out["async"])
+        + "; sync (the blocking baseline) "
+        + ", ".join(f"{r['served_per_s']:.3f} over {r['wall_s']:.3f} s"
+                    for r in out["sync"])
+        + " (runs async, sync, sync, async)")
+    return dict(out)
+
+
+def phase_placement(rng, device) -> tuple[dict, dict, dict]:
+    """Multi-device serving on one card's terms (every device list names
+    cuda:0).  Returns (launches of each placed path, launches a forward,
+    numbers)."""
+    launches, per_forward, numbers = {}, {}, {}
+    for mode in PLACEMENT_PATHS:
+        key = f"placement_{mode}"
+        launches[key], numbers[key] = pipelined_alexnet(rng, device, mode)
+        per_forward[key] = WANT_LAUNCHES[mode]
+    for name, n_stages, bucket in PLACEMENT_NETS:
+        key = f"placement_{name}"
+        launches[key], per_forward[key], numbers[key] = pipelined_net(
+            rng, device, name, n_stages, bucket)
+    launches["placement_replicas"], numbers["replicas"] = \
+        replica_group(rng, device)
+    per_forward["placement_replicas"] = WANT_LAUNCHES["cuda_direct_pool"]
+    numbers["sync_async"] = sync_against_async(rng)
+    missing = [k for k in PLACEMENT_KERNELS
+               if not sum(v[k] for v in launches.values())]
+    if missing:
+        raise AssertionError(f"[placement] kernels never launched on the "
+                             f"placed paths: {missing}")
+    return launches, per_forward, numbers
+
+
 # The [faults] phase: the watchdog's bound and the latency spike that
 # outlives it, the re-probe interval of a demoted bucket (long enough that
 # the profiled demoted traffic cannot reach it; then the phase waits it
@@ -2272,6 +2731,127 @@ def lm_faults(server: LMServer, prompts, want_tokens, step_ms: float) -> dict:
     return out
 
 
+# The [placement] phase's LM lanes: LM_REQUESTS routed over 2 lanes of
+# LM_SERVER_SLOTS slots; then a faulted round: LANE_FAULT_REQUESTS pinned
+# (lane, prompt length, max_new), lm1's decode faulting from its
+# LANE_FAULT_AFTER-th tick on, past one restore.
+LANE_FAULT_REQUESTS = [("lm0", 16, 8), ("lm0", 16, 8), ("lm1", 16, 32),
+                       ("lm1", 16, 32)]
+LANE_FAULT_AFTER = 10
+
+
+def lm_lanes(cfg, params, device) -> tuple[dict, dict]:
+    """``LMReplicaGroup`` of ``cfg`` at full width and depth: 2 lanes over
+    the one params dict (no weight copied), each with its own cache and
+    captured decode step.  The 8 requests are routed over both lanes and
+    served; then lm1's decode faults outlast its restore budget
+    (``max_restore_attempts=1``), its flight migrates to lm0 by replay
+    prefill, every request is served, each migrated one keeps the tokens
+    it had emitted verbatim, lm1 is quarantined, and no K7 launches (the
+    lanes prefill through the decode step).  Returns (launches, numbers)."""
+    from repro_torch.distributed import LMReplicaGroup
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    grp = LMReplicaGroup(cfg, params, n_slots=LM_SERVER_SLOTS,
+                         max_seq=LM_SERVER_MAX_SEQ, device=device,
+                         checkpoint_every=4, max_restore_attempts=1)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    lanes = [ln.server for ln in grp.lanes.values()]
+    if any(s.params is not params for s in lanes) \
+            or lanes[0].cache["k"].data_ptr() == lanes[1].cache["k"].data_ptr() \
+            or any(s.capture_count != 1 for s in lanes):
+        raise AssertionError("[placement] LM lanes copy the weights, share a "
+                             "cache or lack a captured step")
+    lane_bytes = torch.cuda.memory_allocated() - base
+    rng = np.random.default_rng(5)
+    prompts = [([int(t) for t in rng.integers(0, cfg.vocab, n)], m)
+               for n, m in LM_REQUESTS]
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [grp.submit(p, max_new=m) for p, m in prompts]
+    grp.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    clean = read_launches()
+    m = grp.metrics()
+    per_lane = {n: v["served"] for n, v in m["lanes"].items()}
+    if not all(r.outcome == "served" and len(r.result) == mn
+               for r, (_, mn) in zip(reqs, LM_REQUESTS)) \
+            or min(per_lane.values()) == 0 or grp.migrations \
+            or clean != launch_counts():
+        raise AssertionError(f"[placement] LM lanes: "
+                             f"{[r.outcome for r in reqs]}, {per_lane}, "
+                             f"launches {clean}")
+    generated = sum(len(r.result) for r in reqs)
+    log(f"[placement] LMReplicaGroup of {cfg.name} (full width and depth), "
+        f"2 lanes x {LM_SERVER_SLOTS} slots, max_seq {LM_SERVER_MAX_SEQ}: "
+        f"boot {boot_s:.3f} s, {lane_bytes} B for both lanes' caches and "
+        f"graphs (the weights shared); {len(reqs)} requests routed "
+        f"{per_lane}, all served, {generated} tokens in {serve_s:.3f} s "
+        f"({generated / serve_s:.2f} generated tokens/s); K7 launches 0")
+
+    # The faulted round: lm1's decode faults from its
+    # LANE_FAULT_AFTER-th tick on; its flight migrates to lm0.
+    prefixes = {}
+    hook = grp.lanes["lm1"].server.evacuate
+
+    def spy(items):
+        prefixes.update({r.id: list(seq.tokens) for r, seq in items})
+        return hook(items)
+    grp.lanes["lm1"].server.evacuate = spy
+    fault_reqs = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with faults.inject([FaultSpec("lm.step", "device_fault",
+                                  after=LANE_FAULT_AFTER,
+                                  match={"tenant": "lm1"})]) as plan:
+        for lane, n, mn in LANE_FAULT_REQUESTS:
+            prompt = [int(t) for t in rng.integers(0, cfg.vocab, n)]
+            fault_reqs.append((grp.submit(prompt, max_new=mn, lane=lane),
+                               mn))
+        grp.drain()
+    torch.cuda.synchronize()
+    fault_s = time.perf_counter() - t0
+    faulted = read_launches()
+    m = grp.metrics()
+    adopted = [f for f in grp.lanes["lm0"].server.flight.dump()
+               if f.get("kind") == "migration"]
+    migrated = [r for r, _ in fault_reqs if r.id in prefixes]
+    if not all(r.outcome == "served" and len(r.result) == mn
+               for r, mn in fault_reqs) \
+            or grp.migrations < 1 or len(migrated) != grp.migrations \
+            or not all(prefixes[r.id] and r.result[:len(prefixes[r.id])]
+                       == prefixes[r.id] for r in migrated) \
+            or not m["routing"]["lm1"]["quarantined"] \
+            or m["routing"]["lm0"]["quarantined"] \
+            or len(adopted) != 1 or faulted != launch_counts():
+        raise AssertionError(f"[placement] LM migration: outcomes "
+                             f"{[r.outcome for r, _ in fault_reqs]}, "
+                             f"migrations {grp.migrations}, prefixes "
+                             f"{prefixes}, routing {m['routing']}, launches "
+                             f"{faulted}")
+    # Each adoption replays the prompt and all but the last emitted token.
+    replayed = sum(len(r.payload[0]) + len(prefixes[r.id]) - 1
+                   for r in migrated)
+    adopt_ms = adopted[0]["adopt_s"] * 1e3
+    log(f"[placement] lm1's decode faulted {len(plan.log)} times from its "
+        f"tick {LANE_FAULT_AFTER + 1} (restores {m['routing']['lm1']['restores']}"
+        f", then evacuation): {len(migrated)} sequences migrated to lm0 with "
+        f"their emitted prefixes ({[len(p) for p in prefixes.values()]} "
+        f"tokens) kept verbatim, every request served; the replay prefill "
+        f"of {replayed} tokens took {adopt_ms:.3f} ms on lm0; lm1 "
+        f"quarantined; the round took {fault_s:.3f} s; K7 launches 0")
+    numbers = dict(boot_s=boot_s, lane_bytes=lane_bytes,
+                   served=per_lane, generated_tokens_per_s=generated / serve_s,
+                   migrations=grp.migrations, replayed_tokens=replayed,
+                   adopt_ms=adopt_ms, fault_round_s=fault_s,
+                   restores=m["routing"]["lm1"]["restores"])
+    return {k: clean[k] + faulted[k] for k in clean}, numbers
+
+
 def decode_step_numbers(srv: LMServer, reps: int = 5) -> tuple[dict, list]:
     """Host wall a step of ``srv``'s decode step (no profiler) and its
     device time, busy share and device events under the profiler, over
@@ -2529,6 +3109,7 @@ def phase_lm(device) -> tuple[dict, dict]:
                          served["captured"]["tokens"],
                          steps["captured"]["wall_ms"])
     del servers, server
+    launches["placement_lm_lanes"], lanes = lm_lanes(cfg, params, device)
 
     # Captured logits against eager logits, bit for bit, at every position
     # of one generated sequence, on the first LM_CHECK_LAYERS layers.
@@ -2548,7 +3129,7 @@ def phase_lm(device) -> tuple[dict, dict]:
                 if k != "tokens"},
         server_eager={k: v for k, v in served["eager"].items()
                       if k != "tokens"},
-        recovery=recovery)
+        recovery=recovery, lanes=lanes)
     del params, check_params
     torch.cuda.empty_cache()
     return launches, numbers
@@ -3136,6 +3717,9 @@ def main() -> int:
     numbers["multiplex"] = phase_multiplex(rng)
     numbers["faults"] = phase_faults(chain_wl)
     del chain_wl
+    placed, placed_forward, numbers["placement"] = phase_placement(rng, device)
+    launches.update(placed)
+    per_forward.update(placed_forward)
     for name, counts in phase_trained(device).items():
         launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
     lm_launches, numbers["lm"] = phase_lm(device)

@@ -11,12 +11,15 @@ core       packing, bit-planes, BN folding, xor-popcount counts, packed
 configs    the LM configs the port runs (minitron-8b)
 models     the paper nets' specs (AlexNet, VGG16, YOLOv2-Tiny); the dense
            LM stack (layers, transformer)
-runtime    operator IR, the passes, the per-node executor, chain regions
-           and the autotuner (per-node backends and tiles)
+runtime    operator IR, the passes, the per-node executor, chain regions,
+           the autotuner (per-node backends and tiles) and the placement
+           pass (pipeline stages, data-parallel shards)
 kernels    hand-written CUDA kernels (``csrc/``) with their plain PyTorch
            versions, and the backend dispatch
 serving    PhoneBitEngine, the batch scheduler, InferenceServer; the KV
            cache manager and LMServer
 workloads  preprocess, postprocess heads, the workload registry
 obs        metrics registry, span tracing, flight recorder, provenance
+distributed  serving placements (Pipelined, DataParallel), replica groups
+           (ReplicaGroup, LMReplicaGroup) and the straggler monitor
 """

@@ -5,7 +5,10 @@ the servers' protocol (submit / poll / drain and ``metrics()``):
 
 * ``--mode bnn`` — a paper network (``--network``) behind an
   :class:`~repro_torch.serving.server.InferenceServer`, each bucket built
-  (and on the card captured) before traffic;
+  (and on the card captured) before traffic, with async double-buffered
+  dispatch (``--sync`` for the blocking baseline) and, with ``--shard``,
+  data-parallel row shards over the visible cards (only when there are
+  two or more; one card serves unsharded);
 * ``--workload`` — a registered workload (``repro_torch.workloads``):
   images of any size go through its preprocess hook and the server
   returns decoded predictions (top-k labels, NMS'd boxes);
@@ -37,6 +40,7 @@ the servers' protocol (submit / poll / drain and ``metrics()``):
     python -m repro_torch.launch.serve --workloads \\
         alexnet_imagenet:3,yolov2_tiny_voc --requests 8
     python -m repro_torch.launch.serve --mode lm --requests 4
+    python -m repro_torch.launch.serve --workload alexnet_imagenet --sync
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ import math
 
 import numpy as np
 
+from repro_torch.distributed.pipeline import visible_cards
+from repro_torch.distributed.sharding import DataParallel
 from repro_torch.models import paper_nets, transformer
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import InferenceServer, PhoneBitEngine, buckets_for
@@ -107,6 +113,18 @@ def serve_bnn(args) -> dict:
               f"{meta['mode']})")
         return meta
 
+    placement = None
+    if args.shard:
+        # The reference's guard: shard only over two or more devices.
+        cards = visible_cards() if engine.device.type == "cuda" else ()
+        if len(cards) > 1:
+            placement = DataParallel(cards)
+            print(f"[bnn] data-parallel over {len(cards)} cards")
+        else:
+            print(f"[bnn] --shard with {len(cards)} visible card(s): "
+                  f"serving unsharded")
+    if args.sync:
+        print("[bnn] sync dispatch (blocking baseline)")
     journal = None
     if args.journal:
         from repro_torch.serving.recovery import (RequestJournal,
@@ -116,7 +134,8 @@ def serve_bnn(args) -> dict:
         engine, max_batch=args.batch, max_wait_s=0.0, buckets=buckets,
         preprocess=workload.preprocess_hook if workload else None,
         max_queue=args.max_queue or None, watchdog_s=args.watchdog_s,
-        artifact=args.artifact, journal=journal)
+        artifact=args.artifact, journal=journal,
+        async_dispatch=not args.sync, placement=placement)
     if journal is not None:
         # Requests a previous process journaled but never resolved are
         # resubmitted first.
@@ -305,6 +324,12 @@ def main(argv=None):
     ap.add_argument("--input-hw", type=int, default=0,
                     help="override the input resolution (fully-conv nets; "
                          "0 = the paper's)")
+    ap.add_argument("--sync", action="store_true",
+                    help="synchronous dispatch (baseline; default is "
+                         "async double-buffered)")
+    ap.add_argument("--shard", action="store_true",
+                    help="data-parallel batch sharding over the visible "
+                         "cards (two or more)")
     ap.add_argument("--deadline-s", type=float, default=None)
     ap.add_argument("--max-queue", type=int, default=0,
                     help="bounded admission: submits beyond this queue "

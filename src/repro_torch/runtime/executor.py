@@ -60,6 +60,7 @@ walk: one span a node or region, each closed by a device synchronize.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Mapping, Sequence
 
@@ -415,6 +416,10 @@ def capture(fn: Callable, args: tuple, device: torch.device, *,
     demoted bucket's rung while an abandoned watchdog reader still waits
     on an earlier batch's event in another thread, and the default
     ``global`` mode would make that reader's CUDA call void the
+    capture.  The cyclic garbage collector waits until the capture ends:
+    a collection inside it could free an unreachable object that owns
+    another graph (a server or a replica group left in a reference
+    cycle), and destroying a graph while the stream captures voids the
     capture."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -423,16 +428,55 @@ def capture(fn: Callable, args: tuple, device: torch.device, *,
             fn(*args)
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool,
-                          capture_error_mode="thread_local"):
-        out = fn(*args)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            out = fn(*args)
+    finally:
+        if collecting:
+            gc.enable()
     return graph, out
 
 
-class CapturedExecutor:
+class Captured:
+    """What the server stages into and replays: a bucket captured as CUDA
+    graphs reading ``static_input`` and leaving ``static_outputs``, with
+    the frozen ``executor`` inside.  Subclasses define :meth:`replay`
+    (queued on the current stream; returns ``static_output``)."""
+
+    executor: GraphExecutor | None
+    static_input: torch.Tensor
+    static_outputs: tuple[torch.Tensor, ...]
+    static_output: torch.Tensor
+
+    def replay(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def run(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Copies of every output of one replay on ``x``."""
+        self.static_input.copy_(x)
+        self.replay()
+        return tuple(t.clone() for t in self.static_outputs)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.static_input.copy_(x)
+        return self.replay().clone()
+
+    @property
+    def n_graphs(self) -> int:
+        return 1
+
+    def backend_report(self) -> list[dict]:
+        return self.executor.backend_report()
+
+
+class CapturedExecutor(Captured):
     """A frozen executor captured at one input shape (DESIGN.md §12).
 
-    ``fn`` maps a uint8 batch of ``input_shape`` to a tensor, or to a tuple
+    ``fn`` maps a batch of ``input_shape`` (``input_dtype``: uint8 images,
+    or a pipeline stage's boundary words) to a tensor, or to a tuple
     whose first element is the output and whose others are kept for the
     caller to read (a workload bucket keeps the forward's raw output
     beside its decoded rows).  Construction warms ``fn`` up and captures
@@ -449,10 +493,11 @@ class CapturedExecutor:
     def __init__(self, fn: Callable, input_shape: Sequence[int],
                  device: torch.device, *, pool=None,
                  executor: GraphExecutor | None = None,
-                 warmup: int = WARMUP_CALLS):
+                 warmup: int = WARMUP_CALLS,
+                 input_dtype: torch.dtype = torch.uint8):
         self.executor = executor
         self.static_input = torch.zeros(tuple(input_shape),
-                                        dtype=torch.uint8, device=device)
+                                        dtype=input_dtype, device=device)
         t0 = time.perf_counter()
         with torch.no_grad():
             self.graph, out = capture(fn, (self.static_input,), device,
@@ -474,16 +519,3 @@ class CapturedExecutor:
                              bucket=self.static_input.shape[0]):
                 self.graph.replay()
         return self.static_output
-
-    def run(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """Copies of every output of one replay on ``x``."""
-        self.static_input.copy_(x)
-        self.replay()
-        return tuple(t.clone() for t in self.static_outputs)
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        self.static_input.copy_(x)
-        return self.replay().clone()
-
-    def backend_report(self) -> list[dict]:
-        return self.executor.backend_report()

@@ -191,7 +191,8 @@ def infer_types(graph: Graph,
         ins = [types[i] for i in node.inputs]
         a = node.attrs
         if node.op == "input":
-            t = TensorType(tuple(input_shape), torch.uint8)
+            # A pipeline stage's placeholder carries its boundary's dtype.
+            t = TensorType(tuple(input_shape), a.get("dtype", torch.uint8))
         elif node.op == "bitplane_expand":
             n, h, w, c = ins[0].shape
             t = TensorType(

@@ -37,6 +37,16 @@ loads — must stay flat while requests flow.
 artifact`) carry each bucket's frozen executor to a fresh process, which
 then captures without tuning, planning or building.
 
+Placement (DESIGN.md §13, :mod:`repro_torch.runtime.placement`):
+``compile(..., pipeline=devices)`` builds a bucket as a
+:class:`~repro_torch.runtime.placement.StagedExecutor` cut over
+``devices``, and ``compile(..., data_parallel=devices)`` as a
+:class:`~repro_torch.runtime.placement.ShardedExecutor` of one row shard a
+device (the reference's ``data_parallel`` is a shard count over a mesh;
+the port's names the shards' devices).  On the card each stage or shard
+is captured on its device into that device's graph pool.  The two are
+exclusive on one executor.  A device may be named more than once.
+
     engine = PhoneBitEngine.from_artifact("model.npz", spec, (227, 227))
     logits = engine(images_uint8)
 """
@@ -59,6 +69,7 @@ from repro_torch.obs import trace as _trace
 from repro_torch.runtime import autotune as _autotune
 from repro_torch.runtime import executor as _executor
 from repro_torch.runtime import memory as _memory
+from repro_torch.runtime import placement as _placement
 from repro_torch.runtime import regions as _regions
 from repro_torch.runtime.graph import lower_packed
 from repro_torch.runtime.passes import fuse_pool_epilogue
@@ -70,6 +81,13 @@ _PM1_MODES = ("cuda_pm1", "torch_pm1")
 # buckets.
 _AUTOTUNE_CACHE: dict = {}
 _AUTOTUNE_AGNOSTIC: dict = {}
+
+
+def _device_key(device: torch.device) -> torch.device:
+    """``cuda`` as the indexed device it means, so one card is one key."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _to_device(v, device: torch.device):
@@ -96,9 +114,21 @@ class PhoneBitEngine:
         self.device = resolve_device(self.device)
         self.packed = [{k: _to_device(v, self.device)
                         for k, v in layer.items()} for layer in self.packed]
-        self._compiled: dict[tuple[int, str], _executor.GraphExecutor] = {}
-        # Keyed (bucket, mode, head): a head is captured with its forward.
+        # Keyed (bucket, mode), extended by a placement's devices.
+        self._compiled: dict[tuple, _executor.GraphExecutor] = {}
+        # The executor's key and the head: a head is captured with its
+        # forward.
         self._captured: dict[tuple, _executor.CapturedExecutor] = {}
+        # Tuners and graph pools of placement devices other than the
+        # engine's own.
+        self._tuners: dict[torch.device, _autotune.Autotuner] = {}
+        self._pools: dict[torch.device, Any] = {}
+
+    def view(self) -> "PhoneBitEngine":
+        """An engine over the same packed tensors (on the device already,
+        so ``__post_init__`` keeps them, uncopied) with its own executor
+        and capture caches and its own graph pool: a replica's engine."""
+        return dataclasses.replace(self)
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -139,7 +169,8 @@ class PhoneBitEngine:
 
     def compile(self, batch_size: int | None = None, *,
                 mode: str | None = None, capture: bool | None = None,
-                head=None):
+                head=None, pipeline: Sequence[Any] | None = None,
+                data_parallel: Sequence[Any] | None = None):
         """The cached executor for one serving bucket, built (and under
         ``"auto"`` tuned) on first request.  ``mode`` overrides
         ``matmul_mode`` for this executor.  ``capture`` (default: on for a
@@ -156,13 +187,33 @@ class PhoneBitEngine:
         built and captured there, into the engine's one graph pool, and
         counted in ``build_count`` and ``capture_count``.  The
         ``engine.compile`` fault site fires before a new ``(bucket,
-        mode)`` executor is built."""
+        mode)`` executor is built.
+
+        ``pipeline`` (devices) builds the bucket as a staged executor,
+        ``data_parallel`` (devices, one a shard; the bucket must split
+        evenly) as a sharded one; their devices extend the cache key, so
+        the key shapes never collide."""
         mode = mode or self.matmul_mode
         bs = batch_size if batch_size is not None else 1
         if bs < 1:
             raise ValueError(f"batch_size must be >= 1, got {bs}")
+        if pipeline is not None and data_parallel is not None:
+            raise ValueError("pipeline placement and data_parallel are "
+                             "mutually exclusive on one executor; compose "
+                             "replicas of pipelines instead")
         capture = self.resolve_capture(capture)
-        key = (bs, mode)
+        key: tuple = (bs, mode)
+        placed = pipeline if pipeline is not None else data_parallel
+        if placed is not None:
+            placed = tuple(_device_key(resolve_device(d)) for d in placed)
+            if not placed:
+                raise ValueError("a placement needs >= 1 device")
+            if data_parallel is not None and bs % len(placed):
+                raise ValueError(f"bucket {bs} not divisible by "
+                                 f"data_parallel={len(placed)}")
+            names = tuple(str(d) for d in placed)
+            key = key + ((names,) if pipeline is not None
+                         else ("data", names))
         if key not in self._compiled:
             # Fault site: a build that fails (the resilience layer demotes
             # a bucket through it; nothing is cached).
@@ -170,7 +221,12 @@ class PhoneBitEngine:
                 _inject.maybe_fault("engine.compile", bucket=bs, mode=mode)
             with _trace.span("compile.executor", "compile", bucket=bs,
                              mode=mode):
-                if mode == "auto":
+                if placed is not None:
+                    cls = (_placement.StagedExecutor if pipeline is not None
+                           else _placement.ShardedExecutor)
+                    exe = cls(self._graph, self._plan_shape(bs), placed,
+                              mode=mode, tuner=self._placed_tuner(mode))
+                elif mode == "auto":
                     exe = self._tuner.tuned_executor(self._graph,
                                                      self._plan_shape(bs))
                 elif mode == _executor.CHAIN_BACKEND:
@@ -183,22 +239,58 @@ class PhoneBitEngine:
                                else None))
                 else:
                     exe = _executor.GraphExecutor(self._graph, mode)
-            self._record_compile_metrics(exe, bs)
+            self._record_compile_metrics(
+                exe, bs // len(placed) if data_parallel is not None else bs)
             self._compiled[key] = exe
         exe = self._compiled[key]
         if not capture:
             return exe if head is None else (lambda x: head(exe(x)))
-        ckey = (bs, mode, head)
+        ckey = key + (head,)
         if ckey not in self._captured:
-            def forward_and_head(x):
-                raw = exe(x)
-                return head(raw), raw
             with _trace.span("compile.capture", "compile", bucket=bs):
-                self._captured[ckey] = _executor.CapturedExecutor(
-                    exe if head is None else forward_and_head,
-                    self._plan_shape(bs), self.device,
-                    pool=self._graph_pool, executor=exe)
+                if pipeline is not None:
+                    cap = _placement.CapturedStages(exe, head,
+                                                    self._pool_for)
+                elif data_parallel is not None:
+                    cap = _placement.CapturedShards(exe, head,
+                                                    self._pool_for)
+                else:
+                    cap = _executor.CapturedExecutor(
+                        _placement._with_head(exe, head),
+                        self._plan_shape(bs), self.device,
+                        pool=self._graph_pool, executor=exe)
+                self._captured[ckey] = cap
         return self._captured[ckey]
+
+    def _tuner_for(self, device: torch.device) -> _autotune.Autotuner:
+        """The engine's tuner on its own device, else one a device over
+        the same process-wide caches."""
+        if device == _device_key(self.device):
+            return self._tuner
+        if device not in self._tuners:
+            self._tuners[device] = _autotune.Autotuner(
+                cache=_AUTOTUNE_CACHE, agnostic_cache=_AUTOTUNE_AGNOSTIC,
+                device=device)
+        return self._tuners[device]
+
+    def _placed_tuner(self, mode: str):
+        """A placed executor's tuner factory: every device under
+        ``"auto"``; under ``cuda_chain`` the card's only (region tiles
+        are tuned on the card, as in :meth:`compile`)."""
+        if mode == "auto":
+            return self._tuner_for
+        if mode == _executor.CHAIN_BACKEND:
+            return lambda d: self._tuner_for(d) if d.type == "cuda" else None
+        return None
+
+    def _pool_for(self, device: torch.device):
+        """The graph pool of ``device``: the engine's own on its device."""
+        if device == _device_key(self.device):
+            return self._graph_pool
+        if device not in self._pools:
+            with torch.cuda.device(device):
+                self._pools[device] = torch.cuda.graph_pool_handle()
+        return self._pools[device]
 
     def resolve_capture(self, capture: bool | None) -> bool:
         """``capture=None`` is on for a CUDA device and off for the CPU; a
@@ -229,8 +321,9 @@ class PhoneBitEngine:
 
     @property
     def capture_count(self) -> int:
-        """CUDA graphs captured (one a bucket, mode and head)."""
-        return len(self._captured)
+        """CUDA graphs captured: one a bucket, mode and head, and one a
+        stage or shard of a placed bucket."""
+        return sum(c.n_graphs for c in self._captured.values())
 
     @property
     def build_count(self) -> int:

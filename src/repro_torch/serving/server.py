@@ -18,7 +18,9 @@ Counterpart of ``repro.serving.server`` for the serving core:
   pinned host memory, then an event, all on one stream, so the copy is
   queued before the next replay can overwrite the graph's output;
   ``step()`` queues batch k+1 before it waits on batch k's event (the one
-  blocking point), so the device works on k+1 while the host scatters k;
+  blocking point), so the device works on k+1 while the host scatters k.
+  ``async_dispatch=False`` is the blocking baseline: a batch is scattered
+  in the step that dispatched it (the watchdog bounds the same readback);
 * multi-tenant lanes (:mod:`repro_torch.serving.multiplex`): ``tenant=``
   stamps flight records, fault contexts and ``metrics()``,
   ``dispatched_rows`` counts the padded rows dispatched (the fair-share
@@ -76,7 +78,18 @@ no failure escapes ``step()``:
   journals each accepted submit before it enters the scheduler and each
   terminal outcome, so a fresh process replays what a crash left open.
 
-Placement (the reference's ``mesh=`` / ``placement=``) is not ported.
+Placement (DESIGN.md §13): ``placement=`` takes a placement object,
+duck-typed on ``.kind`` so this module never imports
+:mod:`repro_torch.distributed`.  ``kind == "pipeline"``
+(:class:`~repro_torch.distributed.pipeline.Pipelined`) builds every bucket
+through ``engine.compile(..., pipeline=devices)`` as a staged executor,
+captured one graph a stage on the card; ``kind == "data"``
+(:class:`~repro_torch.distributed.sharding.DataParallel`) rounds the
+buckets up to a multiple of its shard count, as the reference does, and
+builds each through ``engine.compile(..., data_parallel=devices)``: one
+row shard a device, rows gathered on the first.  The reference's
+``mesh=`` has no counterpart (the port has no mesh).  The failure
+protocol applies to a placed server unchanged.
 """
 
 from __future__ import annotations
@@ -149,6 +162,10 @@ class InferenceServer:
                      environment differs takes the live compile path.
     capture:         the engine's ``compile(capture=)``: None captures
                      each bucket on the card; False serves eagerly.
+    async_dispatch:  double-buffered dispatch (the default); False is the
+                     blocking baseline.
+    placement:       optional placement object (``.kind`` "pipeline" or
+                     "data"; see the module docstring).
 
     Resilience (the reference's names and defaults):
 
@@ -181,9 +198,29 @@ class InferenceServer:
                  watchdog_s: float | None = None,
                  sleep: Callable[[float], None] | None = None,
                  tenant: str | None = None, artifact: str | None = None,
-                 journal=None, capture: bool | None = None):
+                 journal=None, capture: bool | None = None,
+                 async_dispatch: bool = True, placement=None):
         self.engine = engine
         self.preprocess = preprocess
+        self.async_dispatch = async_dispatch
+        self.placement = placement
+        self.pipeline_devices: tuple | None = None
+        self.data_devices: tuple | None = None
+        if placement is not None:
+            kind = getattr(placement, "kind", None)
+            if kind == "pipeline":
+                self.pipeline_devices = tuple(placement.devices)
+            elif kind == "data":
+                self.data_devices = tuple(placement.devices)
+            else:
+                raise ValueError(f"placement {placement!r} has no valid "
+                                 f".kind ('data' | 'pipeline')")
+        self.data_parallel = (len(self.data_devices)
+                              if self.data_devices is not None else 1)
+        if self.data_parallel > 1:
+            dp = self.data_parallel
+            buckets = tuple(sorted({-(-b // dp) * dp for b in buckets}))
+            max_batch = max(max_batch, buckets[0])
         self.scheduler = BatchScheduler(max_batch=max_batch,
                                         max_wait_s=max_wait_s,
                                         buckets=tuple(buckets))
@@ -214,12 +251,28 @@ class InferenceServer:
         # paid for): the cost a multiplexer charges each tenant's vtime.
         self.dispatched_rows = 0
         self.artifact_report: dict | None = None
+        if artifact is not None and placement is not None:
+            # An artifact holds single-device buckets: a placed server
+            # would build its own and leave them unused.
+            raise ValueError("artifact= serves single-device buckets; it "
+                             "does not combine with placement=")
         if artifact is not None:
             self.artifact_report = engine.load_artifact(
                 artifact, buckets=tuple(self.scheduler.buckets),
                 capture=capture)
 
     # ---- executor cache ---------------------------------------------------
+    def _executable(self, bucket: int, mode: str | None = None):
+        """The engine's executor for ``bucket`` under this server's
+        placement."""
+        kw = {}
+        if self.pipeline_devices is not None:
+            kw["pipeline"] = self.pipeline_devices
+        elif self.data_devices is not None:
+            kw["data_parallel"] = self.data_devices
+        return self.engine.compile(bucket, mode=mode, capture=self.capture,
+                                   **kw)
+
     def compile_buckets(self) -> dict[int, float]:
         """Build (and run once) every bucket's executor; returns seconds
         per bucket.  After this, serving builds nothing (``build_count``
@@ -228,7 +281,7 @@ class InferenceServer:
         for b in self.scheduler.buckets:
             with _trace.span("compile.bucket", "compile", bucket=b):
                 t0 = time.perf_counter()
-                exe = self.engine.compile(b, capture=self.capture)
+                exe = self._executable(b)
                 x = torch.zeros(self.engine._plan_shape(b),
                                 dtype=torch.uint8, device=self.engine.device)
                 exe(x)
@@ -400,7 +453,7 @@ class InferenceServer:
         """Queue one batch through ``exe``: (the host tensor its output
         lands in, the event that marks it there; None on the CPU)."""
         device = self.engine.device
-        if isinstance(exe, _executor.CapturedExecutor):
+        if isinstance(exe, _executor.Captured):
             # Written straight into the bucket's static input (a host
             # batch through pinned memory).
             dst = exe.static_input
@@ -418,13 +471,15 @@ class InferenceServer:
             if not x.is_cuda:                         # a host batch
                 x = x.pin_memory().to(device, non_blocking=True)
             out = exe(x)
-        # Queued on the replay's stream, so before the next replay can
-        # overwrite the graph's output; one buffer a dispatch, so a batch
-        # the watchdog abandoned never shares it.
+        # Queued on the replay's stream (the output's device: a pipeline's
+        # last stage), so before the next replay can overwrite the graph's
+        # output; one buffer a dispatch, so a batch the watchdog abandoned
+        # never shares it.
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        with torch.cuda.device(out.device):
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         return host, event
 
     def _dispatch(self, batch: list[Request], payloads: list[Any],
@@ -443,8 +498,7 @@ class InferenceServer:
                                 tenant=self.tenant)
         with _trace.span("serve.dispatch", "serve", bucket=bucket,
                          mode=mode):
-            exe = self.engine.compile(bucket, mode=mode,
-                                      capture=self.capture)
+            exe = self._executable(bucket, mode)
             host, event = self._launch(exe, rows)
         self.dispatched_rows += bucket
         self._metrics.mark_dispatch(bucket=bucket)
@@ -587,9 +641,14 @@ class InferenceServer:
             if got is not None:
                 flight = self._try_dispatch(*got, now)
         done: list[Request] = []
-        pending, self._pending = self._pending, flight
-        if pending is not None:
-            done = self._try_scatter(pending, now)
+        if not self.async_dispatch:
+            # The blocking baseline: this batch completes in its own step.
+            if flight is not None:
+                done = self._try_scatter(flight, now)
+        else:
+            pending, self._pending = self._pending, flight
+            if pending is not None:
+                done = self._try_scatter(pending, now)
         if self._errored:
             done, self._errored = done + self._errored, []
         return done
@@ -660,15 +719,24 @@ class InferenceServer:
     def metrics(self) -> dict:
         """p50/p95 request latency (submit→scatter, ms), served/dropped
         counts, the resilience counters (retries, errors, rejected,
-        degraded), live queue depth, the serving mode (the worst bucket's
-        rung), each bucket's ladder and the throughput over the busy
-        window (first dispatch → last scatter)."""
+        degraded), live queue depth, the dispatch kind, the shard count,
+        the serving mode (the worst bucket's rung), each bucket's ladder,
+        the placement and the throughput over the busy window (first
+        dispatch → last scatter)."""
         extra = {"tenant": self.tenant} if self.tenant is not None else {}
         if self.health.ladders:
             extra["bucket_health"] = {
                 b: lad.snapshot(self.clock())
                 for b, lad in sorted(self.health.ladders.items())}
+        if self.pipeline_devices is not None:
+            extra["placement"] = {"kind": "pipeline",
+                                  "devices": [str(d) for d in
+                                              self.pipeline_devices]}
+        elif self.data_devices is not None:
+            extra["placement"] = {"kind": "data",
+                                  "shards": self.data_parallel}
         return self._metrics.snapshot(
             dropped=self.scheduler.dropped, queue_depth=self.queue_depth,
-            mode=self.health.mode,
+            async_dispatch=self.async_dispatch,
+            data_parallel=self.data_parallel, mode=self.health.mode,
             buckets=list(self.scheduler.buckets), **extra)

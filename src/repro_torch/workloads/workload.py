@@ -79,9 +79,17 @@ class WorkloadEngine:
         self.head = head
 
     def compile(self, batch_size: int | None = None, *,
-                mode: str | None = None, capture: bool | None = None):
+                mode: str | None = None, capture: bool | None = None,
+                **placement):
+        """The wrapped engine's bucket with the head composed on;
+        ``placement`` is its ``pipeline=`` or ``data_parallel=`` (the head
+        rides the last stage's graph, or each shard's)."""
         return self.engine.compile(batch_size, mode=mode, capture=capture,
-                                   head=self.head)
+                                   head=self.head, **placement)
+
+    def view(self) -> "WorkloadEngine":
+        """The same head over a view of the engine (a replica's)."""
+        return WorkloadEngine(self.engine.view(), self.head)
 
     def _plan_shape(self, batch: int | None = None):
         return self.engine._plan_shape(batch)

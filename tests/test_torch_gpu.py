@@ -1051,3 +1051,149 @@ def test_restore_through_the_captured_decode_step(cuda, lm_params):
     ck = server.checkpointer
     assert ck.last_copy_ms() > 0 and ck.last_bytes > 0
     assert all(c.k_pages.is_pinned() for c in ck.set.seqs.values())
+
+
+# --------------------------------------------------------------------------
+# Placement on the card: staged and sharded buckets, replicas, LM lanes
+# --------------------------------------------------------------------------
+
+PLACE_KERNELS = (k4.bitplane_pack, k3.direct_conv_bn_binarize,
+                 k3.direct_conv_bn_binarize_planes,
+                 k2.fused_matmul_bn_binarize, k5.chain_conv,
+                 k1.xnor_popcount_matmul_planes, k6.mxu_pm1_matmul)
+
+
+@pytest.mark.parametrize("mode", ["cuda_direct_pool", "cuda_chain",
+                                  "cuda_pm1"])
+@pytest.mark.parametrize("name", ["alexnet_imagenet", "yolov2_tiny_voc"])
+def test_staged_bucket_captured_on_card(cuda, name, mode, tmp_path,
+                                        monkeypatch):
+    """A bucket pipelined over (cuda, cuda, cuda): one graph a stage; its
+    rows and raw output equal the single-device graph's bit for bit, and
+    its launches a forward summed over the stages are the single-device
+    forward's."""
+    from repro_torch.runtime.placement import CapturedStages
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    wl = workloads.get(name, variant="tiny", matmul_mode=mode)
+    stages = (cuda,) * 3
+    h, w = wl.input_hw
+    x = torch.from_numpy(RNG.integers(0, 256, (2, h, w, 3),
+                                      dtype=np.uint8)).to(cuda)
+    # Built first: under cuda_chain the build times the region tiles.
+    wl.engine.engine.compile(2, capture=False)
+    wl.engine.engine.compile(2, pipeline=stages, capture=False)
+    single = captured_launches(wl.engine, x, PLACE_KERNELS)
+    staged = captured_launches(
+        lambda t: wl.engine.compile(2, pipeline=stages).run(t), x,
+        PLACE_KERNELS)
+    assert staged == single and any(single)
+    exe = wl.engine.compile(2, pipeline=stages)
+    assert isinstance(exe, CapturedStages)
+    plan = exe.executor.plan
+    # One graph a stage, but none for a stage of the graph's input alone.
+    assert plan.n_stages >= 2 and exe.n_graphs == plan.n_stages - (
+        plan.stages[0] == (exe.executor.graph.input_id,))
+    got, want = exe.run(x), wl.engine.compile(2).run(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    wl.engine.cross_check(x)
+
+
+def test_pipelined_and_sharded_servers_on_card(cuda):
+    """Pipelined and data-parallel servers over the one card serve the
+    single-device server's rows, building nothing while serving."""
+    from repro_torch.distributed import DataParallel, Pipelined
+
+    wl = workloads.get("yolov2_tiny_voc", variant="tiny")
+    imgs = [RNG.integers(0, 256, (40, 50, 3), dtype=np.uint8)
+            for _ in range(7)]
+    rows = []
+    for kw in ({}, dict(placement=Pipelined((cuda, cuda))),
+               dict(placement=DataParallel((cuda, cuda))),
+               dict(async_dispatch=False)):
+        server = wl.server(max_batch=4, buckets=(1, 2, 4), **kw)
+        server.compile_buckets()
+        builds = wl.engine.build_count
+        reqs = [server.submit(im) for im in imgs]
+        server.drain()
+        assert wl.engine.build_count == builds
+        assert all(r.outcome == "served" for r in reqs)
+        rows.append([r.result for r in reqs])
+    for other in rows[1:]:
+        for a, b in zip(other, rows[0]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_replicas_share_weights_not_buffers_on_card(cuda):
+    from repro_torch.distributed import ReplicaGroup
+
+    wl = workloads.get("alexnet_imagenet", variant="tiny")
+    grp = ReplicaGroup(wl.engine, [cuda] * 2, buckets=(2,), max_batch=2,
+                       preprocess=wl.preprocess_hook)
+    grp.compile_buckets()
+    builds, captures = grp.build_count, grp.capture_count
+    e0, e1 = (r.server.engine.engine for r in grp.replicas.values())
+    assert e0.packed[0]["w_packed"] is e1.packed[0]["w_packed"]
+    assert e0._graph_pool != e1._graph_pool
+    (c0,), (c1,) = e0._captured.values(), e1._captured.values()
+    assert c0.static_output.data_ptr() != c1.static_output.data_ptr()
+    imgs = [RNG.integers(0, 256, (20, 20, 3), dtype=np.uint8)
+            for _ in range(8)]
+    reqs = [grp.submit(im) for im in imgs]
+    grp.drain()
+    assert (grp.build_count, grp.capture_count) == (builds, captures)
+    want = wl.predict(imgs)
+    for r, row in zip(reqs, want):
+        np.testing.assert_array_equal(r.result, row)
+
+
+def test_lm_lanes_migrate_on_card(cuda, lm_params):
+    """Two captured LM lanes over one params dict: lm0's decode faults
+    past its restore; its sequence migrates to lm1 with the emitted
+    prefix kept, and is served."""
+    from repro_torch.distributed import LMReplicaGroup
+    from repro_torch.serving import faults
+
+    cfg, _, params = lm_params
+    grp = LMReplicaGroup(cfg, params, n_slots=2, max_seq=64, device=cuda,
+                         checkpoint_every=2, max_restore_attempts=1)
+    assert all(ln.server.capture_count == 1 for ln in grp.lanes.values())
+    r = grp.submit([1, 2, 3], max_new=12, lane="lm0")
+    for _ in range(4):
+        grp.serve_tick()
+    prefix = list(next(iter(
+        grp.lanes["lm0"].server.manager.active.values())).tokens)
+    with faults.inject([faults.FaultSpec("lm.step", "device_fault",
+                                         match={"tenant": "lm0"})]):
+        grp.drain()
+    assert r.outcome == "served" and len(r.result) == 12
+    assert r.result[:len(prefix)] == prefix and grp.migrations == 1
+    assert grp.lanes["lm0"].quarantined(grp.clock())
+
+
+def test_capture_holds_off_the_collector(cuda):
+    """The cyclic collector waits for a capture to end: a collection inside
+    it could free an unreachable object owning another graph (a server or
+    replica group in a reference cycle), and destroying a graph while the
+    stream captures voids the capture ("operation failed due to a previous
+    error during capture").  Here a graph in a reference cycle becomes
+    garbage during the capture; the collector stays off until the capture
+    ends, and frees it after."""
+    import gc
+
+    cycle = {"graph": CapturedExecutor(lambda t: t + 1, (2, 4), cuda)}
+    cycle["self"] = cycle
+    holder, seen = [cycle], []
+    del cycle
+
+    def fn(t):
+        seen.append(gc.isenabled())
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()              # the cycle is garbage from here
+        return t + 1
+
+    exe = CapturedExecutor(fn, (2, 4), cuda)
+    assert seen == [True] * WARMUP_CALLS + [False] and gc.isenabled()
+    assert gc.collect() > 0             # the cycle, freed after the capture
+    x = torch.ones((2, 4), dtype=torch.uint8, device=cuda)
+    assert torch.equal(exe(x), x + 1)
