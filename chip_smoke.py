@@ -139,6 +139,30 @@ Phases, each fatal on failure:
               ``cuda_direct_pool`` (K3's variant 1): packed tails equal bit
               for bit, float heads within 1e-3 and the same top-5, both
               within 1e-3 of ``float_forward``;
+   train    — the training path: (a) K7's forward with its lse and K7b,
+              its backward, against their plain versions on the card at
+              lm-100m's layer (B 8, S 512, H 12, KV 4, hd 64, causal), a
+              minitron-8b layer at S 512 (hd 128) and edge cases of K7b's
+              64-row, 64-key tiles, each of dq, dk, dv within ``K7B_TOL``
+              · (1 + |plain|) and also against autograd of the float32
+              ``reference_attention``; K7's output with the lse equal to
+              its serving output bit for bit; (b) lm-100m at full width
+              through ``repro_torch.launch.train.main`` in this process:
+              20 AdamW steps at batch 8, sequence 512 (K7 and K7b 12
+              launches a step, every loss finite; ms a step, tokens/s,
+              peak memory, first -> last loss), step 0's loss and gradient
+              norm against the same step with K7/K7b swapped for their
+              plain versions, one step profiled by kernel, then a crash at
+              step 6 (``--fail-at 6 --checkpoint-every 3``, exit 17) and
+              the restart from step 5's checkpoint, its losses at steps 6-9
+              against an uninterrupted run's within 1e-3 relative; (c)
+              paper AlexNet (227², ``paper_nets.alexnet_spec()``) trained
+              10 AdamW steps with the STE sign on synthetic class
+              prototypes (``examples/train_bnn.py``'s recipe, batch 8),
+              then ``PhoneBitEngine.from_trained`` under
+              ``cuda_direct_pool`` on 64 images: argmax equal to
+              ``float_forward``'s on the trained params, the head within
+              ``BNN_HEAD_TOL`` of it, K4, K3 and K2 counted;
 6. lm       — K7 flash_attention against its plain version on the card
               at minitron-8b's prefill layer (B 2, S 2048, H 32, KV 8, hd
               128, bf16, causal), at granite-moe-3b-a800m's (H 24, hd 64)
@@ -222,7 +246,9 @@ Phases, each fatal on failure:
               also beside one library call on the unpacked +-1 operands; K7
               at minitron's and granite's prefill layers (hd 128 and 64)
               beside ``F.scaled_dot_product_attention`` on the same
-              tensors.
+              tensors; K7b at lm-100m's layer (and, not summed, the
+              minitron-8b layer at S 512) beside SDPA's backward (its
+              forward and backward less its forward).
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -254,7 +280,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Fails without the repository's src/ beside the script.
 from repro_torch import workloads  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, data, optim, tree  # noqa: E402
 from repro_torch.configs import minitron_8b  # noqa: E402
 from repro_torch.core import (binary_conv, binary_ops, bitplanes,  # noqa: E402
                               bnn_model, layer_integration, packing)
@@ -267,11 +293,12 @@ from repro_torch.kernels import flash_attention as k7  # noqa: E402
 from repro_torch.kernels import fused_conv_bn_binarize as k2  # noqa: E402
 from repro_torch.kernels import mxu_pm1_matmul as k6  # noqa: E402
 from repro_torch.kernels import xnor_popcount_matmul as k1  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import layers, moe, paper_nets  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.runtime import (GraphExecutor, assign_layouts,  # noqa: E402
                                  default_pipeline, regions)
-from repro_torch.serving import faults  # noqa: E402
+from repro_torch.serving import PhoneBitEngine, faults  # noqa: E402
 from repro_torch.serving.faults import (FaultPlan, FaultSpec,  # noqa: E402
                                         RetryPolicy)
 from repro_torch.serving.lm_server import LMServer  # noqa: E402
@@ -473,7 +500,7 @@ KERNEL_NAMES = ("bitplane_pack", "direct_conv_bn_binarize",
                 "direct_conv_bn_binarize_planes",
                 "fused_matmul_bn_binarize", "chain_conv",
                 "xnor_popcount_matmul", "xnor_popcount_matmul_planes",
-                "mxu_pm1_matmul", "flash_attention")
+                "mxu_pm1_matmul", "flash_attention", "flash_attention_bwd")
 
 
 def launch_counts(**kw) -> dict[str, int]:
@@ -495,6 +522,7 @@ DEVICE_KERNELS = (
     ("xnor_popcount_matmul_kernel", "xnor_popcount_matmul"),
     ("DotEpilogue", "mxu_pm1_matmul"),
     ("flash_fwd_kernel", "flash_attention"),
+    ("flash_bwd_dkdv_kernel", "flash_attention_bwd"),    # one of its three
 )
 # The serving buckets; each is captured once, on its first use.
 BUCKETS = (1, 2, 4, 8)
@@ -564,6 +592,9 @@ SOURCES = {
                        "src/repro/kernels/mxu_pm1_matmul.py:56"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:138"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:151"),
 }
 
 
@@ -1062,7 +1093,8 @@ WRAPPERS = {"bitplane_pack": k4.bitplane_pack,
             "chain_conv": k5.chain_conv,
             "xnor_popcount_matmul": k1.xnor_popcount_matmul,
             "mxu_pm1_matmul": k6.mxu_pm1_matmul,
-            "flash_attention": k7.flash_attention}
+            "flash_attention": k7.flash_attention,
+            "flash_attention_bwd": k7.flash_attention_bwd}
 
 
 def reset_launches() -> None:
@@ -2335,6 +2367,420 @@ def phase_trained(device) -> dict[str, dict[str, int]]:
         f"{diffs['unfused']:.3e}, fused {diffs['fused']:.3e}, unfused vs "
         f"fused {diffs['unfused vs fused']:.3e}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# The [train] phase
+# --------------------------------------------------------------------------
+
+# K7b cases, bf16, in FLASH_CASES' form: lm-100m's layer (the train step's
+# shape), a minitron-8b layer at S 512, and edge cases of the 64-key,
+# 64-row tiles (ragged, non-causal with Sq != Skv, G = 1).
+K7B_CASES = [
+    ("lm-100m layer", 8, 512, 512, 12, 4, 64, True),
+    ("minitron-8b layer at S 512", 2, 512, 512, 32, 8, 128, True),
+    ("hd 64, ragged last tile, S = 100", 1, 100, 100, 12, 4, 64, True),
+    ("hd 64, non-causal Sq 100, Skv 300", 1, 100, 300, 12, 4, 64, False),
+    ("hd 128, S = 129, G = 1, non-causal", 1, 129, 129, 8, 8, 128, False),
+    ("hd 128, S = 200, G = 1", 2, 200, 200, 4, 4, 128, True),
+]
+# K7b against its plain version, |kernel - plain| <= tol·(1 + |plain|) for
+# each of dq, dk and dv: both round p and dS to bf16 before their products
+# and round each output once, but sum in other orders (64-key mma steps
+# against whole blocks), so they agree to a few bf16 steps (2^-8) of the
+# gradients' scale.  The same bound holds against autograd of the float32
+# ``reference_attention`` on the same bf16 inputs.
+K7B_TOL = 2e-2
+# lm-100m at full width (launch/train.py's LM_100M, examples/
+# train_lm_100m.py's batch and sequence), TRAIN_STEPS AdamW steps.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
+TRAIN_ARGS = ["--arch", "lm-100m", "--batch", str(TRAIN_BATCH), "--seq-len",
+              str(TRAIN_SEQ), "--device", "cuda"]
+# Step 0 with K7/K7b against the same step with their plain versions: the
+# loss within 2e-3 relative and the gradient norm within 2e-2 (attention's
+# output and gradients agree to K7's and K7b's bf16 tolerances elementwise;
+# the loss averages 4,096 tokens, the norm sums every leaf).
+SWAP_LOSS_TOL, SWAP_GNORM_TOL = 2e-3, 2e-2
+# Crash and resume: 10 steps, checkpoints every 3, death at step 6; the
+# resumed steps 6-9 against an uninterrupted run within 1e-3 relative (the
+# embedding's backward accumulates with atomics, so runs differ in the last
+# bits).
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 10, 3, 6
+RESUME_TOL = 1e-3
+# AlexNet STE training (examples/train_bnn.py at the paper's width): steps,
+# images a step, class prototypes, the deployment's images, and the head's
+# bound (tests/harness.py's 1e-4).
+BNN_STEPS, BNN_BATCH, BNN_CLASSES, BNN_EVAL = 10, 8, 10, 64
+BNN_HEAD_TOL = 1e-4
+# cuBLAS's and CUTLASS's kernel names, by a substring (lower case).
+MATMUL_KERNELS = ("nvjet", "gemm", "cutlass", "xmma")
+WANT_BNN_DEPLOY = {k: v * (BNN_EVAL // BATCH)
+                   for k, v in WANT_LAUNCHES["cuda_direct_pool"].items()}
+
+
+def k7b_inputs(inp: Inputs, case):
+    """Seeded bf16 q, k, v of one case and an upstream gradient."""
+    q, k, v = flash_inputs(inp, case)
+    do = torch.randn(q.shape, device=inp.device, generator=inp.g).to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+def k7b_error(name: str, got, want) -> float:
+    """max |got - want| over dq, dk, dv; fails past ``K7B_TOL``."""
+    worst = 0.0
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"[train] {name} {part}: bad output")
+        diff = (g - w).abs()
+        if (diff > K7B_TOL * (1 + w.abs())).any():
+            raise AssertionError(f"[train] {name} {part}: max |kernel - "
+                                 f"reference| {diff.max().item():.3e} past "
+                                 f"{K7B_TOL} · (1 + |reference|)")
+        worst = max(worst, diff.max().item())
+    return worst
+
+
+def check_k7b(inp: Inputs, note) -> None:
+    """(a) K7 with its lse and K7b against their plain versions and against
+    autograd of the float32 oracle; K7's output with the lse equal to its
+    serving output bit for bit."""
+    for case in K7B_CASES:
+        q, k, v, do = k7b_inputs(inp, case)
+        causal = case[7]
+        out, lse = k7.flash_attention_fwd(q, k, v, causal)
+        if not torch.equal(out, k7.flash_attention(q, k, v, causal)):
+            raise AssertionError(f"[train] {case[0]}: K7's output with the "
+                                 f"lse differs from its serving output")
+        _, plain_lse = k7.flash_attention_plain(q, k, v, causal,
+                                                return_lse=True)
+        lse_err = (lse - plain_lse).abs().max().item()
+        if lse_err > 1e-3 * (1 + plain_lse.abs().max().item()):
+            raise AssertionError(f"[train] {case[0]}: lse off by {lse_err}")
+        got = k7.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        err = k7b_error(case[0], got,
+                        k7.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     causal))
+        note("flash_attention_bwd", err)
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(
+            layers.reference_attention(*leaves, causal=causal), leaves,
+            do.float())
+        ref_err = k7b_error(f"{case[0]} (float32 autograd)", got, want)
+        log(f"[train] flash_attention_bwd {case[0]} q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} {'causal' if causal else 'non-causal'} bf16: "
+            f"max |kernel - plain| {err:.3e}, |kernel - float32 autograd| "
+            f"{ref_err:.3e} (tolerance {K7B_TOL} · (1 + |reference|)); lse "
+            f"{lse_err:.3e} from the plain version's")
+
+
+class PlainAttention(torch.autograd.Function):
+    """K7 and K7b swapped for their plain versions (step 0's check only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        out, lse = k7.flash_attention_plain(q, k, v, causal, block_q,
+                                            block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = k7.flash_attention_bwd_plain(*ctx.saved_tensors,
+                                             dout.contiguous(), *ctx.blocks)
+        return (*grads, None, None, None)
+
+
+def loss_and_grad_norm(cfg, params, batch, plain: bool) -> tuple[float, float]:
+    """Step 0's loss and gradient norm, through K7/K7b or, with ``plain``,
+    through their plain versions (``layers.chunked_attention`` reads
+    ``layers.flash_attention``)."""
+    saved = layers.flash_attention
+    if plain:
+        layers.flash_attention = PlainAttention.apply
+    try:
+        (loss, _), grads = tree.value_and_grad(transformer.loss_fn, params,
+                                               batch, cfg)
+        norm = optim.global_norm(grads)
+    finally:
+        layers.flash_attention = saved
+    return loss.item(), norm.item()
+
+
+def train_resume(tmp: str) -> float:
+    """(b) A crash at step RESUME_FAIL_AT and the restart, against an
+    uninterrupted run; returns the largest relative gap of steps 6-9."""
+    args = TRAIN_ARGS + ["--steps", str(RESUME_STEPS), "--log-every", "100"]
+    ckpt = ["--checkpoint-dir", tmp, "--checkpoint-every", str(RESUME_EVERY)]
+    try:
+        train.main(args + ckpt + ["--fail-at", str(RESUME_FAIL_AT)])
+    except SystemExit as e:
+        if e.code != 17:
+            raise AssertionError(f"[train] --fail-at exited {e.code}") from e
+    else:
+        raise AssertionError("[train] --fail-at did not exit")
+    resumed = train.main(args + ckpt)
+    whole = train.main(args)
+    if resumed["start_step"] != RESUME_FAIL_AT:
+        raise AssertionError(f"[train] resumed from "
+                             f"{resumed['start_step']}")
+    gaps = [abs(a - b) / abs(b) for a, b in
+            zip(resumed["losses"], whole["losses"][RESUME_FAIL_AT:])]
+    if len(gaps) != RESUME_STEPS - RESUME_FAIL_AT or max(gaps) > RESUME_TOL:
+        raise AssertionError(f"[train] resumed losses {resumed['losses']} "
+                             f"against {whole['losses'][RESUME_FAIL_AT:]}")
+    log(f"[train] crash at step {RESUME_FAIL_AT} (exit 17), checkpoints "
+        f"every {RESUME_EVERY}: the restart restored step "
+        f"{RESUME_FAIL_AT - 1} and resumed from {resumed['start_step']}; "
+        f"losses of steps {RESUME_FAIL_AT}-{RESUME_STEPS - 1} "
+        f"{[round(x, 6) for x in resumed['losses']]} against the "
+        f"uninterrupted run's {[round(x, 6) for x in whole['losses'][6:]]}: "
+        f"largest relative gap {max(gaps):.3e} (tolerance {RESUME_TOL})")
+    return max(gaps)
+
+
+def train_lm(device) -> tuple[dict, dict]:
+    """(b) lm-100m at full width through ``launch.train.main``: K7 and K7b
+    once a layer a step; step 0 against the plain swap; one step profiled;
+    the crash and resume."""
+    cfg = train.LM_100M
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train.main(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS),
+                                   "--log-every", "5"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = launch_counts(flash_attention=cfg.n_layers * TRAIN_STEPS,
+                         flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"[train] lm-100m launches {launches}, want "
+                             f"{want}")
+    losses = res["losses"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() \
+            or not np.isfinite(res["grad_norms"]).all():
+        raise AssertionError(f"[train] lm-100m losses {losses}")
+    step_ms = float(np.median(res["step_s"][1:])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] lm-100m ({cfg.param_count()} params, float32 masters, "
+        f"bf16 compute) B {TRAIN_BATCH} x S {TRAIN_SEQ}, {TRAIN_STEPS} AdamW "
+        f"steps in {wall:.3f} s: {step_ms:.3f} ms a step (median of steps "
+        f"1-{TRAIN_STEPS - 1}; step 0 {res['step_s'][0] * 1e3:.3f} ms), "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; peak device memory {peak} "
+        f"B, {peak - base} B above the {base} B allocated before; loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches K7 "
+        f"{launches['flash_attention']}, K7b "
+        f"{launches['flash_attention_bwd']}")
+
+    # Step 0 again from the same seed and batch, through the kernels and
+    # through their plain versions.
+    params = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device,
+        dtype=torch.float32)
+    batch = data.TokenPipeline(seed=0, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               vocab=cfg.vocab, device=device).batch_at(0)
+    kern = loss_and_grad_norm(cfg, params, batch, plain=False)
+    plain = loss_and_grad_norm(cfg, params, batch, plain=True)
+    gaps = (abs(kern[0] - plain[0]) / abs(plain[0]),
+            abs(kern[1] - plain[1]) / abs(plain[1]),
+            abs(kern[0] - losses[0]) / abs(losses[0]))
+    if gaps[0] > SWAP_LOSS_TOL or gaps[1] > SWAP_GNORM_TOL \
+            or gaps[2] > SWAP_LOSS_TOL:
+        raise AssertionError(f"[train] step 0 (loss, grad norm): kernels "
+                             f"{kern}, plain {plain}, launch.train "
+                             f"{losses[0]}, {res['grad_norms'][0]}")
+    log(f"[train] step 0 through K7/K7b: loss {kern[0]:.6f}, grad norm "
+        f"{kern[1]:.6f}; through their plain versions: {plain[0]:.6f}, "
+        f"{plain[1]:.6f} (relative gaps {gaps[0]:.3e}, {gaps[1]:.3e}; "
+        f"tolerances {SWAP_LOSS_TOL}, {SWAP_GNORM_TOL}); launch.train's step "
+        f"0 loss {losses[0]:.6f}")
+
+    # One step profiled: device time by kernel.
+    opt = optim.adamw_init(params)
+    step_fn = transformer.make_train_step(cfg)
+    prof = profiled(lambda: step_fn(params, opt, batch))
+    rows = device_time_by_kernel(prof, 1)
+    device_ms = sum(r[0] for r in rows)
+    k7_ms = sum(r[0] for r in rows if "flash_fwd" in r[2])
+    k7b_ms = sum(r[0] for r in rows if "flash_bwd" in r[2])
+    gemm_ms = sum(r[0] for r in rows if any(
+        part in r[2].lower() for part in MATMUL_KERNELS))
+    log(f"[train] one lm-100m step profiled: device {device_ms:.3f} ms in "
+        f"{sum(r[1] for r in rows):g} kernels; K7 {k7_ms:.3f} ms, K7b "
+        f"{k7b_ms:.3f} ms, matmuls {gemm_ms:.3f} ms")
+    for ms, n, key in rows[:10]:
+        log(f"[train]   {ms:.4f} ms  x{n:g}  {key[:90]}")
+    del params, opt, batch, prof
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        resume_gap = train_resume(tmp)
+    numbers = dict(step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                   peak_bytes=peak, peak_above_bytes=peak - base,
+                   first_loss=losses[0],
+                   last_loss=losses[-1], step0_kernels=kern,
+                   step0_plain=plain, device_ms=device_ms, k7_ms=k7_ms,
+                   k7b_ms=k7b_ms, matmul_ms=gemm_ms, resume_gap=resume_gap)
+    return launches, numbers
+
+
+def ste_train(device, spec, hw, params, rng, protos):
+    """BNN_STEPS AdamW steps of STE training (examples/train_bnn.py's loss,
+    optimizer settings and data) from ``params``; returns (params, losses,
+    ms a step, median of steps 1 on)."""
+    params = tree.tree_map(lambda t: t.to(device), params)
+    opt = optim.adamw_init(params)
+    lr = optim.cosine_schedule(1e-3, warmup=20, total=BNN_STEPS)
+
+    def loss_fn(p, x, y):
+        logits = bnn_model.float_forward(p, spec, x, train=True)
+        gold = torch.take_along_dim(logits, y[:, None], dim=-1)[:, 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).mean(), None
+
+    losses, step_s = [], []
+    for _ in range(BNN_STEPS):
+        x, y = prototype_images(device, rng, protos, BNN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss, _), grads = tree.value_and_grad(loss_fn, params, x, y)
+        params, opt, _ = optim.adamw_update(
+            params, grads, opt, lr=lr, weight_decay=0.0,
+            clip_latent_paths=lambda path: "w" in path)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    if not np.isfinite(losses).all() or any(
+            float(p["w"].abs().max()) > 1.0 for p in params if "w" in p):
+        raise AssertionError(f"[train] alexnet STE losses {losses}")
+    return params, losses, float(np.median(step_s[1:])) * 1e3
+
+
+def prototype_images(device, rng, protos, n):
+    """``n`` uint8 images of the synthetic classes (a prototype plus
+    N(0, 25²) noise) and their labels, as examples/train_bnn.py draws
+    them."""
+    y = rng.integers(0, len(protos), (n,))
+    x = protos[y] + rng.normal(0, 25, (n, *protos.shape[1:]))
+    return (torch.from_numpy(np.clip(x, 0, 255).astype(np.uint8)).to(device),
+            torch.from_numpy(y).to(device))
+
+
+def deploy(device, spec, hw, params, x) -> dict:
+    """``PhoneBitEngine.from_trained`` under ``cuda_direct_pool``, eager at
+    bucket 8 over ``x``: the wrappers' launches, the head's largest gap to
+    the flat packed oracle (``legacy_call``, the converted params walked in
+    plain PyTorch), the argmax agreement with ``float_forward`` on the
+    same params, the head's largest gap to it and the share of images
+    whose head lies within ``BNN_HEAD_TOL`` of it."""
+    engine = PhoneBitEngine.from_trained(params, spec, hw, device=device,
+                                         matmul_mode="cuda_direct_pool")
+    exe = engine.compile(BATCH, capture=False)
+    exe(x[:BATCH])
+    torch.cuda.synchronize()
+    reset_launches()
+    head = torch.cat([exe(x[i:i + BATCH])
+                      for i in range(0, len(x), BATCH)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    flat = torch.cat([engine.legacy_call(x[i:i + BATCH])
+                      for i in range(0, len(x), BATCH)])
+    oracle = bnn_model.float_forward(params, spec, x)
+    gap = (head - oracle).abs().amax(-1)
+    return dict(launches=launches,
+                flat_err=(head - flat).abs().max().item(),
+                agreement=(head.argmax(-1) == oracle.argmax(-1))
+                .float().mean().item(),
+                float_err=gap.max().item(),
+                float_within=(gap <= BNN_HEAD_TOL).float().mean().item())
+
+
+def train_alexnet(device) -> tuple[dict, dict]:
+    """(c) Paper AlexNet trained with the STE sign and AdamW on synthetic
+    class prototypes (examples/train_bnn.py's recipe at 227²), then
+    deployed with ``PhoneBitEngine.from_trained`` under
+    ``cuda_direct_pool``, from the seeded params the ``[trained]`` phase
+    deploys (``workloads.checkpoint_params``: randomised BN statistics).
+    Held: the deployed argmax equal to ``float_forward``'s on the trained
+    params for every image (examples/train_bnn.py's assertion), and the
+    head within ``BNN_HEAD_TOL`` of the flat packed oracle of the same
+    conversion.  Printed, not held: the head's gap to the float oracle.
+    The BN fold runs in float32 (the reference's, bit for bit), and so
+    does the oracle's BN, each rounding differently; a pre-activation that
+    lies within their rounding of its threshold takes another sign in the
+    two, and one flipped bit before the float head moves it by up to twice
+    a head weight (ROADMAP, caveat (h)).  From examples/train_bnn.py's
+    identity BN the same numbers are printed too: there every BN offset
+    starts at 0 and moves by about the learning rate, below the float32
+    fold's resolution at AlexNet's first layer (its threshold reaches
+    9.3e4, whose float32 step is 0.0078)."""
+    spec = paper_nets.alexnet_spec()
+    hw = (227, 227)
+    rng = np.random.default_rng(0)
+    protos = rng.integers(0, 256, (BNN_CLASSES, *hw, 3)).astype(np.float32)
+    x, _ = prototype_images(device, rng, protos, BNN_EVAL)
+    params, losses, step_ms = ste_train(
+        device, spec, hw, workloads.checkpoint_params(spec, seed=0), rng,
+        protos)
+    d = deploy(device, spec, hw, params, x)
+    launches = d.pop("launches")
+    if launches != WANT_BNN_DEPLOY:
+        raise AssertionError(f"[train] alexnet deployment launches "
+                             f"{launches}, want {WANT_BNN_DEPLOY}")
+    if d["agreement"] != 1.0 or d["flat_err"] > BNN_HEAD_TOL:
+        raise AssertionError(f"[train] deployed alexnet: {d}")
+    log(f"[train] alexnet 227x227 STE training from the seeded params "
+        f"(randomised BN statistics), batch {BNN_BATCH}, {BNN_STEPS} AdamW "
+        f"steps (clip_latent_paths 'w'): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, {step_ms:.3f} ms a step (median of steps "
+        f"1-{BNN_STEPS - 1}); deployed under cuda_direct_pool on "
+        f"{BNN_EVAL} images: argmax agreement {d['agreement']:.1%} with "
+        f"float_forward; max |head - flat packed oracle| "
+        f"{d['flat_err']:.3e} (bound {BNN_HEAD_TOL}); max |head - "
+        f"float_forward| {d['float_err']:.3e}, {d['float_within']:.1%} of "
+        f"the images within {BNN_HEAD_TOL} of it (printed); launches K4 "
+        f"{launches['bitplane_pack']}, K3 bit-plane variant "
+        f"{launches['direct_conv_bn_binarize_planes']}, K3 "
+        f"{launches['direct_conv_bn_binarize']}, K2 "
+        f"{launches['fused_matmul_bn_binarize']}")
+    ident, ident_losses, _ = ste_train(
+        device, spec, hw, bnn_model.init_params(np.random.default_rng(0),
+                                                spec), rng, protos)
+    di = deploy(device, spec, hw, ident, x)
+    di.pop("launches")
+    log(f"[train] the same from examples/train_bnn.py's identity BN "
+        f"(printed, not held): loss {ident_losses[0]:.4f} -> "
+        f"{ident_losses[-1]:.4f}; argmax agreement {di['agreement']:.1%}; "
+        f"max |head - flat packed oracle| {di['flat_err']:.3e}; max |head "
+        f"- float_forward| {di['float_err']:.3e}, {di['float_within']:.1%} "
+        f"of the images within {BNN_HEAD_TOL}")
+    return launches, dict(step_ms=step_ms, first_loss=losses[0],
+                          last_loss=losses[-1], **d,
+                          identity_bn={f"{k}": v for k, v in di.items()})
+
+
+def phase_train(device, errs: dict) -> tuple[dict, dict]:
+    """The training path: (a) K7b on the card (its largest error into
+    ``errs``), (b) lm-100m through the train driver, (c) AlexNet STE
+    training and deployment.  Returns (launches of each counted run,
+    numbers)."""
+    t0 = time.perf_counter()
+
+    def note(name: str, e: float) -> None:
+        errs[name] = max(errs.get(name, 0), e)
+
+    check_k7b(Inputs(device, seed=11), note)
+    launches, numbers = {}, {}
+    launches["train_lm100m"], numbers["lm100m"] = train_lm(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_alexnet_deploy"], numbers["alexnet"] = \
+        train_alexnet(device)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    return launches, numbers
 
 
 # The autotune phase: (workload, buckets tuned in order).  VGG16 (224²)
@@ -3654,6 +4100,50 @@ def phase_timing(device, launches: dict, per_forward: dict,
                      "(is_causal, enable_gqa)"),
             ops_per_s=BF16_FLOPS_PER_S)
 
+    # K7b at lm-100m's layer (the train step's shape), beside the SDPA
+    # backward on the same tensors: SDPA's forward and backward timed, less
+    # its forward.  The minitron-8b layer at S 512 (hd 128) is timed, not
+    # summed.
+    for i, case in enumerate(K7B_CASES[:2]):
+        q, k, v, do = k7b_inputs(inp, case)
+        _, b, s_len, _, h, kvh, hd, _ = case
+        out, lse = k7.flash_attention_fwd(q, k, v, True)
+        grads = k7.flash_attention_bwd(q, k, v, out, lse, do, True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        def sdpa_bwd(qt=qt, kt=kt, vt=vt, dot=dot):
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        k7b_error(f"{case[0]}: F.scaled_dot_product_attention backward",
+                  [g.transpose(1, 2) for g in sdpa_bwd()], grads)
+        times = kernel_ms(
+            lambda: k7.flash_attention_bwd(q, k, v, out, lse, do, True), 20)
+        lib_ms = time_ms(sdpa_bwd, 20) - time_ms(sdpa, 20)
+        nbytes = sum(t.numel() for t in (q, k, v, out, do, *grads)) * 2 \
+            + lse.numel() * 4
+        ops = 10.0 * b * h * hd * s_len * (s_len + 1) / 2
+        if i:
+            bnd, by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
+            log(f"[timing] flash_attention_bwd {case[0]} (off the main "
+                f"path): kernel {times[0]:.4f} ms, device {times[1]:.4f} "
+                f"ms, bound {bnd:.5f} ms ({by}), library {lib_ms:.4f} ms "
+                f"(SDPA backward)")
+            continue
+        add("flash_attention_bwd", case[0], times,
+            time_ms(lambda: k7.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                         do, True), 3),
+            nbytes, ops,
+            library=(lib_ms, "F.scaled_dot_product_attention backward "
+                     "(is_causal, enable_gqa; forward and backward less "
+                     "forward)"),
+            ops_per_s=BF16_FLOPS_PER_S)
+
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
@@ -3722,6 +4212,9 @@ def main() -> int:
     per_forward.update(placed_forward)
     for name, counts in phase_trained(device).items():
         launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
+    train_launches, numbers["train"] = phase_train(device, errs)
+    launches.update(train_launches)
+    per_forward.update(train_launches)
     lm_launches, numbers["lm"] = phase_lm(device)
     launches.update(lm_launches)
     per_forward.update(lm_launches)

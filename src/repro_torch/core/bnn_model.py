@@ -4,9 +4,10 @@ Counterpart of ``repro.core.bnn_model``.  A network is a sequence of layer
 specs (Fig 3's conv/pool/dense calls).  :func:`packed_forward` is the flat
 walk of the deployed integer path — the oracle behind the engine's
 ``legacy_call`` and ``cross_check``; :func:`float_forward` is the float
-oracle of the trained params (inference only: the straight-through
-training form waits for the port's ``binarize``); :func:`to_graph` lowers
-trained params to the unfused operator graph.
+oracle of the trained params and, with ``train=True``, the training
+forward, whose signs take the straight-through gradient
+(``binarize.ste_sign``); :func:`to_graph` lowers trained params to the
+unfused operator graph.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import binary_conv, binary_ops, bitplanes, packing
+from repro_torch.core import (binarize, binary_conv, binary_ops, bitplanes,
+                              packing)
 
 _BN_EPS = 1e-4
 
@@ -162,33 +164,38 @@ def max_pool_nhwc(x: torch.Tensor, window: int, stride: int,
 
 
 def float_forward(params: Sequence[dict], spec: Sequence[LayerSpec],
-                  x_uint8: torch.Tensor) -> torch.Tensor:
+                  x_uint8: torch.Tensor, *, train: bool = False
+                  ) -> torch.Tensor:
     """The float oracle of the packed engine.  x_uint8: (N, H, W, C) uint8;
     returns the final float logits, on ``x_uint8``'s device.
 
     Binary convs pad with -1 (DESIGN.md §3.2), so every sign below equals
     the packed engine's bit; the first conv pads with 0 (a real 0 pixel).
     Convs and matmuls run in full float32: the sums of +-1 (and of uint8
-    pixels times +-1) are then exact.
+    pixels times +-1) are then exact.  With ``train=True`` every sign is
+    ``binarize.ste_sign``, so the net is differentiable in the latent
+    float weights (the values are the same).
     """
+    sign_fn = binarize.ste_sign if train else sign
     dev = x_uint8.device
     x = x_uint8.to(torch.float32)
     with binary_ops.full_float32():
         for layer, p in zip(spec, params):
             p = {k: _param(v, dev) for k, v in p.items()}
             if isinstance(layer, BConv):
-                wb = sign(p["w"])
+                wb = sign_fn(p["w"])
                 if not layer.first:
                     # +-1 activations, -1 padding == pad the map with -1.
                     x = F.pad(x, (0, 0) + (layer.pad,) * 4, value=-1.0)
                 x = float_conv_nhwc(x, wb, None, layer.stride,
                                     layer.pad if layer.first else 0)
-                x = sign(bn(x, p))
+                x = sign_fn(bn(x, p))
             elif isinstance(layer, Pool):
                 x = max_pool_nhwc(x, layer.window, layer.stride,
                                   tuple(layer.pad))
             elif isinstance(layer, BDense):
-                x = sign(bn(x.reshape(x.shape[0], -1) @ sign(p["w"]), p))
+                x = x.reshape(x.shape[0], -1) @ sign_fn(p["w"])
+                x = sign_fn(bn(x, p))
             elif isinstance(layer, FloatDense):
                 x = x.reshape(x.shape[0], -1) @ p["w"] + p["b"]
             elif isinstance(layer, FloatConv):

@@ -10,7 +10,11 @@
 //
 // in q's dtype.  Scores, the running max and sum and the accumulator are
 // float32; p is rounded to v's dtype for the PV product, which accumulates
-// in float32; the output is divided by max(l, 1e-30).  The scale goes on
+// in float32; the output is divided by max(l, 1e-30).  When the caller
+// passes an lse buffer (the autograd Function saving for K7b, the backward
+// in flash_attention_bwd.cu), each row's log-sum-exp m + log l of the
+// scaled scores is also written, float32 (B, H, Sq); a null pointer (serving,
+// prefill) writes nothing more.  The scale goes on
 // the float32 scores times log2 e, so p = 2^(x - m) is the reference's
 // e^(s - m) with one ex2 (what __expf runs).  Causal assumes Sq == Skv:
 // key tiles past a q tile's diagonal are skipped and only the tiles that
@@ -240,8 +244,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
-    __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int KV,
-    int causal, float scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+    int Skv, int H, int KV, int causal, float scale) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 B: tiles start on that grain.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -394,6 +398,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && t == 0) {
+    // m is in log2 units of the scaled scores: lse = (m + log2 l) · ln 2.
+    float* lb = lse + ((long long)b * H + h) * Sq;
+    if (r0 < Sq) lb[r0] = (m[0] + log2f(l[0])) * 0.6931471805599453f;
+    if (r1 < Sq) lb[r1] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
+  }
   const long long q_step = (long long)H * HD;    // between positions
   __nv_bfloat16* ob = out + ((long long)b * Sq * H + h) * HD;
 #pragma unroll
@@ -456,8 +466,9 @@ bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd,
 
 template <int HD>
 int launch(const CUtensorMap& qmap, const CUtensorMap& kmap,
-           const CUtensorMap& vmap, void* out, int B, int Sq, int Skv, int H,
-           int KV, int causal, float scale, cudaStream_t stream) {
+           const CUtensorMap& vmap, void* out, float* lse, int B, int Sq,
+           int Skv, int H, int KV, int causal, float scale,
+           cudaStream_t stream) {
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -468,7 +479,8 @@ int launch(const CUtensorMap& qmap, const CUtensorMap& kmap,
   }
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + kBQ - 1) / kBQ));
   flash_fwd_kernel<HD><<<grid, kThreads, Tile<HD>::kSmemBytes, stream>>>(
-      qmap, kmap, vmap, (__nv_bfloat16*)out, Sq, Skv, H, KV, causal, scale);
+      qmap, kmap, vmap, (__nv_bfloat16*)out, lse, Sq, Skv, H, KV, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -486,12 +498,13 @@ int info(int* regs, int* smem_bytes, int* threads) {
 }  // namespace
 
 // bf16 only (the LM path's dtype); hd 128 (minitron's, qwen3's and
-// command-r's head width) or 64 (granite's); q, k, v contiguous and
-// 16-byte aligned.
+// command-r's head width) or 64 (granite's, lm-100m's); q, k, v contiguous
+// and 16-byte aligned; lse null or float32 (B, H, Sq).
 extern "C" int launch_flash_attention(const void* q, const void* k,
-                                      const void* v, void* out, int B,
-                                      int Sq, int Skv, int H, int KV, int hd,
-                                      int causal, float scale, void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq, int Skv, int H, int KV,
+                                      int hd, int causal, float scale,
+                                      void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
   if (KV <= 0 || H % KV != 0 || Skv <= 0 || (hd != 64 && hd != 128)) {
     return (int)cudaErrorInvalidValue;
@@ -504,10 +517,11 @@ extern "C" int launch_flash_attention(const void* q, const void* k,
       || !make_map(fn, &vmap, v, hd, KV, Skv, B)) {
     return (int)cudaErrorInvalidValue;
   }
-  return hd == 64 ? launch<64>(qmap, kmap, vmap, out, B, Sq, Skv, H, KV,
-                               causal, scale, (cudaStream_t)stream)
-                  : launch<128>(qmap, kmap, vmap, out, B, Sq, Skv, H, KV,
-                                causal, scale, (cudaStream_t)stream);
+  float* lse_f = static_cast<float*>(lse);
+  return hd == 64 ? launch<64>(qmap, kmap, vmap, out, lse_f, B, Sq, Skv, H,
+                               KV, causal, scale, (cudaStream_t)stream)
+                  : launch<128>(qmap, kmap, vmap, out, lse_f, B, Sq, Skv, H,
+                                KV, causal, scale, (cudaStream_t)stream);
 }
 
 // The kernel's registers a thread as compiled at head width hd (before

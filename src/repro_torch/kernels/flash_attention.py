@@ -1,7 +1,9 @@
-"""K7: GQA attention forward with an online softmax (flash attention).
+"""K7: GQA attention with an online softmax (flash attention), and K7b, its
+backward.
 
 Port of ``repro.kernels.flash_attention.flash_attention`` (``_flash_fwd``,
-``_kernel``); the CUDA kernel is ``csrc/flash_attention.cu``: a
+``_kernel``, and the ``custom_vjp`` backward ``_bwd``); the forward's CUDA
+kernel is ``csrc/flash_attention.cu``: a
 warp-specialised Hopper kernel in which a producer warpgroup feeds a ring
 of K/V tiles through TMA and two consumer warpgroups run both products on
 ``wgmma`` (bf16 in, float32 accumulation; bf16 inputs, head width 64 or
@@ -19,7 +21,18 @@ plain version keeps the reference's block contract: ``block_q``
 plain version also takes float32 and any head width (the CPU tests); on
 the card the kernel takes bf16 only, the LM path's dtype, at the LM
 archs' head widths: 128 (minitron-8b, qwen3-moe-30b-a3b, command-r-35b)
-and 64 (granite-moe-3b-a800m).
+and 64 (granite-moe-3b-a800m, lm-100m).
+
+Gradients.  :func:`flash_attention` is differentiable: when grad mode is
+on and q, k or v requires a gradient it runs through an autograd Function
+whose forward also writes each row's log-sum-exp ``lse`` (B, H, Sq) and
+whose backward is K7b (:func:`flash_attention_bwd`,
+``csrc/flash_attention_bwd.cu``): dq, dk and dv of the same function, dk
+and dv summed over each KV head's G q heads, in the inputs' dtypes.  The
+reference recomputes through its jnp chunked attention there; K7b
+recomputes p = exp(s - lse) tile by tile (the FlashAttention-2 backward).
+Otherwise (serving, prefill, the captured paths) the call launches the
+forward alone, with no ``lse``.
 """
 
 from __future__ import annotations
@@ -65,10 +78,12 @@ def _check_blocks(sq: int, skv: int, block_q: int, block_k: int
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 512,
-                          block_k: int = 512) -> torch.Tensor:
+                          block_k: int = 512, *, return_lse: bool = False):
     """The plain PyTorch version: ``_kernel``'s blocked online softmax with
     the same dtype steps, the q heads of each KV head taken together (no
-    K/V copy per q head)."""
+    K/V copy per q head).  With ``return_lse`` it returns (out, lse), lse
+    (B, H, Sq) float32 = m + log l of the scaled scores, as the kernel
+    writes it for K7b."""
     _check_shapes(q, k, v, causal)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -80,6 +95,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 512,
     kr = k.permute(0, 2, 1, 3).float()                    # (B, KV, Skv, hd)
     vr = v.permute(0, 2, 1, 3)
     out = torch.empty((b, kvh, g, sq, hd), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, kvh, g, sq), device=dev)
     for q_lo in range(0, sq, block_q):
         qi = qr[:, :, :, q_lo:q_lo + block_q]
         m = torch.full((b, kvh, g, block_q), NEG_INF, device=dev)
@@ -108,7 +124,73 @@ def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 512,
             m = m_new
         out[:, :, :, q_lo:q_lo + block_q] = (
             acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+        lse[:, :, :, q_lo:q_lo + block_q] = m + torch.log(l.clamp_min(1e-30))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    if return_lse:
+        return out, lse.reshape(b, h, sq)
+    return out
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 512,
+                        block_k: int = 512, with_lse: bool = True):
+    """K7's launch: (out, lse or None), the lse (B, H, Sq) float32 only
+    ``with_lse``.  The plain version for CPU tensors, K7 for CUDA tensors
+    (bf16, hd in ``KERNEL_HEAD_DIMS``); anything else raises."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal, block_q, block_k,
+                                         return_lse=True)
+        return flash_attention_plain(q, k, v, causal, block_q, block_k), None
+    _check_shapes(q, k, v, causal)
+    _check_kernel_operands(dict(q=q, k=k, v=v))
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lib = build.library()
+    flash_attention.launches += 1
+    build.check(lib.launch_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, b, sq, skv, h, kvh, hd,
+        int(causal), 1.0 / math.sqrt(hd), build.stream_ptr(q.device)),
+        "flash_attention")
+    return out, lse
+
+
+def _check_kernel_operands(operands: dict) -> None:
+    """What the CUDA kernels take: bf16, hd in ``KERNEL_HEAD_DIMS``,
+    contiguous, on the first operand's card, 16-byte aligned (rows load in
+    16-byte chunks)."""
+    q = next(iter(operands.values()))
+    if q.dtype != torch.bfloat16 or q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes bf16 with hd 64 "
+                         f"or hd 128, got {q.dtype} hd {q.shape[3]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for name, t in operands.items():
+        build.require(t, name, q.dtype, 4, q.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K7 with its lse saved, and K7b as the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        out, lse = flash_attention_fwd(q, k, v, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         *ctx.blocks)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,35 +200,110 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Launches the CUDA kernel for CUDA tensors (bf16, hd in
     ``KERNEL_HEAD_DIMS``; the blocks shape only the plain version); CPU
-    tensors take the plain version.  Anything else raises.
+    tensors take the plain version.  Anything else raises.  Under autograd
+    (grad mode on, an input requiring a gradient) the call also keeps the
+    lse and its backward is :func:`flash_attention_bwd`.
     """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, block_q, block_k)
-    _check_shapes(q, k, v, causal)
-    if q.dtype != torch.bfloat16 or q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes bf16 with hd 64 "
-                         f"or hd 128, got {q.dtype} hd {q.shape[3]}")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        build.require(t, name, q.dtype, 4, dev)
-        if t.data_ptr() % 16:      # the kernel loads rows in 16-byte chunks
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             f"aligned")
-    b, sq, h, hd = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    lib = build.library()
-    flash_attention.launches += 1
-    build.check(lib.launch_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        h, kvh, hd, int(causal), 1.0 / math.sqrt(hd),
-        build.stream_ptr(dev)), "flash_attention")
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
+    return flash_attention_fwd(q, k, v, causal, block_q, block_k, False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
+                              block_q: int = 512, block_k: int = 512):
+    """The plain PyTorch version of K7b: the same blocked steps in float32.
+    D = rowsum(dO ∘ O); then for each key block, the q blocks that see it
+    (under causal from its diagonal on): p = exp(s - lse), dV += pᵀ·dO with
+    p rounded to v's dtype, dS = p ∘ (dO·Vᵀ - D) rounded to q's dtype,
+    dK += dSᵀ·q·scale, dQ += dS·k·scale.  Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    _check_shapes(q, k, v, causal)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    block_q, block_k = _check_blocks(sq, skv, block_q, block_k)
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    def by_kv_head(t):                       # (B, S, H, hd) -> (B, KV, G, S, hd)
+        return t.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4).float()
+
+    qr, dor = by_kv_head(q), by_kv_head(dout)
+    delta = (dor * by_kv_head(out)).sum(-1)             # (B, KV, G, Sq)
+    lser = lse.reshape(b, kvh, g, sq)
+    kr = k.permute(0, 2, 1, 3).float()                  # (B, KV, Skv, hd)
+    vr = v.permute(0, 2, 1, 3).float()
+    dq = torch.zeros_like(qr)
+    dk = torch.zeros_like(kr)
+    dv = torch.zeros_like(vr)
+    for k_lo in range(0, skv, block_k):
+        ks = slice(k_lo, k_lo + block_k)
+        q_first = (k_lo // block_q) * block_q if causal else 0
+        for q_lo in range(q_first, sq, block_q):
+            qs = slice(q_lo, q_lo + block_q)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qr[:, :, :, qs],
+                             kr[:, :, ks]) * scale
+            p = torch.exp(s - lser[:, :, :, qs, None])
+            if causal:
+                q_pos = q_lo + torch.arange(block_q, device=dev)
+                kv_pos = k_lo + torch.arange(block_k, device=dev)
+                p = torch.where(q_pos[:, None] >= kv_pos[None, :], p, 0.0)
+            do_blk = dor[:, :, :, qs]
+            dv[:, :, ks] += torch.einsum("bhgqk,bhgqd->bhkd",
+                                         p.to(v.dtype).float(), do_blk)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do_blk, vr[:, :, ks])
+            ds = (p * (dp - delta[:, :, :, qs, None])).to(q.dtype).float()
+            dk[:, :, ks] += torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                                         qr[:, :, :, qs]) * scale
+            dq[:, :, :, qs] += torch.einsum("bhgqk,bhkd->bhgqd", ds,
+                                            kr[:, :, ks]) * scale
+    return (dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype),
+            dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        block_q: int = 512, block_k: int = 512):
+    """K7b: (dq, dk, dv) of ``flash_attention(q, k, v, causal)`` at the
+    upstream gradient ``dout``, from the forward's ``out`` and ``lse``.
+
+    Launches the CUDA kernels for CUDA tensors (bf16, hd in
+    ``KERNEL_HEAD_DIMS``: the D pre-pass, the dK/dV pass and the dQ pass,
+    counted as one launch of this wrapper); CPU tensors take the plain
+    version.  Anything else raises.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
+                                         block_q, block_k)
+    _check_shapes(q, k, v, causal)
+    dout = dout.contiguous()
+    _check_kernel_operands(dict(q=q, k=k, v=v, out=out, dout=dout))
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    build.require(lse, "lse", torch.float32, 3, q.device)
+    if tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}, "
+                         f"want {(b, h, sq)}")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = build.library()
+    flash_attention_bwd.launches += 1
+    build.check(lib.launch_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, int(causal),
+        1.0 / math.sqrt(hd), build.stream_ptr(q.device)),
+        "flash_attention_bwd")
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def kernel_info(hd: int = 128) -> dict[str, int]:

@@ -1,11 +1,12 @@
 """Shared LM substrate: norms, RoPE, attention, dtype policy.
 
-Counterpart of ``repro.models.layers`` for the dense LM's inference path.
+Counterpart of ``repro.models.layers`` for the LM's serving and training
+paths.
 Layouts are the reference's: q (B, S, H, hd), k and v (B, S, KV, hd).
 Compute runs in bf16 (``COMPUTE_DTYPE``); norms, RoPE, softmax statistics
 and attention accumulators run in float32.  Full-sequence attention goes
 through K7 (``kernels.flash_attention``): on a CUDA tensor the kernel, on
-a CPU tensor its plain version.  The reference's sharded decode helpers
+a CPU tensor its plain version; under autograd its backward is K7b.  The reference's sharded decode helpers
 (``flash_decode_local``, ``combine_decode_partials``) and its remat and
 scan machinery have no use on one card and are not ported.
 """
@@ -57,7 +58,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention over the full sequence without the (S, S) scores:
     q (B, S, H, hd), k and v (B, S, KV, hd) with H = KV·G -> (B, S, H, hd)
     in q's dtype.  The chunks, cut to S, must divide S, as in the
-    reference; they are K7's blocks."""
+    reference; they are K7's blocks.  Differentiable in q, k and v (the
+    gradient through K7b, ``kernels.flash_attention.flash_attention_bwd``)."""
     s = q.shape[1]
     q_chunk, kv_chunk = min(q_chunk, s), min(kv_chunk, s)
     if s % q_chunk or s % kv_chunk:

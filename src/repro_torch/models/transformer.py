@@ -1,16 +1,21 @@
-"""Decoder-only transformer LM: dense and MoE inference on one device.
+"""Decoder-only transformer LM: dense and MoE, serving and training on one
+device.
 
-Counterpart of ``repro.models.transformer`` for serving: GQA with RoPE,
-``relu2`` / ``swiglu`` MLPs or a Mixture-of-Experts layer
-(``models.moe``), a full-sequence forward, the serving prefill that fills
-the KV cache, and the one-token decode step.
+Counterpart of ``repro.models.transformer``: GQA with RoPE, ``relu2`` /
+``swiglu`` MLPs or a Mixture-of-Experts layer (``models.moe``), a
+full-sequence forward, the serving prefill that fills the KV cache, the
+one-token decode step, and the training loss (sequence-chunked cross
+entropy plus the MoE balance loss) with the AdamW train step.
 Parameters are stacked on a leading layer dim as in the reference; the
 layer loop is a Python loop over them (the reference's ``scan``).  One
 card has nothing to shard, so the reference's ``rules`` argument is gone.
 
-Matrices, the embedding and the head are stored in bf16: the reference
-keeps float32 and casts to bf16 at every use, which gives the same values,
-so the port casts once (minitron-8b: 15.5 GB instead of 30.9).  The norm
+For serving, matrices, the embedding and the head are stored in bf16: the
+reference keeps float32 and casts to bf16 at every use, which gives the
+same values, so the port casts once (minitron-8b: 15.5 GB instead of
+30.9).  Training keeps float32 master weights (``dtype=torch.float32`` at
+``init_params`` / ``params_from_numpy``), which every use casts to bf16
+as the reference does; on bf16 weights the cast is a no-op.  The norm
 scales stay float32, as the reference's norms read them, and so does the
 MoE router, which the reference routes with in float32 (a bf16 router
 changes the top-k picks).  Attention over the full sequence runs
@@ -22,8 +27,13 @@ its capacity over the tokens of the call: B·S at prefill and in
 the new K/V row into the cache in place (the reference returns an
 updated copy).
 
-Not ported yet: training (loss, chunked cross-entropy, the train step),
-the dry-run analytics and the expert-parallel exchange of MoE.
+The serving entry points (``forward``, ``init_cache``, the prefill and
+decode steps) run under ``torch.inference_mode``; ``forward_hidden`` and
+``loss_fn`` run under autograd, and ``init_params`` / ``params_from_numpy``
+return ordinary tensors (made under ``torch.no_grad``), which both take.
+
+Not ported yet: the dry-run analytics and the expert-parallel exchange of
+MoE.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, moe as moe_lib
+from repro_torch.optim import adamw_update
+from repro_torch.tree import value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,20 +168,22 @@ _FLOAT32 = frozenset({"ln1", "ln2", "q_norm", "k_norm", "final_norm",
 _DRAW_ELEMENTS = 1 << 26
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def init_params(cfg: LMConfig, generator: torch.Generator,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
     """Stacked-layer parameters with the reference's shapes at one device
     (``ep = 1``) and its scales (matrices N(0, 1/fan_in), embedding and
     head N(0, 0.02²), norms 1), drawn in float32 from ``generator`` (on
     ``device``) one layer at a time, the embedding and head in row blocks,
-    and stored in bf16; norm scales and the MoE router float32."""
+    and stored in ``dtype`` (bf16 to serve, float32 as training's master
+    weights); norm scales and the MoE router float32."""
     device = resolve_device(device)
     l, d = cfg.n_layers, cfg.d_model
 
     def empty(name, shape):
-        dtype = torch.float32 if name in _FLOAT32 else layers.COMPUTE_DTYPE
-        return torch.empty(shape, dtype=dtype, device=device)
+        kind = torch.float32 if name in _FLOAT32 else dtype
+        return torch.empty(shape, dtype=kind, device=device)
 
     def fill(t, std):            # t = N(0, std²), drawn in row blocks
         rows = max(1, _DRAW_ELEMENTS // max(1, t[0].numel()))
@@ -194,15 +208,16 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     return params
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def params_from_numpy(tree: dict, cfg: LMConfig,
-                      device: str | torch.device = "cuda") -> dict:
+                      device: str | torch.device = "cuda",
+                      dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
     """The port's parameters from the reference's ``init_params`` pytree
     as numpy arrays (``jax.tree.map(np.asarray, params)``): the same
-    values, matrices in bf16 (the reference's cast at use), norm scales
-    and the MoE router float32.  An expert dim padded by a reference built
-    with ``ep > 1`` comes across as it is: the router masks the padding
-    experts by ``cfg.n_experts``."""
+    values, matrices in ``dtype`` (bf16, the reference's cast at use, or
+    float32 to train), norm scales and the MoE router float32.  An expert
+    dim padded by a reference built with ``ep > 1`` comes across as it
+    is: the router masks the padding experts by ``cfg.n_experts``."""
     device = resolve_device(device)
     want = {name for name, _, _ in _layer_shapes(cfg)}
     if set(tree["layers"]) != want:
@@ -219,7 +234,7 @@ def params_from_numpy(tree: dict, cfg: LMConfig,
     def conv(name, a):   # a copy: arrays from jax are read-only
         t = torch.from_numpy(np.array(a, dtype=np.float32))
         return t.to(device, torch.float32 if name in _FLOAT32
-                    else layers.COMPUTE_DTYPE).contiguous()
+                    else dtype).contiguous()
 
     out = {name: conv(name, a) for name, a in tree.items()
            if name != "layers"}
@@ -244,9 +259,10 @@ def _qkv(hnorm, lp, cfg: LMConfig, positions):
     RoPE on q and k."""
     b, s, _ = hnorm.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (hnorm @ lp["wq"]).reshape(b, s, h, hd)
-    k = (hnorm @ lp["wk"]).reshape(b, s, kvh, hd)
-    v = (hnorm @ lp["wv"]).reshape(b, s, kvh, hd)
+    cd = layers.COMPUTE_DTYPE
+    q = (hnorm @ lp["wq"].to(cd)).reshape(b, s, h, hd)
+    k = (hnorm @ lp["wk"].to(cd)).reshape(b, s, kvh, hd)
+    v = (hnorm @ lp["wv"].to(cd)).reshape(b, s, kvh, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -265,17 +281,19 @@ def _attention(x, lp, cfg: LMConfig, positions):
     q, k, v = _qkv(hnorm, lp, cfg, positions)
     o = layers.chunked_attention(q, k, v, causal=True, q_chunk=s,
                                  kv_chunk=min(cfg.kv_chunk, s))
-    return x + o.reshape(b, s, cfg.qkv_dim) @ lp["wo"], k, v
+    o = o.reshape(b, s, cfg.qkv_dim) @ lp["wo"].to(layers.COMPUTE_DTYPE)
+    return x + o, k, v
 
 
 def _mlp_dense(hnorm, lp, cfg: LMConfig):
-    up = hnorm @ lp["w_up"]
+    cd = layers.COMPUTE_DTYPE
+    up = hnorm @ lp["w_up"].to(cd)
     if cfg.mlp_act == "swiglu":
-        gate = hnorm @ lp["w_gate"]
+        gate = hnorm @ lp["w_gate"].to(cd)
         hmid = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
     else:                                        # relu2, squared in bf16
         hmid = torch.relu(up).square()
-    return hmid @ lp["w_down"]
+    return hmid @ lp["w_down"].to(cd)
 
 
 def _mlp_or_moe(x, lp, cfg: LMConfig):
@@ -298,7 +316,8 @@ def _embed(params, tokens):
 
 
 def _head(params, cfg: LMConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(layers.COMPUTE_DTYPE)
 
 
 def _mask_pad_vocab(logits, cfg: LMConfig):
@@ -312,12 +331,12 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
     return torch.where(mask, logits, -1e30)
 
 
-@torch.inference_mode()
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers + final norm.  Returns (x (B, S, D), aux); aux
     is the MoE balance loss averaged over the layers, 0 for a dense
-    model."""
+    model.  Differentiable: under autograd attention runs through K7 and
+    its backward, K7b."""
     x = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     auxs = []
@@ -338,6 +357,84 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
     vocab columns are masked to -1e30."""
     x, aux = forward_hidden(params, tokens, cfg)
     return _mask_pad_vocab(x @ _head(params, cfg), cfg), aux
+
+
+# --------------------------------------------------------------------------
+# Loss + train step
+# --------------------------------------------------------------------------
+
+def _log_partition(lg: torch.Tensor) -> torch.Tensor:
+    """log Σ exp over the last dim of float32 logits, max-shifted as the
+    reference writes it."""
+    m = lg.amax(-1, keepdim=True)
+    return m[..., 0] + torch.log(torch.exp(lg - m).sum(-1))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token CE of (..., V) logits, plus ``z_loss`` times the mean
+    squared log-partition."""
+    lg = logits.float()
+    lse = _log_partition(lg)
+    gold = torch.take_along_dim(lg, labels.long()[..., None], dim=-1)[..., 0]
+    loss = (lse - gold).mean()
+    if z_loss:
+        loss = loss + z_loss * lse.square().mean()
+    return loss
+
+
+def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               vocab: int, z_loss: float = 1e-4,
+               n_chunks: int = 8) -> torch.Tensor:
+    """Sequence-chunked head matmul + cross-entropy, the reference's: the
+    head and the CE are taken a chunk of positions at a time (the chunk
+    count cut down until it divides S), padded vocab columns masked to
+    -1e30, the sums divided by B·S at the end."""
+    b, s, _ = x.shape
+    width = head.shape[1]
+    n_chunks = max(1, min(n_chunks, s))
+    while s % n_chunks:
+        n_chunks -= 1
+    cs = s // n_chunks
+    pad_mask = (torch.arange(width, device=x.device) < vocab
+                if width != vocab else None)
+    total = torch.zeros((), device=x.device)
+    ztotal = torch.zeros((), device=x.device)
+    for i in range(n_chunks):
+        lg = (x[:, i * cs:(i + 1) * cs] @ head).float()
+        if pad_mask is not None:
+            lg = torch.where(pad_mask, lg, -1e30)
+        lse = _log_partition(lg)
+        lc = labels[:, i * cs:(i + 1) * cs].long()
+        gold = torch.take_along_dim(lg, lc[..., None], dim=-1)[..., 0]
+        total = total + (lse - gold).sum()
+        ztotal = ztotal + lse.square().sum()
+    n_tok = b * s
+    return total / n_tok + z_loss * ztotal / n_tok
+
+
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            aux_weight: float = 0.01):
+    """(CE + ``aux_weight`` · MoE balance loss, {"ce", "aux"}) of one batch
+    of ``tokens`` and next-token ``labels`` (B, S)."""
+    x, aux = forward_hidden(params, batch["tokens"], cfg)
+    ce = chunked_ce(x, _head(params, cfg), batch["labels"], cfg.vocab)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def make_train_step(cfg: LMConfig, *, lr=3e-4) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics): the
+    loss's gradient over every leaf (attention's through K7b), then one
+    AdamW step with the reference's defaults.  ``lr`` is a float or a
+    schedule."""
+
+    def train_step(params, opt_state, batch):
+        (loss, parts), grads = value_and_grad(loss_fn, params, batch, cfg)
+        params, opt_state, om = adamw_update(params, grads, opt_state,
+                                             lr=lr)
+        return params, opt_state, {"loss": loss, **parts, **om}
+
+    return train_step
 
 
 # --------------------------------------------------------------------------
@@ -427,7 +524,8 @@ def make_decode_step(cfg: LMConfig, max_seq: int) -> Callable:
             p = torch.exp(s - s.amax(-1, keepdim=True))
             o = torch.einsum("bhgs,bhsd->bhgd", p / p.sum(-1, keepdim=True),
                              cache["v"][i].float())
-            x = x + o.reshape(b, h * hd).to(x.dtype) @ lp["wo"]
+            x = x + (o.reshape(b, h * hd).to(x.dtype)
+                     @ lp["wo"].to(layers.COMPUTE_DTYPE))
             x, _ = _mlp_or_moe(x, lp, cfg)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _mask_pad_vocab(x @ _head(params, cfg), cfg), cache

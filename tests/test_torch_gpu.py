@@ -681,6 +681,94 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
         k7.flash_attention(q, q, q)
 
 
+# K7b against its plain version: |kernel - plain| <= tol·(1 + |plain|) for
+# each of dq, dk and dv.  Both round p and dS to bf16 before their products
+# and the outputs once, but the kernel sums in 64-key and 16-row mma steps
+# where the plain version takes whole blocks, so they agree to a few bf16
+# steps (2^-8 relative) of the gradients' scale.
+K7B_TOL = 2e-2
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal", [
+    (2, 512, 12, 4, 64, True),      # lm-100m's layer, two rows of it
+    (1, 512, 32, 8, 128, True),     # minitron-8b's layer at S 512
+    (1, 100, 12, 4, 64, True),      # ragged last tile
+    (1, 129, 8, 8, 128, False),     # G = 1, non-causal, a tile and a row
+    (2, 200, 4, 4, 128, True),      # causal, ragged at hd 128
+])
+def test_flash_attention_bwd_on_card(cuda, b, s, h, kvh, hd, causal):
+    q, k, v, do = (torch.from_numpy(RNG.standard_normal(shape)
+                                    .astype(np.float32)).to(cuda,
+                                                           torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, kvh, hd),
+                                 (b, s, kvh, hd), (b, s, h, hd)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    k7.flash_attention.launches = k7.flash_attention_bwd.launches = 0
+    out = k7.flash_attention(*leaves, causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (k7.flash_attention.launches,
+            k7.flash_attention_bwd.launches) == (1, 1)
+    # the plain backward on the same forward output and lse
+    o, lse = k7.flash_attention_plain(q, k, v, causal, return_lse=True)
+    want = k7.flash_attention_bwd_plain(q, k, v, out.detach(), lse, do,
+                                        causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), rtol=K7B_TOL,
+                                   atol=K7B_TOL)
+
+
+def test_flash_attention_serving_launch_unchanged(cuda):
+    """Without autograd the call launches the forward alone (no lse), and
+    its output equals the one the Function saves, bit for bit."""
+    q, k, v = (torch.from_numpy(RNG.standard_normal(shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+        for shape in ((2, 256, 12, 64), (2, 256, 4, 64), (2, 256, 4, 64)))
+    k7.flash_attention.launches = k7.flash_attention_bwd.launches = 0
+    with torch.inference_mode():
+        served = k7.flash_attention(q, k, v, True)
+    plain_grad_off = k7.flash_attention(q, k, v, True)     # no input needs it
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    trained = k7.flash_attention(*leaves, True)
+    torch.cuda.synchronize()
+    assert served.grad_fn is None and plain_grad_off.grad_fn is None
+    assert trained.grad_fn is not None
+    assert torch.equal(served, trained.detach())
+    assert torch.equal(served, plain_grad_off)
+    assert (k7.flash_attention.launches,
+            k7.flash_attention_bwd.launches) == (3, 0)
+
+
+def test_lm100m_train_step_on_card(cuda):
+    """One lm-100m train step at full width (B 2, S 512) through K7 and K7b:
+    a finite loss and gradient norm, within 1e-3 relative of a second run
+    from the same state (the embedding's backward accumulates with atomics,
+    so the two need not be equal bit for bit)."""
+    from repro_torch.launch.train import LM_100M
+    from repro_torch.optim import adamw_init
+
+    cfg = LM_100M
+    params = transformer.init_params(cfg, torch.Generator(cuda)
+                                     .manual_seed(0), cuda,
+                                     dtype=torch.float32)
+    opt = adamw_init(params)
+    step = transformer.make_train_step(cfg)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab, (2, 513)).astype(
+        np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    k7.flash_attention.launches = k7.flash_attention_bwd.launches = 0
+    runs = [step(params, opt, batch)[2] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (k7.flash_attention.launches,
+            k7.flash_attention_bwd.launches) == (2 * cfg.n_layers,) * 2
+    for key in ("loss", "grad_norm"):
+        a, b = (float(m[key]) for m in runs)
+        assert np.isfinite(a) and abs(a - b) <= 1e-3 * abs(a), (key, a, b)
+    assert 9.0 < float(runs[0]["loss"]) < 12.0     # ~ln 32768 at init
+
+
 LM_CFG = dict(name="gpu-lm", n_layers=2, d_model=256, n_heads=4,
               n_kv_heads=2, d_head=128, d_ff=512, vocab=1000,
               rope_theta=10_000.0, mlp_act="relu2")

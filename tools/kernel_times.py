@@ -16,6 +16,10 @@ its own ``build/``.
 
     python3 tools/kernel_times.py [--src OTHER_TREE/src] [--out FILE.json]
 
+The script's imports and timing phase name the training path's modules
+and K7b, so ``--src`` takes a tree that has them (from the training
+slice on).
+
 Last, K6's device time a call at AlexNet's conv2-fc7 for the buckets
 below 8 (``cuda_pm1`` serves 1, 2 and 4), through the tree's wrapper.
 Prints the ``[profile]``, ``[timing]`` and ``[buckets]`` lines, a
