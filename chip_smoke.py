@@ -10,9 +10,11 @@ Phases, each fatal on failure:
 1. build    — compile the CUDA kernel library from ``csrc/`` with nvcc
               (sm_90a), print the card's name and power limit, check the
               region planner's shared-memory budget against the card's
-              opt-in limit per block, and print K7's registers and shared
-              memory a block and K5's cluster size C (with how many
-              clusters of 16, 8 and 4 the card holds at once);
+              opt-in limit per block, and print K7's and K7b's main
+              kernel's registers and shared memory a block (K7b's local
+              memory a thread must be 0: nothing spilled) and K5's cluster
+              size C (with how many clusters of 16, 8 and 4 the card holds
+              at once);
 2. kernels  — every kernel of the serving paths (K4 bitplane_pack, K3
               direct_conv_bn_binarize and its bit-plane variant
               direct_conv_bn_binarize_planes, K2 fused_matmul_bn_binarize,
@@ -141,12 +143,16 @@ Phases, each fatal on failure:
               within 1e-3 of ``float_forward``;
    train    — the training path: (a) K7's forward with its lse and K7b,
               its backward, against their plain versions on the card at
-              lm-100m's layer (B 8, S 512, H 12, KV 4, hd 64, causal), a
-              minitron-8b layer at S 512 (hd 128) and edge cases of K7b's
-              64-row, 64-key tiles, each of dq, dk, dv within ``K7B_TOL``
-              · (1 + |plain|) and also against autograd of the float32
-              ``reference_attention``; K7's output with the lse equal to
-              its serving output bit for bit; (b) lm-100m at full width
+              lm-100m's layer (B 8, S 512, H 12, KV 4, hd 64, causal),
+              minitron-8b's prefill layer (B 2, S 2048, hd 128) and at S
+              512, and edge cases of K7b's 64-row, 128-key tiles (ragged,
+              non-causal with Sq != Skv, G = 1, G = 4 over five key tiles),
+              each of dq, dk, dv within ``K7B_TOL`` · (1 + |plain|) and
+              also against autograd of the float32
+              ``reference_attention``, and a second call equal to the first
+              bit for bit (dq's fixed summation order); K7's output with
+              the lse equal to its serving output bit for bit; (b) lm-100m
+              at full width
               through ``repro_torch.launch.train.main`` in this process:
               20 AdamW steps at batch 8, sequence 512 (K7 and K7b 12
               launches a step, every loss finite; ms a step, tokens/s,
@@ -246,9 +252,12 @@ Phases, each fatal on failure:
               also beside one library call on the unpacked +-1 operands; K7
               at minitron's and granite's prefill layers (hd 128 and 64)
               beside ``F.scaled_dot_product_attention`` on the same
-              tensors; K7b at lm-100m's layer (and, not summed, the
-              minitron-8b layer at S 512) beside SDPA's backward (its
-              forward and backward less its forward).
+              tensors; K7b at lm-100m's layer and minitron-8b's prefill
+              layer, each launch's device time (the D pre-pass and the
+              main kernel), beside SDPA's backward with each backend pinned
+              (``sdpa_kernel``: flash, cuDNN, memory-efficient; K/V
+              expanded to H heads where a backend takes no GQA), the
+              backward of one forward repeated.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -522,7 +531,7 @@ DEVICE_KERNELS = (
     ("xnor_popcount_matmul_kernel", "xnor_popcount_matmul"),
     ("DotEpilogue", "mxu_pm1_matmul"),
     ("flash_fwd_kernel", "flash_attention"),
-    ("flash_bwd_dkdv_kernel", "flash_attention_bwd"),    # one of its three
+    ("flash_bwd_main_kernel", "flash_attention_bwd"),    # one of its two
 )
 # The serving buckets; each is captured once, on its first use.
 BUCKETS = (1, 2, 4, 8)
@@ -888,6 +897,16 @@ def phase_build() -> str:
         log(f"[build] flash_attention at hd {hd}: {info['registers']} "
             f"registers a thread as compiled, {info['smem_bytes']} B of "
             f"shared memory a block, {info['threads']} threads a block")
+        info = k7.kernel_info(hd, backward=True)
+        log(f"[build] flash_attention_bwd's main kernel at hd {hd}: "
+            f"{info['registers']} registers a thread as compiled, "
+            f"{info['smem_bytes']} B of shared memory a block, "
+            f"{info['threads']} threads a block, {info['local_bytes']} B of "
+            f"local memory a thread")
+        if info["local_bytes"]:
+            raise AssertionError(f"[build] flash_attention_bwd at hd {hd} "
+                                 f"spills: {info['local_bytes']} B of local "
+                                 f"memory a thread")
     info = k5.kernel_info()
     words = alexnet_arena_words()
     active = {c: k5.max_clusters(words, c) for c in k5.CLUSTER_SIZES}
@@ -2374,22 +2393,26 @@ def phase_trained(device) -> dict[str, dict[str, int]]:
 # --------------------------------------------------------------------------
 
 # K7b cases, bf16, in FLASH_CASES' form: lm-100m's layer (the train step's
-# shape), a minitron-8b layer at S 512, and edge cases of the 64-key,
-# 64-row tiles (ragged, non-causal with Sq != Skv, G = 1).
+# shape), minitron-8b's prefill layer and the same at S 512, and edge cases
+# of the 64-row, 128-key tiles (ragged, non-causal with Sq != Skv, G = 1,
+# G = 4 over five key tiles, so each dq block sums five contributions in
+# order).  The first two are the timed shapes.
 K7B_CASES = [
     ("lm-100m layer", 8, 512, 512, 12, 4, 64, True),
+    ("minitron-8b prefill layer", 2, 2048, 2048, 32, 8, 128, True),
     ("minitron-8b layer at S 512", 2, 512, 512, 32, 8, 128, True),
     ("hd 64, ragged last tile, S = 100", 1, 100, 100, 12, 4, 64, True),
     ("hd 64, non-causal Sq 100, Skv 300", 1, 100, 300, 12, 4, 64, False),
     ("hd 128, S = 129, G = 1, non-causal", 1, 129, 129, 8, 8, 128, False),
     ("hd 128, S = 200, G = 1", 2, 200, 200, 4, 4, 128, True),
+    ("hd 64, S = 640, G = 4, five key tiles", 1, 640, 640, 16, 4, 64, True),
 ]
 # K7b against its plain version, |kernel - plain| <= tol·(1 + |plain|) for
 # each of dq, dk and dv: both round p and dS to bf16 before their products
-# and round each output once, but sum in other orders (64-key mma steps
-# against whole blocks), so they agree to a few bf16 steps (2^-8) of the
-# gradients' scale.  The same bound holds against autograd of the float32
-# ``reference_attention`` on the same bf16 inputs.
+# and round each output once, but sum in other orders (16-wide wgmma steps
+# over 64-row, 128-key tiles against whole blocks), so they agree to a few
+# bf16 steps (2^-8) of the gradients' scale.  The same bound holds against
+# autograd of the float32 ``reference_attention`` on the same bf16 inputs.
 K7B_TOL = 2e-2
 # lm-100m at full width (launch/train.py's LM_100M, examples/
 # train_lm_100m.py's batch and sequence), TRAIN_STEPS AdamW steps.
@@ -2426,6 +2449,13 @@ def k7b_inputs(inp: Inputs, case):
     return q, k, v, do
 
 
+def plain_blocks(case) -> tuple[int, int]:
+    """(block_q, block_k) of the plain versions at a case: 512 cut to S, or
+    128 where 512 does not divide a longer S (the blocks must divide it)."""
+    return tuple(512 if s <= 512 or s % 512 == 0 else 128
+                 for s in (case[2], case[3]))
+
+
 def k7b_error(name: str, got, want) -> float:
     """max |got - want| over dq, dk, dv; fails past ``K7B_TOL``."""
     worst = 0.0
@@ -2453,15 +2483,21 @@ def check_k7b(inp: Inputs, note) -> None:
         if not torch.equal(out, k7.flash_attention(q, k, v, causal)):
             raise AssertionError(f"[train] {case[0]}: K7's output with the "
                                  f"lse differs from its serving output")
-        _, plain_lse = k7.flash_attention_plain(q, k, v, causal,
+        blocks = plain_blocks(case)
+        _, plain_lse = k7.flash_attention_plain(q, k, v, causal, *blocks,
                                                 return_lse=True)
         lse_err = (lse - plain_lse).abs().max().item()
         if lse_err > 1e-3 * (1 + plain_lse.abs().max().item()):
             raise AssertionError(f"[train] {case[0]}: lse off by {lse_err}")
         got = k7.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        again = k7.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"[train] {case[0]}: two K7b calls on the "
+                                 f"same inputs differ")
+        del again
         err = k7b_error(case[0], got,
                         k7.flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                                     causal))
+                                                     causal, *blocks))
         note("flash_attention_bwd", err)
         leaves = [t.float().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(
@@ -2472,7 +2508,8 @@ def check_k7b(inp: Inputs, note) -> None:
             f"k{tuple(k.shape)} {'causal' if causal else 'non-causal'} bf16: "
             f"max |kernel - plain| {err:.3e}, |kernel - float32 autograd| "
             f"{ref_err:.3e} (tolerance {K7B_TOL} · (1 + |reference|)); lse "
-            f"{lse_err:.3e} from the plain version's")
+            f"{lse_err:.3e} from the plain version's; a second call equal "
+            f"bit for bit")
 
 
 class PlainAttention(torch.autograd.Function):
@@ -3845,6 +3882,63 @@ def count_library(a, b, ww):
     return call, name, to_counts
 
 
+def sdpa_backwards(q, k, v, do, grads, name: str):
+    """SDPA's backward on K7b's inputs, causal, under each backend pinned
+    with ``sdpa_kernel`` (flash, cuDNN, memory-efficient): the backward of
+    one forward, repeated (``retain_graph``), with GQA where the backend
+    takes it and K/V expanded to H heads where not (the expansion's
+    backward counted).  Each is held against K7b's gradients within twice
+    ``K7B_TOL`` · (1 + |K7b|): both are bf16 backwards within ``K7B_TOL``
+    of the float32 one, rounded at other places.  Returns (backend,
+    single-call ms, device ms) of each backend that took the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    out = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for expand in (False, True):
+            leaves = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v)]
+            qt, kt, vt = leaves
+            if expand:
+                kt, vt = (t.repeat_interleave(g, 1) for t in (kt, vt))
+            try:
+                with sdpa_kernel(backend):
+                    o = F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=not expand)
+                    dot = do.transpose(1, 2)
+
+                    def bwd(o=o, leaves=leaves, dot=dot):
+                        return torch.autograd.grad(o, leaves, dot,
+                                                   retain_graph=True)
+                    for part, got, want in zip(
+                            ("dq", "dk", "dv"),
+                            (t.transpose(1, 2) for t in bwd()), grads):
+                        diff = (got.float() - want.float()).abs()
+                        if (diff > 2 * K7B_TOL
+                                * (1 + want.float().abs())).any():
+                            raise AssertionError(
+                                f"[timing] {name}: SDPA backward "
+                                f"({backend.name}) {part} off K7b's by "
+                                f"{diff.max().item():.3e}")
+                    ms = time_ms(bwd, 20)
+                    dev = device_ms(bwd)
+            except RuntimeError as e:      # the backend refuses the shape
+                if "No available kernel" not in str(e):
+                    raise
+                continue
+            label = f"{backend.name}{' (K/V expanded)' if expand else ''}"
+            log(f"[timing] flash_attention_bwd {name}: SDPA backward, "
+                f"{label} pinned: single {ms:.4f} ms, device {dev:.4f} ms")
+            out.append((label, ms, dev))
+            del o, bwd
+            break
+    if not out:
+        raise AssertionError(f"[timing] {name}: no SDPA backend took K7b's "
+                             f"shape")
+    return out
+
+
 def time_ms(fn, reps: int) -> float:
     """Median of ``reps`` CUDA-event timings of one call of ``fn`` after a
     warm-up: the call's host work (the wrapper's checks, its allocation,
@@ -4100,49 +4194,43 @@ def phase_timing(device, launches: dict, per_forward: dict,
                      "(is_causal, enable_gqa)"),
             ops_per_s=BF16_FLOPS_PER_S)
 
-    # K7b at lm-100m's layer (the train step's shape), beside the SDPA
-    # backward on the same tensors: SDPA's forward and backward timed, less
-    # its forward.  The minitron-8b layer at S 512 (hd 128) is timed, not
-    # summed.
-    for i, case in enumerate(K7B_CASES[:2]):
+    # K7b at lm-100m's layer (the train step's shape) and minitron-8b's
+    # prefill layer: each launch's device time, beside SDPA's backward with
+    # each backend pinned.
+    for case in K7B_CASES[:2]:
         q, k, v, do = k7b_inputs(inp, case)
         _, b, s_len, _, h, kvh, hd, _ = case
         out, lse = k7.flash_attention_fwd(q, k, v, True)
-        grads = k7.flash_attention_bwd(q, k, v, out, lse, do, True)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        dot = do.transpose(1, 2)
 
-        def sdpa(qt=qt, kt=kt, vt=vt):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-
-        def sdpa_bwd(qt=qt, kt=kt, vt=vt, dot=dot):
-            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
-
-        k7b_error(f"{case[0]}: F.scaled_dot_product_attention backward",
-                  [g.transpose(1, 2) for g in sdpa_bwd()], grads)
-        times = kernel_ms(
-            lambda: k7.flash_attention_bwd(q, k, v, out, lse, do, True), 20)
-        lib_ms = time_ms(sdpa_bwd, 20) - time_ms(sdpa, 20)
+        def k7b(q=q, k=k, v=v, out=out, lse=lse, do=do):
+            return k7.flash_attention_bwd(q, k, v, out, lse, do, True)
+        grads = k7b()
+        by_kernel = device_time_by_kernel(
+            profiled(lambda: [k7b() for _ in range(DEVICE_REPS)]),
+            DEVICE_REPS)
+        for ms, n, key in by_kernel:
+            log(f"[timing] flash_attention_bwd {case[0]}: {ms:.4f} ms "
+                f"device x{n:g}  {key[:70]}")
+        times = (time_ms(k7b, 20), sum(r[0] for r in by_kernel))
+        libs = sdpa_backwards(q, k, v, do, grads, case[0])
+        best = min(libs, key=lambda x: x[2])
         nbytes = sum(t.numel() for t in (q, k, v, out, do, *grads)) * 2 \
             + lse.numel() * 4
-        ops = 10.0 * b * h * hd * s_len * (s_len + 1) / 2
-        if i:
-            bnd, by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
-            log(f"[timing] flash_attention_bwd {case[0]} (off the main "
-                f"path): kernel {times[0]:.4f} ms, device {times[1]:.4f} "
-                f"ms, bound {bnd:.5f} ms ({by}), library {lib_ms:.4f} ms "
-                f"(SDPA backward)")
-            continue
         add("flash_attention_bwd", case[0], times,
-            time_ms(lambda: k7.flash_attention_bwd_plain(q, k, v, out, lse,
-                                                         do, True), 3),
-            nbytes, ops,
-            library=(lib_ms, "F.scaled_dot_product_attention backward "
-                     "(is_causal, enable_gqa; forward and backward less "
-                     "forward)"),
+            time_ms(lambda: k7.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, True, *plain_blocks(case)), 3),
+            nbytes, 10.0 * b * h * hd * s_len * (s_len + 1) / 2,
+            library=(best[2], f"F.scaled_dot_product_attention backward, "
+                     f"{best[0]} pinned, device time (the fastest backend; "
+                     f"a call's single time carries autograd's host "
+                     f"work)"),
             ops_per_s=BF16_FLOPS_PER_S)
+        rows["flash_attention_bwd"]["shapes"][-1].update(
+            launches_device_ms={key: ms for ms, _, key in by_kernel},
+            library_backends=[dict(backend=n, ms=ms, device_ms=dev)
+                              for n, ms, dev in libs])
+        del q, k, v, do, out, lse, grads
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, r in rows.items():

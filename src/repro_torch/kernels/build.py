@@ -54,8 +54,10 @@ SIGNATURES = {
     "launch_mxu_pm1_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "launch_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P),
-    "launch_flash_attention_bwd": (_P,) * 10 + (_I,) * 7 + (_F, _P),
+    "launch_flash_attention_bwd": (_P,) * 11 + (_I,) * 7 + (_F, _P),
+    "flash_attention_bwd_workspace": (_I, _I, _I, _I, _P, _P),
     "flash_attention_info": (_I, _P, _P, _P),
+    "flash_attention_bwd_info": (_I, _P, _P, _P, _P),
     "phonebit_smem_optin": (_I,),
 }
 

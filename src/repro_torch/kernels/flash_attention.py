@@ -30,9 +30,12 @@ whose backward is K7b (:func:`flash_attention_bwd`,
 ``csrc/flash_attention_bwd.cu``): dq, dk and dv of the same function, dk
 and dv summed over each KV head's G q heads, in the inputs' dtypes.  The
 reference recomputes through its jnp chunked attention there; K7b
-recomputes p = exp(s - lse) tile by tile (the FlashAttention-2 backward).
-Otherwise (serving, prefill, the captured paths) the call launches the
-forward alone, with no ``lse``.
+recomputes p = exp(s - lse) tile by tile in one warp-specialised TMA /
+``wgmma`` kernel (the FlashAttention-3 backward's shape) that computes
+each product once and sums dq over the key tiles in a fixed order, so two
+calls on the same inputs give the same bits.  Both kernels take their
+Hopper helpers from ``csrc/hopper.cuh``.  Otherwise (serving, prefill,
+the captured paths) the call launches the forward alone, with no ``lse``.
 """
 
 from __future__ import annotations
@@ -217,8 +220,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
                               block_q: int = 512, block_k: int = 512):
     """The plain PyTorch version of K7b: the same blocked steps in float32.
     D = rowsum(dO ∘ O); then for each key block, the q blocks that see it
-    (under causal from its diagonal on): p = exp(s - lse), dV += pᵀ·dO with
-    p rounded to v's dtype, dS = p ∘ (dO·Vᵀ - D) rounded to q's dtype,
+    (under causal from its diagonal on): p = exp(s - lse) rounded to v's
+    dtype, dV += pᵀ·dO, dS = p ∘ (dO·Vᵀ - D) rounded to q's dtype,
     dK += dSᵀ·q·scale, dQ += dS·k·scale.  Returns (dq, dk, dv) in the
     inputs' dtypes."""
     _check_shapes(q, k, v, causal)
@@ -253,8 +256,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
                 kv_pos = k_lo + torch.arange(block_k, device=dev)
                 p = torch.where(q_pos[:, None] >= kv_pos[None, :], p, 0.0)
             do_blk = dor[:, :, :, qs]
-            dv[:, :, ks] += torch.einsum("bhgqk,bhgqd->bhkd",
-                                         p.to(v.dtype).float(), do_blk)
+            p = p.to(v.dtype).float()
+            dv[:, :, ks] += torch.einsum("bhgqk,bhgqd->bhkd", p, do_blk)
             dp = torch.einsum("bhgqd,bhkd->bhgqk", do_blk, vr[:, :, ks])
             ds = (p * (dp - delta[:, :, :, qs, None])).to(q.dtype).float()
             dk[:, :, ks] += torch.einsum("bhgqk,bhgqd->bhkd", ds,
@@ -272,9 +275,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     upstream gradient ``dout``, from the forward's ``out`` and ``lse``.
 
     Launches the CUDA kernels for CUDA tensors (bf16, hd in
-    ``KERNEL_HEAD_DIMS``: the D pre-pass, the dK/dV pass and the dQ pass,
-    counted as one launch of this wrapper); CPU tensors take the plain
-    version.  Anything else raises.
+    ``KERNEL_HEAD_DIMS``: the D pre-pass, which also zeroes the dq order
+    counters, and the main kernel, counted as one launch of this wrapper,
+    with the float32 dq workspace and the counters allocated here); CPU
+    tensors take the plain version.  Anything else raises.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
@@ -288,17 +292,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     if tuple(lse.shape) != (b, h, sq):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}, "
                          f"want {(b, h, sq)}")
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
+    build.check(lib.flash_attention_bwd_workspace(
+        b, sq, h, hd, ctypes.addressof(floats), ctypes.addressof(ints)),
+        "flash_attention_bwd_workspace")
+    ws = torch.empty(floats.value, dtype=torch.float32, device=q.device)
+    counters = torch.empty(ints.value, dtype=torch.int32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = build.library()
     flash_attention_bwd.launches += 1
     build.check(lib.launch_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, int(causal),
-        1.0 / math.sqrt(hd), build.stream_ptr(q.device)),
+        dout.data_ptr(), lse.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd,
+        int(causal), 1.0 / math.sqrt(hd), build.stream_ptr(q.device)),
         "flash_attention_bwd")
     return dq, dk, dv
 
@@ -306,12 +315,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
 flash_attention_bwd.launches = 0
 
 
-def kernel_info(hd: int = 128) -> dict[str, int]:
-    """The CUDA kernel's registers a thread as compiled at head width
-    ``hd``, dynamic shared memory a block and threads a block
-    (``cudaFuncGetAttributes``)."""
-    vals = [ctypes.c_int() for _ in range(3)]
-    build.check(build.library().flash_attention_info(
-        hd, *(ctypes.addressof(v) for v in vals)), "flash_attention_info")
-    return dict(zip(("registers", "smem_bytes", "threads"),
-                    (v.value for v in vals)))
+def kernel_info(hd: int = 128, backward: bool = False) -> dict[str, int]:
+    """K7's CUDA kernel (or, with ``backward``, K7b's main kernel): its
+    registers a thread as compiled at head width ``hd``, dynamic shared
+    memory a block and threads a block (``cudaFuncGetAttributes``); for
+    K7b also its local memory a thread, 0 when nothing spilled."""
+    names = ("registers", "smem_bytes", "threads") + (
+        ("local_bytes",) if backward else ())
+    vals = [ctypes.c_int() for _ in names]
+    fn = "flash_attention_bwd_info" if backward else "flash_attention_info"
+    build.check(getattr(build.library(), fn)(
+        hd, *(ctypes.addressof(v) for v in vals)), fn)
+    return dict(zip(names, (v.value for v in vals)))

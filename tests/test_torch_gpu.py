@@ -28,7 +28,7 @@ from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import fused_conv_bn_binarize as k2
 from repro_torch.kernels import mxu_pm1_matmul as k6
 from repro_torch.kernels import xnor_popcount_matmul as k1
-from repro_torch.models import moe, transformer
+from repro_torch.models import layers, moe, transformer
 from repro_torch.runtime import (GraphExecutor, assign_layouts,
                                  default_pipeline, lower_trained, regions)
 from repro_torch.runtime.executor import WARMUP_CALLS, CapturedExecutor
@@ -682,26 +682,41 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
 
 
 # K7b against its plain version: |kernel - plain| <= tol·(1 + |plain|) for
-# each of dq, dk and dv.  Both round p and dS to bf16 before their products
-# and the outputs once, but the kernel sums in 64-key and 16-row mma steps
-# where the plain version takes whole blocks, so they agree to a few bf16
-# steps (2^-8 relative) of the gradients' scale.
+# each of dq, dk and dv, and the same against autograd of the float32
+# ``reference_attention``.  Both versions round p and dS to bf16 before
+# their products and the outputs once, but the kernel sums in 16-wide
+# wgmma steps over 64-row, 128-key tiles (dq over the key tiles in a fixed
+# order) where the plain version takes whole blocks, so they agree to a
+# few bf16 steps (2^-8 relative) of the gradients' scale.
 K7B_TOL = 2e-2
 
 
-@pytest.mark.parametrize("b,s,h,kvh,hd,causal", [
-    (2, 512, 12, 4, 64, True),      # lm-100m's layer, two rows of it
-    (1, 512, 32, 8, 128, True),     # minitron-8b's layer at S 512
-    (1, 100, 12, 4, 64, True),      # ragged last tile
-    (1, 129, 8, 8, 128, False),     # G = 1, non-causal, a tile and a row
-    (2, 200, 4, 4, 128, True),      # causal, ragged at hd 128
+def k7b_operands(cuda, b, sq, skv, h, kvh, hd):
+    return tuple(torch.from_numpy(RNG.standard_normal(shape)
+                                  .astype(np.float32)).to(cuda,
+                                                          torch.bfloat16)
+                 for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                               (b, skv, kvh, hd), (b, sq, h, hd)))
+
+
+def plain_blocks(s: int) -> int:
+    """A block of the plain versions that divides S: 512 cut to S, else
+    128."""
+    return 512 if s <= 512 or s % 512 == 0 else 128
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal", [
+    (2, 512, 512, 12, 4, 64, True),     # lm-100m's layer, two rows of it
+    (1, 512, 512, 32, 8, 128, True),    # minitron-8b's layer at S 512
+    (1, 100, 100, 12, 4, 64, True),     # ragged last tile
+    (1, 129, 129, 8, 8, 128, False),    # G = 1, non-causal, a tile and a row
+    (2, 200, 200, 4, 4, 128, True),     # causal, ragged at hd 128
+    (1, 2048, 2048, 32, 8, 128, True),  # minitron-8b's prefill layer
+    (1, 100, 300, 12, 4, 64, False),    # non-causal, Sq != Skv
+    (1, 640, 640, 16, 4, 64, True),     # G = 4, 5 key tiles: dq's order
 ])
-def test_flash_attention_bwd_on_card(cuda, b, s, h, kvh, hd, causal):
-    q, k, v, do = (torch.from_numpy(RNG.standard_normal(shape)
-                                    .astype(np.float32)).to(cuda,
-                                                           torch.bfloat16)
-                   for shape in ((b, s, h, hd), (b, s, kvh, hd),
-                                 (b, s, kvh, hd), (b, s, h, hd)))
+def test_flash_attention_bwd_on_card(cuda, b, sq, skv, h, kvh, hd, causal):
+    q, k, v, do = k7b_operands(cuda, b, sq, skv, h, kvh, hd)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     k7.flash_attention.launches = k7.flash_attention_bwd.launches = 0
     out = k7.flash_attention(*leaves, causal)
@@ -710,13 +725,58 @@ def test_flash_attention_bwd_on_card(cuda, b, s, h, kvh, hd, causal):
     assert (k7.flash_attention.launches,
             k7.flash_attention_bwd.launches) == (1, 1)
     # the plain backward on the same forward output and lse
-    o, lse = k7.flash_attention_plain(q, k, v, causal, return_lse=True)
+    blocks = (plain_blocks(sq), plain_blocks(skv))
+    o, lse = k7.flash_attention_plain(q, k, v, causal, *blocks,
+                                      return_lse=True)
     want = k7.flash_attention_bwd_plain(q, k, v, out.detach(), lse, do,
-                                        causal)
-    for g, w in zip(got, want):
+                                        causal, *blocks)
+    f32 = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(
+        layers.reference_attention(*f32, causal=causal), f32,
+        do.float())
+    for g, w, r in zip(got, want, ref):
         assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
         torch.testing.assert_close(g.float(), w.float(), rtol=K7B_TOL,
                                    atol=K7B_TOL)
+        torch.testing.assert_close(g.float(), r, rtol=K7B_TOL, atol=K7B_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd", [
+    (1, 640, 16, 4, 64),                # 5 key tiles a (b, KV head)
+    (2, 512, 32, 8, 128),               # 4 key tiles, two dq blocks a row
+])
+def test_flash_attention_bwd_is_deterministic(cuda, b, s, h, kvh, hd):
+    """dq is summed over the key tiles in a fixed order and dk, dv in one
+    block's registers: two calls on the same inputs give the same bits."""
+    q, k, v, do = k7b_operands(cuda, b, s, s, h, kvh, hd)
+    out, lse = k7.flash_attention_fwd(q, k, v, True)
+    first = k7.flash_attention_bwd(q, k, v, out, lse, do, True)
+    second = k7.flash_attention_bwd(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_flash_attention_bwd_launches_two_kernels(cuda):
+    """One K7b call is two device launches: the D pre-pass and the main
+    kernel (torch.profiler's device records), and one wrapper count."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = k7b_operands(cuda, 2, 512, 512, 12, 4, 64)
+    out, lse = k7.flash_attention_fwd(q, k, v, True)
+    k7.flash_attention_bwd(q, k, v, out, lse, do, True)      # warm-up
+    torch.cuda.synchronize()
+    k7.flash_attention_bwd.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        k7.flash_attention_bwd(q, k, v, out, lse, do, True)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU
+               and "flash_bwd" in e.key}
+    assert sorted(n for n in kernels.values()) == [1, 1], kernels
+    assert any("flash_bwd_dot_kernel" in n for n in kernels)
+    assert any("flash_bwd_main_kernel" in n for n in kernels)
+    assert k7.flash_attention_bwd.launches == 1
 
 
 def test_flash_attention_serving_launch_unchanged(cuda):

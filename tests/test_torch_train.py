@@ -91,6 +91,17 @@ ATTN_CASES = [  # (B, S, H, KV, hd, block_q, block_k, causal)
     (2, 64, 4, 2, 16, 64, 64, True),
     (1, 48, 6, 2, 8, 16, 48, False),
     (2, 32, 4, 4, 8, 32, 16, False),
+    # K7b's tile ratio, block_q : block_k = 1 : 2 (64 q rows to 128 keys
+    # on the card): four q blocks over two key blocks, causal and not
+    (2, 128, 4, 2, 16, 32, 64, True),
+    (1, 96, 4, 2, 8, 16, 32, False),
+    # a ragged S, a multiple of neither block: both cut to S = 40, as the
+    # kernel's 64-row and 128-key tiles are cut at S < 64
+    (2, 40, 4, 2, 16, 64, 128, True),
+    (1, 40, 6, 3, 8, 64, 128, False),
+    # G = 4 at the 1 : 2 ratio
+    (1, 64, 8, 2, 16, 16, 32, True),
+    (2, 64, 16, 4, 8, 32, 64, False),
 ]
 
 

@@ -7,12 +7,15 @@ serving path, as that tree serves it (its ``compile(8)``: eager, or one
 CUDA-graph replay where the tree captures its buckets), through the
 script's ``profile_forward`` (host wall, device time a forward by kernel,
 busy share, peak memory), then its timing phase (each kernel at
-AlexNet's batch-8 shapes and K7 at minitron's prefill layer, and at
-granite's where the tree takes head width 64: the single-call CUDA-event
-median and the device time a call from torch.profiler, beside the plain
-version and the bound).  Two trees (a parent and a change) are so timed by one method, in
-one process each.  Needs one CUDA card; builds that tree's kernels into
-its own ``build/``.
+AlexNet's batch-8 shapes, K7 at minitron's prefill layer, and at
+granite's where the tree takes head width 64, and K7b at lm-100m's layer
+and minitron's prefill layer, each launch apart, beside SDPA's backward
+with each backend pinned: the single-call CUDA-event median and the
+device time a call from torch.profiler, beside the plain version and the
+bound).  Two trees (a parent and a change) are so timed by one method,
+in one process each.  Needs one CUDA card; builds that tree's kernels
+into its own ``build/``.  ``tools/k7b_probe.py --src`` times K7b alone
+at the same two shapes, in well under a minute.
 
     python3 tools/kernel_times.py [--src OTHER_TREE/src] [--out FILE.json]
 
