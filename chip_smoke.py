@@ -168,7 +168,39 @@ Phases, each fatal on failure:
               then ``PhoneBitEngine.from_trained`` under
               ``cuda_direct_pool`` on 64 images: argmax equal to
               ``float_forward``'s on the trained params, the head within
-              ``BNN_HEAD_TOL`` of it, K4, K3 and K2 counted;
+              ``BNN_HEAD_TOL`` of it, K4, K3 and K2 counted; K7 and K7b
+              also at every attention layer of the zoo (hd 64 and the
+              padded widths 80 and 72, non-causal, H 16 = KV):
+              ViT-L/16's and ViT-H/14's at 224 and 384 (S 197, 257, 577,
+              730), DiT-L/2's and DiT-XL/2's at train_256, gen_fast and
+              gen_1024 (S 256, 1024, 4096), and a ragged S 100 at hd 72,
+              each K7b case's second call equal bit for bit;
+   zoo      — the vision and diffusion archs at full width and depth,
+              one at a time (device memory before, peak after; random
+              weights from a seeded generator on the card): ViT-L/16 and
+              ViT-H/14 serve_b1 and serve_b128 at 224 (bf16 weights), 3
+              AdamW steps at 224, batch 32 (cls_224's 256 cut to one
+              card's memory with no remat; float32 masters) and one at
+              384, batch 8 (the position table resized: 577 and 730
+              tokens); DiT-L/2 and DiT-XL/2 (adaLN-zero leaves drawn
+              N(0, 0.02²) so that attention reaches the output) sampling
+              gen_fast (512², batch 16, all 4 DDIM steps) and 2 of
+              gen_1024's 50 steps (batch 4, 4,096 tokens), 3 AdamW steps
+              at train_256, batch 32, on ``LatentPipeline`` batches;
+              ConvNeXt-B serve_b1, serve_b128 and 3 AdamW steps at batch
+              32; EfficientNet-B7 serve_b1, serve_b128 at 224 and batch 1
+              at its native 600 (eval-mode BN), 3 SGDM steps at 224, batch
+              16, every BN statistic moved.  K7 launches once a layer a
+              forward or sample step, K7b once a layer a train step
+              (ConvNeXt and EfficientNet neither), counted by the wrappers
+              and in one profiled train step; every output, loss and
+              sampled latent finite, the parameters moved; for ViT-H/14
+              (hd 80) and DiT-XL/2 (hd 72) step 0 at batch 2 through
+              K7/K7b against the same step through their plain versions
+              (loss within 2e-3, gradient norm within 1e-2, one forward's
+              output within 4e-2 of max |plain|); ms a forward and
+              images/s, ms a sample step, ms a train step, peak memory,
+              beside the card's name and power limit;
 6. lm       — K7 flash_attention against its plain version on the card
               at minitron-8b's prefill layer (B 2, S 2048, H 32, KV 8, hd
               128, bf16, causal), at granite-moe-3b-a800m's (H 24, hd 64)
@@ -250,11 +282,15 @@ Phases, each fatal on failure:
               weighted kernel off it); K5
               also at every cluster size the card can schedule; K1 and K6
               also beside one library call on the unpacked +-1 operands; K7
-              at minitron's and granite's prefill layers (hd 128 and 64)
-              beside ``F.scaled_dot_product_attention`` on the same
-              tensors; K7b at lm-100m's layer and minitron-8b's prefill
-              layer, each launch's device time (the D pre-pass and the
-              main kernel), beside SDPA's backward with each backend pinned
+              at minitron's and granite's prefill layers (hd 128 and 64,
+              causal) and at ViT-H/14's serve_b128 layer (B 128, S 257,
+              hd 80) and DiT-XL/2's gen_fast layer (B 16, S 1024, hd 72),
+              non-causal, beside ``F.scaled_dot_product_attention`` on
+              the same tensors (the bound counts Sq·Skv pairs at the true
+              width there); K7b at lm-100m's layer, minitron-8b's prefill
+              layer and the two zoo layers, each launch's device time (the
+              D pre-pass and the main kernel), beside SDPA's backward with
+              each backend pinned
               (``sdpa_kernel``: flash, cuDNN, memory-efficient; K/V
               expanded to H heads where a backend takes no GQA), the
               backward of one forward repeated.
@@ -268,6 +304,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -444,6 +481,33 @@ FLASH_PREFILL = ("minitron prefill layer", 2, 2048, 2048, 32, 8, 128, True)
 FLASH_PREFILL_64 = ("granite prefill layer", 2, 2048, 2048, 24, 8, 64, True)
 # The K7 shapes the timing phase times.
 FLASH_TIMED = (FLASH_PREFILL, FLASH_PREFILL_64)
+# The zoo's attention layers, every (S, hd) the [zoo] phase runs them at
+# (non-causal, H = KV = 16): ViT-L/16 (hd 64) and ViT-H/14 (hd 80) at 224
+# (S 197, 257) and 384 (S 577, 730: ragged against the 128-row tiles),
+# DiT-L/2 (hd 64) and DiT-XL/2 (hd 72) at train_256 (S 256), gen_fast (S
+# 1024) and gen_1024 (S 4096, at its batch 4; K7b, which no sample step
+# runs, at B 1); B 2 elsewhere.  The timing phase times ViT-H/14's and
+# DiT-XL/2's at the serving batches (serve_b128: B 128; gen_fast: B 16).
+ZOO_FLASH_VIT = ("ViT-H/14 layer", 2, 257, 257, 16, 16, 80, False)
+ZOO_FLASH_VIT_384 = ("ViT-H/14 layer at 384, ragged", 2, 730, 730, 16, 16,
+                     80, False)
+ZOO_FLASH_DIT = ("DiT-XL/2 gen_fast layer", 2, 1024, 1024, 16, 16, 72,
+                 False)
+ZOO_FLASH_LAYERS = [
+    ("ViT-L/16 layer", 2, 197, 197, 16, 16, 64, False),
+    ("ViT-L/16 layer at 384, ragged", 2, 577, 577, 16, 16, 64, False),
+    ZOO_FLASH_VIT, ZOO_FLASH_VIT_384,
+    ("DiT-L/2 train_256 layer", 2, 256, 256, 16, 16, 64, False),
+    ("DiT-L/2 gen_fast layer", 2, 1024, 1024, 16, 16, 64, False),
+    ("DiT-XL/2 train_256 layer", 2, 256, 256, 16, 16, 72, False),
+    ZOO_FLASH_DIT,
+]
+ZOO_GEN_1024 = [("DiT-L/2 gen_1024 layer", 4, 4096, 4096, 16, 16, 64, False),
+                ("DiT-XL/2 gen_1024 layer", 4, 4096, 4096, 16, 16, 72,
+                 False)]
+ZOO_TIMED = (("ViT-H/14 serve_b128 layer", 128, 257, 257, 16, 16, 80,
+              False),
+             ("DiT-XL/2 gen_fast layer", 16, 1024, 1024, 16, 16, 72, False))
 FLASH_CASES = [
     FLASH_PREFILL,
     FLASH_PREFILL_64,
@@ -459,6 +523,10 @@ FLASH_CASES = [
     ("S = 129, a full tile and one row", 1, 129, 129, 32, 8, 128, True),
     ("non-causal Sq 100, Skv 300", 1, 100, 300, 32, 8, 128, False),
     ("G = 1, S = 256", 1, 256, 256, 8, 8, 128, True),
+] + ZOO_FLASH_LAYERS + ZOO_GEN_1024 + [
+    # hd 72 (the padded hd-128 instantiation over zero-filled columns)
+    # ragged inside one tile
+    ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
 ]
 # K7 against its plain version, |kernel - plain| <= tol·(1 + |plain|):
 # both round p to bf16, under different running maxima (the kernel's
@@ -1088,7 +1156,8 @@ def check_flash(inp: Inputs, note) -> None:
         q, k, v = flash_inputs(inp, case)
         causal = case[7]
         err = flash_error(case[0], k7.flash_attention(q, k, v, causal),
-                          k7.flash_attention_plain(q, k, v, causal))
+                          k7.flash_attention_plain(q, k, v, causal,
+                                                   *plain_blocks(case)))
         note("flash_attention", err)
         log(f"[kernels] flash_attention {case[0]} q{tuple(q.shape)} "
             f"k{tuple(k.shape)} {'causal' if causal else 'non-causal'} "
@@ -2396,7 +2465,8 @@ def phase_trained(device) -> dict[str, dict[str, int]]:
 # shape), minitron-8b's prefill layer and the same at S 512, and edge cases
 # of the 64-row, 128-key tiles (ragged, non-causal with Sq != Skv, G = 1,
 # G = 4 over five key tiles, so each dq block sums five contributions in
-# order).  The first two are the timed shapes.
+# order), and the zoo's layers (ZOO_FLASH_LAYERS, gen_1024's at B 1).  The
+# first two are the timed shapes.
 K7B_CASES = [
     ("lm-100m layer", 8, 512, 512, 12, 4, 64, True),
     ("minitron-8b prefill layer", 2, 2048, 2048, 32, 8, 128, True),
@@ -2406,6 +2476,9 @@ K7B_CASES = [
     ("hd 128, S = 129, G = 1, non-causal", 1, 129, 129, 8, 8, 128, False),
     ("hd 128, S = 200, G = 1", 2, 200, 200, 4, 4, 128, True),
     ("hd 64, S = 640, G = 4, five key tiles", 1, 640, 640, 16, 4, 64, True),
+] + ZOO_FLASH_LAYERS + [(name, 1, *rest)
+                          for name, _, *rest in ZOO_GEN_1024] + [
+    ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
 ]
 # K7b against its plain version, |kernel - plain| <= tol·(1 + |plain|) for
 # each of dq, dk and dv: both round p and dS to bf16 before their products
@@ -2451,9 +2524,10 @@ def k7b_inputs(inp: Inputs, case):
 
 def plain_blocks(case) -> tuple[int, int]:
     """(block_q, block_k) of the plain versions at a case: 512 cut to S, or
-    128 where 512 does not divide a longer S (the blocks must divide it)."""
-    return tuple(512 if s <= 512 or s % 512 == 0 else 128
-                 for s in (case[2], case[3]))
+    128 where 512 does not divide a longer S, or S itself where neither
+    does (the blocks must divide it: ViT-H/14's 730)."""
+    return tuple(512 if s <= 512 or s % 512 == 0 else
+                 128 if s % 128 == 0 else s for s in (case[2], case[3]))
 
 
 def k7b_error(name: str, got, want) -> float:
@@ -2530,19 +2604,27 @@ class PlainAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-def loss_and_grad_norm(cfg, params, batch, plain: bool) -> tuple[float, float]:
-    """Step 0's loss and gradient norm, through K7/K7b or, with ``plain``,
-    through their plain versions (``layers.chunked_attention`` reads
+@contextlib.contextmanager
+def attention_path(plain: bool):
+    """Attention through K7/K7b or, with ``plain``, through their plain
+    versions (``layers.chunked_attention`` reads
     ``layers.flash_attention``)."""
     saved = layers.flash_attention
     if plain:
         layers.flash_attention = PlainAttention.apply
     try:
-        (loss, _), grads = tree.value_and_grad(transformer.loss_fn, params,
-                                               batch, cfg)
-        norm = optim.global_norm(grads)
+        yield
     finally:
         layers.flash_attention = saved
+
+
+def loss_and_grad_norm(loss_fn, params, *args,
+                       plain: bool) -> tuple[float, float]:
+    """Step 0's loss and gradient norm of ``loss_fn(params, *args)``
+    through K7/K7b or their plain versions."""
+    with attention_path(plain):
+        (loss, _), grads = tree.value_and_grad(loss_fn, params, *args)
+        norm = optim.global_norm(grads)
     return loss.item(), norm.item()
 
 
@@ -2622,8 +2704,10 @@ def train_lm(device) -> tuple[dict, dict]:
         dtype=torch.float32)
     batch = data.TokenPipeline(seed=0, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                                vocab=cfg.vocab, device=device).batch_at(0)
-    kern = loss_and_grad_norm(cfg, params, batch, plain=False)
-    plain = loss_and_grad_norm(cfg, params, batch, plain=True)
+    kern = loss_and_grad_norm(transformer.loss_fn, params, batch, cfg,
+                              plain=False)
+    plain = loss_and_grad_norm(transformer.loss_fn, params, batch, cfg,
+                               plain=True)
     gaps = (abs(kern[0] - plain[0]) / abs(plain[0]),
             abs(kern[1] - plain[1]) / abs(plain[1]),
             abs(kern[0] - losses[0]) / abs(losses[0]))
@@ -2818,6 +2902,412 @@ def phase_train(device, errs: dict) -> tuple[dict, dict]:
         train_alexnet(device)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
     return launches, numbers
+
+
+# The zoo phase: the vision and diffusion archs at full width and depth,
+# one at a time.  Batches cut to one card's memory with no remat, each the
+# published shape's: cls_224's 256 images to ZOO_VIT_BATCH, cls_384's 64
+# to ZOO_VIT_384_BATCH, train_256's 256 latents to ZOO_DIT_BATCH; gen_1024
+# runs ZOO_GEN_1024_STEPS of its 50 DDIM steps, gen_fast all 4.
+ZOO_ARCHS = ("vit-l16", "vit-h14", "dit-l2", "dit-xl2", "convnext-b",
+             "efficientnet-b7")
+ZOO_TRAIN_STEPS = 3
+ZOO_VIT_BATCH, ZOO_VIT_384_BATCH = 32, 8
+ZOO_DIT_BATCH = 32
+ZOO_CONVNEXT_BATCH, ZOO_EFF_BATCH = 32, 16
+ZOO_GEN_1024_STEPS = 2
+ZOO_SERVE_BATCHES = (1, 128)
+# Step 0 of the hd-80 and hd-72 models at batch ZOO_SWAP_BATCH through
+# K7/K7b against the same step through their plain versions: the loss
+# within the lm-100m check's SWAP_LOSS_TOL (2e-3 relative), the gradient
+# norm within ZOO_SWAP_GNORM_TOL (1e-2 relative, half of lm-100m's
+# SWAP_GNORM_TOL), and one forward's logits (eps) within ZOO_SWAP_OUT_TOL
+# as max error over max
+# |plain| (K7's bf16 tolerance carried through 28-32 layers, the bound the
+# LM phase holds prefill to).
+ZOO_SWAP_ARCHS = ("vit-h14", "dit-xl2")
+ZOO_SWAP_BATCH = 2
+ZOO_SWAP_GNORM_TOL = 1e-2
+ZOO_SWAP_OUT_TOL = 0.04
+# DiT's adaLN modulation and output weights start at 0 (adaLN-zero): a
+# fresh model predicts 0 and no gradient reaches attention.  The phase
+# draws those leaves N(0, ZOO_ADALN_STD²) so that attention's output and
+# gradient reach the model's.
+ZOO_ADALN_STD = 0.02
+ZOO_ADALN_LEAVES = ("ada_w", "ada_b", "final_ada_w", "final_ada_b",
+                    "final_w", "final_b")
+
+
+def zoo_memory(tag: str) -> int:
+    """Device memory allocated before a model, printed; peak reset."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    log(f"[zoo] {tag}: {base} B allocated before")
+    return base
+
+
+# Launches of the counted runs of the arch in hand (a comparison with the
+# plain versions, a timed repeat or a profile is not counted).
+ZOO_COUNTED: collections.Counter = collections.Counter()
+
+
+def zoo_counts(tag: str, want: dict[str, int]) -> dict[str, int]:
+    got = read_launches()
+    if got != want:
+        raise AssertionError(f"[zoo] {tag}: launches {got}, want {want}")
+    ZOO_COUNTED.update(got)
+    return got
+
+
+def zoo_finite(tag: str, *ts) -> None:
+    for t in ts:
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"[zoo] {tag}: non-finite output")
+
+
+def zoo_moved(tag: str, before: list, params, share: float = 0.9) -> str:
+    """At least ``share`` of the leaves kept in ``before`` (copies) differ
+    from their new values (a leaf whose gradient is 0 in exact arithmetic,
+    as a bias under a train-mode BN, may stay)."""
+    still = [path for (path, old), new in zip(before, tree.leaves(params))
+             if torch.equal(old, new)]
+    if len(still) > (1 - share) * len(before):
+        raise AssertionError(f"[zoo] {tag}: {len(still)} of {len(before)} "
+                             f"leaves did not move: {still[:8]}")
+    return f"{len(before) - len(still)} of {len(before)} leaves moved"
+
+
+def zoo_snapshot(params) -> list:
+    """Copies of every leaf, to check that a train step moved them."""
+    return [(p, t.detach().clone()) for p, t in tree.flatten_with_paths(
+        params)]
+
+
+def zoo_train(tag: str, step, state, batches, layers_n: int,
+              kernels: bool):
+    """ZOO_TRAIN_STEPS steps of ``step(*state, batch)`` (the state's leading
+    entries are what it returns first), counted: K7 and K7b ``layers_n``
+    launches a step each when ``kernels``, else none; then, when
+    ``kernels``, one step profiled, its device launches counted the same
+    way (a convnet's step is thousands of small library kernels, which
+    the profiler takes tens of seconds to sort).  Returns (state, losses,
+    median ms a step, the profile's device ms and K7/K7b ms, or None)."""
+    before = zoo_snapshot(state[0])
+    reset_launches()
+    losses, times = [], []
+    for i in range(ZOO_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = step(*state, batches(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        state, metrics = out[:-1], out[-1]
+        losses.append(metrics["loss"].item())
+    n = layers_n * ZOO_TRAIN_STEPS if kernels else 0
+    zoo_counts(f"{tag} train", launch_counts(flash_attention=n,
+                                             flash_attention_bwd=n))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[zoo] {tag}: losses {losses}")
+    log(f"[zoo] {tag}: " + zoo_moved(tag, before, state[0]))
+    del before
+    step_ms = float(np.median(times[1:])) * 1e3
+    if not kernels:
+        return state, losses, step_ms, None
+    batch = batches(ZOO_TRAIN_STEPS)
+    prof = profiled(lambda: step(*state, batch))
+    seen = device_launches(prof)
+    if (seen["flash_attention"], seen["flash_attention_bwd"]) != (
+            layers_n, layers_n):
+        raise AssertionError(f"[zoo] {tag}: a profiled step launched "
+                             f"{seen}")
+    rows = device_time_by_kernel(prof, 1)
+    dev = (sum(r[0] for r in rows),
+           sum(r[0] for r in rows if "flash_fwd" in r[2]),
+           sum(r[0] for r in rows if "flash_bwd" in r[2]))
+    return state, losses, step_ms, dev
+
+
+def zoo_serve(tag: str, fn, x, layers_n: int, reps: int) -> dict:
+    """One counted call of ``fn(x)`` (K7 ``layers_n`` launches), finite
+    output, then its median wall time (CUDA events) and images/s."""
+    reset_launches()
+    out = fn(x)
+    torch.cuda.synchronize()
+    zoo_counts(tag, launch_counts(flash_attention=layers_n))
+    zoo_finite(tag, *(out if isinstance(out, tuple) else (out,)))
+    ms = time_ms(lambda: fn(x), reps)
+    return dict(ms=ms, images_per_s=x.shape[0] / ms * 1e3)
+
+
+def zoo_swap(tag: str, loss_fn, params, args, forward) -> dict:
+    """Step 0's loss and gradient norm and one forward through K7/K7b and
+    through their plain versions (``layers.flash_attention`` swapped)."""
+    got = []
+    for plain in (False, True):
+        loss, norm = loss_and_grad_norm(loss_fn, params, *args, plain=plain)
+        with attention_path(plain):
+            got.append((loss, norm, forward().float()))
+    (lk, gk, ok), (lp, gp, op) = got
+    gaps = (abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp),
+            ((ok - op).abs().max() / op.abs().max()).item())
+    if gaps[0] > SWAP_LOSS_TOL or gaps[1] > ZOO_SWAP_GNORM_TOL \
+            or gaps[2] > ZOO_SWAP_OUT_TOL:
+        raise AssertionError(f"[zoo] {tag} step 0: kernels ({lk}, {gk}), "
+                             f"plain ({lp}, {gp}); gaps {gaps}")
+    log(f"[zoo] {tag} step 0 at batch {ZOO_SWAP_BATCH} through K7/K7b: "
+        f"loss {lk:.6f}, grad norm {gk:.6f}; through their plain versions: "
+        f"{lp:.6f}, {gp:.6f}; relative gaps {gaps[0]:.3e}, {gaps[1]:.3e} "
+        f"(tolerances {SWAP_LOSS_TOL}, {ZOO_SWAP_GNORM_TOL}); one forward's "
+        f"output {gaps[2]:.3e} of max |plain| (tolerance "
+        f"{ZOO_SWAP_OUT_TOL})")
+    return dict(loss=(lk, lp), grad_norm=(gk, gp), gaps=gaps)
+
+
+def zoo_train_log(tag, cfg_params, batch, steps_ms, losses, dev, peak,
+                  base) -> None:
+    log(f"[zoo] {tag}: {ZOO_TRAIN_STEPS} train steps at batch {batch}: "
+        f"{steps_ms:.3f} ms a step (median of steps 1-"
+        f"{ZOO_TRAIN_STEPS - 1}), loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        + (f"one step profiled: device {dev[0]:.3f} ms, K7 {dev[1]:.3f} ms, "
+           f"K7b {dev[2]:.3f} ms; " if dev else "")
+        + f"peak device memory {peak} B ({peak - base} B above the {base} B "
+        f"before; {cfg_params} parameters)")
+
+
+def zoo_vit(arch: str, device) -> tuple[dict, dict]:
+    from repro_torch.models import vit
+    rec = configs.get(arch)
+    cfg, res, res384 = rec.full, rec.shape("cls_224").img_res, \
+        rec.shape("cls_384").img_res
+    l_n, nums = cfg.n_layers, {}
+    base = zoo_memory(arch)
+    g = torch.Generator(device=device).manual_seed(0)
+    params = vit.init_params(cfg, g, device, dtype=torch.bfloat16)
+    for b in ZOO_SERVE_BATCHES:
+        x = torch.rand((b, res, res, 3), device=device, generator=g)
+        nums[f"serve_b{b}"] = zoo_serve(
+            f"{arch} serve_b{b}", lambda x: vit.forward(params, x, cfg), x,
+            l_n, 10 if b == 1 else 3)
+    del params, x
+    params = vit.init_params(cfg, g, device, dtype=torch.float32)
+    opt = optim.adamw_init(params)
+    pipe = data.ImagePipeline(seed=0, batch=ZOO_VIT_BATCH, img_res=res,
+                              n_classes=cfg.n_classes, device=device,
+                              prefetch=0)
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt), losses, step_ms, dev = zoo_train(
+        arch, vit.make_train_step(cfg), (params, opt), pipe.batch_at, l_n,
+        True)
+    peak = torch.cuda.max_memory_allocated()
+    zoo_train_log(arch, cfg.param_count(), ZOO_VIT_BATCH, step_ms, losses,
+                  dev, peak, base)
+    nums["train_224"] = dict(ms=step_ms, losses=losses, device_ms=dev[0],
+                             k7_ms=dev[1], k7b_ms=dev[2], peak_bytes=peak)
+    # cls_384: the position table resized (14 -> 24, 16 -> 27)
+    b384 = data.ImagePipeline(seed=1, batch=ZOO_VIT_384_BATCH,
+                              img_res=res384, n_classes=cfg.n_classes,
+                              device=device, prefetch=0).batch_at(0)
+    reset_launches()
+    t0 = time.perf_counter()
+    params, opt, m = vit.make_train_step(cfg)(params, opt, b384)
+    torch.cuda.synchronize()
+    ms384 = (time.perf_counter() - t0) * 1e3
+    zoo_counts(f"{arch} cls_384", launch_counts(flash_attention=l_n,
+                                                flash_attention_bwd=l_n))
+    zoo_finite(f"{arch} cls_384", m["loss"])
+    log(f"[zoo] {arch} cls_384: one train step at batch {ZOO_VIT_384_BATCH}, "
+        f"{cfg.n_tokens(res384)} tokens (position table {cfg.pos_grid} -> "
+        f"{res384 // cfg.patch} a side): {ms384:.3f} ms, loss "
+        f"{m['loss'].item():.6f}")
+    nums["train_384"] = dict(ms=ms384, loss=m["loss"].item(),
+                             tokens=cfg.n_tokens(res384))
+    if arch in ZOO_SWAP_ARCHS:
+        b2 = {k: v[:ZOO_SWAP_BATCH] for k, v in pipe.batch_at(0).items()}
+        nums["swap"] = zoo_swap(arch, vit.loss_fn, params, (b2, cfg),
+                                lambda: vit.forward(params, b2["images"],
+                                                    cfg))
+    del params, opt, m
+    per = launch_counts(flash_attention=l_n, flash_attention_bwd=l_n)
+    return per, nums
+
+
+def zoo_dit_params(cfg, g, device, dtype):
+    from repro_torch.models import dit
+    params = dit.init_params(cfg, g, device, dtype=dtype)
+    for tree_ in (params, params["layers"]):
+        for name in ZOO_ADALN_LEAVES:
+            if name in tree_:
+                t = tree_[name]
+                t.copy_(torch.randn(t.shape, device=device, generator=g)
+                        .mul_(ZOO_ADALN_STD))
+    return params
+
+
+def zoo_dit(arch: str, device) -> tuple[dict, dict]:
+    from repro_torch.models import dit
+    cfg = configs.get(arch).full
+    rec = configs.get(arch)
+    l_n, nums = cfg.n_layers, {}
+    base = zoo_memory(arch)
+    g = torch.Generator(device=device).manual_seed(0)
+    params = zoo_dit_params(cfg, g, device, torch.bfloat16)
+    sample = dit.make_sample_step(cfg)
+    for name, n_steps in (("gen_fast", None),
+                          ("gen_1024", ZOO_GEN_1024_STEPS)):
+        shape = rec.shape(name)
+        r = cfg.latent_res(shape.img_res)
+        ts = np.linspace(cfg.n_train_timesteps - 1, 0,
+                         shape.steps).round().astype(int)
+        prev = list(ts[1:]) + [-1]
+        n_steps = n_steps or shape.steps
+        x = torch.randn((shape.batch, r, r, cfg.latent_channels),
+                        device=device, generator=g)
+        labels = torch.randint(0, cfg.n_classes, (shape.batch,),
+                               device=device, generator=g)
+        reset_launches()
+        times = []
+        for i in range(n_steps):
+            tt = torch.full((shape.batch,), int(ts[i]), device=device)
+            tp = torch.full((shape.batch,), int(prev[i]), device=device)
+            t0 = time.perf_counter()
+            x = sample(params, x, tt, tp, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        zoo_counts(f"{arch} {name}", launch_counts(
+            flash_attention=l_n * n_steps))
+        zoo_finite(f"{arch} {name}", x)
+        step_ms = float(np.median(times[1:] or times)) * 1e3
+        log(f"[zoo] {arch} {name}: batch {shape.batch}, {r}² latents, "
+            f"{cfg.n_tokens(shape.img_res)} tokens, DDIM steps "
+            f"{[int(t) for t in ts[:n_steps]]} of {shape.steps}: "
+            f"{step_ms:.3f} ms a sample step, sampled latents finite "
+            f"(|x| max {x.abs().max().item():.3f})")
+        nums[name] = dict(ms=step_ms, steps=n_steps,
+                          tokens=cfg.n_tokens(shape.img_res))
+        del x
+    del params
+    params = zoo_dit_params(cfg, g, device, torch.float32)
+    opt = optim.adamw_init(params)
+    pipe = data.LatentPipeline(seed=0, batch=ZOO_DIT_BATCH,
+                               latent_res=cfg.latent_res(), n_classes=
+                               cfg.n_classes, device=device, prefetch=0)
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt), losses, step_ms, dev = zoo_train(
+        arch, dit.make_train_step(cfg), (params, opt), pipe.batch_at, l_n,
+        True)
+    peak = torch.cuda.max_memory_allocated()
+    zoo_train_log(arch, cfg.param_count(), ZOO_DIT_BATCH, step_ms, losses,
+                  dev, peak, base)
+    nums["train_256"] = dict(ms=step_ms, losses=losses, device_ms=dev[0],
+                             k7_ms=dev[1], k7b_ms=dev[2], peak_bytes=peak)
+    if arch in ZOO_SWAP_ARCHS:
+        b2 = {k: v[:ZOO_SWAP_BATCH] for k, v in pipe.batch_at(0).items()}
+        nums["swap"] = zoo_swap(
+            arch, dit.train_loss, params, (b2, cfg),
+            lambda: dit.forward(params, b2["latents"], b2["t"],
+                                b2["labels"], cfg)[0])
+    del params, opt
+    per = launch_counts(flash_attention=l_n, flash_attention_bwd=l_n)
+    return per, nums
+
+
+def zoo_convnet(arch: str, device) -> tuple[dict, dict]:
+    """ConvNeXt-B or EfficientNet-B7: no kernel of the port's (the
+    reference leaves their convs to XLA), so K7 and K7b launch 0 times."""
+    from repro_torch.models import convnext, efficientnet
+    rec = configs.get(arch)
+    cfg, res = rec.full, rec.shape("serve_b1").img_res
+    eff = arch.startswith("efficientnet")
+    nums = {}
+    base = zoo_memory(arch)
+    g = torch.Generator(device=device).manual_seed(0)
+    if eff:
+        params, state = efficientnet.init_params(cfg, g, device,
+                                                 dtype=torch.bfloat16)
+
+        def serve(x):
+            return efficientnet.apply(params, state, x, cfg, train=False)[0]
+    else:
+        params = convnext.init_params(cfg, g, device, dtype=torch.bfloat16)
+
+        def serve(x):
+            return convnext.forward(params, x, cfg)
+    runs = [(b, res) for b in ZOO_SERVE_BATCHES]
+    if eff:
+        runs.append((1, cfg.img_res))          # B7's native 600
+    for b, r in runs:
+        x = torch.rand((b, r, r, 3), device=device, generator=g)
+        key = f"serve_b{b}" + ("" if r == res else f"_{r}")
+        nums[key] = zoo_serve(f"{arch} {key}", serve, x, 0,
+                              10 if b == 1 else 3)
+        del x
+    del params
+    batch_n = ZOO_EFF_BATCH if eff else ZOO_CONVNEXT_BATCH
+    pipe = data.ImagePipeline(seed=0, batch=batch_n, img_res=res,
+                              n_classes=cfg.n_classes, device=device,
+                              prefetch=0)
+    torch.cuda.reset_peak_memory_stats()
+    if eff:
+        params, state = efficientnet.init_params(cfg, g, device,
+                                                 dtype=torch.float32)
+        state0 = zoo_snapshot(state)
+        (params, state, opt), losses, step_ms, dev = zoo_train(
+            arch, efficientnet.make_train_step(cfg),
+            (params, state, optim.sgdm_init(params)), pipe.batch_at, 0,
+            False)
+        log(f"[zoo] {arch} BN state: "
+            + zoo_moved(f"{arch} BN state", state0, state, share=1.0))
+    else:
+        params = convnext.init_params(cfg, g, device, dtype=torch.float32)
+        (params, opt), losses, step_ms, dev = zoo_train(
+            arch, convnext.make_train_step(cfg),
+            (params, optim.adamw_init(params)), pipe.batch_at, 0, False)
+    peak = torch.cuda.max_memory_allocated()
+    zoo_train_log(arch, cfg.param_count(), batch_n, step_ms, losses, dev,
+                  peak, base)
+    nums["train_224"] = dict(ms=step_ms, losses=losses, peak_bytes=peak)
+    del params, opt
+    if eff:
+        del state
+    return launch_counts(), nums
+
+
+def phase_zoo(device, smi: str) -> tuple[dict, dict, dict]:
+    """The vision and diffusion archs at full width and depth, one at a
+    time (memory before, peak after): serving, sampling and training on
+    the card; K7 and K7b counted.  Returns (launches of the counted runs
+    by arch, launches a forward and a train step by arch, numbers)."""
+    t0 = time.perf_counter()
+    log(f"[zoo] card: {smi}")
+    launches, per_step, numbers = {}, {}, {}
+    for arch in ZOO_ARCHS:
+        t1 = time.perf_counter()
+        ZOO_COUNTED.clear()
+        if arch.startswith("vit"):
+            per, nums = zoo_vit(arch, device)
+        elif arch.startswith("dit"):
+            per, nums = zoo_dit(arch, device)
+        else:
+            per, nums = zoo_convnet(arch, device)
+        launches[f"zoo_{arch}"] = launch_counts(**ZOO_COUNTED)
+        per_step[f"zoo_{arch}"] = per
+        numbers[arch] = nums
+        for key, v in nums.items():
+            if key.startswith("serve"):
+                log(f"[zoo] {arch} {key}: {v['ms']:.3f} ms a forward, "
+                    f"{v['images_per_s']:.1f} images/s")
+        log(f"[zoo] {arch} took {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[zoo] K7, K7b launches of the counted runs " + str(
+        {a: (c["flash_attention"], c["flash_attention_bwd"])
+         for a, c in launches.items()}) + "; a forward and a train step "
+        "each " + str({a: (c["flash_attention"], c["flash_attention_bwd"])
+                       for a, c in per_step.items()}))
+    log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s")
+    return launches, per_step, numbers
 
 
 # The autotune phase: (workload, buckets tuned in order).  VGG16 (224²)
@@ -3882,8 +4372,9 @@ def count_library(a, b, ww):
     return call, name, to_counts
 
 
-def sdpa_backwards(q, k, v, do, grads, name: str):
-    """SDPA's backward on K7b's inputs, causal, under each backend pinned
+def sdpa_backwards(q, k, v, do, grads, name: str, causal: bool = True):
+    """SDPA's backward on K7b's inputs, causal or not, under each backend
+    pinned
     with ``sdpa_kernel`` (flash, cuDNN, memory-efficient): the backward of
     one forward, repeated (``retain_graph``), with GQA where the backend
     takes it and K/V expanded to H heads where not (the expansion's
@@ -3905,7 +4396,8 @@ def sdpa_backwards(q, k, v, do, grads, name: str):
             try:
                 with sdpa_kernel(backend):
                     o = F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=not expand)
+                        qt, kt, vt, is_causal=causal,
+                        enable_gqa=not expand)
                     dot = do.transpose(1, 2)
 
                     def bwd(o=o, leaves=leaves, dot=dot):
@@ -4170,40 +4662,49 @@ def phase_timing(device, launches: dict, per_forward: dict,
     # each held against the plain version there (check_chain_tiles).
 
     # K7 at minitron's prefill layer (head width 128) and granite's (64),
-    # each beside one SDPA call on the same tensors (in its (B, H, S, hd)
-    # layout, as views).
-    for case in FLASH_TIMED:
+    # causal, and at the zoo's ViT-H/14 serve_b128 layer (hd 80) and
+    # DiT-XL/2 gen_fast layer (hd 72), non-causal, each beside one SDPA
+    # call on the same tensors (in its (B, H, S, hd) layout, as views).
+    # The bound counts the products at the true width over the causal
+    # triangle or the whole Sq x Skv.
+    for case in FLASH_TIMED + ZOO_TIMED:
         q, k, v = flash_inputs(inp, case)
-        _, b, s_len, _, h, kvh, hd, _ = case
-        out = k7.flash_attention(q, k, v, True)
+        _, b, sq, skv, h, kvh, hd, causal = case
+        out = k7.flash_attention(q, k, v, causal)
+        blocks = plain_blocks(case)
         flash_error(f"flash_attention {case[0]}", out,
-                    k7.flash_attention_plain(q, k, v, True))
+                    k7.flash_attention_plain(q, k, v, causal, *blocks))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-        def sdpa(qt=qt, kt=kt, vt=vt):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         flash_error("F.scaled_dot_product_attention",
                     sdpa().transpose(1, 2), out)
+        pairs_n = sq * (sq + 1) / 2 if causal else sq * skv
         add("flash_attention", case[0],
-            kernel_ms(lambda: k7.flash_attention(q, k, v, True), 20),
-            time_ms(lambda: k7.flash_attention_plain(q, k, v, True), 3),
+            kernel_ms(lambda: k7.flash_attention(q, k, v, causal), 20),
+            time_ms(lambda: k7.flash_attention_plain(q, k, v, causal,
+                                                     *blocks), 3),
             (q.numel() + k.numel() + v.numel() + out.numel()) * 2,
-            4.0 * b * h * hd * s_len * (s_len + 1) / 2,
-            library=(time_ms(sdpa, 20), "F.scaled_dot_product_attention "
-                     "(is_causal, enable_gqa)"),
+            4.0 * b * h * hd * pairs_n,
+            library=(time_ms(sdpa, 20), "F.scaled_dot_product_attention ("
+                     + ("is_causal, " if causal else "") + "enable_gqa)"),
             ops_per_s=BF16_FLOPS_PER_S)
+        del q, k, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
 
     # K7b at lm-100m's layer (the train step's shape) and minitron-8b's
-    # prefill layer: each launch's device time, beside SDPA's backward with
+    # prefill layer, causal, and at the zoo's two layers above,
+    # non-causal: each launch's device time, beside SDPA's backward with
     # each backend pinned.
-    for case in K7B_CASES[:2]:
+    for case in K7B_CASES[:2] + list(ZOO_TIMED):
         q, k, v, do = k7b_inputs(inp, case)
-        _, b, s_len, _, h, kvh, hd, _ = case
-        out, lse = k7.flash_attention_fwd(q, k, v, True)
+        _, b, sq, skv, h, kvh, hd, causal = case
+        out, lse = k7.flash_attention_fwd(q, k, v, causal)
 
-        def k7b(q=q, k=k, v=v, out=out, lse=lse, do=do):
-            return k7.flash_attention_bwd(q, k, v, out, lse, do, True)
+        def k7b(q=q, k=k, v=v, out=out, lse=lse, do=do, causal=causal):
+            return k7.flash_attention_bwd(q, k, v, out, lse, do, causal)
         grads = k7b()
         by_kernel = device_time_by_kernel(
             profiled(lambda: [k7b() for _ in range(DEVICE_REPS)]),
@@ -4212,14 +4713,15 @@ def phase_timing(device, launches: dict, per_forward: dict,
             log(f"[timing] flash_attention_bwd {case[0]}: {ms:.4f} ms "
                 f"device x{n:g}  {key[:70]}")
         times = (time_ms(k7b, 20), sum(r[0] for r in by_kernel))
-        libs = sdpa_backwards(q, k, v, do, grads, case[0])
+        libs = sdpa_backwards(q, k, v, do, grads, case[0], causal)
         best = min(libs, key=lambda x: x[2])
         nbytes = sum(t.numel() for t in (q, k, v, out, do, *grads)) * 2 \
             + lse.numel() * 4
+        pairs_n = sq * (sq + 1) / 2 if causal else sq * skv
         add("flash_attention_bwd", case[0], times,
             time_ms(lambda: k7.flash_attention_bwd_plain(
-                q, k, v, out, lse, do, True, *plain_blocks(case)), 3),
-            nbytes, 10.0 * b * h * hd * s_len * (s_len + 1) / 2,
+                q, k, v, out, lse, do, causal, *plain_blocks(case)), 3),
+            nbytes, 10.0 * b * h * hd * pairs_n,
             library=(best[2], f"F.scaled_dot_product_attention backward, "
                      f"{best[0]} pinned, device time (the fastest backend; "
                      f"a call's single time carries autograd's host "
@@ -4303,6 +4805,9 @@ def main() -> int:
     train_launches, numbers["train"] = phase_train(device, errs)
     launches.update(train_launches)
     per_forward.update(train_launches)
+    zoo_launches, zoo_per_step, numbers["zoo"] = phase_zoo(device, smi)
+    launches.update(zoo_launches)
+    per_forward.update(zoo_per_step)
     lm_launches, numbers["lm"] = phase_lm(device)
     launches.update(lm_launches)
     per_forward.update(lm_launches)

@@ -5,9 +5,11 @@ no biases, tied embeddings (Cohere ties input/output embeddings).  The
 same FULL and SMOKE as ``repro.configs.command_r_35b``.
 """
 
+from repro_torch.configs.shapes import LM_SHAPES
 from repro_torch.models.transformer import LMConfig
 
 FAMILY = "lm"
+SHAPES = LM_SHAPES
 
 FULL = LMConfig(
     name="command-r-35b",

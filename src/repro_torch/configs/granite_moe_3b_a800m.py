@@ -6,9 +6,11 @@ MoE 40 experts top-8, tied embeddings.  The same FULL and SMOKE as
 narrower instantiation.
 """
 
+from repro_torch.configs.shapes import LM_SHAPES
 from repro_torch.models.transformer import LMConfig
 
 FAMILY = "lm"
+SHAPES = LM_SHAPES
 
 FULL = LMConfig(
     name="granite-moe-3b-a800m",

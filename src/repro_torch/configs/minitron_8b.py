@@ -5,9 +5,11 @@ Nemotron lineage: squared-ReLU MLP (no gate), untied embeddings.
 The same FULL and SMOKE as ``repro.configs.minitron_8b``.
 """
 
+from repro_torch.configs.shapes import LM_SHAPES
 from repro_torch.models.transformer import LMConfig
 
 FAMILY = "lm"
+SHAPES = LM_SHAPES
 
 FULL = LMConfig(
     name="minitron-8b",

@@ -5,9 +5,11 @@ dim) expert d_ff=768, vocab 151936, MoE 128 experts top-8, QK-norm.  The
 same FULL and SMOKE as ``repro.configs.qwen3_moe_30b_a3b``.
 """
 
+from repro_torch.configs.shapes import LM_SHAPES
 from repro_torch.models.transformer import LMConfig
 
 FAMILY = "lm"
+SHAPES = LM_SHAPES
 
 FULL = LMConfig(
     name="qwen3-moe-30b-a3b",

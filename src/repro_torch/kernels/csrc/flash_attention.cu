@@ -32,7 +32,15 @@
 //
 // The kernel is a template on the head width HD, 128 (minitron, qwen3,
 // command-r) or 64 (granite): every count below is for 128, with 64's in
-// brackets where it differs.
+// brackets where it differs.  Head widths 72 (DiT-XL/2) and 80 (ViT-H/14)
+// run a third instantiation, HD = 128 padded (PAD, hopper.cuh), on the
+// true width hd, so 64 and 128 keep their widths as constants: the tensor
+// maps are built over hd columns (rows hd·2 bytes apart, 144 and 160 being
+// multiples of 16), so TMA fills columns hd..127 of each 64-column box
+// with zeros; Q·Kᵀ over zero columns is exact and P·V's columns past hd
+// come out 0, and only the output store reads hd, stopping at it.  That
+// costs 128/hd of the products (1.6x at 80, 1.78x at 72) and adds no
+// wgmma shape, swizzle or register budget.
 //
 // Design.  One block per (q head, batch, 128 q rows), issued longest causal
 // sweep first over the whole grid; 384 threads in three warpgroups.
@@ -96,14 +104,15 @@ struct Tile {
 // d[4j+2], d[4j+3] the same columns of row 16w + g + 8.  The A register
 // fragment of one k16 step is {row g cols 2t.., row g+8 cols 2t.., row g
 // cols 2t+8.., row g+8 cols 2t+8..}: for keys 16kk.. that is d[8kk..8kk+7]
-// packed in pairs.
-template <int HD>
+// packed in pairs.  PAD: the padded instantiation (hopper.cuh), whose rows
+// are hd wide.
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
-    int Skv, int H, int KV, int causal, float scale) {
+    int Skv, int H, int KV, int hd, int causal, float scale) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 B: tiles start on that grain.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -262,46 +271,52 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     if (r0 < Sq) lb[r0] = (m[0] + log2f(l[0])) * 0.6931471805599453f;
     if (r1 < Sq) lb[r1] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
   }
-  const long long q_step = (long long)H * HD;    // between positions
-  __nv_bfloat16* ob = out + ((long long)b * Sq * H + h) * HD;
+  // Rows of width row_w (padded: the true hd, a multiple of 8; columns
+  // past it are the padding's zeros and would land in the next head).
+  const int row_w = PAD ? hd : HD;
+  const long long q_step = (long long)H * row_w;  // between positions
+  __nv_bfloat16* ob = out + ((long long)b * Sq * H + h) * row_w;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     const int col = 8 * j + 2 * t;
-    if (r0 < Sq) {
+    const bool in_hd = 8 * j < row_w;
+    if (in_hd && r0 < Sq) {
       *reinterpret_cast<uint32_t*>(ob + r0 * q_step + col) =
           pack_bf16(o[4 * j] / l[0], o[4 * j + 1] / l[0]);
     }
-    if (r1 < Sq) {
+    if (in_hd && r1 < Sq) {
       *reinterpret_cast<uint32_t*>(ob + r1 * q_step + col) =
           pack_bf16(o[4 * j + 2] / l[1], o[4 * j + 3] / l[1]);
     }
   }
 }
 
-template <int HD>
+template <int HD, bool PAD>
 int launch(const CUtensorMap& qmap, const CUtensorMap& kmap,
            const CUtensorMap& vmap, void* out, float* lse, int B, int Sq,
-           int Skv, int H, int KV, int causal, float scale,
+           int Skv, int H, int KV, int hd, int causal, float scale,
            cudaStream_t stream) {
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Tile<HD>::kSmemBytes);
+        flash_fwd_kernel<HD, PAD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HD>::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
   const dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + kBQ - 1) / kBQ));
-  flash_fwd_kernel<HD><<<grid, kThreads, Tile<HD>::kSmemBytes, stream>>>(
-      qmap, kmap, vmap, (__nv_bfloat16*)out, lse, Sq, Skv, H, KV, causal,
+  flash_fwd_kernel<HD, PAD>
+      <<<grid, kThreads, Tile<HD>::kSmemBytes, stream>>>(
+      qmap, kmap, vmap, (__nv_bfloat16*)out, lse, Sq, Skv, H, KV, hd, causal,
       scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool PAD>
 int info(int* regs, int* smem_bytes, int* threads) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, flash_fwd_kernel<HD>);
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, flash_fwd_kernel<HD, PAD>);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *smem_bytes = Tile<HD>::kSmemBytes;
@@ -311,16 +326,17 @@ int info(int* regs, int* smem_bytes, int* threads) {
 
 }  // namespace
 
-// bf16 only (the LM path's dtype); hd 128 (minitron's, qwen3's and
-// command-r's head width) or 64 (granite's, lm-100m's); q, k, v contiguous
-// and 16-byte aligned; lse null or float32 (B, H, Sq).
+// bf16 only; hd 128 (minitron's, qwen3's and command-r's head width), 64
+// (granite's, lm-100m's, ViT-L/16's, DiT-L/2's), or 80 (ViT-H/14's) and 72
+// (DiT-XL/2's) on the hd-128 instantiation; q, k, v contiguous and 16-byte
+// aligned; lse null or float32 (B, H, Sq).
 extern "C" int launch_flash_attention(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int Sq, int Skv, int H, int KV,
                                       int hd, int causal, float scale,
                                       void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || Skv <= 0 || (hd != 64 && hd != 128)) {
+  if (KV <= 0 || H % KV != 0 || Skv <= 0 || !kernel_width(hd)) {
     return (int)cudaErrorInvalidValue;
   }
   const EncodeTiled fn = encode_tiled();
@@ -332,18 +348,22 @@ extern "C" int launch_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   float* lse_f = static_cast<float*>(lse);
-  return hd == 64 ? launch<64>(qmap, kmap, vmap, out, lse_f, B, Sq, Skv, H,
-                               KV, causal, scale, (cudaStream_t)stream)
-                  : launch<128>(qmap, kmap, vmap, out, lse_f, B, Sq, Skv, H,
-                                KV, causal, scale, (cudaStream_t)stream);
+  return with_instance(hd, [&](auto w, auto pad) {
+    return launch<decltype(w)::value, decltype(pad)::value>(
+        qmap, kmap, vmap, out, lse_f, B, Sq, Skv, H, KV, hd, causal, scale,
+        (cudaStream_t)stream);
+  });
 }
 
 // The kernel's registers a thread as compiled at head width hd (before
-// setmaxnreg moves them between warpgroups), its dynamic shared memory a
-// block, and its threads a block.
+// setmaxnreg moves them between warpgroups; 72 and 80 report the padded
+// instantiation they run), its dynamic shared memory a block, and its
+// threads a block.
 extern "C" int flash_attention_info(int hd, int* regs, int* smem_bytes,
                                     int* threads) {
-  if (hd == 64) return info<64>(regs, smem_bytes, threads);
-  if (hd == 128) return info<128>(regs, smem_bytes, threads);
-  return (int)cudaErrorInvalidValue;
+  if (!kernel_width(hd)) return (int)cudaErrorInvalidValue;
+  return with_instance(hd, [&](auto w, auto pad) {
+    return info<decltype(w)::value, decltype(pad)::value>(regs, smem_bytes,
+                                                          threads);
+  });
 }

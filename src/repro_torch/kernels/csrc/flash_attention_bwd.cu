@@ -93,6 +93,14 @@
 // 64 KB [32], two dSᵀ buffers 32 KB, two buffers of running sums 2 x 32
 // KB [2 x 16], the lse and D rows 1 KB, barriers: 226 KB [130], one block
 // an SM.
+// Head widths 72 (DiT-XL/2) and 80 (ViT-H/14) run the HD = 128
+// instantiation padded (PAD, hopper.cuh) on the true width hd, as K7 does,
+// so 64 and 128 keep their widths as constants: the tensor maps span hd
+// columns, so TMA fills Q, K, V and dO past hd with zeros, and the
+// products' columns past hd (dQ's, dK's, dV's) come out 0.  Every direct
+// global address takes the true hd as its row stride and stops at it: the
+// pre-pass's rows, dq's final store and the dK/dV stores.  The workspace
+// keeps HD's layout (two 64-column dQ blocks a q tile).
 
 #include <cstdint>
 #include <cuda.h>
@@ -155,15 +163,18 @@ __device__ __forceinline__ void red_release_add(int* p, int v) {
 
 // D[b, h, i] = Σ_d dO[b, i, h, d] · O[b, i, h, d] in float32 and lse2 =
 // lse · log2 e, both (B, H, sq_pad) with 0 in rows i >= S; HD / 16
-// threads a (b, i, h) row, 32 bytes of O and of dO each.  Also zeroes the
-// n_ctr counters of the main kernel.
-template <int HD>
+// threads a (b, i, h) row, up to 32 bytes of O and of dO each, in 16-byte
+// halves that stop at the row width (padded: the true hd, a multiple of 8;
+// at hd 72 the fifth thread reads one half, the rest none).  Also zeroes
+// the n_ctr counters of the main kernel.
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(kDotThreads) flash_bwd_dot_kernel(
     const bf16* __restrict__ o, const bf16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ lse2,
     float* __restrict__ delta, int* __restrict__ counters, int n_ctr, int B,
-    int S, int sq_pad, int H) {
+    int S, int sq_pad, int H, int hd) {
   constexpr int kLanes = HD / 16;            // threads a row
+  const int row_w = PAD ? hd : HD;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < n_ctr; i += (long long)gridDim.x * blockDim.x) {
     counters[i] = 0;
@@ -178,19 +189,20 @@ __global__ void __launch_bounds__(kDotThreads) flash_bwd_dot_kernel(
   const int b = (int)(bi / sq_pad);
   float acc = 0.f;
   if (in && i < S) {
-    const long long at = (((long long)b * S + i) * H + h) * HD + 16 * part;
-    uint4 a[2], d[2];
+    const long long at =
+        (((long long)b * S + i) * H + h) * row_w + 16 * part;
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
-      a[y] = *reinterpret_cast<const uint4*>(o + at + 8 * y);
-      d[y] = *reinterpret_cast<const uint4*>(dout + at + 8 * y);
-    }
-    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(a);
-    const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(d);
+      if (16 * part + 8 * y >= row_w) continue;
+      const uint4 a = *reinterpret_cast<const uint4*>(o + at + 8 * y);
+      const uint4 d = *reinterpret_cast<const uint4*>(dout + at + 8 * y);
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      acc += __low2float(pa[x]) * __low2float(pd[x]) +
-             __high2float(pa[x]) * __high2float(pd[x]);
+      for (int x = 0; x < 4; ++x) {
+        acc += __low2float(pa[x]) * __low2float(pd[x]) +
+               __high2float(pa[x]) * __high2float(pd[x]);
+      }
     }
   }
 #pragma unroll
@@ -208,8 +220,9 @@ __global__ void __launch_bounds__(kDotThreads) flash_bwd_dot_kernel(
 // + 1; d[4j+2], d[4j+3] the same columns of row 16w + g + 8.  For keys as
 // rows (Sᵀ, dPᵀ, dK, dV) a thread holds keys 16w + g and 16w + g + 8 of
 // its warpgroup's 64; the A fragment of one k16 step over q rows 16kk.. is
-// d[8kk..8kk+7] packed in pairs.
-template <int HD>
+// d[8kk..8kk+7] packed in pairs.  PAD: the padded instantiation, rows hd
+// wide.
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_main_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -218,8 +231,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_main_kernel(
     const float* __restrict__ lse2, const float* __restrict__ delta,
     float* __restrict__ dq_acc, int* __restrict__ counters,
     bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int B, int Sq, int Skv, int H, int KV, int causal, float scale) {
+    int B, int Sq, int Skv, int H, int KV, int hd, int causal,
+    float scale) {
   using T = BwdTile<HD>;
+  const int row_w = PAD ? hd : HD;
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 B: tiles start on that grain.
   const uint32_t raw = smem_u32(smem_raw);
@@ -565,14 +580,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_main_kernel(
                                               dqa[4 * e4 + 3]);
           fence_proxy_async();
         } else {
+          // Rows of width row_w (padded: the padding's columns would
+          // land in the next head).
           const int h = kvh * G + s % G;
-          const long long q_step = (long long)H * HD;   // between rows
+          const long long q_step = (long long)H * row_w;  // between rows
           bf16* const qb =
-              dq + ((long long)b * Sq * H + h) * HD + j_own * kBox;
+              dq + ((long long)b * Sq * H + h) * row_w + j_own * kBox;
           const int r0 = q0 + 16 * warp + g4, r1 = r0 + 8;
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
             const int col = 8 * jj + 2 * t;
+            if (j_own * kBox + 8 * jj >= row_w) continue;
             if (r0 < Sq)
               *reinterpret_cast<uint32_t*>(qb + r0 * q_step + col) =
                   pack_bf16(dqa[4 * jj] * scale, dqa[4 * jj + 1] * scale);
@@ -586,15 +604,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_main_kernel(
       }
     }
 
-    // dK (scaled) and dV of this warpgroup's 64 keys, once, in bf16.
+    // dK (scaled) and dV of this warpgroup's 64 keys, once, in bf16, rows
+    // of width row_w.
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int key = key0 + 8 * half;
       if (key >= Skv) continue;
-      const long long at = (((long long)b * Skv + key) * KV + kvh) * HD;
+      const long long at =
+          (((long long)b * Skv + key) * KV + kvh) * row_w;
 #pragma unroll
       for (int jj = 0; jj < HD / 8; ++jj) {
         const int col = 8 * jj + 2 * t;
+        if (8 * jj >= row_w) continue;
         const int e = 4 * jj + 2 * half;
         *reinterpret_cast<uint32_t*>(dk + at + col) =
             pack_bf16(dka[e] * scale, dka[e + 1] * scale);
@@ -626,16 +647,16 @@ int sm_count() {
   return err == cudaSuccess ? sms : 0;
 }
 
-template <int HD>
+template <int HD, bool PAD>
 int launch(const void* q, const void* k, const void* v, const bf16* o,
            const bf16* dout, const float* lse, float* ws, int* ctr, bf16* dq,
            bf16* dk, bf16* dv, int B, int Sq, int Skv, int H, int KV,
-           int causal, float scale, cudaStream_t stream) {
+           int hd, int causal, float scale, cudaStream_t stream) {
   using T = BwdTile<HD>;
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_main_kernel<HD>,
+        flash_bwd_main_kernel<HD, PAD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     sized = true;
@@ -643,10 +664,10 @@ int launch(const void* q, const void* k, const void* v, const bf16* o,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qmap, kmap, vmap, domap;
-  if (!make_map(fn, &qmap, q, HD, H, Sq, B, kBQ)
-      || !make_map(fn, &domap, dout, HD, H, Sq, B, kBQ)
-      || !make_map(fn, &kmap, k, HD, KV, Skv, B, kBK)
-      || !make_map(fn, &vmap, v, HD, KV, Skv, B, kBK)) {
+  if (!make_map(fn, &qmap, q, hd, H, Sq, B, kBQ)
+      || !make_map(fn, &domap, dout, hd, H, Sq, B, kBQ)
+      || !make_map(fn, &kmap, k, hd, KV, Skv, B, kBK)
+      || !make_map(fn, &vmap, v, hd, KV, Skv, B, kBK)) {
     return (int)cudaErrorInvalidValue;
   }
   const int sms = sm_count();
@@ -659,25 +680,26 @@ int launch(const void* q, const void* k, const void* v, const bf16* o,
   float* delta = ws + (long long)B * H * sq_pad;
   float* acc = delta + (long long)B * H * sq_pad;
   const long long threads = (long long)B * sq_pad * H * (HD / 16);
-  flash_bwd_dot_kernel<HD><<<(unsigned)((threads + kDotThreads - 1) /
-                                        kDotThreads),
-                             kDotThreads, 0, stream>>>(
-      o, dout, lse, lse2, delta, ctr, (int)ints, B, Sq, sq_pad, H);
+  flash_bwd_dot_kernel<HD, PAD><<<(unsigned)((threads + kDotThreads - 1) /
+                                             kDotThreads),
+                                  kDotThreads, 0, stream>>>(
+      o, dout, lse, lse2, delta, ctr, (int)ints, B, Sq, sq_pad, H, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = ((Skv + kBK - 1) / kBK) * B * KV;
-  flash_bwd_main_kernel<HD><<<(unsigned)(n_tiles < sms ? n_tiles : sms),
-                              kThreads, T::kSmemBytes, stream>>>(
+  flash_bwd_main_kernel<HD, PAD>
+      <<<(unsigned)(n_tiles < sms ? n_tiles : sms), kThreads, T::kSmemBytes,
+         stream>>>(
       qmap, kmap, vmap, domap, lse2, delta, acc, ctr, dq, dk, dv, B, Sq, Skv,
-      H, KV, causal, scale);
+      H, KV, hd, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool PAD>
 int info(int* regs, int* smem_bytes, int* threads, int* local_bytes) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      cudaFuncGetAttributes(&a, flash_bwd_main_kernel<HD>);
+      cudaFuncGetAttributes(&a, flash_bwd_main_kernel<HD, PAD>);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *smem_bytes = BwdTile<HD>::kSmemBytes;
@@ -689,25 +711,26 @@ int info(int* regs, int* smem_bytes, int* threads, int* local_bytes) {
 }  // namespace
 
 // Float32 and int32 elements of the workspace one call takes (the wrapper
-// allocates both; the pre-pass fills what the main kernel reads).
+// allocates both; the pre-pass fills what the main kernel reads), in the
+// layout of the instantiation hd runs.
 extern "C" int flash_attention_bwd_workspace(int B, int Sq, int H, int hd,
                                              long long* floats,
                                              long long* ints) {
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
-  workspace_sizes(B, Sq, H, hd, floats, ints);
+  if (!kernel_width(hd)) return (int)cudaErrorInvalidValue;
+  workspace_sizes(B, Sq, H, instance(hd), floats, ints);
   return (int)cudaSuccess;
 }
 
 // bf16 q, k, v, o, dout, dq, dk, dv in the forward's layouts, contiguous
 // and 16-byte aligned; lse float32 (B, H, Sq); ws and ctr the workspace of
-// flash_attention_bwd_workspace.  hd 64 or 128.
+// flash_attention_bwd_workspace.  hd 64, 72, 80 or 128.
 extern "C" int launch_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* ctr, void* dq,
     void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int hd,
     int causal, float scale, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || Skv <= 0 || (hd != 64 && hd != 128)
+  if (KV <= 0 || H % KV != 0 || Skv <= 0 || !kernel_width(hd)
       || (causal && Sq != Skv)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -720,19 +743,22 @@ extern "C" int launch_flash_attention_bwd(
   auto* gk = static_cast<bf16*>(dk);
   auto* gv = static_cast<bf16*>(dv);
   const auto s = static_cast<cudaStream_t>(stream);
-  return hd == 64 ? launch<64>(q, k, v, bo, bd, fl, fw, ic, gq, gk, gv, B,
-                               Sq, Skv, H, KV, causal, scale, s)
-                  : launch<128>(q, k, v, bo, bd, fl, fw, ic, gq, gk, gv, B,
-                                Sq, Skv, H, KV, causal, scale, s);
+  return with_instance(hd, [&](auto w, auto pad) {
+    return launch<decltype(w)::value, decltype(pad)::value>(
+        q, k, v, bo, bd, fl, fw, ic, gq, gk, gv, B, Sq, Skv, H, KV, hd,
+        causal, scale, s);
+  });
 }
 
 // The main kernel's registers a thread as compiled at head width hd
-// (before setmaxnreg moves them between warpgroups), its dynamic shared
-// memory a block, its threads a block and its local memory a thread (0:
-// nothing spilled).
+// (before setmaxnreg moves them between warpgroups; 72 and 80 report the
+// padded instantiation they run), its dynamic shared memory a block, its
+// threads a block and its local memory a thread (0: nothing spilled).
 extern "C" int flash_attention_bwd_info(int hd, int* regs, int* smem_bytes,
                                         int* threads, int* local_bytes) {
-  if (hd == 64) return info<64>(regs, smem_bytes, threads, local_bytes);
-  if (hd == 128) return info<128>(regs, smem_bytes, threads, local_bytes);
-  return (int)cudaErrorInvalidValue;
+  if (!kernel_width(hd)) return (int)cudaErrorInvalidValue;
+  return with_instance(hd, [&](auto w, auto pad) {
+    return info<decltype(w)::value, decltype(pad)::value>(
+        regs, smem_bytes, threads, local_bytes);
+  });
 }

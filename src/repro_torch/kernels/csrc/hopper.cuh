@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -275,6 +276,31 @@ bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd,
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The head widths K7 and K7b take, and the instantiation each runs: 64 and
+// 128 their own, 72 (DiT-XL/2) and 80 (ViT-H/14) the 128-wide one padded.
+// The padded instantiation builds its tensor maps over the true width hd,
+// so TMA fills columns hd..127 with zeros, and takes hd as the row stride
+// of its direct loads and stores, stopping at it; the others fold their
+// width in at compile time.
+bool kernel_width(int hd) {
+  return hd == 64 || hd == 72 || hd == 80 || hd == 128;
+}
+
+int instance(int hd) { return hd == 64 ? 64 : 128; }
+
+// f(std::integral_constant<int, HD>, std::bool_constant<PAD>) for the
+// instantiation hd runs (kernel_width(hd) checked by the caller).
+template <typename F>
+int with_instance(int hd, F&& f) {
+  if (hd == 64) {
+    return f(std::integral_constant<int, 64>(), std::false_type());
+  }
+  if (hd == 128) {
+    return f(std::integral_constant<int, 128>(), std::false_type());
+  }
+  return f(std::integral_constant<int, 128>(), std::true_type());
 }
 
 }  // namespace

@@ -7,7 +7,8 @@ kernel is ``csrc/flash_attention.cu``: a
 warp-specialised Hopper kernel in which a producer warpgroup feeds a ring
 of K/V tiles through TMA and two consumer warpgroups run both products on
 ``wgmma`` (bf16 in, float32 accumulation; bf16 inputs, head width 64 or
-128: one template instantiation each).
+128: one template instantiation each; 72 and 80 run a padded 128 one on
+zero-filled columns, see ``KERNEL_HEAD_DIMS``).
 For q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) with H = KV·G:
 
     out = softmax(q·kᵀ / sqrt(hd) [causal mask]) · v     in q's dtype
@@ -19,9 +20,10 @@ plain version keeps the reference's block contract: ``block_q``
 (``block_k``), cut to Sq (Skv), must divide it.  The CUDA kernel tiles by
 128 rows and keys and masks ragged tiles, so it ignores the blocks.  The
 plain version also takes float32 and any head width (the CPU tests); on
-the card the kernel takes bf16 only, the LM path's dtype, at the LM
-archs' head widths: 128 (minitron-8b, qwen3-moe-30b-a3b, command-r-35b)
-and 64 (granite-moe-3b-a800m, lm-100m).
+the card the kernel takes bf16 only, the models' compute dtype, at their
+head widths: 128 (minitron-8b, qwen3-moe-30b-a3b, command-r-35b), 64
+(granite-moe-3b-a800m, lm-100m, ViT-L/16, DiT-L/2), 80 (ViT-H/14) and 72
+(DiT-XL/2).
 
 Gradients.  :func:`flash_attention` is differentiable: when grad mode is
 on and q, k or v requires a gradient it runs through an autograd Function
@@ -48,8 +50,12 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-#: Head widths the CUDA kernel is instantiated for.
-KERNEL_HEAD_DIMS = (64, 128)
+#: Head widths the CUDA kernels take: 64 and 128 have an instantiation
+#: each; 72 and 80 run a third, the 128-wide tiles padded: tensor maps of
+#: their true width, whose columns past hd TMA fills with zeros (exact, at
+#: 128/hd of the products' work), and hd as the row stride of the direct
+#: stores.  Any other width raises on the card.
+KERNEL_HEAD_DIMS = (64, 72, 80, 128)
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -167,8 +173,8 @@ def _check_kernel_operands(operands: dict) -> None:
     16-byte chunks)."""
     q = next(iter(operands.values()))
     if q.dtype != torch.bfloat16 or q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes bf16 with hd 64 "
-                         f"or hd 128, got {q.dtype} hd {q.shape[3]}")
+        raise ValueError(f"flash_attention: the kernel takes bf16 with hd in "
+                         f"{KERNEL_HEAD_DIMS}, got {q.dtype} hd {q.shape[3]}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in operands.items():
@@ -317,9 +323,10 @@ flash_attention_bwd.launches = 0
 
 def kernel_info(hd: int = 128, backward: bool = False) -> dict[str, int]:
     """K7's CUDA kernel (or, with ``backward``, K7b's main kernel): its
-    registers a thread as compiled at head width ``hd``, dynamic shared
-    memory a block and threads a block (``cudaFuncGetAttributes``); for
-    K7b also its local memory a thread, 0 when nothing spilled."""
+    registers a thread as compiled at head width ``hd`` (72 and 80: the
+    padded 128 instantiation they run), dynamic shared memory a block and threads
+    a block (``cudaFuncGetAttributes``); for K7b also its local memory a
+    thread, 0 when nothing spilled."""
     names = ("registers", "smem_bytes", "threads") + (
         ("local_bytes",) if backward else ())
     vals = [ctypes.c_int() for _ in names]

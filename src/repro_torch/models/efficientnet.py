@@ -1,0 +1,380 @@
+"""EfficientNet-B7 (Tan & Le, arXiv:1905.11946; width 2.0, depth 3.1) on
+one device.
+
+Counterpart of ``repro.models.efficientnet``: MBConv blocks (1×1 expand,
+k×k depthwise, squeeze-excite, 1×1 project) with batch norm and SiLU; the
+B7 scaling gives 55 blocks in 7 stages.  Each stage keeps its first block
+("head") apart and its stride-1 repeats ("rest") stacked on a leading dim
+as in the reference (its ``scan``), run as a Python loop.  No Pallas
+kernel runs here in the reference, which leaves every conv to XLA: the
+stem and depthwise convs are ``F.conv2d``, the 1×1 convs (expand,
+project, squeeze-excite, head) matmuls over the channels.
+
+Batch norm keeps its running statistics in a separate ``state`` tree:
+``apply(params, state, x, train=True)`` normalises by the batch's mean and
+population variance and returns the running stats moved 1% toward them
+(momentum 0.99); ``train=False`` normalises by the running stats (the
+serve shapes) and runs under ``torch.inference_mode``.  The ``"SAME"``
+padding is XLA's: at stride 2 it pads low = total // 2 and high the rest,
+which is not PyTorch's symmetric padding.
+
+``binary_pointwise=True`` runs the 1×1 expand/project as STE-sign binary
+convs on latent float weights (the depthwise convs and SE stay float).
+Layouts: images and activations NHWC; conv kernels stored (O, I, KH, KW)
+(a depthwise (k, k, 1, C) as (C, 1, k, k)).  The squeeze-excite and the
+head run in float32, as the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.binarize import ste_sign
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.optim import sgdm_update
+from repro_torch.tree import value_and_grad
+
+# (expand_ratio, kernel, stride, base_out_channels, base_repeats)
+_BASE_BLOCKS = ((1, 3, 1, 16, 1), (6, 3, 2, 24, 2), (6, 5, 2, 40, 2),
+                (6, 3, 2, 80, 3), (6, 5, 1, 112, 3), (6, 5, 2, 192, 4),
+                (6, 3, 1, 320, 1))
+_BN_MOM = 0.99
+_BN_EPS = 1e-3
+
+
+def round_filters(c: float, width: float) -> int:
+    c *= width
+    new = max(8, int(c + 4) // 8 * 8)
+    if new < 0.9 * c:
+        new += 8
+    return int(new)
+
+
+def round_repeats(r: int, depth: float) -> int:
+    return int(math.ceil(depth * r))
+
+
+@dataclasses.dataclass(frozen=True)
+class EffNetConfig:
+    name: str
+    img_res: int = 600
+    width: float = 2.0
+    depth: float = 3.1
+    n_classes: int = 1000
+    se_ratio: float = 0.25
+    binary_pointwise: bool = False
+    # the reference's dry-run knob, kept so configs read alike
+    unroll: bool = False
+
+    @property
+    def stem_ch(self) -> int:
+        return round_filters(32, self.width)
+
+    @property
+    def head_ch(self) -> int:
+        return round_filters(1280, self.width)
+
+    def stages(self):
+        """Resolved per-stage (expand, kernel, stride, in_c, out_c,
+        repeats)."""
+        out = []
+        prev = self.stem_ch
+        for e, k, s, c, r in _BASE_BLOCKS:
+            oc = round_filters(c, self.width)
+            out.append((e, k, s, prev, oc, round_repeats(r, self.depth)))
+            prev = oc
+        return out
+
+    def param_count(self) -> int:
+        """Parameters, counted from the shapes (nothing allocated)."""
+        return sum(math.prod(s) for s in _leaves(_param_shapes(self)))
+
+
+#: Leaves stored (O, I, KH, KW); the reference keeps them HWIO.
+CONV_LEAVES = frozenset({"stem_w", "exp_w", "dw_w", "se_w1", "se_w2",
+                         "proj_w", "head_w"})
+#: Leaves the forward reads in float32 (BN scales and biases, the
+#: squeeze-excite, the float32 head): kept float32 whatever ``dtype``
+#: (the BN state is float32 throughout).
+FLOAT32_LEAVES = frozenset({
+    "stem_bn_s", "stem_bn_b", "exp_bn_s", "exp_bn_b", "dw_bn_s", "dw_bn_b",
+    "proj_bn_s", "proj_bn_b", "head_bn_s", "head_bn_b", "se_w1", "se_b1",
+    "se_w2", "se_b2", "fc_w", "fc_b"})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+# Parameter and state trees as ("kind", shape) leaves: "conv" (O, I, KH,
+# KW) He-normal, "normal" N(0, 0.02²), "zeros", "ones".
+def _block_shapes(e, k, c_in, c_out, se_ratio, n: int | None):
+    mid = c_in * e
+    se = max(1, int(c_in * se_ratio))
+
+    def st(kind, *shape):
+        return (kind, shape if n is None else (n, *shape))
+    p = {}
+    if e != 1:
+        p["exp_w"] = st("conv", mid, c_in, 1, 1)
+        p["exp_bn_s"], p["exp_bn_b"] = st("ones", mid), st("zeros", mid)
+    p["dw_w"] = st("conv", mid, 1, k, k)
+    p["dw_bn_s"], p["dw_bn_b"] = st("ones", mid), st("zeros", mid)
+    p["se_w1"] = st("conv", se, mid, 1, 1)
+    p["se_b1"] = st("zeros", se)
+    p["se_w2"] = st("conv", mid, se, 1, 1)
+    p["se_b2"] = st("zeros", mid)
+    p["proj_w"] = st("conv", c_out, mid, 1, 1)
+    p["proj_bn_s"], p["proj_bn_b"] = st("ones", c_out), st("zeros", c_out)
+    s = {}
+
+    def zo(c):
+        shape = (c,) if n is None else (n, c)
+        return {"mean": ("zeros", shape), "var": ("ones", shape)}
+    if e != 1:
+        s["exp_bn"] = zo(mid)
+    s["dw_bn"] = zo(mid)
+    s["proj_bn"] = zo(c_out)
+    return p, s
+
+
+def _trees(cfg: EffNetConfig):
+    params: dict = {"stem_w": ("conv", (cfg.stem_ch, 3, 3, 3)),
+                    "stem_bn_s": ("ones", (cfg.stem_ch,)),
+                    "stem_bn_b": ("zeros", (cfg.stem_ch,)), "stages": []}
+    state: dict = {"stem_bn": {"mean": ("zeros", (cfg.stem_ch,)),
+                               "var": ("ones", (cfg.stem_ch,))},
+                   "stages": []}
+    for e, k, s, c_in, c_out, r in cfg.stages():
+        hp, hs = _block_shapes(e, k, c_in, c_out, cfg.se_ratio, None)
+        sp, ss = {"head": hp}, {"head": hs}
+        if r > 1:
+            sp["rest"], ss["rest"] = _block_shapes(e, k, c_out, c_out,
+                                                   cfg.se_ratio, r - 1)
+        params["stages"].append(sp)
+        state["stages"].append(ss)
+    last = cfg.stages()[-1][4]
+    params.update(head_w=("conv", (cfg.head_ch, last, 1, 1)),
+                  head_bn_s=("ones", (cfg.head_ch,)),
+                  head_bn_b=("zeros", (cfg.head_ch,)),
+                  fc_w=("normal", (cfg.head_ch, cfg.n_classes)),
+                  fc_b=("zeros", (cfg.n_classes,)))
+    state["head_bn"] = {"mean": ("zeros", (cfg.head_ch,)),
+                        "var": ("ones", (cfg.head_ch,))}
+    return params, state
+
+
+def _param_shapes(cfg: EffNetConfig):
+    def shapes(t):
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [shapes(v) for v in t]
+        return t[1]
+    return shapes(_trees(cfg)[0])
+
+
+@torch.no_grad()
+def init_params(cfg: EffNetConfig, generator: torch.Generator,
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = torch.float32):
+    """(params, state) with the reference's shapes and scales (convs
+    He-normal over their fan-in, the classifier N(0, 0.02²), biases 0, BN
+    scales 1; running means 0, variances 1), drawn in float32 from
+    ``generator`` on ``device``; params stored in ``dtype`` but for
+    ``FLOAT32_LEAVES``, the state float32."""
+    device = resolve_device(device)
+
+    def make(t):
+        if isinstance(t, dict):
+            return {k: make(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [make(v) for v in t]
+        kind, shape = t
+        if kind == "conv":
+            return layers.draw(shape, math.sqrt(
+                2.0 / math.prod(shape[-3:])), generator, device)
+        if kind == "normal":
+            return layers.draw(shape, 0.02, generator, device)
+        return (torch.zeros if kind == "zeros" else torch.ones)(
+            shape, device=device)
+
+    params, state = _trees(cfg)
+    return layers.store(make(params), dtype, FLOAT32_LEAVES), make(state)
+
+
+@torch.no_grad()
+def params_from_numpy(tree, cfg: EffNetConfig,
+                      device: str | torch.device = "cuda",
+                      dtype: torch.dtype = torch.float32):
+    """(params, state) from the reference's ``init_params`` pair as numpy
+    arrays: the same values, conv kernels in (O, I, KH, KW), stored as
+    :func:`init_params` stores them."""
+    del cfg
+    device = resolve_device(device)
+    params, state = tree
+    return (layers.tree_from_numpy(params, device, dtype, CONV_LEAVES,
+                                   FLOAT32_LEAVES),
+            layers.tree_from_numpy(state, device, torch.float32))
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+def _bn(x, scale, bias, stats, train: bool):
+    """Batch norm over N, H, W in float32.  Returns (y in x's dtype,
+    new_stats)."""
+    xf = x.float()
+    if train:
+        mean = xf.mean(dim=(0, 1, 2))
+        var = xf.var(dim=(0, 1, 2), correction=0)
+        new = {"mean": _BN_MOM * stats["mean"] + (1 - _BN_MOM) * mean,
+               "var": _BN_MOM * stats["var"] + (1 - _BN_MOM) * var}
+    else:
+        mean, var = stats["mean"], stats["var"]
+        new = stats
+    y = (xf - mean) * torch.rsqrt(var + _BN_EPS) * scale.float() \
+        + bias.float()
+    return y.to(x.dtype), new
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial dim: (low, high), low = total //
+    2; out = ceil(size / stride)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              groups: int = 1) -> torch.Tensor:
+    """NHWC conv with XLA's "SAME" padding, in ``x``'s dtype; the kernel
+    (O, I/groups, KH, KW).  Asymmetric pads go through ``F.pad``."""
+    (hl, hh), (wl, wh) = (same_pads(x.shape[1 + a], w.shape[2 + a], stride)
+                          for a in (0, 1))
+    xc = x.permute(0, 3, 1, 2)
+    if hl == hh and wl == wh:
+        pad = (hl, wl)
+    else:
+        xc, pad = F.pad(xc, (wl, wh, hl, hh)), 0
+    y = F.conv2d(xc, w.to(x.dtype), stride=stride, padding=pad,
+                 groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def _pointwise(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A 1×1 conv over NHWC channels: x (..., I) @ w (O, I, 1, 1)ᵀ, in
+    ``x``'s dtype."""
+    return x @ w[:, :, 0, 0].to(x.dtype).t()
+
+
+def _pointwise_binary(x, w, binary: bool):
+    if not binary:
+        return _pointwise(x, w)
+    return _pointwise(ste_sign(x.float()).to(x.dtype), ste_sign(w))
+
+
+def _mb_block(x, p, s, *, expand, stride, train, binary):
+    """One MBConv block.  Returns (y, new_state)."""
+    ns = dict(s)
+    h = x
+    if expand != 1:
+        h = _pointwise_binary(h, p["exp_w"], binary)
+        h, ns["exp_bn"] = _bn(h, p["exp_bn_s"], p["exp_bn_b"], s["exp_bn"],
+                              train)
+        h = layers.silu(h, exact=binary)
+    h = conv_same(h, p["dw_w"], stride=stride, groups=h.shape[-1])
+    h, ns["dw_bn"] = _bn(h, p["dw_bn_s"], p["dw_bn_b"], s["dw_bn"], train)
+    h = layers.silu(h, exact=binary)
+    # squeeze-excite, float32
+    se = h.float().mean(dim=(1, 2), keepdim=True)
+    se = layers.silu(_pointwise(se, p["se_w1"].float()) + p["se_b1"].float())
+    se = torch.sigmoid(_pointwise(se, p["se_w2"].float())
+                       + p["se_b2"].float())
+    h = h * se.to(h.dtype)
+    h = _pointwise_binary(h, p["proj_w"], binary)
+    h, ns["proj_bn"] = _bn(h, p["proj_bn_s"], p["proj_bn_b"], s["proj_bn"],
+                           train)
+    if stride == 1 and x.shape[-1] == h.shape[-1]:
+        h = h + x
+    return h, ns
+
+
+def _apply(params, state, images, cfg: EffNetConfig, train: bool):
+    cd = layers.COMPUTE_DTYPE
+    new_state: dict = {"stages": []}
+    x = conv_same(images.to(cd), params["stem_w"], stride=2)
+    x, new_state["stem_bn"] = _bn(x, params["stem_bn_s"],
+                                  params["stem_bn_b"], state["stem_bn"],
+                                  train)
+    x = layers.silu(x, exact=cfg.binary_pointwise)
+    for (e, k, s, c_in, c_out, r), sp, ss in zip(
+            cfg.stages(), params["stages"], state["stages"]):
+        x, head_ns = _mb_block(x, sp["head"], ss["head"], expand=e,
+                               stride=s, train=train,
+                               binary=cfg.binary_pointwise)
+        stage_ns = {"head": head_ns}
+        if r > 1:
+            rest = []
+            for i in range(r - 1):
+                bp = {n: t[i] for n, t in sp["rest"].items()}
+                bs = {n: {m: t[i] for m, t in st.items()}
+                      for n, st in ss["rest"].items()}
+                x, ns = _mb_block(x, bp, bs, expand=e, stride=1,
+                                  train=train, binary=cfg.binary_pointwise)
+                rest.append(ns)
+            stage_ns["rest"] = {
+                n: {m: torch.stack([ns[n][m] for ns in rest])
+                    for m in ("mean", "var")} for n in rest[0]}
+        new_state["stages"].append(stage_ns)
+    x = _pointwise(x, params["head_w"])
+    x, new_state["head_bn"] = _bn(x, params["head_bn_s"],
+                                  params["head_bn_b"], state["head_bn"],
+                                  train)
+    x = layers.silu(x).float().mean(dim=(1, 2))
+    return x @ params["fc_w"].float() + params["fc_b"].float(), new_state
+
+
+def apply(params, state, images: torch.Tensor, cfg: EffNetConfig, *,
+          train: bool):
+    """images (B, R, R, 3) float -> (logits (B, n_classes) float32,
+    new_state).  ``train=True`` uses the batch's statistics under autograd;
+    ``train=False`` the running ones, under ``torch.inference_mode``."""
+    if train:
+        return _apply(params, state, images, cfg, True)
+    with torch.inference_mode():
+        return _apply(params, state, images, cfg, False)
+
+
+def loss_fn(params, state, batch: dict, cfg: EffNetConfig):
+    """(mean cross entropy of the batch in train mode, new BN state)."""
+    lg, new_state = apply(params, state, batch["images"], cfg, train=True)
+    lg = lg.float()
+    gold = torch.take_along_dim(lg, batch["labels"].long()[:, None],
+                                dim=-1)[:, 0]
+    return (torch.logsumexp(lg, dim=-1) - gold).mean(), new_state
+
+
+def make_train_step(cfg: EffNetConfig, *, lr=0.016) -> Callable:
+    """(params, state, opt_state, batch) -> (params, state, opt_state,
+    metrics): the loss's gradient in train mode, the moved BN state, then
+    one SGD-momentum step with the reference's defaults."""
+
+    def train_step(params, state, opt_state, batch):
+        (loss, new_state), grads = value_and_grad(loss_fn, params, state,
+                                                  batch, cfg)
+        params, opt_state, om = sgdm_update(params, grads, opt_state, lr=lr)
+        return params, new_state, opt_state, {"loss": loss, **om}
+
+    return train_step

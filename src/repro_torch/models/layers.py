@@ -1,12 +1,14 @@
-"""Shared LM substrate: norms, RoPE, attention, dtype policy.
+"""Shared model substrate: norms, RoPE, attention, activations, the
+bilinear resize, initialisers, dtype policy.
 
-Counterpart of ``repro.models.layers`` for the LM's serving and training
-paths.
-Layouts are the reference's: q (B, S, H, hd), k and v (B, S, KV, hd).
-Compute runs in bf16 (``COMPUTE_DTYPE``); norms, RoPE, softmax statistics
-and attention accumulators run in float32.  Full-sequence attention goes
-through K7 (``kernels.flash_attention``): on a CUDA tensor the kernel, on
-a CPU tensor its plain version; under autograd its backward is K7b.  The reference's sharded decode helpers
+Counterpart of ``repro.models.layers`` for the LM's and the vision and
+diffusion zoo's serving and training paths.
+Layouts are the reference's: q (B, S, H, hd), k and v (B, S, KV, hd);
+images NHWC.  Compute runs in bf16 (``COMPUTE_DTYPE``); norms, RoPE,
+softmax statistics and attention accumulators run in float32.
+Full-sequence attention goes through K7 (``kernels.flash_attention``): on
+a CUDA tensor the kernel, on a CPU tensor its plain version; under
+autograd its backward is K7b.  The reference's sharded decode helpers
 (``flash_decode_local``, ``combine_decode_partials``) and its remat and
 scan machinery have no use on one card and are not ported.
 """
@@ -15,7 +17,9 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -82,3 +86,119 @@ def reference_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor | None,
+               bias: torch.Tensor | None, eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm over the last dim in float32, cast back to x's dtype; a
+    ``None`` scale is the reference's scale of ones (a product by 1.0 is
+    exact), a ``None`` bias adds nothing."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        out = out * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation (DiT): x * (1 + scale) + shift, broadcast over the
+    sequence."""
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def gelu(x: torch.Tensor, exact: bool = False) -> torch.Tensor:
+    """GELU, the tanh form (``jax.nn.gelu(approximate=True)``).
+
+    By default one ``F.gelu`` call, rounded once: within a step of x's
+    dtype of the reference.  ``exact`` evaluates the reference's formula
+    op by op in x's dtype, its constants rounded to that dtype first, as
+    jax does; in bf16 that gives the reference's bits.  The binary
+    variants need it: they binarise GELU's output, and below about -3.3
+    the reference's bf16 tanh rounds to -1, so its GELU is -0, whose STE
+    sign is +1, where a single rounding keeps a tiny negative value (sign
+    -1)."""
+    if not exact:
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype).item()
+    k = torch.tensor(0.044715, dtype=x.dtype).item()
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def silu(x: torch.Tensor, exact: bool = False) -> torch.Tensor:
+    """SiLU, x·sigmoid(x).  By default one ``F.silu`` call; ``exact``
+    evaluates the reference's x · 1 / (1 + exp(-x)) op by op in x's dtype,
+    which gives its bf16 bits (a binary variant binarises what follows a
+    SiLU, where a step's difference flips the signs of values near 0)."""
+    if not exact:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def resize_grid(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, H, W, C) resized bilinearly to (B, height, width, C), as
+    ``jax.image.resize(..., "bilinear")`` does: half-pixel centres, and
+    past the edges the nearest row (jax drops the outside taps and
+    renormalises the rest, which gives the same value); shrinking
+    antialiases, as jax does.  The zoo only enlarges position tables."""
+    _, h, w, _ = img.shape
+    out = F.interpolate(img.permute(0, 3, 1, 2), size=(height, width),
+                        mode="bilinear", align_corners=False,
+                        antialias=height < h or width < w)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def draw(shape, std: float, generator: torch.Generator,
+         device: torch.device) -> torch.Tensor:
+    """N(0, std²) float32 of ``shape`` from ``generator`` on ``device``."""
+    return torch.randn(shape, generator=generator, device=device).mul_(std)
+
+
+def hwio_to_oihw(a: torch.Tensor) -> torch.Tensor:
+    """A conv kernel (KH, KW, I, O), or a stack (L, KH, KW, I, O), in
+    PyTorch's (O, I, KH, KW) layout (a depthwise (K, K, 1, C) becomes
+    (C, 1, K, K)), contiguous."""
+    perm = (3, 2, 0, 1) if a.ndim == 4 else (0, 4, 3, 1, 2)
+    return a.permute(*perm).contiguous()
+
+
+def oihw_to_hwio(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`hwio_to_oihw`."""
+    perm = (2, 3, 1, 0) if a.ndim == 4 else (0, 3, 4, 2, 1)
+    return a.permute(*perm).contiguous()
+
+
+def store(tree, dtype: torch.dtype, keep32: frozenset = frozenset(),
+          name: str = ""):
+    """A parameter tree with every leaf in ``dtype`` but those whose name
+    (their last dict key) is in ``keep32``, which stay as they are."""
+    if isinstance(tree, dict):
+        return {k: store(v, dtype, keep32, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(store(v, dtype, keep32, name) for v in tree)
+    return tree if name in keep32 else tree.to(dtype)
+
+
+def tree_from_numpy(tree, device: torch.device, dtype: torch.dtype,
+                    conv: frozenset = frozenset(),
+                    keep32: frozenset = frozenset()):
+    """A parameter tree of numpy arrays (the reference's pytree through
+    ``np.asarray``) as tensors on ``device``: a leaf whose name (its last
+    dict key) is in ``conv`` goes from HWIO to OIHW, one in ``keep32``
+    stays float32, every other one is stored in ``dtype``.  The leaves are
+    copied (the reference's arrays are read-only)."""
+    def walk(t, name):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, name) for v in t)
+        x = torch.from_numpy(np.array(t, dtype=np.float32))
+        if name in conv:
+            x = hwio_to_oihw(x)
+        return x.to(device, torch.float32 if name in keep32
+                    else dtype).contiguous()
+    return walk(tree, "")

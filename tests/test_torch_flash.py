@@ -146,13 +146,13 @@ def test_plain_at_head_width_64_vs_reference_attention(causal, s):
 
 @pytest.mark.parametrize("hd", [32, 96, 256])
 def test_kernel_refuses_other_head_widths(hd):
-    """Off the CPU the wrapper takes bf16 at hd 64 or 128 only: other
-    widths and float32 raise before any launch (checked on ``meta``
+    """Off the CPU the wrapper takes bf16 at hd 64, 72, 80 or 128 only:
+    other widths and float32 raise before any launch (checked on ``meta``
     tensors, which reach the kernel's contract without a card)."""
     q = torch.empty((1, 64, 4, hd), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="hd 64 or hd 128"):
+    with pytest.raises(ValueError, match=r"hd in \(64, 72, 80, 128\)"):
         flash_attention(q, q, q)
-    for ok in (64, 128):
+    for ok in (64, 72, 80, 128):
         q = torch.empty((1, 64, 4, ok), dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             flash_attention(q, q, q)

@@ -28,7 +28,8 @@ from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import fused_conv_bn_binarize as k2
 from repro_torch.kernels import mxu_pm1_matmul as k6
 from repro_torch.kernels import xnor_popcount_matmul as k1
-from repro_torch.models import layers, moe, transformer
+from repro_torch import optim, tree
+from repro_torch.models import dit, layers, moe, transformer, vit
 from repro_torch.runtime import (GraphExecutor, assign_layouts,
                                  default_pipeline, lower_trained, regions)
 from repro_torch.runtime.executor import WARMUP_CALLS, CapturedExecutor
@@ -637,6 +638,17 @@ K7_TOL = 1e-2
     (2, 512, 6, 2, 64, True),       # head width 64 (granite), G = 3
     (1, 100, 4, 1, 64, True),       # hd 64, ragged last tile
     (1, 129, 4, 4, 64, False),      # hd 64, G = 1, non-causal
+    (2, 197, 16, 16, 64, False),    # ViT-L/16's layer, non-causal, G = 1
+    # the padded widths (the hd-128 tiles over zero-filled columns):
+    # ViT-H/14's layer (hd 80, S 257 at 224, 730 at 384, ragged against
+    # the 128-row tiles), DiT-XL/2's (hd 72, S 256 and gen_1024's 4096),
+    # non-causal with G = 1, and causal once
+    (2, 257, 16, 16, 80, False),
+    (1, 730, 16, 16, 80, False),
+    (2, 256, 16, 16, 72, False),
+    (1, 4096, 16, 16, 72, False),
+    (1, 100, 4, 4, 72, False),      # hd 72, ragged S 100
+    (1, 100, 8, 2, 80, True),       # hd 80, causal, G = 4
 ])
 def test_flash_attention_on_card(cuda, b, s, h, kvh, hd, causal):
     q, k, v = (torch.from_numpy(RNG.standard_normal(shape)
@@ -649,7 +661,8 @@ def test_flash_attention_on_card(cuda, b, s, h, kvh, hd, causal):
     torch.cuda.synchronize()
     assert k7.flash_attention.launches == 1
     assert got.dtype == torch.bfloat16
-    want = k7.flash_attention_plain(q, k, v, causal)
+    want = k7.flash_attention_plain(q, k, v, causal, plain_blocks(s),
+                                    plain_blocks(s))
     torch.testing.assert_close(got.float(), want.float(), rtol=K7_TOL,
                                atol=K7_TOL)
 
@@ -669,9 +682,13 @@ def test_flash_attention_on_card_sq_ne_skv(cuda, sq, skv):
 
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
-    q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="hd 64 or hd 128"):
-        k7.flash_attention(q, q, q)
+    for hd in (32, 96):          # no instantiation, and no padded width
+        q = torch.zeros((1, 64, 2, hd), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match=r"hd in \(64, 72, 80, 128\)"):
+            k7.flash_attention(q, q, q)
+        with pytest.raises(ValueError, match=r"hd in \(64, 72, 80, 128\)"):
+            k7.flash_attention_bwd(q, q, q, q, torch.zeros(
+                (1, 2, 64), device=cuda), q, False)
     q = torch.zeros((1, 64, 2, 128), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
         k7.flash_attention(q, q, q)
@@ -701,8 +718,8 @@ def k7b_operands(cuda, b, sq, skv, h, kvh, hd):
 
 def plain_blocks(s: int) -> int:
     """A block of the plain versions that divides S: 512 cut to S, else
-    128."""
-    return 512 if s <= 512 or s % 512 == 0 else 128
+    128, else S itself (ViT-H/14's 730)."""
+    return 512 if s <= 512 or s % 512 == 0 else 128 if s % 128 == 0 else s
 
 
 @pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal", [
@@ -714,6 +731,13 @@ def plain_blocks(s: int) -> int:
     (1, 2048, 2048, 32, 8, 128, True),  # minitron-8b's prefill layer
     (1, 100, 300, 12, 4, 64, False),    # non-causal, Sq != Skv
     (1, 640, 640, 16, 4, 64, True),     # G = 4, 5 key tiles: dq's order
+    (2, 197, 197, 16, 16, 64, False),   # ViT-L/16's layer
+    # the padded widths: ViT-H/14's layer (hd 80) at S 257 and 730,
+    # DiT-XL/2's (hd 72), ragged S 100, non-causal with G = 1
+    (2, 257, 257, 16, 16, 80, False),
+    (1, 730, 730, 16, 16, 80, False),
+    (2, 256, 256, 16, 16, 72, False),
+    (1, 100, 100, 4, 4, 72, False),
 ])
 def test_flash_attention_bwd_on_card(cuda, b, sq, skv, h, kvh, hd, causal):
     q, k, v, do = k7b_operands(cuda, b, sq, skv, h, kvh, hd)
@@ -744,6 +768,8 @@ def test_flash_attention_bwd_on_card(cuda, b, sq, skv, h, kvh, hd, causal):
 @pytest.mark.parametrize("b,s,h,kvh,hd", [
     (1, 640, 16, 4, 64),                # 5 key tiles a (b, KV head)
     (2, 512, 32, 8, 128),               # 4 key tiles, two dq blocks a row
+    (1, 730, 16, 16, 80),               # hd 80: the second block ragged
+    (1, 300, 8, 8, 72),                 # hd 72
 ])
 def test_flash_attention_bwd_is_deterministic(cuda, b, s, h, kvh, hd):
     """dq is summed over the key tiles in a fixed order and dk, dv in one
@@ -1345,3 +1371,74 @@ def test_capture_holds_off_the_collector(cuda):
     assert gc.collect() > 0             # the cycle, freed after the capture
     x = torch.ones((2, 4), dtype=torch.uint8, device=cuda)
     assert torch.equal(exe(x), x + 1)
+
+
+class _PlainAttention(torch.autograd.Function):
+    """K7 and K7b swapped for their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        out, lse = k7.flash_attention_plain(q, k, v, causal, block_q,
+                                            block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = k7.flash_attention_bwd_plain(*ctx.saved_tensors,
+                                             dout.contiguous(), *ctx.blocks)
+        return (*grads, None, None, None)
+
+
+@pytest.mark.parametrize("family", ["vit", "dit"])
+def test_zoo_attention_through_the_kernels(cuda, family, monkeypatch):
+    """A narrow ViT at ViT-H/14's head width 80 and a narrow DiT at
+    DiT-XL/2's 72: K7 once a layer a forward, K7b once a layer a train
+    step; the forward and the loss against the same model with K7/K7b
+    swapped for their plain versions (relative max error 2e-2 on the
+    output, 2e-3 on the loss: K7's bf16 tolerance through two layers)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if family == "vit":
+        cfg = vit.ViTConfig(name="vit-hd80", img_res=56, patch=14,
+                            n_layers=2, d_model=160, n_heads=2, d_ff=320,
+                            n_classes=10)
+        params = vit.init_params(cfg, g, cuda)
+        x = torch.rand((2, 56, 56, 3), device=cuda, generator=g)
+        batch = {"images": x, "labels": torch.tensor([1, 2], device=cuda)}
+        serve = lambda: vit.forward(params, x, cfg)  # noqa: E731
+        loss_fn, args = vit.loss_fn, (batch, cfg)
+    else:
+        cfg = dit.DiTConfig(name="dit-hd72", img_res=128, patch=2,
+                            n_layers=2, d_model=144, n_heads=2,
+                            n_classes=10)
+        params = dit.init_params(cfg, g, cuda)
+        # adaLN-zero would leave attention out of the output: non-zero
+        params = tree.tree_map(lambda t: t + 0.02 * torch.randn(
+            t.shape, device=cuda, generator=g), params)
+        r = cfg.latent_res()
+        lat = torch.randn((2, r, r, 4), device=cuda, generator=g)
+        t = torch.tensor([5, 600], device=cuda)
+        labels = torch.tensor([1, 10], device=cuda)
+        serve = lambda: dit.forward(params, lat, t, labels, cfg)[0]  # noqa
+        batch = {"latents": lat, "labels": labels, "t": t,
+                 "noise": torch.randn((2, r, r, 4), device=cuda,
+                                      generator=g)}
+        loss_fn, args = dit.train_loss, (batch, cfg)
+    assert cfg.d_head in (72, 80)
+    k7.flash_attention.launches = k7.flash_attention_bwd.launches = 0
+    out = serve()
+    (loss, _), grads = tree.value_and_grad(loss_fn, params, *args)
+    torch.cuda.synchronize()
+    assert (k7.flash_attention.launches,
+            k7.flash_attention_bwd.launches) == (2 * cfg.n_layers,
+                                                 cfg.n_layers)
+    assert torch.isfinite(optim.global_norm(grads))
+    monkeypatch.setattr(layers, "flash_attention", _PlainAttention.apply)
+    want = serve()
+    (want_loss, _), _ = tree.value_and_grad(loss_fn, params, *args)
+    err = ((out.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert err <= 2e-2
+    assert abs(loss.item() - want_loss.item()) <= 2e-3 * abs(
+        want_loss.item())

@@ -420,13 +420,18 @@ def test_lm_server_fault_frees_slots(smoke):
 def test_configs_as_reference():
     """The four LM archs' FULL and SMOKE equal the reference's field by
     field, with the same parameter counts (total, padded for 16-way
-    expert parallelism, active); the reference's other archs are not
-    ported."""
+    expert parallelism, active); the registry holds the reference's ten
+    archs (the zoo's are held in ``tests/test_torch_vision.py``) and
+    refuses others."""
     rec = t_configs.get("minitron-8b")
     assert rec.full is t_minitron.FULL and rec.family == "lm"
-    assert t_configs.ARCH_IDS == tuple(
-        a for a in j_configs.ARCH_IDS if j_configs.get(a).family == "lm")
-    for arch in t_configs.ARCH_IDS:
+    assert t_configs.ARCH_IDS == j_configs.ARCH_IDS
+    lm_archs = [a for a in t_configs.ARCH_IDS
+                if t_configs.get(a).family == "lm"]
+    assert lm_archs == [a for a in j_configs.ARCH_IDS
+                        if j_configs.get(a).family == "lm"]
+    assert len(lm_archs) == 4
+    for arch in lm_archs:
         port, ref = t_configs.get(arch), j_configs.get(arch)
         assert port.family == ref.family == "lm"
         for p, r in ((port.full, ref.full), (port.smoke, ref.smoke)):
@@ -436,14 +441,14 @@ def test_configs_as_reference():
             assert p.active_param_count() == r.active_param_count()
             assert p.padded_experts(16) == r.padded_experts(16)
     assert t_minitron.FULL.param_count() == 7_734_562_816
-    full = {a: t_configs.get(a).full for a in t_configs.ARCH_IDS}
+    full = {a: t_configs.get(a).full for a in lm_archs}
     assert full["granite-moe-3b-a800m"].padded_experts(16) == 48
     assert round(full["qwen3-moe-30b-a3b"].param_count() / 1e9, 2) == 30.53
     assert round(full["qwen3-moe-30b-a3b"].active_param_count() / 1e9,
                  2) == 3.35
     assert round(full["command-r-35b"].param_count() / 1e9, 2) == 30.28
-    with pytest.raises(KeyError, match="not ported"):
-        t_configs.get("vit-l16")
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_configs.get("vit-b16")
     assert t_tf.padded_vocab(49155, 16) == j_tf.padded_vocab(49155, 16)
 
 
