@@ -154,14 +154,20 @@ Phases, each fatal on failure:
               the lse equal to its serving output bit for bit; (b) lm-100m
               at full width
               through ``repro_torch.launch.train.main`` in this process:
-              20 AdamW steps at batch 8, sequence 512 (K7 and K7b 12
-              launches a step, every loss finite; ms a step, tokens/s,
-              peak memory, first -> last loss), step 0's loss and gradient
-              norm against the same step with K7/K7b swapped for their
-              plain versions, one step profiled by kernel, then a crash at
-              step 6 (``--fail-at 6 --checkpoint-every 3``, exit 17) and
-              the restart from step 5's checkpoint, its losses at steps 6-9
-              against an uninterrupted run's within 1e-3 relative; (c)
+              20 AdamW steps at batch 8, sequence 512, each layer
+              checkpointed (K7 24 launches a step, the forward and the
+              recompute, and K7b 12; every loss finite; ms a step,
+              tokens/s, peak memory, first -> last loss), step 0's loss
+              and gradient norm against the same step with K7/K7b swapped
+              for their plain versions, one step profiled by kernel, then
+              a crash at step 6 (``--fail-at 6 --checkpoint-every 3``, exit
+              17) and the restart from step 5's checkpoint, its losses at
+              steps 6-9 against an uninterrupted run's within 1e-3
+              relative; lm-100m at train_4k's sequence of 4,096 from its
+              published batch of 256 halved until a step fits (each cut
+              printed beside the peak its arithmetic predicts: the cross
+              entropy's float32 logits set it), 3 steps (ms a step,
+              tokens/s, the peak beside the predicted one); (c)
               paper AlexNet (227², ``paper_nets.alexnet_spec()``) trained
               10 AdamW steps with the STE sign on synthetic class
               prototypes (``examples/train_bnn.py``'s recipe, batch 8),
@@ -177,30 +183,40 @@ Phases, each fatal on failure:
               each K7b case's second call equal bit for bit;
    zoo      — the vision and diffusion archs at full width and depth,
               one at a time (device memory before, peak after; random
-              weights from a seeded generator on the card): ViT-L/16 and
-              ViT-H/14 serve_b1 and serve_b128 at 224 (bf16 weights), 3
-              AdamW steps at 224, batch 32 (cls_224's 256 cut to one
-              card's memory with no remat; float32 masters) and one at
-              384, batch 8 (the position table resized: 577 and 730
-              tokens); DiT-L/2 and DiT-XL/2 (adaLN-zero leaves drawn
-              N(0, 0.02²) so that attention reaches the output) sampling
-              gen_fast (512², batch 16, all 4 DDIM steps) and 2 of
-              gen_1024's 50 steps (batch 4, 4,096 tokens), 3 AdamW steps
-              at train_256, batch 32, on ``LatentPipeline`` batches;
-              ConvNeXt-B serve_b1, serve_b128 and 3 AdamW steps at batch
-              32; EfficientNet-B7 serve_b1, serve_b128 at 224 and batch 1
-              at its native 600 (eval-mode BN), 3 SGDM steps at 224, batch
-              16, every BN statistic moved.  K7 launches once a layer a
-              forward or sample step, K7b once a layer a train step
-              (ConvNeXt and EfficientNet neither), counted by the wrappers
-              and in one profiled train step; every output, loss and
-              sampled latent finite, the parameters moved; for ViT-H/14
-              (hd 80) and DiT-XL/2 (hd 72) step 0 at batch 2 through
-              K7/K7b against the same step through their plain versions
-              (loss within 2e-3, gradient norm within 1e-2, one forward's
-              output within 4e-2 of max |plain|); ms a forward and
-              images/s, ms a sample step, ms a train step, peak memory,
-              beside the card's name and power limit;
+              weights from a seeded generator on the card), every train
+              step checkpointing each layer or block (ViT and the
+              convnets "nothing", DiT its configs' "dots") at the
+              published batches: ViT-L/16 and ViT-H/14 serve_b1 and
+              serve_b128 at 224 (bf16 weights), 3 AdamW steps at cls_224
+              (batch 256; float32 masters) and 3 at cls_384 (batch 64, the
+              position table resized: 577 and 730 tokens); DiT-L/2 and
+              DiT-XL/2 (adaLN-zero leaves drawn N(0, 0.02²) so that
+              attention reaches the output) sampling gen_fast (512², batch
+              16, all 4 DDIM steps) and 2 of gen_1024's 50 steps (batch 4,
+              4,096 tokens), 3 AdamW steps at train_256 (batch 256) and 3
+              at train_1024 (batch 32, 4,096 tokens) on ``LatentPipeline``
+              batches; ConvNeXt-B serve_b1, serve_b128 and 3 AdamW steps
+              at cls_224 and at cls_384; EfficientNet-B7 serve_b1,
+              serve_b128 at 224 and batch 1 at its native 600 (eval-mode
+              BN), 3 SGDM steps at cls_224 and at cls_384, every BN
+              statistic moved.  A train cell one card cannot hold halves
+              its batch until a step fits, each cut printed.  Each train
+              cell prints ms a step (step 0 the warm-up), images or
+              latents a second, device memory before the model and the
+              peak beside the peak its arithmetic predicts.  K7 launches
+              once a layer a forward or sample step and twice a layer a
+              train step (the forward and the remat's recompute), K7b once
+              a layer a train step (ConvNeXt and EfficientNet neither),
+              counted by the wrappers and in one profiled train step at
+              cls_224 or train_256; every output, loss and sampled latent
+              finite, the parameters moved; for ViT-H/14 (hd 80) and
+              DiT-XL/2 (hd 72) step 0 at batch 2 through K7/K7b against
+              the same step through their plain versions (loss within
+              2e-3, gradient norm within 1e-2, one forward's output within
+              4e-2 of max |plain|) and with remat against the same step
+              without it (the same loss and gradient-norm limits, the
+              largest differences printed); ms a forward and images/s, ms
+              a sample step, beside the card's name and power limit;
 6. lm       — K7 flash_attention against its plain version on the card
               at minitron-8b's prefill layer (B 2, S 2048, H 32, KV 8, hd
               128, bf16, causal), at granite-moe-3b-a800m's (H 24, hd 64)
@@ -508,6 +524,18 @@ ZOO_GEN_1024 = [("DiT-L/2 gen_1024 layer", 4, 4096, 4096, 16, 16, 64, False),
 ZOO_TIMED = (("ViT-H/14 serve_b128 layer", 128, 257, 257, 16, 16, 80,
               False),
              ("DiT-XL/2 gen_fast layer", 16, 1024, 1024, 16, 16, 72, False))
+# The train steps' attention layers at the batches the [train] and [zoo]
+# phases run them at: lm-100m at train_4k (S 4096, causal, hd 64, 32 key
+# tiles; at B 1, where the plain version's float32 scores take 0.8 GB),
+# ViT-H/14 at cls_224 (B 256, S 257) and cls_384 (B 64, S 730, ragged),
+# DiT-XL/2 at train_256 (B 256, S 256).
+TRAIN_LAYERS = [
+    ("lm-100m train_4k layer", 1, 4096, 4096, 12, 4, 64, True),
+    ("ViT-H/14 cls_224 train layer", 256, 257, 257, 16, 16, 80, False),
+    ("ViT-H/14 cls_384 train layer, ragged", 64, 730, 730, 16, 16, 80,
+     False),
+    ("DiT-XL/2 train_256 train layer", 256, 256, 256, 16, 16, 72, False),
+]
 FLASH_CASES = [
     FLASH_PREFILL,
     FLASH_PREFILL_64,
@@ -527,7 +555,7 @@ FLASH_CASES = [
     # hd 72 (the padded hd-128 instantiation over zero-filled columns)
     # ragged inside one tile
     ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
-]
+] + TRAIN_LAYERS
 # K7 against its plain version, |kernel - plain| <= tol·(1 + |plain|):
 # both round p to bf16, under different running maxima (the kernel's
 # 128-key tiles against the plain version's 512-key blocks), and round the
@@ -2465,8 +2493,9 @@ def phase_trained(device) -> dict[str, dict[str, int]]:
 # shape), minitron-8b's prefill layer and the same at S 512, and edge cases
 # of the 64-row, 128-key tiles (ragged, non-causal with Sq != Skv, G = 1,
 # G = 4 over five key tiles, so each dq block sums five contributions in
-# order), and the zoo's layers (ZOO_FLASH_LAYERS, gen_1024's at B 1).  The
-# first two are the timed shapes.
+# order), the zoo's layers (ZOO_FLASH_LAYERS, gen_1024's at B 1), and the
+# train steps' layers at their batches (TRAIN_LAYERS).  The first two are
+# the timed shapes.
 K7B_CASES = [
     ("lm-100m layer", 8, 512, 512, 12, 4, 64, True),
     ("minitron-8b prefill layer", 2, 2048, 2048, 32, 8, 128, True),
@@ -2479,7 +2508,7 @@ K7B_CASES = [
 ] + ZOO_FLASH_LAYERS + [(name, 1, *rest)
                           for name, _, *rest in ZOO_GEN_1024] + [
     ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
-]
+] + TRAIN_LAYERS
 # K7b against its plain version, |kernel - plain| <= tol·(1 + |plain|) for
 # each of dq, dk and dv: both round p and dS to bf16 before their products
 # and round each output once, but sum in other orders (16-wide wgmma steps
@@ -2503,6 +2532,13 @@ SWAP_LOSS_TOL, SWAP_GNORM_TOL = 2e-3, 2e-2
 # bits).
 RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 10, 3, 6
 RESUME_TOL = 1e-3
+# lm-100m at train_4k's sequence: steps (step 0 the warm-up), the batch it
+# must run at (cut from the published 256: PERF.md §4 gives the bytes; any
+# other batch fails the phase), and the cross entropy's sequence chunks
+# (``transformer.chunked_ce``'s default).
+TRAIN_4K_STEPS = 3
+TRAIN_4K_BATCH = 32
+LM_CE_CHUNKS = 8
 # AlexNet STE training (examples/train_bnn.py at the paper's width): steps,
 # images a step, class prototypes, the deployment's images, and the head's
 # bound (tests/harness.py's 1e-4).
@@ -2661,9 +2697,10 @@ def train_resume(tmp: str) -> float:
 
 
 def train_lm(device) -> tuple[dict, dict]:
-    """(b) lm-100m at full width through ``launch.train.main``: K7 and K7b
-    once a layer a step; step 0 against the plain swap; one step profiled;
-    the crash and resume."""
+    """(b) lm-100m at full width through ``launch.train.main``: K7 twice a
+    layer a step (the forward and the remat's recompute) and K7b once;
+    step 0 against the plain swap; one step profiled; the crash and
+    resume."""
     cfg = train.LM_100M
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2676,7 +2713,7 @@ def train_lm(device) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    want = launch_counts(flash_attention=cfg.n_layers * TRAIN_STEPS,
+    want = launch_counts(flash_attention=2 * cfg.n_layers * TRAIN_STEPS,
                          flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"[train] lm-100m launches {launches}, want "
@@ -2748,6 +2785,96 @@ def train_lm(device) -> tuple[dict, dict]:
                    step0_plain=plain, device_ms=device_ms, k7_ms=k7_ms,
                    k7b_ms=k7b_ms, matmul_ms=gemm_ms, resume_gap=resume_gap)
     return launches, numbers
+
+
+def lm_predicted_peak(cfg, batch: int, seq: int) -> int:
+    """Peak bytes of an LM train step by arithmetic, at the end of its
+    forward: the float32 state (16 B a parameter), each layer's bf16 input
+    kept by remat (2 B a token and unit of width), and the chunked cross
+    entropy's float32 logits and their exp kept for its backward (8 B a
+    token and vocabulary entry), with the last chunk's bf16 logits and
+    their float32 copy in flight (6 B)."""
+    tokens = batch * seq
+    chunk = tokens // min(LM_CE_CHUNKS, seq)
+    return (16 * cfg.param_count() + 2 * cfg.n_layers * cfg.d_model * tokens
+            + 8 * cfg.vocab * tokens + 6 * cfg.vocab * chunk)
+
+
+def train_lm_4k(device) -> tuple[dict, dict]:
+    """(b) lm-100m at train_4k's sequence (4,096 tokens) from its published
+    batch of 256 down by halves until a step fits the card, which must be
+    at TRAIN_4K_BATCH: TRAIN_4K_STEPS AdamW steps, K7 twice and K7b once a
+    layer a step, losses finite; ms a step, tokens/s and the peak beside
+    the predicted one.  Returns (the launches, numbers)."""
+    from repro_torch.configs.shapes import LM_SHAPES
+    cfg = train.LM_100M
+    shape = next(s for s in LM_SHAPES if s.name == "train_4k")
+    seq, batch = shape.seq_len, shape.global_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device,
+        dtype=torch.float32)
+    state = (params, optim.adamw_init(params))
+    del params
+    step = transformer.make_train_step(cfg)
+    while True:
+        predicted = lm_predicted_peak(cfg, batch, seq)
+        pipe = data.TokenPipeline(seed=0, batch=batch, seq_len=seq,
+                                  vocab=cfg.vocab, device=device, prefetch=0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            losses, times = [], []
+            for i in range(TRAIN_4K_STEPS):
+                t0 = time.perf_counter()
+                *new, m = step(*state, pipe.batch_at(i))
+                losses.append(m["loss"].item())
+                times.append(time.perf_counter() - t0)
+                state = tuple(new)
+            break
+        except torch.OutOfMemoryError:
+            if batch == 1:
+                raise
+            log(f"[train] lm-100m {shape.name}: batch {batch} x S {seq} "
+                f"does not fit: out of memory (predicted peak {predicted} B "
+                f"above the {start} B allocated before the model); cut to "
+                f"{batch // 2}")
+            batch //= 2
+    if batch != TRAIN_4K_BATCH:
+        raise AssertionError(f"[train] lm-100m {shape.name}: ran at batch "
+                             f"{batch}, not at {TRAIN_4K_BATCH}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    want = launch_counts(flash_attention=2 * cfg.n_layers * TRAIN_4K_STEPS,
+                         flash_attention_bwd=cfg.n_layers * TRAIN_4K_STEPS)
+    if launches != want:
+        raise AssertionError(f"[train] lm-100m {shape.name} launches "
+                             f"{launches}, want {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[train] lm-100m {shape.name} losses {losses}")
+    step_ms = float(np.median(times[1:])) * 1e3
+    tokens = batch * seq
+    log(f"[train] lm-100m {shape.name}: {TRAIN_4K_STEPS} AdamW steps at "
+        f"batch {batch} (published {shape.global_batch}) x S {seq}: "
+        f"{step_ms:.3f} ms a step (median of steps 1-{TRAIN_4K_STEPS - 1}; "
+        f"step 0 {times[0] * 1e3:.3f} ms), {tokens / step_ms * 1e3:.1f} "
+        f"tokens/s; loss {losses[0]:.6f} -> {losses[-1]:.6f}; launches K7 "
+        f"{launches['flash_attention']}, K7b "
+        f"{launches['flash_attention_bwd']}; peak device memory {peak} B, "
+        f"{peak - start} B above the {start} B before the model, against "
+        f"{predicted} B predicted ({(peak - start) / predicted:.3f}x)")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(batch=batch, seq=seq, step_ms=step_ms,
+                          tokens_per_s=tokens / step_ms * 1e3,
+                          losses=losses, peak_bytes=peak,
+                          peak_above_bytes=peak - start,
+                          predicted_bytes=predicted)
 
 
 def ste_train(device, spec, hw, params, rng, protos):
@@ -2885,9 +3012,9 @@ def train_alexnet(device) -> tuple[dict, dict]:
 
 def phase_train(device, errs: dict) -> tuple[dict, dict]:
     """The training path: (a) K7b on the card (its largest error into
-    ``errs``), (b) lm-100m through the train driver, (c) AlexNet STE
-    training and deployment.  Returns (launches of each counted run,
-    numbers)."""
+    ``errs``), (b) lm-100m through the train driver and at train_4k's
+    sequence, (c) AlexNet STE training and deployment.  Returns (launches
+    of each counted run, numbers)."""
     t0 = time.perf_counter()
 
     def note(name: str, e: float) -> None:
@@ -2898,6 +3025,7 @@ def phase_train(device, errs: dict) -> tuple[dict, dict]:
     launches["train_lm100m"], numbers["lm100m"] = train_lm(device)
     gc.collect()
     torch.cuda.empty_cache()
+    launches["train_lm100m_4k"], numbers["lm100m_4k"] = train_lm_4k(device)
     launches["train_alexnet_deploy"], numbers["alexnet"] = \
         train_alexnet(device)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
@@ -2905,16 +3033,18 @@ def phase_train(device, errs: dict) -> tuple[dict, dict]:
 
 
 # The zoo phase: the vision and diffusion archs at full width and depth,
-# one at a time.  Batches cut to one card's memory with no remat, each the
-# published shape's: cls_224's 256 images to ZOO_VIT_BATCH, cls_384's 64
-# to ZOO_VIT_384_BATCH, train_256's 256 latents to ZOO_DIT_BATCH; gen_1024
-# runs ZOO_GEN_1024_STEPS of its 50 DDIM steps, gen_fast all 4.
+# one at a time.  Every train step checkpoints each layer (ViT "nothing",
+# DiT its configs' "dots", the convnets' blocks "nothing"), so the train
+# cells run at the published batches: cls_224 256 images, cls_384 64,
+# train_256 256 latents, train_1024 32.  A cell whose step one card cannot
+# hold even so halves its batch until it fits, and says so; it must end at
+# the batch ZOO_CUTS lists.  gen_1024 runs ZOO_GEN_1024_STEPS of its
+# 50 DDIM steps, gen_fast all 4.
 ZOO_ARCHS = ("vit-l16", "vit-h14", "dit-l2", "dit-xl2", "convnext-b",
              "efficientnet-b7")
 ZOO_TRAIN_STEPS = 3
-ZOO_VIT_BATCH, ZOO_VIT_384_BATCH = 32, 8
-ZOO_DIT_BATCH = 32
-ZOO_CONVNEXT_BATCH, ZOO_EFF_BATCH = 32, 16
+ZOO_VISION_TRAIN = ("cls_224", "cls_384")
+ZOO_DIT_TRAIN = ("train_256", "train_1024")
 ZOO_GEN_1024_STEPS = 2
 ZOO_SERVE_BATCHES = (1, 128)
 # Step 0 of the hd-80 and hd-72 models at batch ZOO_SWAP_BATCH through
@@ -2924,9 +3054,14 @@ ZOO_SERVE_BATCHES = (1, 128)
 # SWAP_GNORM_TOL), and one forward's logits (eps) within ZOO_SWAP_OUT_TOL
 # as max error over max
 # |plain| (K7's bf16 tolerance carried through 28-32 layers, the bound the
-# LM phase holds prefill to).
+# LM phase holds prefill to).  The same step with remat against the same
+# step without it is held to the same loss and gradient-norm limits.
 ZOO_SWAP_ARCHS = ("vit-h14", "dit-xl2")
 ZOO_SWAP_BATCH = 2
+# What remat costs and saves: for ZOO_SWAP_ARCHS, ZOO_TRAIN_STEPS steps at
+# a batch that fits without remat, with it and without it (ms a step and
+# the peak; not counted).
+ZOO_REMAT_COST_BATCH = 32
 ZOO_SWAP_GNORM_TOL = 1e-2
 ZOO_SWAP_OUT_TOL = 0.04
 # DiT's adaLN modulation and output weights start at 0 (adaLN-zero): a
@@ -2936,6 +3071,26 @@ ZOO_SWAP_OUT_TOL = 0.04
 ZOO_ADALN_STD = 0.02
 ZOO_ADALN_LEAVES = ("ada_w", "ada_b", "final_ada_w", "final_ada_b",
                     "final_w", "final_b")
+
+# Peak device memory of each train cell above the memory allocated before
+# the model, at the batch it runs at, as PERF.md's arithmetic predicted it
+# before the cells first ran (the float32 state, each checkpointed layer's
+# bf16 input, under "dots" a DiT layer's 9 products, one layer's
+# recompute, the optimiser's update): printed beside the measured peak.
+ZOO_PREDICTED_PEAK = {
+    ("vit-l16", "cls_224"): 11.5e9, ("vit-l16", "cls_384"): 10.9e9,
+    ("vit-h14", "cls_224"): 22.7e9, ("vit-h14", "cls_384"): 22.7e9,
+    ("dit-l2", "train_256"): 44.5e9, ("dit-l2", "train_1024"): 81.6e9,
+    ("dit-xl2", "train_256"): 58.6e9, ("dit-xl2", "train_1024"): 58.6e9,
+    ("convnext-b", "cls_224"): 15.6e9, ("convnext-b", "cls_384"): 11.8e9,
+    ("efficientnet-b7", "cls_224"): 66.8e9,
+    ("efficientnet-b7", "cls_384"): 49.3e9,
+}
+# The cells one card cannot hold at their published batch even with remat,
+# and the batch each runs at instead (PERF.md §4 gives the bytes that force
+# it).  A cell that runs at any other batch fails the phase, so a new cut
+# (remat broken, memory regressed) cannot pass unnoticed.
+ZOO_CUTS = {("dit-xl2", "train_1024"): 16}
 
 
 def zoo_memory(tag: str) -> int:
@@ -2950,7 +3105,8 @@ def zoo_memory(tag: str) -> int:
 
 
 # Launches of the counted runs of the arch in hand (a comparison with the
-# plain versions, a timed repeat or a profile is not counted).
+# plain versions or with no remat, a timed repeat or a profile is not
+# counted).
 ZOO_COUNTED: collections.Counter = collections.Counter()
 
 
@@ -2969,64 +3125,167 @@ def zoo_finite(tag: str, *ts) -> None:
 
 
 def zoo_moved(tag: str, before: list, params, share: float = 0.9) -> str:
-    """At least ``share`` of the leaves kept in ``before`` (copies) differ
-    from their new values (a leaf whose gradient is 0 in exact arithmetic,
-    as a bias under a train-mode BN, may stay)."""
+    """At least ``share`` of the leaves sampled in ``before`` differ from
+    their new values (a leaf whose gradient is 0 in exact arithmetic, as a
+    bias under a train-mode BN, may stay)."""
     still = [path for (path, old), new in zip(before, tree.leaves(params))
-             if torch.equal(old, new)]
+             if torch.equal(old, zoo_sample(new))]
     if len(still) > (1 - share) * len(before):
         raise AssertionError(f"[zoo] {tag}: {len(still)} of {len(before)} "
                              f"leaves did not move: {still[:8]}")
     return f"{len(before) - len(still)} of {len(before)} leaves moved"
 
 
+def zoo_sample(t: torch.Tensor) -> torch.Tensor:
+    """A copy of about 4,096 elements spread over the leaf: what a train
+    step moves is checked on these, so the copies stay out of the peak."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // 4096)].clone()
+
+
 def zoo_snapshot(params) -> list:
-    """Copies of every leaf, to check that a train step moved them."""
-    return [(p, t.detach().clone()) for p, t in tree.flatten_with_paths(
-        params)]
+    """Samples of every leaf, to check that a train step moved them."""
+    return [(p, zoo_sample(t)) for p, t in tree.flatten_with_paths(params)]
 
 
-def zoo_train(tag: str, step, state, batches, layers_n: int,
-              kernels: bool):
-    """ZOO_TRAIN_STEPS steps of ``step(*state, batch)`` (the state's leading
-    entries are what it returns first), counted: K7 and K7b ``layers_n``
-    launches a step each when ``kernels``, else none; then, when
-    ``kernels``, one step profiled, its device launches counted the same
-    way (a convnet's step is thousands of small library kernels, which
-    the profiler takes tens of seconds to sort).  Returns (state, losses,
-    median ms a step, the profile's device ms and K7/K7b ms, or None)."""
-    before = zoo_snapshot(state[0])
+def zoo_train(tag: str, step, box: list, batches, layers_n: int,
+              kernels: bool, profile_step: bool):
+    """ZOO_TRAIN_STEPS steps of ``step(*box[0], batch)`` (the state's
+    leading entries are what it returns first; ``box`` holds the state
+    alone, so that no old state outlives a step), counted: K7 twice
+    ``layers_n`` (the forward and the remat's recompute) and K7b
+    ``layers_n`` launches a step when ``kernels``, else none; then, with
+    ``profile_step``, one step profiled, its device launches counted the
+    same way.  Returns (losses, median ms a step, the profile's device ms
+    and K7/K7b ms, or None)."""
+    before = zoo_snapshot(box[0][0])
     reset_launches()
     losses, times = [], []
     for i in range(ZOO_TRAIN_STEPS):
         t0 = time.perf_counter()
-        out = step(*state, batches(i))
+        *box[0], metrics = step(*box[0], batches(i))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        state, metrics = out[:-1], out[-1]
         losses.append(metrics["loss"].item())
     n = layers_n * ZOO_TRAIN_STEPS if kernels else 0
-    zoo_counts(f"{tag} train", launch_counts(flash_attention=n,
+    zoo_counts(f"{tag} train", launch_counts(flash_attention=2 * n,
                                              flash_attention_bwd=n))
     if not np.isfinite(losses).all():
         raise AssertionError(f"[zoo] {tag}: losses {losses}")
-    log(f"[zoo] {tag}: " + zoo_moved(tag, before, state[0]))
+    log(f"[zoo] {tag}: " + zoo_moved(tag, before, box[0][0]))
     del before
     step_ms = float(np.median(times[1:])) * 1e3
-    if not kernels:
-        return state, losses, step_ms, None
+    if not profile_step:
+        return losses, step_ms, None
     batch = batches(ZOO_TRAIN_STEPS)
-    prof = profiled(lambda: step(*state, batch))
+    prof = profiled(lambda: step(*box[0], batch))
     seen = device_launches(prof)
     if (seen["flash_attention"], seen["flash_attention_bwd"]) != (
-            layers_n, layers_n):
+            2 * layers_n, layers_n):
         raise AssertionError(f"[zoo] {tag}: a profiled step launched "
                              f"{seen}")
     rows = device_time_by_kernel(prof, 1)
     dev = (sum(r[0] for r in rows),
            sum(r[0] for r in rows if "flash_fwd" in r[2]),
            sum(r[0] for r in rows if "flash_bwd" in r[2]))
-    return state, losses, step_ms, dev
+    log(f"[zoo] {tag}: one step profiled, {sum(r[1] for r in rows):g} "
+        f"kernels; the largest:")
+    for ms, n, key in rows[:8]:
+        log(f"[zoo]   {ms:.3f} ms  x{n:g}  {key[:90]}")
+    return losses, step_ms, dev
+
+
+def zoo_remat_cost(arch: str, step, box: list, pipe) -> dict:
+    """ZOO_TRAIN_STEPS steps at ZOO_REMAT_COST_BATCH with remat and as many
+    without it: the median ms of steps 1 on and the peak of each, printed
+    side by side."""
+    out = {}
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batches = pipe(ZOO_REMAT_COST_BATCH)
+        times = []
+        with remat_path(remat):
+            for i in range(ZOO_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                *box[0], _ = step(*box[0], batches(i))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        out["remat" if remat else "plain"] = dict(
+            ms=float(np.median(times[1:])) * 1e3,
+            peak_bytes=torch.cuda.max_memory_allocated())
+    r, p = out["remat"], out["plain"]
+    log(f"[zoo] {arch} at batch {ZOO_REMAT_COST_BATCH}, {ZOO_TRAIN_STEPS} "
+        f"steps each: with remat {r['ms']:.3f} ms a step, peak "
+        f"{r['peak_bytes']} B; without {p['ms']:.3f} ms, peak "
+        f"{p['peak_bytes']} B (remat {r['ms'] / p['ms']:.3f}x the time, "
+        f"{r['peak_bytes'] / p['peak_bytes']:.3f}x the peak)")
+    return out
+
+
+def zoo_train_cell(arch: str, cfg, shape, step, box: list, pipe,
+                   layers_n: int, base: int, profile_step: bool) -> dict:
+    """Train steps of one (arch, shape) cell at the shape's published batch,
+    halved while a step runs out of the card's memory (each cut printed
+    with the allocation that failed), which must end at the batch
+    ``ZOO_CUTS`` lists (by default the published one); ``box`` holds the
+    state (:func:`zoo_train`), ``pipe(batch)`` gives the cell's batches by
+    step.  Returns the cell's numbers."""
+    tag = f"{arch} {shape.name}"
+    kernels = arch.startswith(("vit", "dit"))
+    if arch.startswith("dit"):
+        what = "latents"
+        size = (f"{cfg.latent_res(shape.img_res)}² latents, "
+                f"{cfg.n_tokens(shape.img_res)} tokens")
+    else:
+        what = "images"
+        size = f"{shape.img_res}² images" + (
+            f", {cfg.n_tokens(shape.img_res)} tokens" if kernels else "")
+    batch = shape.batch
+    while True:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        try:
+            losses, step_ms, dev = zoo_train(
+                f"{tag} batch {batch}", step, box, pipe(batch), layers_n,
+                kernels, profile_step)
+            break
+        except torch.OutOfMemoryError as e:
+            if batch == 1:
+                raise
+            log(f"[zoo] {tag}: batch {batch} does not fit ({base} B "
+                f"allocated before the model): {str(e).splitlines()[0]}; "
+                f"cut to {batch // 2}")
+            batch //= 2
+    want = ZOO_CUTS.get((arch, shape.name), shape.batch)
+    if batch != want:
+        raise AssertionError(f"[zoo] {tag}: ran at batch {batch}, not at "
+                             f"{want} (published {shape.batch})")
+    predicted = int(ZOO_PREDICTED_PEAK[(arch, shape.name)])
+    peak = torch.cuda.max_memory_allocated()
+    per_s = batch / step_ms * 1e3
+    log(f"[zoo] {tag}: {ZOO_TRAIN_STEPS} train steps at batch {batch} "
+        f"(published {shape.batch}), {size}: {step_ms:.3f} ms a step "
+        f"(median of steps 1-{ZOO_TRAIN_STEPS - 1}; step 0 the warm-up), "
+        f"{per_s:.1f} {what}/s, "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        + (f"one step profiled: device {dev[0]:.3f} ms, K7 {dev[1]:.3f} ms, "
+           f"K7b {dev[2]:.3f} ms; " if dev else "")
+        + f"device memory {base} B before the model, {held} B with its "
+        f"parameters and optimiser state; peak {peak} B, {peak - base} B "
+        f"above the model's start against {predicted} B predicted "
+        f"({(peak - base) / predicted:.3f}x; {cfg.param_count()} "
+        f"parameters)")
+    nums = dict(batch=batch, published=shape.batch, ms=step_ms,
+                per_s=per_s, losses=losses, held_bytes=held,
+                peak_bytes=peak, peak_above_bytes=peak - base,
+                predicted_bytes=predicted)
+    if dev:
+        nums.update(device_ms=dev[0], k7_ms=dev[1], k7b_ms=dev[2])
+    return nums
 
 
 def zoo_serve(tag: str, fn, x, layers_n: int, reps: int) -> dict:
@@ -3065,22 +3324,53 @@ def zoo_swap(tag: str, loss_fn, params, args, forward) -> dict:
     return dict(loss=(lk, lp), grad_norm=(gk, gp), gaps=gaps)
 
 
-def zoo_train_log(tag, cfg_params, batch, steps_ms, losses, dev, peak,
-                  base) -> None:
-    log(f"[zoo] {tag}: {ZOO_TRAIN_STEPS} train steps at batch {batch}: "
-        f"{steps_ms:.3f} ms a step (median of steps 1-"
-        f"{ZOO_TRAIN_STEPS - 1}), loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
-        + (f"one step profiled: device {dev[0]:.3f} ms, K7 {dev[1]:.3f} ms, "
-           f"K7b {dev[2]:.3f} ms; " if dev else "")
-        + f"peak device memory {peak} B ({peak - base} B above the {base} B "
-        f"before; {cfg_params} parameters)")
+@contextlib.contextmanager
+def remat_path(remat: bool):
+    """Train steps with per-layer remat or, without ``remat``, with
+    ``layers.scan_layers`` running every layer as a plain loop."""
+    saved = layers.scan_layers
+    if not remat:
+        layers.scan_layers = lambda *a, **kw: saved(*a,
+                                                    **{**kw, "remat": False})
+    try:
+        yield
+    finally:
+        layers.scan_layers = saved
+
+
+def zoo_remat_swap(tag: str, loss_fn, params, args) -> dict:
+    """Step 0's loss and gradients with remat against the same step
+    without it, through K7/K7b both times: the loss within SWAP_LOSS_TOL
+    and the gradient norm within ZOO_SWAP_GNORM_TOL; the largest
+    differences printed."""
+    got = []
+    for remat in (True, False):
+        with remat_path(remat):
+            (loss, _), grads = tree.value_and_grad(loss_fn, params, *args)
+        got.append((loss.item(), optim.global_norm(grads).item(), grads))
+    (lr, gr, g_r), (ln, gn, g_n) = got
+    grad_diff = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(tree.leaves(g_r), tree.leaves(g_n)))
+    equal = all(torch.equal(a, b)
+                for a, b in zip(tree.leaves(g_r), tree.leaves(g_n)))
+    gaps = (abs(lr - ln) / abs(ln), abs(gr - gn) / abs(gn))
+    if gaps[0] > SWAP_LOSS_TOL or gaps[1] > ZOO_SWAP_GNORM_TOL:
+        raise AssertionError(f"[zoo] {tag} step 0: remat ({lr}, {gr}), no "
+                             f"remat ({ln}, {gn}); gaps {gaps}")
+    log(f"[zoo] {tag} step 0 at batch {ZOO_SWAP_BATCH} with remat: loss "
+        f"{lr:.6f}, grad norm {gr:.6f}; without: {ln:.6f}, {gn:.6f}; "
+        f"relative gaps {gaps[0]:.3e}, {gaps[1]:.3e} (tolerances "
+        f"{SWAP_LOSS_TOL}, {ZOO_SWAP_GNORM_TOL}); max |loss difference| "
+        f"{abs(lr - ln):.3e}, max |gradient difference| {grad_diff:.3e}"
+        + ("; every gradient equal bit for bit" if equal else ""))
+    return dict(loss=(lr, ln), grad_norm=(gr, gn), gaps=gaps,
+                max_grad_diff=grad_diff, bit_equal=equal)
 
 
 def zoo_vit(arch: str, device) -> tuple[dict, dict]:
     from repro_torch.models import vit
     rec = configs.get(arch)
-    cfg, res, res384 = rec.full, rec.shape("cls_224").img_res, \
-        rec.shape("cls_384").img_res
+    cfg, res = rec.full, rec.shape("cls_224").img_res
     l_n, nums = cfg.n_layers, {}
     base = zoo_memory(arch)
     g = torch.Generator(device=device).manual_seed(0)
@@ -3092,44 +3382,35 @@ def zoo_vit(arch: str, device) -> tuple[dict, dict]:
             l_n, 10 if b == 1 else 3)
     del params, x
     params = vit.init_params(cfg, g, device, dtype=torch.float32)
-    opt = optim.adamw_init(params)
-    pipe = data.ImagePipeline(seed=0, batch=ZOO_VIT_BATCH, img_res=res,
-                              n_classes=cfg.n_classes, device=device,
-                              prefetch=0)
-    torch.cuda.reset_peak_memory_stats()
-    (params, opt), losses, step_ms, dev = zoo_train(
-        arch, vit.make_train_step(cfg), (params, opt), pipe.batch_at, l_n,
-        True)
-    peak = torch.cuda.max_memory_allocated()
-    zoo_train_log(arch, cfg.param_count(), ZOO_VIT_BATCH, step_ms, losses,
-                  dev, peak, base)
-    nums["train_224"] = dict(ms=step_ms, losses=losses, device_ms=dev[0],
-                             k7_ms=dev[1], k7b_ms=dev[2], peak_bytes=peak)
-    # cls_384: the position table resized (14 -> 24, 16 -> 27)
-    b384 = data.ImagePipeline(seed=1, batch=ZOO_VIT_384_BATCH,
-                              img_res=res384, n_classes=cfg.n_classes,
-                              device=device, prefetch=0).batch_at(0)
-    reset_launches()
-    t0 = time.perf_counter()
-    params, opt, m = vit.make_train_step(cfg)(params, opt, b384)
-    torch.cuda.synchronize()
-    ms384 = (time.perf_counter() - t0) * 1e3
-    zoo_counts(f"{arch} cls_384", launch_counts(flash_attention=l_n,
-                                                flash_attention_bwd=l_n))
-    zoo_finite(f"{arch} cls_384", m["loss"])
-    log(f"[zoo] {arch} cls_384: one train step at batch {ZOO_VIT_384_BATCH}, "
-        f"{cfg.n_tokens(res384)} tokens (position table {cfg.pos_grid} -> "
-        f"{res384 // cfg.patch} a side): {ms384:.3f} ms, loss "
-        f"{m['loss'].item():.6f}")
-    nums["train_384"] = dict(ms=ms384, loss=m["loss"].item(),
-                             tokens=cfg.n_tokens(res384))
+    box = [(params, optim.adamw_init(params))]
+    del params
+    step = vit.make_train_step(cfg)
+    for name in ZOO_VISION_TRAIN:
+        # cls_384: the position table resized (14 -> 24, 16 -> 27)
+        shape = rec.shape(name)
+        nums[name] = zoo_train_cell(
+            arch, cfg, shape, step, box,
+            lambda b, r=shape.img_res: data.ImagePipeline(
+                seed=0, batch=b, img_res=r, n_classes=cfg.n_classes,
+                device=device, prefetch=0).batch_at, l_n, base,
+            name == "cls_224")
     if arch in ZOO_SWAP_ARCHS:
-        b2 = {k: v[:ZOO_SWAP_BATCH] for k, v in pipe.batch_at(0).items()}
+        nums["remat_cost"] = zoo_remat_cost(
+            arch, step, box, lambda b: data.ImagePipeline(
+                seed=2, batch=b, img_res=res, n_classes=cfg.n_classes,
+                device=device, prefetch=0).batch_at)
+        b2 = data.ImagePipeline(seed=0, batch=ZOO_SWAP_BATCH, img_res=res,
+                                n_classes=cfg.n_classes, device=device,
+                                prefetch=0).batch_at(0)
+        params = box[0][0]
         nums["swap"] = zoo_swap(arch, vit.loss_fn, params, (b2, cfg),
                                 lambda: vit.forward(params, b2["images"],
                                                     cfg))
-    del params, opt, m
-    per = launch_counts(flash_attention=l_n, flash_attention_bwd=l_n)
+        nums["remat_swap"] = zoo_remat_swap(arch, vit.loss_fn, params,
+                                            (b2, cfg))
+        del params
+    del box
+    per = launch_counts(flash_attention=2 * l_n, flash_attention_bwd=l_n)
     return per, nums
 
 
@@ -3189,27 +3470,37 @@ def zoo_dit(arch: str, device) -> tuple[dict, dict]:
         del x
     del params
     params = zoo_dit_params(cfg, g, device, torch.float32)
-    opt = optim.adamw_init(params)
-    pipe = data.LatentPipeline(seed=0, batch=ZOO_DIT_BATCH,
-                               latent_res=cfg.latent_res(), n_classes=
-                               cfg.n_classes, device=device, prefetch=0)
-    torch.cuda.reset_peak_memory_stats()
-    (params, opt), losses, step_ms, dev = zoo_train(
-        arch, dit.make_train_step(cfg), (params, opt), pipe.batch_at, l_n,
-        True)
-    peak = torch.cuda.max_memory_allocated()
-    zoo_train_log(arch, cfg.param_count(), ZOO_DIT_BATCH, step_ms, losses,
-                  dev, peak, base)
-    nums["train_256"] = dict(ms=step_ms, losses=losses, device_ms=dev[0],
-                             k7_ms=dev[1], k7b_ms=dev[2], peak_bytes=peak)
+    box = [(params, optim.adamw_init(params))]
+    del params
+    step = dit.make_train_step(cfg)
+    for name in ZOO_DIT_TRAIN:
+        shape = rec.shape(name)
+        nums[name] = zoo_train_cell(
+            arch, cfg, shape, step, box,
+            lambda b, r=cfg.latent_res(shape.img_res): data.LatentPipeline(
+                seed=0, batch=b, latent_res=r, n_classes=cfg.n_classes,
+                device=device, prefetch=0).batch_at, l_n, base,
+            name == "train_256")
     if arch in ZOO_SWAP_ARCHS:
-        b2 = {k: v[:ZOO_SWAP_BATCH] for k, v in pipe.batch_at(0).items()}
+        nums["remat_cost"] = zoo_remat_cost(
+            arch, step, box, lambda b: data.LatentPipeline(
+                seed=2, batch=b, latent_res=cfg.latent_res(),
+                n_classes=cfg.n_classes, device=device,
+                prefetch=0).batch_at)
+        b2 = data.LatentPipeline(seed=0, batch=ZOO_SWAP_BATCH,
+                                 latent_res=cfg.latent_res(),
+                                 n_classes=cfg.n_classes, device=device,
+                                 prefetch=0).batch_at(0)
+        params = box[0][0]
         nums["swap"] = zoo_swap(
             arch, dit.train_loss, params, (b2, cfg),
             lambda: dit.forward(params, b2["latents"], b2["t"],
                                 b2["labels"], cfg)[0])
-    del params, opt
-    per = launch_counts(flash_attention=l_n, flash_attention_bwd=l_n)
+        nums["remat_swap"] = zoo_remat_swap(arch, dit.train_loss, params,
+                                            (b2, cfg))
+        del params
+    del box
+    per = launch_counts(flash_attention=2 * l_n, flash_attention_bwd=l_n)
     return per, nums
 
 
@@ -3244,33 +3535,29 @@ def zoo_convnet(arch: str, device) -> tuple[dict, dict]:
                               10 if b == 1 else 3)
         del x
     del params
-    batch_n = ZOO_EFF_BATCH if eff else ZOO_CONVNEXT_BATCH
-    pipe = data.ImagePipeline(seed=0, batch=batch_n, img_res=res,
-                              n_classes=cfg.n_classes, device=device,
-                              prefetch=0)
-    torch.cuda.reset_peak_memory_stats()
     if eff:
-        params, state = efficientnet.init_params(cfg, g, device,
-                                                 dtype=torch.float32)
-        state0 = zoo_snapshot(state)
-        (params, state, opt), losses, step_ms, dev = zoo_train(
-            arch, efficientnet.make_train_step(cfg),
-            (params, state, optim.sgdm_init(params)), pipe.batch_at, 0,
-            False)
-        log(f"[zoo] {arch} BN state: "
-            + zoo_moved(f"{arch} BN state", state0, state, share=1.0))
+        params, bn = efficientnet.init_params(cfg, g, device,
+                                              dtype=torch.float32)
+        bn0 = zoo_snapshot(bn)
+        box = [(params, bn, optim.sgdm_init(params))]
+        del bn
+        step = efficientnet.make_train_step(cfg)
     else:
         params = convnext.init_params(cfg, g, device, dtype=torch.float32)
-        (params, opt), losses, step_ms, dev = zoo_train(
-            arch, convnext.make_train_step(cfg),
-            (params, optim.adamw_init(params)), pipe.batch_at, 0, False)
-    peak = torch.cuda.max_memory_allocated()
-    zoo_train_log(arch, cfg.param_count(), batch_n, step_ms, losses, dev,
-                  peak, base)
-    nums["train_224"] = dict(ms=step_ms, losses=losses, peak_bytes=peak)
-    del params, opt
+        box = [(params, optim.adamw_init(params))]
+        step = convnext.make_train_step(cfg)
+    del params
+    for name in ZOO_VISION_TRAIN:
+        shape = rec.shape(name)
+        nums[name] = zoo_train_cell(
+            arch, cfg, shape, step, box,
+            lambda b, r=shape.img_res: data.ImagePipeline(
+                seed=0, batch=b, img_res=r, n_classes=cfg.n_classes,
+                device=device, prefetch=0).batch_at, 0, base, False)
     if eff:
-        del state
+        log(f"[zoo] {arch} BN state: "
+            + zoo_moved(f"{arch} BN state", bn0, box[0][1], share=1.0))
+    del box
     return launch_counts(), nums
 
 
@@ -3303,9 +3590,9 @@ def phase_zoo(device, smi: str) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     log("[zoo] K7, K7b launches of the counted runs " + str(
         {a: (c["flash_attention"], c["flash_attention_bwd"])
-         for a, c in launches.items()}) + "; a forward and a train step "
-        "each " + str({a: (c["flash_attention"], c["flash_attention_bwd"])
-                       for a, c in per_step.items()}))
+         for a, c in launches.items()}) + "; a train step each " + str(
+        {a: (c["flash_attention"], c["flash_attention_bwd"])
+         for a, c in per_step.items()}))
     log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s")
     return launches, per_step, numbers
 

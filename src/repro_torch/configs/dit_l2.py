@@ -1,9 +1,10 @@
 """dit-l2 [arXiv:2212.09748; paper] — DiT-L/2.
 
 img_res=256 (latent 32²×4), patch=2, 24L d_model=1024 16H (head 64).  The
-same FULL and SMOKE as ``repro.configs.dit_l2``; ``seq_shard`` and
-``remat_policy`` are the reference's multi-chip settings, kept so the
-configs read alike and unread on one card.
+same FULL and SMOKE as ``repro.configs.dit_l2``.  ``remat_policy="dots"``
+acts: each layer of a train step keeps its matrix products' outputs and
+recomputes the rest.  ``seq_shard`` is the reference's multi-chip
+setting, kept so the configs read alike and unread on one card.
 """
 
 from repro_torch.configs.shapes import DIFFUSION_SHAPES

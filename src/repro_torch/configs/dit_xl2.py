@@ -1,9 +1,9 @@
 """dit-xl2 [arXiv:2212.09748; paper] — DiT-XL/2.
 
 img_res=256 (latent 32²×4), patch=2, 28L d_model=1152 16H (head 72, K7's
-padded width).  The same FULL and SMOKE as ``repro.configs.dit_xl2``;
-``seq_shard`` and ``remat_policy`` are kept so the configs read alike and
-unread on one card.
+padded width).  The same FULL and SMOKE as ``repro.configs.dit_xl2``.
+``remat_policy="dots"`` acts, as in DiT-L/2; ``seq_shard``, a multi-chip
+setting, is kept so the configs read alike and unread on one card.
 """
 
 from repro_torch.configs.shapes import DIFFUSION_SHAPES

@@ -5,8 +5,10 @@ Counterpart of ``repro.models.convnext``: depths (3, 3, 27, 3), dims (128,
 GELU), a 1×1 project and a layer scale on the residual; stages are
 separated by LN and a 2×2 stride-2 conv.  The blocks of a stage are
 stacked on a leading dim as in the reference (its ``scan``) and run as a
-Python loop.  No Pallas kernel runs here in the reference, which leaves
-every conv to XLA: the stem, downsample and depthwise convs are
+Python loop (``layers.scan_layers``), each checkpointed under autograd
+with the "nothing" policy unless ``cfg.unroll``, as the reference's
+``nothing_saveable``.  No Pallas kernel runs here in the reference, which
+leaves every conv to XLA: the stem, downsample and depthwise convs are
 ``F.conv2d`` and the 1×1 convs matmuls over the channels.
 
 ``binary_pointwise=True`` runs the 1×1 expand/project as STE-sign binary
@@ -44,7 +46,7 @@ class ConvNeXtConfig:
     n_classes: int = 1000
     layer_scale_init: float = 1e-6
     binary_pointwise: bool = False
-    # the reference's dry-run knob, kept so configs read alike
+    # the reference's dry-run knob: the blocks run without remat under it
     unroll: bool = False
 
     def param_count(self) -> int:
@@ -155,7 +157,7 @@ def _pointwise(x: torch.Tensor, w: torch.Tensor,
 def logits(params: dict, images: torch.Tensor, cfg: ConvNeXtConfig
            ) -> torch.Tensor:
     """images (B, R, R, 3) float -> logits (B, n_classes) in float32,
-    under autograd."""
+    under autograd (each block checkpointed unless ``cfg.unroll``)."""
     cd = layers.COMPUTE_DTYPE
     x = _conv(images.to(cd), params["stem_w"], stride=4)
     x = x + params["stem_b"].to(cd)
@@ -165,9 +167,10 @@ def logits(params: dict, images: torch.Tensor, cfg: ConvNeXtConfig
         if dim != prev:
             x = layers.layer_norm(x, stage["down_ln_s"], stage["down_ln_b"])
             x = _conv(x, stage["down_w"], stride=2) + stage["down_b"].to(cd)
-        blocks = stage["blocks"]
-        for i in range(depth):
-            bp = {name: t[i] for name, t in blocks.items()}
+
+        # ``dim`` is bound now: the backward's recompute calls the block
+        # after the loop has moved on.
+        def block(x, bp, dim=dim):
             h = _conv(x, bp["dw_w"], padding=3, groups=dim)
             h = h + bp["dw_b"].to(cd)
             h = layers.layer_norm(h, bp["ln_s"], bp["ln_b"])
@@ -175,7 +178,10 @@ def logits(params: dict, images: torch.Tensor, cfg: ConvNeXtConfig
                             + bp["b1"].to(cd), exact=cfg.binary_pointwise)
             h = (_pointwise(h, bp["w2"], cfg.binary_pointwise)
                  + bp["b2"].to(cd))
-            x = x + bp["gamma"].to(cd) * h
+            return x + bp["gamma"].to(cd) * h, None
+
+        x, _ = layers.scan_layers(block, x, stage["blocks"], n_layers=depth,
+                                  remat=not cfg.unroll)
         prev = dim
     x = x.float().mean(dim=(1, 2))
     x = layers.layer_norm(x, params["head_ln_s"], params["head_ln_b"])

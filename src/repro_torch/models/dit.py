@@ -10,9 +10,12 @@ modulation and output weights start at zero, so a fresh model predicts 0.
 Steps: ``make_train_step`` (DDPM ε-prediction MSE at the batch's t, AdamW
 without weight decay) and ``make_sample_step`` (one deterministic DDIM
 update, eta 0; a 50-step sampler is 50 calls).  Parameters are stacked on
-a leading layer dim and the layers run as a Python loop over them; the
-reference's ``rules`` and its ``seq_shard`` / ``remat_policy`` have no
-use on one card (the configs keep the fields).  Attention goes through K7
+a leading layer dim and the layers run as a Python loop over them
+(``layers.scan_layers``), each checkpointed under autograd with
+``cfg.remat_policy`` ("dots" in both FULL configs: the matrix products'
+outputs are kept, the rest recomputed); the reference's ``rules`` and its
+``seq_shard``, a multi-chip setting, have no use on one card (the configs
+keep the field).  Attention goes through K7
 (``layers.chunked_attention``) and, under autograd, K7b; the projections,
 the MLP and the conditioning MLP are plain matmuls, as the reference
 leaves them to XLA.  The conditioning runs in float32 and is cast to bf16
@@ -50,7 +53,7 @@ class DiTConfig:
     # diffusion schedule
     n_train_timesteps: int = 1000
     # the reference's dry-run and sharding knobs, kept so configs read
-    # alike; one card does not read them
+    # alike; one card reads ``remat_policy`` alone
     unroll: bool = False
     remat_policy: str = "nothing"
     seq_shard: bool = False
@@ -173,7 +176,8 @@ def unpatchify(x: torch.Tensor, patch: int, grid: int, c: int
 def eps_and_sigma(params: dict, latents: torch.Tensor, t: torch.Tensor,
                   labels: torch.Tensor, cfg: DiTConfig):
     """latents (B, Hl, Wl, C), t (B,) int, labels (B,) int -> (eps,
-    sigma_raw), each (B, Hl, Wl, C) in bf16, under autograd."""
+    sigma_raw), each (B, Hl, Wl, C) in bf16, under autograd (each layer
+    checkpointed under ``cfg.remat_policy``)."""
     b, hl, _, c = latents.shape
     cd = layers.COMPUTE_DTYPE
     grid = hl // cfg.patch
@@ -193,9 +197,8 @@ def eps_and_sigma(params: dict, latents: torch.Tensor, t: torch.Tensor,
     cvec = layers.silu(cvec).to(cd)
 
     h, hd, d = cfg.n_heads, cfg.d_head, cfg.d_model
-    lay = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = {name: t_[i] for name, t_ in lay.items()}
+
+    def layer_body(x, lp):
         mods = cvec @ lp["ada_w"].to(cd) + lp["ada_b"].to(cd)
         sh1, sc1, g1, sh2, sc2, g2 = mods.chunk(6, dim=-1)
         hn = layers.modulate(layers.layer_norm(x, None, None), sh1, sc1)
@@ -208,8 +211,11 @@ def eps_and_sigma(params: dict, latents: torch.Tensor, t: torch.Tensor,
         x = x + g1[:, None, :] * o
         hn = layers.modulate(layers.layer_norm(x, None, None), sh2, sc2)
         out = layers.gelu(hn @ lp["w1"].to(cd)) @ lp["w2"].to(cd)
-        x = x + g2[:, None, :] * out
+        return x + g2[:, None, :] * out, None
 
+    x, _ = layers.scan_layers(layer_body, x, params["layers"],
+                              n_layers=cfg.n_layers,
+                              remat_policy=cfg.remat_policy)
     fmods = (cvec @ params["final_ada_w"].to(cd)
              + params["final_ada_b"].to(cd))
     fsh, fsc = fmods.chunk(2, dim=-1)

@@ -5,18 +5,23 @@ Counterpart of ``repro.models.efficientnet``: MBConv blocks (1×1 expand,
 k×k depthwise, squeeze-excite, 1×1 project) with batch norm and SiLU; the
 B7 scaling gives 55 blocks in 7 stages.  Each stage keeps its first block
 ("head") apart and its stride-1 repeats ("rest") stacked on a leading dim
-as in the reference (its ``scan``), run as a Python loop.  No Pallas
-kernel runs here in the reference, which leaves every conv to XLA: the
-stem and depthwise convs are ``F.conv2d``, the 1×1 convs (expand,
-project, squeeze-excite, head) matmuls over the channels.
+as in the reference (its ``scan``), run as a Python loop
+(``layers.scan_layers``); each "rest" block is checkpointed under
+autograd with the "nothing" policy unless ``cfg.unroll``, as the
+reference's ``nothing_saveable``.  No Pallas kernel runs here in the
+reference, which leaves every conv to XLA: the stem and depthwise convs
+are ``F.conv2d``, the 1×1 convs (expand, project, squeeze-excite, head)
+matmuls over the channels.
 
 Batch norm keeps its running statistics in a separate ``state`` tree:
 ``apply(params, state, x, train=True)`` normalises by the batch's mean and
 population variance and returns the running stats moved 1% toward them
 (momentum 0.99); ``train=False`` normalises by the running stats (the
-serve shapes) and runs under ``torch.inference_mode``.  The ``"SAME"``
-padding is XLA's: at stride 2 it pads low = total // 2 and high the rest,
-which is not PyTorch's symmetric padding.
+serve shapes) and runs under ``torch.inference_mode``.  The new
+statistics are outputs of a checkpointed block, not updates in place, so
+the block's recompute in the backward cannot move them a second time.
+The ``"SAME"`` padding is XLA's: at stride 2 it pads low = total // 2 and
+high the rest, which is not PyTorch's symmetric padding.
 
 ``binary_pointwise=True`` runs the 1×1 expand/project as STE-sign binary
 convs on latent float weights (the depthwise convs and SE stay float).
@@ -69,7 +74,7 @@ class EffNetConfig:
     n_classes: int = 1000
     se_ratio: float = 0.25
     binary_pointwise: bool = False
-    # the reference's dry-run knob, kept so configs read alike
+    # the reference's dry-run knob: the blocks run without remat under it
     unroll: bool = False
 
     @property
@@ -326,17 +331,14 @@ def _apply(params, state, images, cfg: EffNetConfig, train: bool):
                                binary=cfg.binary_pointwise)
         stage_ns = {"head": head_ns}
         if r > 1:
-            rest = []
-            for i in range(r - 1):
-                bp = {n: t[i] for n, t in sp["rest"].items()}
-                bs = {n: {m: t[i] for m, t in st.items()}
-                      for n, st in ss["rest"].items()}
-                x, ns = _mb_block(x, bp, bs, expand=e, stride=1,
-                                  train=train, binary=cfg.binary_pointwise)
-                rest.append(ns)
-            stage_ns["rest"] = {
-                n: {m: torch.stack([ns[n][m] for ns in rest])
-                    for m in ("mean", "var")} for n in rest[0]}
+            # ``e`` bound now, for the recompute (as ConvNeXt's ``dim``)
+            def body(x, ps, e=e):
+                return _mb_block(x, *ps, expand=e, stride=1, train=train,
+                                 binary=cfg.binary_pointwise)
+
+            x, stage_ns["rest"] = layers.scan_layers(
+                body, x, (sp["rest"], ss["rest"]), n_layers=r - 1,
+                remat=not cfg.unroll)
         new_state["stages"].append(stage_ns)
     x = _pointwise(x, params["head_w"])
     x, new_state["head_bn"] = _bn(x, params["head_bn_s"],

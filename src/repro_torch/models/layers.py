@@ -8,9 +8,11 @@ images NHWC.  Compute runs in bf16 (``COMPUTE_DTYPE``); norms, RoPE,
 softmax statistics and attention accumulators run in float32.
 Full-sequence attention goes through K7 (``kernels.flash_attention``): on
 a CUDA tensor the kernel, on a CPU tensor its plain version; under
-autograd its backward is K7b.  The reference's sharded decode helpers
-(``flash_decode_local``, ``combine_decode_partials``) and its remat and
-scan machinery have no use on one card and are not ported.
+autograd its backward is K7b.  Layer stacks run through
+:func:`scan_layers`, the reference's per-layer remat (activation
+checkpointing) under ``REMAT_POLICIES``: one card's memory is what sets
+the batch a train step holds.  The reference's sharded decode helpers
+(``flash_decode_local``, ``combine_decode_partials``) are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from repro_torch import tree
 from repro_torch.kernels.flash_attention import flash_attention
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -150,6 +154,89 @@ def resize_grid(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
                         mode="bilinear", align_corners=False,
                         antialias=height < h or width < w)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+# --------------------------------------------------------------------------
+# Layer stacking with per-layer remat
+# --------------------------------------------------------------------------
+
+#: The matrix products "dots" keeps: whatever ``@``, ``einsum`` and
+#: ``F.linear`` lower to.
+DOT_OPS = frozenset({torch.ops.aten.mm, torch.ops.aten.addmm,
+                     torch.ops.aten.bmm, torch.ops.aten.baddbmm})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_saveable``: keep the output of every
+    matrix product, recompute everything else."""
+    policy = torch.utils.checkpoint.CheckpointPolicy
+    return (policy.MUST_SAVE if op.overloadpacket in DOT_OPS
+            else policy.PREFER_RECOMPUTE)
+
+
+def _dots_saveable():
+    """The forward and recompute contexts of the "dots" policy, new for each
+    checkpointed call.  Raises where this torch has no selective
+    checkpoint, rather than recompute every product ("nothing")."""
+    make = getattr(torch.utils.checkpoint,
+                   "create_selective_checkpoint_contexts", None)
+    if make is None:
+        raise RuntimeError(
+            f"remat_policy 'dots' needs torch.utils.checkpoint."
+            f"create_selective_checkpoint_contexts, which torch "
+            f"{torch.__version__} lacks")
+    return make(_dots_policy)
+
+
+#: The reference's checkpoint policies, each as the ``context_fn`` of
+#: ``torch.utils.checkpoint.checkpoint``.
+REMAT_POLICIES = {
+    # recompute everything in the backward: a layer keeps only its inputs,
+    # at the cost of one more forward
+    "nothing": torch.utils.checkpoint.noop_context_fn,
+    # keep the matrix products' outputs, recompute the elementwise ops
+    "dots": _dots_saveable,
+}
+
+
+def scan_layers(body, carry, layer_params, *, n_layers: int,
+                remat: bool = True, remat_policy: str = "nothing"):
+    """``carry, y = body(carry, params of layer i)`` for i < ``n_layers``
+    over ``layer_params``, a tree of tensors stacked on a leading layer
+    dim; returns (carry, the ys stacked leaf by leaf, or None when the body
+    returns None).  The reference's ``scan_layers`` on its unrolled path
+    (the port has no scan).
+
+    With ``remat`` and grad mode on, each layer runs through
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant, which
+    ``torch.autograd.grad`` needs) under ``REMAT_POLICIES[remat_policy]``:
+    the backward recomputes what the policy did not keep, so the loss and
+    the gradients are those of the plain loop.  K7 is called through
+    ``ctypes``, which no dispatch mode sees, so its forward runs again in
+    the backward under either policy (a second launch a layer); so does
+    the reference's attention, which its ``chunked_attention``
+    checkpoints on its own.  The recompute calls ``body`` again in the
+    backward, so it must read nothing that changes after the call (bind
+    a loop variable as a default argument) and draw no random numbers:
+    the checkpoint does not save and restore the RNG state, which no
+    layer body of the port reads.  With grad mode off (the
+    serving forwards under ``torch.inference_mode``) the body is called
+    directly."""
+    context_fn = REMAT_POLICIES[remat_policy]
+    remat = remat and torch.is_grad_enabled()
+    ys = []
+    for i in range(n_layers):
+        params_i = tree.tree_map(lambda t: t[i], layer_params)
+        if remat:
+            carry, y = torch.utils.checkpoint.checkpoint(
+                body, carry, params_i, use_reentrant=False,
+                context_fn=context_fn, preserve_rng_state=False)
+        else:
+            carry, y = body(carry, params_i)
+        ys.append(y)
+    if not ys or ys[0] is None:
+        return carry, None
+    return carry, tree.tree_map(lambda *a: torch.stack(a), *ys)
 
 
 def draw(shape, std: float, generator: torch.Generator,

@@ -7,8 +7,11 @@ full-sequence forward, the serving prefill that fills the KV cache, the
 one-token decode step, and the training loss (sequence-chunked cross
 entropy plus the MoE balance loss) with the AdamW train step.
 Parameters are stacked on a leading layer dim as in the reference; the
-layer loop is a Python loop over them (the reference's ``scan``).  One
-card has nothing to shard, so the reference's ``rules`` argument is gone.
+layer loop is a Python loop over them (the reference's ``scan``), through
+``layers.scan_layers``, which checkpoints each layer of the training
+forward under ``cfg.remat_policy``; prefill and decode run it without
+remat, as the reference does.  One card has nothing to shard, so the
+reference's ``rules`` argument is gone.
 
 For serving, matrices, the embedding and the head are stored in bf16: the
 reference keeps float32 and casts to bf16 at every use, which gives the
@@ -76,7 +79,10 @@ class LMConfig:
     q_chunk: int = 1024
     kv_chunk: int = 1024
     # the reference's training and dry-run knobs, kept so configs read
-    # alike; inference does not read them
+    # alike.  ``remat_policy`` acts: ``forward_hidden`` checkpoints each
+    # layer under it.  ``attn_step_remat`` shapes the reference's
+    # ``chunked_attention`` KV scan, which K7 replaces; K7 keeps only the
+    # lse, so nothing reads it.
     binary_mlp: bool = False
     unroll: bool = False
     remat_policy: str = "nothing"
@@ -335,18 +341,21 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers + final norm.  Returns (x (B, S, D), aux); aux
     is the MoE balance loss averaged over the layers, 0 for a dense
-    model.  Differentiable: under autograd attention runs through K7 and
-    its backward, K7b."""
+    model.  Differentiable: under autograd each layer is checkpointed
+    (``layers.scan_layers`` under ``cfg.remat_policy``) and attention runs
+    through K7, again in the recompute, and its backward, K7b."""
     x = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-    auxs = []
-    for lp in _layer_params(params, cfg):
+
+    def layer_body(x, lp):
         x, _, _ = _attention(x, lp, cfg, positions)
-        x, aux = _mlp_or_moe(x, lp, cfg)
-        if aux is not None:
-            auxs.append(aux)
+        return _mlp_or_moe(x, lp, cfg)
+
+    x, auxs = layers.scan_layers(layer_body, x, params["layers"],
+                                 n_layers=cfg.n_layers,
+                                 remat_policy=cfg.remat_policy)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, (torch.stack(auxs).mean() if auxs
+    return x, (auxs.mean() if auxs is not None
                else torch.zeros((), device=x.device))
 
 

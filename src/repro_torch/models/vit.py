@@ -5,8 +5,10 @@ Counterpart of ``repro.models.vit``.  The assigned shapes run at 224
 (cls_224, serve_b1, serve_b128) and 384 (cls_384: the learned position
 table is resized bilinearly, the finetune recipe of the ViT paper §3.2).
 Parameters are stacked on a leading layer dim as in the reference and the
-layers run as a Python loop over them; one card has nothing to shard, so
-the reference's ``rules`` argument is gone.  Attention goes through K7
+layers run as a Python loop over them (``layers.scan_layers``), each
+checkpointed under autograd with the reference's default policy,
+"nothing"; one card has nothing to shard, so the reference's ``rules``
+argument is gone.  Attention goes through K7
 (``layers.chunked_attention``, one q chunk and one key chunk of the whole
 sequence, as the reference's) and, under autograd, K7b; the projections,
 the MLP and the head are plain matmuls, and the patch embedding a strided
@@ -50,7 +52,8 @@ class ViTConfig:
     n_classes: int = 1000
     pos_grid: int = 0          # side of the *trained* position grid
     binary_dense: bool = False  # PhoneBit technique on QKV/MLP projections
-    # the reference's dry-run knob, kept so configs read alike
+    # the reference's dry-run knob, kept so configs read alike (ViT's remat
+    # does not depend on it, as in the reference)
     unroll: bool = False
 
     @property
@@ -168,7 +171,7 @@ def resize_pos_embed(pos: torch.Tensor, grid_from: int,
 def logits(params: dict, images: torch.Tensor, cfg: ViTConfig
            ) -> torch.Tensor:
     """images (B, R, R, 3) float -> logits (B, n_classes) in bf16, under
-    autograd."""
+    autograd (each layer checkpointed)."""
     b, r = images.shape[:2]
     cd = layers.COMPUTE_DTYPE
     g = r // cfg.patch
@@ -183,9 +186,8 @@ def logits(params: dict, images: torch.Tensor, cfg: ViTConfig
     x = x + pos.to(cd)[None]
 
     h, hd, s, d = cfg.n_heads, cfg.d_head, x.shape[1], cfg.d_model
-    lay = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = {name: t[i] for name, t in lay.items()}
+
+    def layer_body(x, lp):
         hn = layers.layer_norm(x, lp["ln1_s"], lp["ln1_b"])
         qkv = (_maybe_binary(lp["wqkv"], hn, cfg.binary_dense)
                + lp["bqkv"].to(cd))
@@ -199,8 +201,11 @@ def logits(params: dict, images: torch.Tensor, cfg: ViTConfig
         hn = layers.layer_norm(x, lp["ln2_s"], lp["ln2_b"])
         hmid = layers.gelu(_maybe_binary(lp["w1"], hn, cfg.binary_dense)
                            + lp["b1"].to(cd), exact=cfg.binary_dense)
-        x = x + (_maybe_binary(lp["w2"], hmid, cfg.binary_dense)
-                 + lp["b2"].to(cd))
+        return x + (_maybe_binary(lp["w2"], hmid, cfg.binary_dense)
+                    + lp["b2"].to(cd)), None
+
+    x, _ = layers.scan_layers(layer_body, x, params["layers"],
+                              n_layers=cfg.n_layers)
     x = layers.layer_norm(x, params["ln_f_s"], params["ln_f_b"])
     return x[:, 0, :] @ params["head_w"].to(cd) + params["head_b"].to(cd)
 
