@@ -219,12 +219,14 @@ Phases, each fatal on failure:
               a sample step, beside the card's name and power limit;
 6. lm       — K7 flash_attention against its plain version on the card
               at minitron-8b's prefill layer (B 2, S 2048, H 32, KV 8, hd
-              128, bf16, causal), at granite-moe-3b-a800m's (H 24, hd 64)
-              and at edge cases of its 128-row, 128-key
-              tiles (non-causal, G = 1 at S 512 and 256, part of one tile,
-              ragged tiles at S 100 and 129, non-causal Sq 100 against
-              Skv 300; at hd 64 ragged S 100, S 129 non-causal with G = 1,
-              Sq 100 against Skv 300) within the stated tolerance,
+              128, bf16, causal), at granite-moe-3b-a800m's (H 24, hd 64),
+              at each one's layer on one rank of the [shard] phase's tp 4
+              (H 8, KV 2, hd 128; H 6, KV 2, hd 64) and at edge cases of
+              its 128-row, 128-key tiles (non-causal, G = 1 at S 512 and
+              256, part of one tile, ragged tiles at S 100 and 129,
+              non-causal Sq 100 against Skv 300; at hd 64 ragged S 100,
+              S 129 non-causal with G = 1, Sq 100 against Skv 300) within
+              the stated tolerance,
               and its refusal of float32 (the kernel takes bf16, the LM
               path's dtype); then minitron-8b at full width and depth
               (32 layers, d_model 4096, vocab 256,000; bf16 weights drawn on
@@ -309,7 +311,32 @@ Phases, each fatal on failure:
               each backend pinned
               (``sdpa_kernel``: flash, cuDNN, memory-efficient; K/V
               expanded to H heads where a backend takes no GQA), the
-              backward of one forward repeated.
+              backward of one forward repeated;
+9. shard    — the sharded LM serving path (``launch.mesh``, ``Rules``):
+              minitron-8b (tensor-parallel) and granite-moe-3b-a800m
+              (expert-parallel, 10 experts a rank, capacity factor E/k = 5
+              so nothing drops; the drops at the published 1.25 printed
+              for layer 0) at full width and depth, the weights drawn once
+              here and handed to 4 ranks through CUDA IPC, each keeping its
+              slices; the ranks share the card on a (1, 4) mesh over gloo,
+              every collective staged through pinned host memory (the
+              backend printed); each rank's prefill at B 2, S 2048 into a
+              cache of 2304 (576 positions a rank; K7 32 launches a rank,
+              on its 8 or 6 q heads) and 16 teacher-forced decode steps (no
+              K7), held against the one-device path on the same weights:
+              max |sharded - single| / max |single| and argmax agreement
+              within ``SHARD_LIMITS`` (minitron-8b 4% and 0.95;
+              granite-moe-3b-a800m 7% and 0.90: its bf16 logits are
+              near-tied at the top, and its one-device path a row at a
+              time misses 4% and 0.95 against itself), that one-device
+              floor within the same limits; the bytes each rank hands to
+              collectives
+              equal to ``shard_bytes``' arithmetic; a sharded ``LMServer``
+              answering 8 requests with the same tokens on every rank; ms a
+              prefill and a decode step sharded and on one device, each
+              rank's peak memory (times of host-staged collectives on one
+              card, not of 4 cards over NVLink).  It runs last, after the
+              timing phase, and its K7 launches join the ``kernels`` line.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -551,6 +578,10 @@ FLASH_CASES = [
     ("S = 129, a full tile and one row", 1, 129, 129, 32, 8, 128, True),
     ("non-causal Sq 100, Skv 300", 1, 100, 300, 32, 8, 128, False),
     ("G = 1, S = 256", 1, 256, 256, 8, 8, 128, True),
+    # The [shard] phase's prefill layers on one rank of tp 4: its local
+    # q and KV heads.
+    ("minitron prefill layer, tp 4 rank", 2, 2048, 2048, 8, 2, 128, True),
+    ("granite prefill layer, tp 4 rank", 2, 2048, 2048, 6, 2, 64, True),
 ] + ZOO_FLASH_LAYERS + ZOO_GEN_1024 + [
     # hd 72 (the padded hd-128 instantiation over zero-filled columns)
     # ragged inside one tile
@@ -594,6 +625,40 @@ MOE_DECODE_PROMPT, MOE_DECODE_NEW = 4, 4
 # moe_reference runs every expert on every token: it takes the prefill's
 # tokens this many at a time (its result does not depend on the split).
 MOE_ORACLE_CHUNK = 1024
+# The [shard] phase: minitron-8b (dense, tensor-parallel) and
+# granite-moe-3b-a800m (expert-parallel, 10 experts a rank) at full width
+# and depth on a (1, SHARD_RANKS) mesh whose ranks share the card: the LM
+# phase's prefill (B 2, S 2048 into a cache of 2304: 576 positions a rank)
+# and SHARD_DECODE_STEPS teacher-forced decode steps, held against the
+# one-device path on the same weights as max |sharded - single| / max
+# |single| over every logit of the real vocab (the bound the LM phase
+# holds prefill to against decode) with the reference test's argmax
+# agreement bar; then a sharded LMServer answering SHARD_REQUESTS (prompt
+# length, max_new; every request a prefill step, then one tick: a
+# collective costs milliseconds there, so the phase keeps its steps few).
+SHARD_RANKS = 4
+SHARD_ARCHS = ("minitron-8b", "granite-moe-3b-a800m")
+SHARD_DECODE_STEPS = 16
+# Each model's limits as (max |sharded - single| / max |single|, argmax
+# agreement).  minitron-8b: 4% and 0.95, the bound the LM phase holds
+# prefill to against decode and the reference test's bar.
+# granite-moe-3b-a800m misses those (on an H100 80GB HBM3 at 700 W:
+# 4.77e-2 and 0.9118, each miss a near-tie 1-3 bf16 steps apart at the
+# top; PERF.md §6), and so
+# does its own one-device path run a row at a time against the batch of 2
+# (3.07e-2, 0.9118: other matmul shapes, other bf16 roundings); it is held
+# to 7% and 0.90, above both readings.  A wrong head, KV chunk or expert
+# moves the logits by O(1), far past either.  The one-device row-at-a-time
+# floor is held to the same limits: if it passes them, the check fails
+# rather than loosen.
+SHARD_LIMITS = {"minitron-8b": (0.04, 0.95),
+                "granite-moe-3b-a800m": (0.07, 0.90)}
+# The one-device path is warmed up on this many tokens first; the sharded
+# one is not (its first call's set-up is small beside its collectives).
+SHARD_WARM_SEQ = 256
+SHARD_SLOTS, SHARD_SERVER_MAX_SEQ = 8, 64
+SHARD_REQUESTS = [(1, 2)] * 8
+SHARD_TIMEOUT_S = 600
 # K4: the main path's shapes (batch 8 and 1), then every C kernel path
 # (Cw 1-4 and above) at pixel counts that are no multiple of a block's
 # 256 pixels.
@@ -3093,6 +3158,350 @@ ZOO_PREDICTED_PEAK = {
 ZOO_CUTS = {("dit-xl2", "train_1024"): 16}
 
 
+# --------------------------------------------------------------------------
+# [shard]: the sharded LM serving path, 4 ranks sharing the card
+# --------------------------------------------------------------------------
+
+def shard_bytes(cfg, rules_tp: int, batch: int, seq: int, max_seq: int,
+                decode: bool) -> int:
+    """Bytes one rank hands to collectives in a sharded prefill of (batch,
+    seq) or one decode step of ``batch`` slots on a (1, tp) mesh, from
+    the shapes alone (``transformer._Sharded``'s collectives: bf16 data
+    movement, float32 sums)."""
+    tp = rules_tp
+    d, hd = cfg.d_model, cfg.d_head
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    tp_heads = tp > 1 and h % tp == 0
+    kv_sharded = tp_heads and kv % tp == 0
+    v_pad = transformer.padded_vocab(cfg.vocab, tp)
+    rows = batch if decode else batch * seq
+    total = rows * d * 2                                  # embedding sum
+    per_layer = 0
+    if cfg.qkv_dim % tp == 0:
+        per_layer += rows * d * 4                         # wo row-parallel
+        if not tp_heads and tp > 1:                       # wq gathered
+            per_layer += d * cfg.qkv_dim // tp * 2
+    if not kv_sharded and cfg.kv_dim % tp == 0 and tp > 1:
+        per_layer += 2 * d * cfg.kv_dim // tp * 2         # wk, wv gathered
+    if decode:
+        hq = h // tp if tp_heads else h
+        if kv_sharded:
+            per_layer += batch * (hq + 2 * kv // tp) * hd * 2
+        elif tp_heads:
+            per_layer += batch * hq * hd * 2
+        if max_seq % tp == 0:                             # decode combine
+            per_layer += batch * h * 4 + batch * h * (hd + 1) * 4
+    elif kv_sharded:              # K/V from heads to the cache's layout
+        per_layer += 2 * batch * (kv // tp) * max_seq * hd * 2
+    if cfg.moe:
+        split = rows % tp == 0
+        t_local = rows // tp if split else rows
+        e_pad = cfg.padded_experts(tp)
+        cap = moe.capacity(t_local, cfg.top_k, e_pad, cfg.capacity_factor)
+        per_layer += 2 * e_pad * cap * d * 2              # a2a x2
+        if split:
+            per_layer += t_local * d * 2                  # output gather
+    elif cfg.d_ff % tp == 0:
+        per_layer += rows * d * 4                         # MLP row-parallel
+    logits = batch * (v_pad // tp) * 2
+    return total + cfg.n_layers * per_layer + logits
+
+
+def shard_model(rules, device, cfg, full, tokens, teacher,
+                requests) -> dict:
+    """One model on one rank: its slices of ``full`` (the parent's weights,
+    received through CUDA IPC), the sharded prefill and decode steps, then
+    a sharded ``LMServer``.  Returns the rank's counts and times, and on
+    rank 0 the logits."""
+    from repro_torch.distributed import sharding
+
+    world = rules.comm(("data", "model"))
+    params = sharding.shard_tree(full, transformer.param_specs(cfg, rules),
+                                 rules)
+    torch.cuda.synchronize()
+    out = dict(weight_bytes=sum(t.numel() * t.element_size()
+                                for t in tree.leaves(params)))
+    prefill = transformer.make_prefill_step(cfg, LM_MAX_SEQ, rules)
+    decode = transformer.make_decode_step(cfg, LM_MAX_SEQ, rules)
+    torch.cuda.reset_peak_memory_stats()
+    world.psum(torch.zeros(1, device=device))                   # align
+    reset_launches()
+    sent = sharding.Collective.payload_bytes
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_bytes"] = sharding.Collective.payload_bytes - sent
+    out["prefill_launches"] = read_launches()
+    steps, step_ms, step_bytes = [logits.float().cpu()], [], []
+    reset_launches()
+    for i in range(len(teacher)):
+        sent = sharding.Collective.payload_bytes
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, teacher[i], LM_SEQ + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_bytes.append(sharding.Collective.payload_bytes - sent)
+        steps.append(logits.float().cpu())
+    out["decode_launches"] = read_launches()
+    out["decode_ms"], out["decode_bytes"] = step_ms, step_bytes
+    out["cache_shape"] = tuple(cache["k"].shape)
+    out["finite"] = bool(torch.isfinite(cache["k"]).all()
+                         and torch.isfinite(cache["v"]).all())
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del cache
+    server = LMServer(cfg, params, n_slots=SHARD_SLOTS,
+                      max_seq=SHARD_SERVER_MAX_SEQ, device=device,
+                      rules=rules)
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [server.submit(p, max_new=m) for p, m in requests]
+    server.drain()
+    out["server"] = dict(
+        outcomes=[r.outcome for r in reqs],
+        tokens=[r.result for r in reqs], wall_s=time.perf_counter() - t0,
+        steps=server.pos, launches=read_launches(),
+        served=server.metrics()["served"])
+    out["logits"] = torch.stack(steps) if world.index == 0 else None
+    return out
+
+
+def shard_rank(rank, device, jobs):
+    """One rank of the [shard] phase: a (1, SHARD_RANKS) mesh, then each
+    job's model in turn (``shard_model``)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_host_mesh(data=1, model=SHARD_RANKS, device=device)
+    rules = sharding.rules_for_mesh(mesh)
+    out = {"rank": rank, "mesh": mesh.describe()}
+    for arch, *job in jobs:
+        out[arch] = shard_model(rules, device, *job)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.inference_mode()
+def shard_single(cfg, params, tokens, teacher) -> tuple[torch.Tensor, dict]:
+    """The one-device path on the same weights: the prefill's last logits,
+    then each teacher-forced decode step's, and their times."""
+    prefill = transformer.make_prefill_step(cfg, LM_MAX_SEQ)
+    decode = transformer.make_decode_step(cfg, LM_MAX_SEQ)
+    prefill(params, tokens[:, :SHARD_WARM_SEQ])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens)
+    torch.cuda.synchronize()
+    numbers = dict(prefill_ms=(time.perf_counter() - t0) * 1e3)
+    steps, step_ms = [logits.float().cpu()], []
+    for i in range(len(teacher)):
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, teacher[i], LM_SEQ + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(logits.float().cpu())
+    numbers["decode_ms"] = step_ms
+    return torch.stack(steps), numbers
+
+
+@torch.inference_mode()
+def shard_drops(cfg, params, tokens, published: float) -> dict:
+    """Layer 0's routing of the prefill's tokens cut as the sharded MoE
+    cuts them (``tokens_spec(B·S)``: ``SHARD_RANKS`` source shards):
+    assignments dropped at the published capacity factor and at the
+    phase's (>= E/k, where no bucket can overflow)."""
+    lp = {n: t[0] for n, t in params["layers"].items()}
+    x = transformer._embed(params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    x, _, _ = transformer._attention(x, lp, cfg, positions)
+    h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    t_local = h.shape[0] // SHARD_RANKS
+    e_pad = lp["router"].shape[1]
+    out = {}
+    for name, factor in (("published", published),
+                         ("phase", cfg.capacity_factor)):
+        cap = moe.capacity(t_local, cfg.top_k, e_pad, factor)
+        dropped = 0
+        for s in range(SHARD_RANKS):
+            _, ids, _ = moe._route(h[s * t_local:(s + 1) * t_local],
+                                   lp["router"], n_real=cfg.n_experts,
+                                   top_k=cfg.top_k)
+            _, keep = moe._dispatch_indices(ids, n_experts=e_pad, cap=cap)
+            dropped += int((~keep).sum())
+        out[name] = dict(factor=factor, capacity=cap, dropped=dropped,
+                         assignments=h.shape[0] * cfg.top_k)
+    return out
+
+
+def phase_shard(device, smi: str) -> tuple[dict, dict]:
+    """minitron-8b and granite-moe-3b-a800m at full width and depth over
+    ``SHARD_RANKS`` ranks on a (1, 4) mesh that share the card (gloo,
+    collectives staged through pinned host memory): each model's weights
+    drawn once here, run on one device, then handed to the ranks through
+    CUDA IPC, each rank keeping its slices; the sharded prefill (K7 on
+    each rank's heads) and ``SHARD_DECODE_STEPS`` teacher-forced decode
+    steps against the one-device path on the same weights and tokens,
+    within ``SHARD_LIMITS``; the bytes each rank hands
+    to collectives equal to ``shard_bytes``; a sharded ``LMServer``
+    answering ``SHARD_REQUESTS``.  Returns (each model's prefill launches
+    a rank, numbers)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    launches, numbers, jobs, singles = {}, {}, [], {}
+    rng = np.random.default_rng(27)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in SHARD_ARCHS:
+        cfg = published = configs.get(arch).full
+        if cfg.moe:                       # no bucket can overflow
+            cfg = dataclasses.replace(cfg, capacity_factor=max(
+                cfg.capacity_factor, cfg.n_experts / cfg.top_k))
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = transformer.init_params(cfg, gen, device, ep=SHARD_RANKS,
+                                         vocab_pad_to=SHARD_RANKS)
+        tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ),
+                               device=device, generator=gen)
+        teacher = torch.randint(0, cfg.vocab,
+                                (SHARD_DECODE_STEPS, LM_BATCH, 1),
+                                device=device, generator=gen)
+        requests = [([int(t) for t in rng.integers(0, cfg.vocab, n)], m)
+                    for n, m in SHARD_REQUESTS]
+        single, single_numbers = shard_single(cfg, params, tokens, teacher)
+        # The noise floor: the same one-device path a row at a time (other
+        # matmul shapes, so other bf16 roundings), printed beside.
+        rows = torch.cat([shard_single(cfg, params, tokens[i:i + 1],
+                                       teacher[:, i:i + 1])[0]
+                          for i in range(LM_BATCH)], dim=1)[..., :cfg.vocab]
+        single_numbers["rowwise_rel_err"] = rel_err(
+            rows, single[..., :cfg.vocab])
+        single_numbers["rowwise_agreement"] = float(
+            (rows.argmax(-1) == single[..., :cfg.vocab].argmax(-1))
+            .float().mean())
+        numbers[arch] = dict(single=single_numbers)
+        if cfg.moe:
+            drops = numbers[arch]["drops"] = shard_drops(
+                cfg, params, tokens, published.capacity_factor)
+            if drops["phase"]["dropped"]:
+                raise AssertionError(f"[shard] {arch}: drops at factor "
+                                     f"{cfg.capacity_factor}")
+        singles[arch] = (cfg, single, requests)
+        jobs.append((arch, cfg, params, tokens, teacher, requests))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(shard_rank, SHARD_RANKS, jobs, device="cuda",
+                           timeout_s=SHARD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    del jobs
+    log(f"[shard] {ranks[0]['mesh']}; {SHARD_RANKS} ranks spawned, both "
+        f"models run and joined in {spawn_s:.3f} s ({smi})")
+    for arch in SHARD_ARCHS:
+        cfg, single, requests = singles[arch]
+        # The real vocab's columns (a padded column is -1e30 in both).
+        got = ranks[0][arch].pop("logits")[..., :cfg.vocab]
+        want = single[..., :cfg.vocab]
+        err_steps = [rel_err(g, w) for g, w in zip(got, want)]
+        agree_steps = (got.argmax(-1) == want.argmax(-1)).float()
+        err, agree = max(err_steps), float(agree_steps.mean())
+        for step, row in torch.nonzero(agree_steps == 0).tolist():
+            g, w = got[step, row], want[step, row]
+            gi, wi = int(g.argmax()), int(w.argmax())
+            log(f"[shard] {cfg.name} miss at step {step} row {row}: one "
+                f"device's top two {w.topk(2).values.tolist()} (token {wi}),"
+                f" its logit at the sharded token {gi}: {float(w[gi])}; "
+                f"sharded top two {g.topk(2).values.tolist()}, its logit at "
+                f"token {wi}: {float(g[wi])}")
+        want_prefill = shard_bytes(cfg, SHARD_RANKS, LM_BATCH, LM_SEQ,
+                                   LM_MAX_SEQ, decode=False)
+        want_step = shard_bytes(cfg, SHARD_RANKS, LM_BATCH, 1, LM_MAX_SEQ,
+                                decode=True)
+        for rank in ranks:
+            r, srv = rank[arch], rank[arch]["server"]
+            pl, dl = r["prefill_launches"], r["decode_launches"]
+            log(f"[shard] {cfg.name} rank {rank['rank']}: "
+                f"{r['weight_bytes']} B of weights; prefill B {LM_BATCH} x "
+                f"S {LM_SEQ} {r['prefill_ms']:.3f} ms wall, K7 "
+                f"{pl['flash_attention']} launches, {r['prefill_bytes']} B "
+                f"into collectives; decode step median "
+                f"{float(np.median(r['decode_ms'])):.3f} ms wall (min "
+                f"{min(r['decode_ms']):.3f}, max {max(r['decode_ms']):.3f}), "
+                f"K7 {dl['flash_attention']}, {r['decode_bytes'][0]} B into "
+                f"collectives a step; cache shard {r['cache_shape']}; peak "
+                f"device memory {r['peak_bytes']} B; LMServer "
+                f"{srv['served']} served in {srv['steps']} steps, "
+                f"{srv['wall_s']:.3f} s ({smi})")
+            if pl != launch_counts(flash_attention=cfg.n_layers) \
+                    or dl != launch_counts() \
+                    or srv["launches"] != launch_counts() \
+                    or not r["finite"]:
+                raise AssertionError(f"[shard] {cfg.name} rank "
+                                     f"{rank['rank']}: launches {pl}, {dl}, "
+                                     f"{srv['launches']} or a non-finite "
+                                     f"cache")
+            if r["prefill_bytes"] != want_prefill \
+                    or set(r["decode_bytes"]) != {want_step}:
+                raise AssertionError(
+                    f"[shard] {cfg.name} rank {rank['rank']}: collective "
+                    f"bytes {r['prefill_bytes']} / {set(r['decode_bytes'])}"
+                    f", arithmetic {want_prefill} / {want_step}")
+            if srv["outcomes"] != ["served"] * len(requests) \
+                    or srv["tokens"] != ranks[0][arch]["server"]["tokens"] \
+                    or [len(t) for t in srv["tokens"]] \
+                    != [m for _, m in requests]:
+                raise AssertionError(f"[shard] {cfg.name} rank "
+                                     f"{rank['rank']}: LMServer {srv}")
+        out = numbers[arch]
+        sn = out["single"]
+        drops = out.get("drops")
+        log(f"[shard] {cfg.name}: one device prefill {sn['prefill_ms']:.3f} "
+            f"ms wall, decode step median "
+            f"{float(np.median(sn['decode_ms'])):.3f} ms ({smi}); sharded "
+            f"against one device over the prefill's last logits and "
+            f"{SHARD_DECODE_STEPS} decode steps: max |sharded - single| / "
+            f"max |single| {err:.4e} (by step "
+            + " ".join(f"{e:.3e}" for e in err_steps)
+            + f"), argmax agreement {agree:.4f} ("
+            f"misses at steps "
+            f"{sorted(set(torch.nonzero(agree_steps == 0)[:, 0].tolist()))}"
+            f"); one device a row at a time against B {LM_BATCH}: "
+            f"{sn['rowwise_rel_err']:.4e}, agreement "
+            f"{sn['rowwise_agreement']:.4f}; collective bytes a rank: "
+            f"prefill {want_prefill}, decode "
+            f"step {want_step} (arithmetic = counted)"
+            + (f"; layer 0 drops at the published factor "
+               f"{drops['published']['factor']}: "
+               f"{drops['published']['dropped']} of "
+               f"{drops['published']['assignments']}, at "
+               f"{cfg.capacity_factor}: 0" if drops else ""))
+        bound, bar = SHARD_LIMITS[arch]
+        log(f"[shard] {cfg.name}: held to max error {bound} and agreement "
+            f"{bar}, the one-device floor too")
+        if not sn["rowwise_rel_err"] <= bound \
+                or sn["rowwise_agreement"] < bar:
+            raise AssertionError(
+                f"[shard] {cfg.name}: one device a row at a time against "
+                f"the batch off by {sn['rowwise_rel_err']:.4e}, agreement "
+                f"{sn['rowwise_agreement']:.4f}")
+        if not err <= bound or agree < bar:
+            raise AssertionError(f"[shard] {cfg.name}: sharded logits off "
+                                 f"by {err:.4e}, agreement {agree:.4f}")
+        launches[f"shard_prefill_{arch}"] = ranks[0][arch]["prefill_launches"]
+        out.update(rel_err=err, rel_err_steps=err_steps, agreement=agree,
+                   bound=bound, bar=bar,
+                   prefill_bytes=want_prefill, step_bytes=want_step,
+                   ranks=[{k: v for k, v in rank[arch].items()
+                           if k != "server"}
+                          | {"served": rank[arch]["server"]["served"],
+                             "server_wall_s": rank[arch]["server"]["wall_s"]}
+                          for rank in ranks])
+    numbers["spawn_s"] = spawn_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
 def zoo_memory(tag: str) -> int:
     """Device memory allocated before a model, printed; peak reset."""
     gc.collect()
@@ -5107,6 +5516,14 @@ def main() -> int:
     numbers["artifact"] = phase_artifact(rng)
     cache_dir.cleanup()
     kernels = phase_timing(device, launches, per_forward, errs)
+    # Last: a torch.profiler session late in a long run loses its device
+    # records (the card-to-host clock mapping drifts), and [shard] uses no
+    # profiler; its launches join the kernels line here.
+    shard_launches, numbers["shard"] = phase_shard(device, smi)
+    for k in kernels:
+        k["launches"] += sum(v[k["name"]] for v in shard_launches.values())
+        k["launches_per_forward"].update(
+            {m: v[k["name"]] for m, v in shard_launches.items()})
     log(f"[autotune] json {json.dumps(auto)}")
     log(f"[serve] numbers {json.dumps(numbers)}")
     log(f"total {time.perf_counter() - t0:.1f} s")

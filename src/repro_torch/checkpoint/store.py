@@ -15,9 +15,18 @@ Each leaf is stored as a host array under its path as
 ``['opt'].mu['layers']['wq']``, ``['opt'].step``), so the two packages
 read each other's checkpoints.  numpy has no bf16: a bf16 leaf is stored
 as float32 (exactly) and restored in the dtype of the tree it is restored
-into.  ``restore(..., device=)`` places the leaves, where the reference
-takes shardings.  The archive is not compressed (the reference's is;
-``np.load`` reads both): float32 weights and moments shrink by some 7%
+into.  ``restore(..., device=)`` places the leaves.
+
+On a mesh (``rules`` and a spec tree, one process a rank) ``save`` puts
+each leaf back together from the ranks' shards and rank 0 writes the
+file: full host arrays, as the reference's.  ``restore`` with ``rules``
+and ``specs`` is the elastic restore: each rank reads its own slice of
+every leaf under the current mesh, whatever mesh saved it (the
+reference's ``restore(..., shardings)``); ``like`` holds the full shapes,
+e.g. ``transformer.abstract_params``' meta tensors.
+
+The archive is not compressed (the reference's is; ``np.load`` reads
+both): float32 weights and moments shrink by some 7%
 under zlib, which writes 100 MB of them in 5.5 s on one CPU core, and
 lm-100m's {params, opt} hold 1.2 GB.
 
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import sharding
 
 _STEP_RE = re.compile(r"step_(\d+)\.npz$")
 
@@ -55,8 +65,22 @@ def _flatten(t: Any) -> dict[str, np.ndarray]:
     return {path: _host(leaf) for path, leaf in tree.flatten_with_paths(t)}
 
 
-def save(directory: str | os.PathLike, step: int, t: Any) -> str:
-    """Atomically write one checkpoint.  Returns the final path."""
+def save(directory: str | os.PathLike, step: int, t: Any, rules=None,
+         specs: Any = None) -> str:
+    """Atomically write one checkpoint.  Returns the final path.  With
+    ``rules`` and ``specs`` every rank calls it with its shards; the
+    leaves are gathered, rank 0 writes, and every rank returns once the
+    file is in place."""
+    if rules is not None:
+        full = [sharding.gather(x, s, rules)
+                for x, s in zip(tree.leaves(t), tree.leaves(specs))]
+        world = rules.comm(tuple(rules.mesh.axis_names))
+        path = None
+        if world.index == 0:
+            path = save(directory, step, tree.unflatten(t, full))
+        del full
+        world.psum(torch.zeros(1, device=rules.device))    # a barrier
+        return path or str(pathlib.Path(directory) / f"step_{step}.npz")
     d = pathlib.Path(directory)
     d.mkdir(parents=True, exist_ok=True)
     tmp = d / f"tmp.{step}.{os.getpid()}.npz"
@@ -76,14 +100,22 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 
 def restore(directory: str | os.PathLike, step: int, like: Any,
-            device: str | torch.device | None = None) -> Any:
+            device: str | torch.device | None = None, *, rules=None,
+            specs: Any = None) -> Any:
     """Restore into the structure of ``like``: each leaf a tensor of the
-    matching leaf's dtype, on ``device`` (default: that leaf's device).
-    A leaf whose stored shape differs raises ``ValueError``."""
+    matching leaf's dtype, on ``device`` (default: ``rules``' device, else
+    that leaf's, a meta leaf's the CPU).  A leaf whose stored shape
+    differs from ``like``'s raises ``ValueError``.  With ``rules`` and
+    ``specs``: this rank's slice of each leaf under its spec."""
     path = pathlib.Path(directory) / f"step_{step}.npz"
+    spec_leaves = (tree.leaves(specs) if specs is not None
+                   else [None] * len(tree.leaves(like)))
+    if device is None and rules is not None:
+        device = rules.device
     out = []
     with np.load(path) as data:
-        for key, leaf in tree.flatten_with_paths(like):
+        for (key, leaf), spec in zip(tree.flatten_with_paths(like),
+                                     spec_leaves):
             arr = data[key]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"checkpoint leaf {key} has shape "
@@ -91,7 +123,12 @@ def restore(directory: str | os.PathLike, step: int, like: Any,
             dtype = leaf.dtype if torch.is_tensor(leaf) else None
             dev = device if device is not None else getattr(
                 leaf, "device", "cpu")
-            out.append(torch.from_numpy(np.array(arr)).to(dev, dtype))
+            if torch.device(dev).type == "meta":
+                dev = "cpu"
+            t = torch.from_numpy(np.array(arr))
+            if spec is not None:
+                t = sharding.local_shard(t, spec, rules)
+            out.append(t.to(dev, dtype).contiguous())
     return tree.unflatten(like, out)
 
 

@@ -4,8 +4,10 @@
 pipeline      ``Pipelined``: the graph cut into per-device stages at its
               device-memory touch points (the cut planner and the staged
               executor live in :mod:`repro_torch.runtime.placement`)
-sharding      ``DataParallel``: each bucket split into row shards, one a
-              device (the LM sharding rules are not ported yet)
+sharding      mesh-axis rules (``Rules``: DP / FSDP / TP / EP and the
+              sequence-sharded KV cache of the LM stack), their specs and
+              collectives, plus ``DataParallel``: each bucket split into
+              row shards, one a device
 replicas      ``ReplicaGroup`` — N device-pinned ``InferenceServer``
               replicas (each optionally a pipeline) behind one front end,
               with per-replica ladders and straggler-aware routing;
@@ -18,11 +20,13 @@ from repro_torch.distributed import pipeline, replicas, sharding, straggler
 from repro_torch.distributed.pipeline import Pipelined
 from repro_torch.distributed.replicas import (LMLane, LMReplicaGroup,
                                               Replica, ReplicaGroup)
-from repro_torch.distributed.sharding import DataParallel
+from repro_torch.distributed.sharding import (DataParallel, Rules,
+                                              rules_for_mesh)
 from repro_torch.distributed.straggler import StragglerMonitor
 
 __all__ = [
     "pipeline", "replicas", "sharding", "straggler",
     "Pipelined", "DataParallel", "Replica", "ReplicaGroup",
-    "LMLane", "LMReplicaGroup", "StragglerMonitor",
+    "LMLane", "LMReplicaGroup", "Rules", "rules_for_mesh",
+    "StragglerMonitor",
 ]

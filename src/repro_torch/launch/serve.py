@@ -16,7 +16,9 @@ the servers' protocol (submit / poll / drain and ``metrics()``):
   lane of one :class:`~repro_torch.serving.multiplex.MultiTenantServer`;
 * ``--mode lm`` — continuous-batching decode through
   :class:`~repro_torch.serving.lm_server.LMServer` (the reference's demo
-  config, weights drawn from a numpy seed);
+  config, weights drawn from a numpy seed); under ``torchrun`` with N
+  ranks, sharded over a ``(1, N)`` mesh (``launch.mesh``), every rank
+  serving the same requests on its shards and rank 0 printing;
 * ``--export-artifact PATH`` / ``--artifact PATH`` — export each
   bucket's frozen executor, or boot the server from such a directory with
   no tuning, planning or building;
@@ -40,6 +42,8 @@ the servers' protocol (submit / poll / drain and ``metrics()``):
     python -m repro_torch.launch.serve --workloads \\
         alexnet_imagenet:3,yolov2_tiny_voc --requests 8
     python -m repro_torch.launch.serve --mode lm --requests 4
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --mode lm --requests 4
     python -m repro_torch.launch.serve --workload alexnet_imagenet --sync
 """
 
@@ -49,9 +53,11 @@ import argparse
 import math
 
 import numpy as np
+import torch
 
 from repro_torch.distributed.pipeline import visible_cards
-from repro_torch.distributed.sharding import DataParallel
+from repro_torch.distributed.sharding import DataParallel, rules_for_mesh
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import paper_nets, transformer
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import InferenceServer, PhoneBitEngine, buckets_for
@@ -249,10 +255,13 @@ LM_DEMO = transformer.LMConfig(
     d_head=32, d_ff=512, vocab=1024, tie_embeddings=True)
 
 
-def lm_params(cfg: transformer.LMConfig, seed: int, device) -> dict:
+def lm_params(cfg: transformer.LMConfig, seed: int, device,
+              rules=None) -> dict:
     """``cfg``'s parameters drawn from a numpy seed at the reference's
     scales (matrices N(0, 1/fan_in), embedding and head N(0, 0.02²),
-    norms 1)."""
+    norms 1); with ``rules`` the rank's shards, the experts and the vocab
+    padded to the model axis as the reference's ``serve_lm`` pads
+    them."""
     rng = np.random.default_rng(seed)
     layers = {}
     for name, shape, fan_in in transformer._layer_shapes(cfg):
@@ -264,23 +273,40 @@ def lm_params(cfg: transformer.LMConfig, seed: int, device) -> dict:
     if not cfg.tie_embeddings:
         tree["lm_head"] = rng.standard_normal((cfg.d_model, cfg.vocab)) \
             * 0.02
-    return transformer.params_from_numpy(tree, cfg, device)
+    if rules is None:
+        return transformer.params_from_numpy(tree, cfg, device)
+    return transformer.params_from_numpy(
+        tree, cfg, device, ep=rules.tp, vocab_pad_to=rules.tp, rules=rules)
 
 
 def serve_lm(args) -> dict:
+    """The demo LM behind ``LMServer``: on one device, or under torchrun on
+    a ``(1, world)`` mesh, as the reference's ``serve_lm``."""
     cfg = LM_DEMO
+    device = mesh_lib.init_from_env(args.device)
+    rules = None
+    lead = True
+    if torch.distributed.is_initialized():
+        mesh = mesh_lib.make_host_mesh(
+            data=1, model=torch.distributed.get_world_size(), device=device)
+        rules = rules_for_mesh(mesh)
+        lead = mesh.rank == 0
+        if lead:
+            print(f"[lm] {mesh.describe()}")
     journal = None
     if args.journal:
         from repro_torch.serving.recovery import (RequestJournal,
                                                   replay_journal)
-        journal = RequestJournal(args.journal)
-    server = LMServer(cfg, lm_params(cfg, 0, args.device),
+        # One journal a rank: every rank replays the same requests.
+        jpath = args.journal if lead else f"{args.journal}.rank{mesh.rank}"
+        journal = RequestJournal(jpath)
+    server = LMServer(cfg, lm_params(cfg, 0, device, rules),
                       n_slots=args.batch, max_seq=args.max_seq,
-                      max_queue=args.max_queue or None, device=args.device,
-                      journal=journal)
+                      max_queue=args.max_queue or None, device=device,
+                      journal=journal, rules=rules)
     if journal is not None:
-        replayed = replay_journal(server, args.journal)
-        if replayed:
+        replayed = replay_journal(server, jpath)
+        if replayed and lead:
             print(f"[lm] journal {args.journal}: replaying "
                   f"{len(replayed)} unresolved request(s)")
     rng = np.random.default_rng(0)
@@ -294,8 +320,12 @@ def serve_lm(args) -> dict:
         raise RuntimeError("a request did not resolve")
     m = server.metrics()
     toks = sum(len(r.result) for r in reqs if r.result)
-    _print_metrics("lm", m)
-    print(f"[lm] {toks} tokens, kv utilization {m['kv_utilization']:.0%}")
+    if lead:
+        _print_metrics("lm", m)
+        print(f"[lm] {toks} tokens, kv utilization "
+              f"{m['kv_utilization']:.0%}")
+    if rules is not None:
+        torch.distributed.destroy_process_group()
     return m
 
 

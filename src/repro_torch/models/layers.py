@@ -11,8 +11,10 @@ a CUDA tensor the kernel, on a CPU tensor its plain version; under
 autograd its backward is K7b.  Layer stacks run through
 :func:`scan_layers`, the reference's per-layer remat (activation
 checkpointing) under ``REMAT_POLICIES``: one card's memory is what sets
-the batch a train step holds.  The reference's sharded decode helpers
-(``flash_decode_local``, ``combine_decode_partials``) are not ported.
+the batch a train step holds.  Flash decode over a sequence-sharded KV
+cache is :func:`flash_decode_local` (one rank's partials over its chunk)
+and :func:`combine_decode_partials` (two small reductions over the mesh
+axis, never a gather of the cache).
 """
 
 from __future__ import annotations
@@ -90,6 +92,45 @@ def reference_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Flash decode — sequence-parallel attention over a sharded KV cache
+# --------------------------------------------------------------------------
+
+def flash_decode_local(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, valid_len, chunk_start):
+    """Partial attention of one query over a *local* KV-cache chunk, the
+    reference's: q (B, H, hd); k/v_cache (B, C, KV, hd) (the sharded
+    decode step passes its (B, KV, C, hd) chunk transposed: a view);
+    ``valid_len`` the cache's valid length and ``chunk_start`` the chunk's
+    global offset (ints or 0-dim tensors).  Returns float32 partials (o
+    (B, H, hd) unnormalised, m (B, H), l (B, H)) to combine across
+    shards; positions at or past ``valid_len`` are masked with -1e30."""
+    b, c, kvh, hd = k_cache.shape
+    h = q.shape[1]
+    qf = q.float().reshape(b, kvh, h // kvh, hd) / math.sqrt(hd)
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.transpose(1, 2).float())
+    pos = chunk_start + torch.arange(c, device=q.device)
+    s = torch.where(pos < valid_len, s, -1e30)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.transpose(1, 2).float())
+    return o.reshape(b, h, hd), m.reshape(b, h), p.sum(-1).reshape(b, h)
+
+
+def combine_decode_partials(o: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor, group) -> torch.Tensor:
+    """Combine per-shard flash-decode partials over ``group`` (a
+    :class:`~repro_torch.distributed.sharding.Collective`): o (..., hd)
+    unnormalised, m and l (...).  Two small reductions — the max, then
+    one sum of l and o rescaled to it — instead of a gather of the cache;
+    l is floored at 1e-30 as in the reference."""
+    m_glob = group.pmax(m)
+    corr = torch.exp(m - m_glob)
+    both = group.psum(torch.cat([(l * corr)[..., None],
+                                 o * corr[..., None]], dim=-1))
+    return both[..., 1:] / both[..., :1].clamp_min(1e-30)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor | None,

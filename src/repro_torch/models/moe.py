@@ -1,25 +1,35 @@
-"""Mixture-of-Experts layer on one device.
+"""Mixture-of-Experts layer, on one device or expert-parallel over a mesh.
 
-Counterpart of ``repro.models.moe``: the local path of ``_moe_local`` with
-the Switch/GShard capacity semantics.  Tokens are routed (softmax, then
-top-k, renormalised), scattered into per-expert buckets of shape (E, C, D)
-with ``C = ceil(T * k / E * capacity_factor)``, run through one batched
+Counterpart of ``repro.models.moe``, with the Switch/GShard capacity
+semantics.  Tokens are routed (softmax, then top-k, renormalised),
+scattered into per-expert buckets of shape (E, C, D) with
+``C = ceil(T_local * k / E * capacity_factor)``, run through one batched
 expert FFN, and combined back in token order weighted by their routing
 weights.  An assignment past its expert's capacity is dropped: its token
 keeps only its residual, as in the reference.  Padding experts (weights
 padded to an expert-parallel degree) are masked out of the router's
 logits, so they are never picked.
 
-One card has no expert-parallel exchange: the reference's two
-``all_to_all`` over the ``model`` axis are gone, and every expert is
-local.  The routing and the capacity are the reference's, in the
-reference's order of operations, so the same ids give the same kept
-assignments and destinations.
+With ``rules`` the layer is expert-parallel (EP) over the ``model`` axis,
+the reference's ``_moe_local`` on each rank: route the rank's tokens
+locally, scatter them into (E_pad, C, D) buckets, one ``all_to_all`` so
+that each rank keeps its E_pad/ep experts and receives that bucket from
+every peer, the bucket FFN on the local experts, the inverse
+``all_to_all``, the weighted un-scatter; the balance loss is averaged
+over every mesh axis (``want_aux=False`` leaves it out, with its
+collective).  Capacity is per source shard: ``T_local`` is the
+token count over ``token_axes``.  The port keeps the residual stream
+whole over ``model``, so when ``token_axes`` holds ``model`` the layer
+cuts its tokens over it itself and all-gathers the output back; when it
+does not (decode: too few tokens) every model rank routes the same
+tokens redundantly, as the reference does.  Without ``rules`` every
+expert is local and nothing is exchanged.
 
 Every step has a fixed shape and reads no tensor value on the host (no
 boolean-mask indexing, no ``.item()``, ``nonzero`` or ``unique``): the
-decode step that calls it is captured as one CUDA graph.  The bucket FFN
-runs all E experts, empty buckets included, as the reference does.
+one-device decode step that calls it is captured as one CUDA graph.  The
+bucket FFN runs every expert, empty buckets included, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -92,15 +102,16 @@ def _expert_ffn(xe, wg, wu, wd, act: str):
     return torch.bmm(h, wd.to(cd))
 
 
-def moe_apply(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
-              capacity_factor: float, act: str = "swiglu"):
-    """MoE over flat tokens x (T, D); expert weights (E_pad, D, F) etc.
-    Returns (out (T, D) in x's dtype, the Switch load-balance loss, a
-    float32 scalar)."""
+def _moe_body(x, router, wg, wu, wd, *, n_real: int, top_k: int,
+              cap: int, act: str, ep=None):
+    """Route x (T, D), scatter into (E_pad, C, D) buckets, run the expert
+    FFN (over ``ep``'s two ``all_to_all`` when given, a
+    :class:`~repro_torch.distributed.sharding.Collective` over the model
+    axis; wg/wu/wd then hold the rank's experts), un-scatter.  Returns
+    (out (T, D) in x's dtype, this shard's balance loss)."""
     t, d = x.shape
-    e_pad = wg.shape[0]
-    cap = capacity(t, top_k, e_pad, capacity_factor)
-    w, ids, probs = _route(x, router, n_real=n_experts, top_k=top_k)
+    e_pad = router.shape[1]
+    w, ids, probs = _route(x, router, n_real=n_real, top_k=top_k)
     dest, keep = _dispatch_indices(ids, n_experts=e_pad, cap=cap)
 
     # Scatter: kept assignments land on distinct rows; every drop lands on
@@ -108,7 +119,13 @@ def moe_apply(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
     x_rep = x[:, None, :].expand(t, top_k, d).reshape(t * top_k, d)
     buf = torch.zeros((e_pad * cap + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, dest, x_rep)
-    y = _expert_ffn(buf[:-1].view(e_pad, cap, d), wg, wu, wd, act)
+    buckets = buf[:-1].view(e_pad, cap, d)
+    if ep is None:
+        y = _expert_ffn(buckets, wg, wu, wd, act)
+    else:
+        # EP exchange: keep E_pad/ep experts, receive from all ep peers.
+        recv = ep.all_to_all(buckets, 0, 1)            # (El, ep*C, D)
+        y = ep.all_to_all(_expert_ffn(recv, wg, wu, wd, act), 1, 0)
 
     back = y.reshape(e_pad * cap, d)
     picked = back.index_select(0, dest.clamp_max(e_pad * cap - 1))
@@ -116,11 +133,69 @@ def moe_apply(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
     out = (picked.view(t, top_k, d)
            * w.to(picked.dtype)[..., None]).sum(1)
 
-    # Switch-style balance loss: E * sum_e f_e * p_e over all tokens.
+    # Switch-style balance loss: E * sum_e f_e * p_e over the tokens.
     onehot = (ids[..., None] == torch.arange(e_pad, device=x.device)).float()
     f = onehot.sum(1).mean(0)
-    aux = n_experts * (f * probs.mean(0)).sum()
+    aux = n_real * (f * probs.mean(0)).sum()
     return out.to(x.dtype), aux
+
+
+def _moe_local(x, router, wg, wu, wd, *, n_real: int, top_k: int,
+               cap: int, ep, all_axes, act: str):
+    """The per-shard EP body, the reference's ``_moe_local``: x (T_local,
+    D) this shard's tokens, router (D, E_pad) whole, wg/wu/wd the rank's
+    E_pad/ep experts; ``ep`` the collectives over the model axis,
+    ``all_axes`` over every axis.  Returns (out (T_local, D), aux averaged
+    over every shard)."""
+    out, aux = _moe_body(x, router, wg, wu, wd, n_real=n_real, top_k=top_k,
+                         cap=cap, act=act, ep=ep)
+    return out, all_axes.pmean(aux)
+
+
+def moe_apply(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
+              capacity_factor: float, act: str = "swiglu", rules=None,
+              token_axes=(), want_aux: bool = True):
+    """MoE over flat tokens x (T, D).  Returns (out (T, D) in x's dtype,
+    the Switch load-balance loss, a float32 scalar, or None where
+    ``want_aux`` is false: the serving steps, which read none, so that a
+    sharded layer makes no collective for it).
+
+    Without ``rules``: one device, expert weights (E_pad, D, F) etc.
+    With ``rules``: expert-parallel over ``rules.model``; x is this rank's
+    rows of the tokens cut over the batch axes of ``token_axes`` (whole
+    over ``model``), the expert weights the rank's E_pad/ep experts, and
+    the output comes back in x's layout."""
+    e_pad = router.shape[1]
+    if rules is None:
+        cap = capacity(x.shape[0], top_k, e_pad, capacity_factor)
+        out, aux = _moe_body(x, router, wg, wu, wd, n_real=n_experts,
+                             top_k=top_k, cap=cap, act=act)
+        return out, aux if want_aux else None
+    ep = rules.tp
+    if e_pad % ep or wg.shape[0] * ep != e_pad:
+        raise ValueError(f"{e_pad} experts over ep {ep}: the rank holds "
+                         f"{wg.shape[0]}")
+    token_axes = tuple(token_axes) if token_axes else ()
+    split = rules.model in token_axes
+    model = rules.comm(rules.model)
+    if split:
+        if x.shape[0] % ep:
+            raise ValueError(f"{x.shape[0]} tokens do not split over "
+                             f"{rules.model} ({ep})")
+        t_local = x.shape[0] // ep
+        x = x[model.index * t_local:(model.index + 1) * t_local]
+    cap = capacity(x.shape[0], top_k, e_pad, capacity_factor)
+    if want_aux:
+        out, aux = _moe_local(
+            x, router, wg, wu, wd, n_real=n_experts, top_k=top_k, cap=cap,
+            ep=model, all_axes=rules.comm(tuple(rules.mesh.axis_names)),
+            act=act)
+    else:
+        out, aux = _moe_body(x, router, wg, wu, wd, n_real=n_experts,
+                             top_k=top_k, cap=cap, act=act, ep=model)[0], None
+    if split:
+        out = model.all_gather(out, axis=0)
+    return out, aux
 
 
 def moe_reference(x, router, wg, wu, wd, *, n_experts: int, top_k: int,

@@ -10,8 +10,7 @@ Parameters are stacked on a leading layer dim as in the reference; the
 layer loop is a Python loop over them (the reference's ``scan``), through
 ``layers.scan_layers``, which checkpoints each layer of the training
 forward under ``cfg.remat_policy``; prefill and decode run it without
-remat, as the reference does.  One card has nothing to shard, so the
-reference's ``rules`` argument is gone.
+remat, as the reference does.
 
 For serving, matrices, the embedding and the head are stored in bf16: the
 reference keeps float32 and casts to bf16 at every use, which gives the
@@ -35,8 +34,17 @@ decode steps) run under ``torch.inference_mode``; ``forward_hidden`` and
 ``loss_fn`` run under autograd, and ``init_params`` / ``params_from_numpy``
 return ordinary tensors (made under ``torch.no_grad``), which both take.
 
-Not ported yet: the dry-run analytics and the expert-parallel exchange of
-MoE.
+With ``rules`` (a :class:`~repro_torch.distributed.sharding.Rules` over a
+:class:`~repro_torch.launch.mesh.Mesh`) the serving entry points run
+sharded, one process a rank: ``param_specs`` and ``cache_specs`` are the
+reference's layouts, each rank holds exactly the slice its spec names
+(``init_params`` / ``params_from_numpy`` with ``rules`` return it), and
+the reference's GSPMD partitioning is written out as explicit collectives
+(see "Sharded serving" below).  Tokens go in whole on every rank, and the
+logits come out whole on every rank; the KV cache stays the rank's
+shard.  ``rules=None`` is the one-device path, unchanged.
+
+Not ported yet: the dry-run analytics, and the sharded train step.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import P, gather, local_shard
 from repro_torch.models import layers, moe as moe_lib
 from repro_torch.optim import adamw_update
 from repro_torch.tree import value_and_grad
@@ -177,15 +186,21 @@ _DRAW_ELEMENTS = 1 << 26
 @torch.no_grad()
 def init_params(cfg: LMConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda",
-                dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
-    """Stacked-layer parameters with the reference's shapes at one device
-    (``ep = 1``) and its scales (matrices N(0, 1/fan_in), embedding and
-    head N(0, 0.02²), norms 1), drawn in float32 from ``generator`` (on
-    ``device``) one layer at a time, the embedding and head in row blocks,
-    and stored in ``dtype`` (bf16 to serve, float32 as training's master
-    weights); norm scales and the MoE router float32."""
+                dtype: torch.dtype = layers.COMPUTE_DTYPE, *, ep: int = 1,
+                vocab_pad_to: int = 1, rules=None) -> dict:
+    """Stacked-layer parameters with the reference's shapes (the expert
+    dim padded to a multiple of ``ep``, the vocab to one of
+    ``vocab_pad_to``) and its scales (matrices N(0, 1/fan_in), embedding
+    and head N(0, 0.02²), norms 1), drawn in float32 from ``generator``
+    (on ``device``) one layer at a time, the embedding and head in row
+    blocks, and stored in ``dtype`` (bf16 to serve, float32 as training's
+    master weights); norm scales and the MoE router float32.  With
+    ``rules`` every rank draws the same values and keeps only its slice
+    of each (``param_specs``)."""
     device = resolve_device(device)
     l, d = cfg.n_layers, cfg.d_model
+    v_pad = padded_vocab(cfg.vocab, vocab_pad_to)
+    specs = param_specs(cfg, rules) if rules is not None else None
 
     def empty(name, shape):
         kind = torch.float32 if name in _FLOAT32 else dtype
@@ -199,31 +214,50 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
                                     device=device).mul_(std))
         return t
 
+    def keep(t, spec):           # the rank's slice, an own copy
+        if spec is None:
+            return t
+        return local_shard(t, spec, rules).contiguous().clone()
+
     lay: dict[str, torch.Tensor] = {}
-    for name, shape, fan_in in _layer_shapes(cfg):
+    for name, shape, fan_in in _layer_shapes(cfg, ep):
+        spec = specs["layers"][name] if specs is not None else None
         if not fan_in:
-            lay[name] = torch.ones((l, *shape), device=device)
+            lay[name] = keep(torch.ones((l, *shape), device=device), spec)
             continue
-        lay[name] = empty(name, (l, *shape))
-        for i in range(l):
-            fill(lay[name][i], 1.0 / math.sqrt(fan_in))
-    params = {"embed": fill(empty("embed", (cfg.vocab, d)), 0.02),
+        if spec is None:
+            lay[name] = empty(name, (l, *shape))
+            for i in range(l):
+                fill(lay[name][i], 1.0 / math.sqrt(fan_in))
+            continue
+        one = P(*list(spec)[1:])
+        lay[name] = torch.stack([
+            keep(fill(empty(name, shape), 1.0 / math.sqrt(fan_in)), one)
+            for _ in range(l)])
+    params = {"embed": keep(fill(empty("embed", (v_pad, d)), 0.02),
+                            specs and specs["embed"]),
               "layers": lay, "final_norm": torch.ones((d,), device=device)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = fill(empty("lm_head", (d, cfg.vocab)), 0.02)
+        params["lm_head"] = keep(fill(empty("lm_head", (d, v_pad)), 0.02),
+                                 specs and specs["lm_head"])
     return params
 
 
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg: LMConfig,
                       device: str | torch.device = "cuda",
-                      dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
+                      dtype: torch.dtype = layers.COMPUTE_DTYPE, *,
+                      ep: int = 1, vocab_pad_to: int = 1,
+                      rules=None) -> dict:
     """The port's parameters from the reference's ``init_params`` pytree
     as numpy arrays (``jax.tree.map(np.asarray, params)``): the same
     values, matrices in ``dtype`` (bf16, the reference's cast at use, or
     float32 to train), norm scales and the MoE router float32.  An expert
     dim padded by a reference built with ``ep > 1`` comes across as it
-    is: the router masks the padding experts by ``cfg.n_experts``."""
+    is: the router masks the padding experts by ``cfg.n_experts``.  An
+    expert dim or a vocab smaller than ``ep`` / ``vocab_pad_to`` ask for
+    is padded with zeros (never routed, masked from the logits).  With
+    ``rules`` each leaf is cut to the rank's slice (``param_specs``)."""
     device = resolve_device(device)
     want = {name for name, _, _ in _layer_shapes(cfg)}
     if set(tree["layers"]) != want:
@@ -236,17 +270,103 @@ def params_from_numpy(tree: dict, cfg: LMConfig,
                 for n in ("we_gate", "we_up", "we_down")):
             raise ValueError(f"{cfg.name}: expert dims do not hold "
                              f"{cfg.n_experts} experts")
+    specs = param_specs(cfg, rules) if rules is not None else None
 
-    def conv(name, a):   # a copy: arrays from jax are read-only
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
+    def pad(name, a):
+        a = np.asarray(a, np.float32)
+        widths = [(0, 0)] * a.ndim
+        if name == "embed":
+            widths[0] = (0, padded_vocab(a.shape[0], vocab_pad_to)
+                         - a.shape[0])
+        elif name == "lm_head":
+            widths[1] = (0, padded_vocab(a.shape[1], vocab_pad_to)
+                         - a.shape[1])
+        elif name == "router":
+            widths[2] = (0, moe_lib.padded_experts(a.shape[2], ep)
+                         - a.shape[2])
+        elif name in ("we_gate", "we_up", "we_down"):
+            widths[1] = (0, moe_lib.padded_experts(a.shape[1], ep)
+                         - a.shape[1])
+        return np.pad(a, widths) if any(w[1] for w in widths) else a
+
+    def conv(name, a, spec):   # a copy: arrays from jax are read-only
+        t = torch.from_numpy(np.array(pad(name, a), dtype=np.float32))
+        if spec is not None:
+            t = local_shard(t, spec, rules)
         return t.to(device, torch.float32 if name in _FLOAT32
                     else dtype).contiguous()
 
-    out = {name: conv(name, a) for name, a in tree.items()
-           if name != "layers"}
-    out["layers"] = {name: conv(name, a)
+    out = {name: conv(name, a, specs and specs[name])
+           for name, a in tree.items() if name != "layers"}
+    out["layers"] = {name: conv(name, a, specs and specs["layers"][name])
                      for name, a in tree["layers"].items()}
     return out
+
+
+def abstract_params(cfg: LMConfig, ep: int = 1, vocab_pad_to: int = 1,
+                    dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
+    """``init_params``' tree of full shapes and dtypes as meta tensors (no
+    memory): the ``like`` of an elastic restore."""
+    lay = {name: torch.empty((cfg.n_layers, *shape), device="meta",
+                             dtype=torch.float32 if name in _FLOAT32
+                             or not fan_in else dtype)
+           for name, shape, fan_in in _layer_shapes(cfg, ep)}
+    v_pad = padded_vocab(cfg.vocab, vocab_pad_to)
+    out = {"embed": torch.empty((v_pad, cfg.d_model), device="meta",
+                                dtype=dtype),
+           "layers": lay,
+           "final_norm": torch.empty((cfg.d_model,), device="meta")}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = torch.empty((cfg.d_model, v_pad), device="meta",
+                                     dtype=dtype)
+    return out
+
+
+def param_specs(cfg: LMConfig, rules) -> dict:
+    """The reference's spec tree of ``init_params`` (FSDP over
+    ``rules.fsdp``, TP / EP over ``rules.model``)."""
+    fs, mp = rules.fsdp, rules.model
+    lay: dict[str, P] = {
+        "ln1": P(None, None),
+        "ln2": P(None, None),
+        "wq": P(None, fs, rules.shard_if(cfg.qkv_dim, mp)),
+        "wk": P(None, fs, rules.shard_if(cfg.kv_dim, mp)),
+        "wv": P(None, fs, rules.shard_if(cfg.kv_dim, mp)),
+        "wo": P(None, rules.shard_if(cfg.qkv_dim, mp), fs),
+    }
+    if cfg.qk_norm:
+        lay["q_norm"] = P(None, None)
+        lay["k_norm"] = P(None, None)
+    if cfg.moe:
+        lay["router"] = P(None, None, None)
+        lay["we_gate"] = P(None, mp, fs, None)
+        lay["we_up"] = P(None, mp, fs, None)
+        lay["we_down"] = P(None, mp, None, fs)
+    else:
+        ff = rules.shard_if(cfg.d_ff, mp)
+        if cfg.mlp_act == "swiglu":
+            lay["w_gate"] = P(None, fs, ff)
+        lay["w_up"] = P(None, fs, ff)
+        lay["w_down"] = P(None, ff, fs)
+    specs = {
+        "embed": P(rules.shard_if(padded_vocab(cfg.vocab, rules.tp), mp),
+                   fs),
+        "layers": lay,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(
+            fs, rules.shard_if(padded_vocab(cfg.vocab, rules.tp), mp))
+    return specs
+
+
+def cache_specs(cfg: LMConfig, rules, batch: int, max_seq: int) -> dict:
+    """Flash-decoding SP: the (L, B, KV, S, hd) cache's batch over the
+    batch axes, its sequence over ``model`` (each whole where the size
+    does not divide)."""
+    spec = P(None, rules.batch_spec(batch), None,
+             rules.shard_if(max_seq, rules.model), None)
+    return {"k": spec, "v": spec}
 
 
 def _layer_params(params: dict, cfg: LMConfig) -> list[dict]:
@@ -261,14 +381,15 @@ def _layer_params(params: dict, cfg: LMConfig) -> list[dict]:
 # --------------------------------------------------------------------------
 
 def _qkv(hnorm, lp, cfg: LMConfig, positions):
-    """q (B, S, H, hd), k and v (B, S, KV, hd) of the normed hidden, with
-    RoPE on q and k."""
+    """q (B, S, heads, hd), k and v (B, S, KV heads, hd) of the normed
+    hidden, with RoPE on q and k: the heads of lp's wq / wk / wv columns
+    (all of them on one device, a rank's under ``rules``)."""
     b, s, _ = hnorm.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    hd = cfg.d_head
     cd = layers.COMPUTE_DTYPE
-    q = (hnorm @ lp["wq"].to(cd)).reshape(b, s, h, hd)
-    k = (hnorm @ lp["wk"].to(cd)).reshape(b, s, kvh, hd)
-    v = (hnorm @ lp["wv"].to(cd)).reshape(b, s, kvh, hd)
+    q = (hnorm @ lp["wq"].to(cd)).reshape(b, s, -1, hd)
+    k = (hnorm @ lp["wk"].to(cd)).reshape(b, s, -1, hd)
+    v = (hnorm @ lp["wv"].to(cd)).reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -277,43 +398,59 @@ def _qkv(hnorm, lp, cfg: LMConfig, positions):
     return q, k, v
 
 
-def _attention(x, lp, cfg: LMConfig, positions):
+def _attention(x, lp, cfg: LMConfig, positions, *, kv_index=None,
+               out_proj=None):
     """Causal self-attention over the full sequence (prefill).  Returns
     (x + attention, k, v); k and v are what the cache keeps.  On one
     device the reference takes one q chunk of the whole sequence and a
-    masked KV scan; K7 computes the same function on its triangle."""
+    masked KV scan; K7 computes the same function on its triangle.  A
+    rank of a mesh gives the KV heads its q heads read (``kv_index``,
+    into k's heads) and its out-projection (``out_proj(o, lp)``)."""
     b, s, _ = x.shape
     hnorm = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(hnorm, lp, cfg, positions)
-    o = layers.chunked_attention(q, k, v, causal=True, q_chunk=s,
+    ka, va = k, v
+    if kv_index is not None:
+        ka, va = k.index_select(2, kv_index), v.index_select(2, kv_index)
+    o = layers.chunked_attention(q, ka, va, causal=True, q_chunk=s,
                                  kv_chunk=min(cfg.kv_chunk, s))
-    o = o.reshape(b, s, cfg.qkv_dim) @ lp["wo"].to(layers.COMPUTE_DTYPE)
+    o = o.reshape(b, s, -1)
+    o = (o @ lp["wo"].to(layers.COMPUTE_DTYPE) if out_proj is None
+         else out_proj(o, lp))
     return x + o, k, v
 
 
-def _mlp_dense(hnorm, lp, cfg: LMConfig):
+def _mlp_hidden(hnorm, lp, cfg: LMConfig):
     cd = layers.COMPUTE_DTYPE
     up = hnorm @ lp["w_up"].to(cd)
     if cfg.mlp_act == "swiglu":
         gate = hnorm @ lp["w_gate"].to(cd)
-        hmid = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
-    else:                                        # relu2, squared in bf16
-        hmid = torch.relu(up).square()
-    return hmid @ lp["w_down"].to(cd)
+        return torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+    return torch.relu(up).square()               # relu2, squared in bf16
 
 
-def _mlp_or_moe(x, lp, cfg: LMConfig):
+def _mlp_or_moe(x, lp, cfg: LMConfig, *, down=None, experts=None,
+                want_aux: bool = True):
     """x + the MLP or the MoE layer of the normed x; returns (x, aux), aux
-    None for a dense MLP.  An MoE layer routes the call's tokens flat: B·S
-    of them over (B, S, D), B over a decode step's (B, D)."""
+    None for a dense MLP (and where ``want_aux`` is false).  An MoE layer
+    routes the call's tokens flat: B·S of them over (B, S, D), B over a
+    decode step's (B, D).  A rank of a mesh gives the MLP's down
+    projection (``down(h, w_down)``) and the MoE layer
+    (``experts(tokens (T, D), lp) -> (out, aux)``)."""
     hnorm = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if not cfg.moe:
-        return x + _mlp_dense(hnorm, lp, cfg), None
-    out, aux = moe_lib.moe_apply(
-        hnorm.reshape(-1, cfg.d_model), lp["router"], lp["we_gate"],
-        lp["we_up"], lp["we_down"], n_experts=cfg.n_experts,
-        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-        act=cfg.mlp_act)
+        h = _mlp_hidden(hnorm, lp, cfg)
+        return x + (h @ lp["w_down"].to(layers.COMPUTE_DTYPE) if down is None
+                    else down(h, lp["w_down"])), None
+    tok = hnorm.reshape(-1, cfg.d_model)
+    if experts is None:
+        out, aux = moe_lib.moe_apply(
+            tok, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+            n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
+            want_aux=want_aux)
+    else:
+        out, aux = experts(tok, lp)
     return x + out.reshape(x.shape), aux
 
 
@@ -337,19 +474,24 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
     return torch.where(mask, logits, -1e30)
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+                   rules=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers + final norm.  Returns (x (B, S, D), aux); aux
     is the MoE balance loss averaged over the layers, 0 for a dense
     model.  Differentiable: under autograd each layer is checkpointed
     (``layers.scan_layers`` under ``cfg.remat_policy``) and attention runs
-    through K7, again in the recompute, and its backward, K7b."""
-    x = _embed(params, tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    through K7, again in the recompute, and its backward, K7b.  With
+    ``rules``: the rank's batch rows of x (whole over ``model``), aux
+    averaged over every shard too (``moe_apply``)."""
+    plan = _plan(cfg, rules)
+    b, s = tokens.shape
+    x = plan.embed(params, tokens)
+    positions = torch.arange(s, device=tokens.device)[None]
 
     def layer_body(x, lp):
-        x, _, _ = _attention(x, lp, cfg, positions)
-        return _mlp_or_moe(x, lp, cfg)
+        lp = plan.layer(lp)
+        x, _, _ = plan.attention(x, lp, positions)
+        return plan.mlp(x, lp, b)
 
     x, auxs = layers.scan_layers(layer_body, x, params["layers"],
                                  n_layers=cfg.n_layers,
@@ -360,12 +502,13 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
 
 
 @torch.inference_mode()
-def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+            rules=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: (logits (B, S, Vp) in bf16, aux); padded
-    vocab columns are masked to -1e30."""
-    x, aux = forward_hidden(params, tokens, cfg)
-    return _mask_pad_vocab(x @ _head(params, cfg), cfg), aux
+    vocab columns are masked to -1e30.  With ``rules``, on every rank:
+    the whole tokens in, the whole logits out."""
+    x, aux = forward_hidden(params, tokens, cfg, rules)
+    return _plan(cfg, rules).logits(params, x, tokens.shape[0]), aux
 
 
 # --------------------------------------------------------------------------
@@ -452,20 +595,28 @@ def make_train_step(cfg: LMConfig, *, lr=3e-4) -> Callable:
 
 @torch.inference_mode()
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
-               device: str | torch.device = "cuda") -> dict:
-    """Zero KV cache in the reference's (L, B, KV, S, hd) layout, bf16."""
+               device: str | torch.device = "cuda", rules=None) -> dict:
+    """Zero KV cache in the reference's (L, B, KV, S, hd) layout, bf16;
+    with ``rules`` the rank's shard of it (``cache_specs``)."""
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.d_head)
+    if rules is not None:
+        spec = cache_specs(cfg, rules, batch, max_seq)["k"]
+        shape = tuple(n // rules.axis_size(e) if e is not None else n
+                      for n, e in zip(shape, spec))
     return {"k": torch.zeros(shape, dtype=layers.COMPUTE_DTYPE,
                              device=device),
             "v": torch.zeros(shape, dtype=layers.COMPUTE_DTYPE,
                              device=device)}
 
 
-def make_prefill_step(cfg: LMConfig, max_seq: int) -> Callable:
+def make_prefill_step(cfg: LMConfig, max_seq: int, rules=None
+                      ) -> Callable:
     """Prefill: (params, tokens (B, S)) -> (the last position's logits
     (B, Vp), a KV cache of ``max_seq`` filled at [0, S)).  K and v are
-    computed once a layer, for attention and for the cache."""
+    computed once a layer, for attention and for the cache.  With
+    ``rules``: the rank's cache shard, the whole logits."""
+    plan = _plan(cfg, rules)
 
     @torch.inference_mode()
     def prefill_step(params, tokens):
@@ -473,22 +624,23 @@ def make_prefill_step(cfg: LMConfig, max_seq: int) -> Callable:
         if s > max_seq:
             raise ValueError(f"prompt of {s} tokens exceeds max_seq "
                              f"{max_seq}")
-        cache = init_cache(cfg, b, max_seq, tokens.device)
-        x = _embed(params, tokens)
+        cache = init_cache(cfg, b, max_seq, tokens.device, rules)
+        x = plan.embed(params, tokens)
         positions = torch.arange(s, device=tokens.device)[None]
         for i, lp in enumerate(_layer_params(params, cfg)):
-            x, k, v = _attention(x, lp, cfg, positions)
-            x, _ = _mlp_or_moe(x, lp, cfg)
-            cache["k"][i, :, :, :s] = k.transpose(1, 2)
-            cache["v"][i, :, :, :s] = v.transpose(1, 2)
+            lp = plan.layer(lp)
+            x, k, v = plan.attention(x, lp, positions)
+            x, _ = plan.mlp(x, lp, b, want_aux=False)
+            plan.store(cache, i, k, v, max_seq)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         # Serving prefill only needs the last position's logits.
-        return x[:, -1, :] @ _head(params, cfg), cache
+        return plan.logits(params, x[:, -1, :], b, mask=False), cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: LMConfig, max_seq: int) -> Callable:
+def make_decode_step(cfg: LMConfig, max_seq: int, rules=None
+                     ) -> Callable:
     """One decode step: (params, cache, tokens (B, 1), pos) -> (logits
     (B, Vp), cache).  Every row writes its K/V at ``pos`` (one global
     position, as the reference) and attends to cache positions <= pos
@@ -499,7 +651,10 @@ def make_decode_step(cfg: LMConfig, max_seq: int) -> Callable:
     the K/V row is then written by ``index_copy_`` at the device index,
     the counterpart of the reference's ``dynamic_update_slice``, and the
     caller, which knows the position as an int, checks its range.  Both
-    forms give the same bits."""
+    forms give the same bits.  With ``rules``: the rank's cache shard,
+    the whole logits (see ``_Sharded.decode_step``)."""
+    if rules is not None:
+        return _Sharded(cfg, rules).decode_step(max_seq)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // kvh
 
@@ -540,3 +695,303 @@ def make_decode_step(cfg: LMConfig, max_seq: int) -> Callable:
         return _mask_pad_vocab(x @ _head(params, cfg), cfg), cache
 
     return decode_step
+
+
+# --------------------------------------------------------------------------
+# Layouts: the hooks of the shared forward and prefill loops
+# --------------------------------------------------------------------------
+
+class _OneDevice:
+    """The one-device layout: each hook of ``forward_hidden``'s and the
+    prefill's loops is the plain op."""
+
+    def __init__(self, cfg: LMConfig):
+        self.cfg = cfg
+
+    def embed(self, params, tokens):
+        return _embed(params, tokens)
+
+    def layer(self, lp):
+        return lp
+
+    def attention(self, x, lp, positions):
+        return _attention(x, lp, self.cfg, positions)
+
+    def mlp(self, x, lp, batch: int, want_aux: bool = True):
+        return _mlp_or_moe(x, lp, self.cfg, want_aux=want_aux)
+
+    def store(self, cache, i, k, v, max_seq: int):
+        s = k.shape[1]
+        cache["k"][i, :, :, :s] = k.transpose(1, 2)
+        cache["v"][i, :, :, :s] = v.transpose(1, 2)
+
+    def logits(self, params, x, batch: int, mask: bool = True):
+        lg = x @ _head(params, self.cfg)
+        return _mask_pad_vocab(lg, self.cfg) if mask else lg
+
+
+def _plan(cfg: LMConfig, rules):
+    return _OneDevice(cfg) if rules is None else _Sharded(cfg, rules)
+
+
+def _axes_of(spec) -> tuple[str, ...]:
+    if spec is None:
+        return ()
+    return (spec,) if isinstance(spec, str) else tuple(spec)
+
+
+class _Sharded(_OneDevice):
+    """One rank's part of the reference's partitioned serving program, its
+    collectives written out: the hooks of the shared loops, and the decode
+    step.  Parameters are the rank's ``param_specs`` slices; a leaf cut
+    over ``fsdp`` is all-gathered a layer at a time where it is used.  The
+    residual stream is the rank's batch rows (``batch_spec``), whole over
+    ``model``.
+
+    * Attention: with ``n_heads % tp == 0`` the Q heads are cut over
+      ``model`` (``wq`` column-parallel, ``wo`` row-parallel); K/V are
+      the rank's own KV heads when ``n_kv_heads % tp == 0``, else whole
+      on every rank, each rank taking the KV heads its Q heads read.
+      Otherwise attention runs whole on every rank (the reference cuts
+      Q's sequence there instead: the same function).  K7 runs on the
+      rank's heads.
+    * Dense MLP: ``d_ff`` cut over ``model`` when it divides (column,
+      then row); else whole.  A row-parallel product sums the ranks'
+      float32 products and rounds once (``_row_parallel``).
+    * MoE: ``moe_apply`` expert-parallel, the tokens cut as
+      ``tokens_spec(B·S)`` (``tokens_spec(B)`` at decode) says.  The
+      serving steps read no balance loss, so they leave out its
+      reduction over the shards.
+    * Vocab: the embedding is looked up masked on the rank's rows and
+      summed over ``model``; the head's logits are all-gathered over the
+      vocab shards and the batch axes, so every rank holds them whole.
+    * Cache: sequence-sharded over ``model`` (``cache_specs``).  Prefill
+      moves each layer's head-sharded K/V to the cache's sequence chunks
+      with one ``all_to_all``.  Decode writes the new K/V row on the rank
+      that owns ``pos`` (a fixed-shape masked write that reads nothing on
+      the host), takes ``flash_decode`` partials over the rank's chunk and
+      combines them over ``model`` with two reductions.
+    """
+
+    def __init__(self, cfg: LMConfig, rules):
+        super().__init__(cfg)
+        self.rules = rules
+        self.specs = param_specs(cfg, rules)
+        self.tp = rules.tp
+        self.model = rules.comm(rules.model)
+        self.mi = self.model.index
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        self.tp_heads = self.tp > 1 and h % self.tp == 0
+        self.kv_sharded = self.tp_heads and kv % self.tp == 0
+        self.hq = h // self.tp if self.tp_heads else h
+        self.kv_sel = None         # KV heads this rank's Q heads read
+        if self.tp_heads and not self.kv_sharded:
+            # The rank's q heads share one KV head when they fit in its
+            # group; else each gets its own copy (G = 1).
+            g, lo = h // kv, self.mi * self.hq
+            self.kv_sel = torch.tensor(
+                [lo // g] if g % self.hq == 0
+                else [(lo + j) // g for j in range(self.hq)],
+                device=rules.device)
+        lay = self.specs["layers"]
+        self.wo_rows = lay["wo"][1] is not None and self.tp > 1
+        self.ff_cols = (not cfg.moe and lay["w_up"][2] is not None
+                        and self.tp > 1)
+        self.vocab_sharded = self.specs["embed"][0] is not None \
+            and self.tp > 1
+
+    # ---- layouts ------------------------------------------------------------
+    def _fsdp(self, t, spec):
+        return gather(t, spec, self.rules, axes=(self.rules.fsdp,))
+
+    def _batch_axes(self, b: int) -> tuple[str, ...]:
+        return _axes_of(self.rules.batch_spec(b))
+
+    def _cut(self, t, axes):
+        c = self.rules.comm(axes)
+        n = t.shape[0] // c.size
+        return t[c.index * n:(c.index + 1) * n]
+
+    def _row_parallel(self, a, w):
+        """a @ w with w's rows (a's columns) cut over ``model``: each
+        rank's bf16 product accumulated and kept in float32, summed, and
+        rounded to bf16 once, as the one-device product rounds its float32
+        accumulation.  The CPU's matmul has no bf16-in, float32-out form,
+        so there the operands are widened (bf16 products are exact in
+        float32: the same function)."""
+        cd = layers.COMPUTE_DTYPE
+        a2 = a.reshape(-1, a.shape[-1])
+        if a2.is_cuda:
+            p = torch.mm(a2, w.to(cd), out_dtype=torch.float32)
+        else:
+            p = a2.float() @ w.float()
+        return self.model.psum(p).to(cd).reshape(*a.shape[:-1], -1)
+
+    def _out_proj(self, o, lp, whole_heads: bool):
+        """o (..., heads·hd) @ wo: the rank's rows of wo against its
+        columns of o, summed over ``model``."""
+        if not self.wo_rows:
+            return o @ lp["wo"].to(layers.COMPUTE_DTYPE)
+        if whole_heads or not self.tp_heads:
+            w = self.cfg.qkv_dim // self.tp
+            o = o[..., self.mi * w:(self.mi + 1) * w]
+        return self._row_parallel(o, lp["wo"])
+
+    def _experts(self, tok, lp, n_tokens: int, b: int, want_aux: bool):
+        """The EP MoE of the rank's tokens (its batch rows' ``tok``)."""
+        cfg, rules = self.cfg, self.rules
+        taxes = _axes_of(rules.tokens_spec(n_tokens))
+        want = tuple(a for a in taxes if a != rules.model)
+        have = self._batch_axes(b)
+        if want != have:         # recut the tokens as token_axes says
+            tok = self._cut(rules.comm(have).all_gather(tok, 0), want)
+        out, aux = moe_lib.moe_apply(
+            tok, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+            n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
+            rules=rules, token_axes=taxes, want_aux=want_aux)
+        if want != have:
+            out = self._cut(rules.comm(want).all_gather(out, 0), have)
+        return out, aux
+
+    # ---- hooks --------------------------------------------------------------
+    def embed(self, params, tokens):
+        tok = self._cut(tokens, self._batch_axes(tokens.shape[0]))
+        table = self._fsdp(params["embed"], self.specs["embed"])
+        if not self.vocab_sharded:
+            return table[tok].to(layers.COMPUTE_DTYPE)
+        vl = table.shape[0]
+        idx = tok - self.mi * vl
+        inside = (idx >= 0) & (idx < vl)
+        e = torch.where(inside[..., None], table[idx.clamp(0, vl - 1)], 0)
+        return self.model.psum(e.to(layers.COMPUTE_DTYPE))
+
+    def layer(self, lp):
+        """Layer leaves as the rank uses them: whole over ``fsdp``, and
+        wq / wk / wv whole over ``model`` where the rank reads all their
+        heads (their columns gathered)."""
+        lay = self.specs["layers"]
+        lp = {name: self._fsdp(t, P(*list(lay[name])[1:]))
+              for name, t in lp.items()}
+        for name, keep in (("wq", self.tp_heads), ("wk", self.kv_sharded),
+                           ("wv", self.kv_sharded)):
+            if not keep and lay[name][2] is not None:
+                lp[name] = self.model.all_gather(lp[name], axis=-1)
+        return lp
+
+    def attention(self, x, lp, positions):
+        return _attention(x, lp, self.cfg, positions, kv_index=self.kv_sel,
+                          out_proj=lambda o, lp: self._out_proj(o, lp,
+                                                                False))
+
+    def mlp(self, x, lp, batch: int, want_aux: bool = True):
+        n_tokens = batch * (x.shape[1] if x.dim() == 3 else 1)
+        return _mlp_or_moe(
+            x, lp, self.cfg,
+            down=self._row_parallel if self.ff_cols else None,
+            experts=lambda tok, lp: self._experts(tok, lp, n_tokens, batch,
+                                                  want_aux))
+
+    def _seq_chunk(self, max_seq: int) -> int:
+        """Cache positions a rank holds: max_seq / tp, or all of them
+        when tp does not divide max_seq (the cache stays whole)."""
+        if self.tp > 1 and max_seq % self.tp == 0:
+            return max_seq // self.tp
+        return max_seq
+
+    def store(self, cache, i, k, v, max_seq: int):
+        """(B, S, kv heads here, hd) K and V into the rank's cache chunk,
+        (B, KV, chunk, hd): one all_to_all from heads to sequence chunks
+        when the KV heads are cut over ``model``."""
+        kv = torch.stack([k, v]).transpose(2, 3)        # (2, B, kvx, S, hd)
+        kv = torch.nn.functional.pad(kv, (0, 0, 0, max_seq - kv.shape[3]))
+        chunk = self._seq_chunk(max_seq)
+        if self.kv_sharded:
+            kv = (self.model.all_to_all(kv, 3, 2) if chunk < max_seq
+                  else self.model.all_gather(kv, axis=2))
+        elif chunk < max_seq:
+            kv = kv[:, :, :, self.mi * chunk:(self.mi + 1) * chunk]
+        cache["k"][i] = kv[0]
+        cache["v"][i] = kv[1]
+
+    def logits(self, params, x, batch: int, mask: bool = True):
+        """Whole (batch, ..., Vp) logits of the rank's rows x on every
+        rank; padded vocab columns masked unless ``mask=False`` (the
+        prefill's, which the reference leaves unmasked)."""
+        cfg, cd = self.cfg, layers.COMPUTE_DTYPE
+        if cfg.tie_embeddings:
+            head = self._fsdp(params["embed"], self.specs["embed"]).T
+        else:
+            head = self._fsdp(params["lm_head"], self.specs["lm_head"])
+        lg = x @ head.to(cd)
+        if self.vocab_sharded:
+            lg = self.model.all_gather(lg, axis=-1)
+        if mask:
+            lg = _mask_pad_vocab(lg, cfg)
+        return self.rules.comm(self._batch_axes(batch)).all_gather(lg,
+                                                                   axis=0)
+
+    # ---- decode -------------------------------------------------------------
+    def _decode_heads(self, q, k, v):
+        """One token's q (B, 1, heads here, hd), k, v (B, 1, kv heads
+        here, hd) -> whole q (B, H, hd), k, v (B, KV, hd) on every rank:
+        one all-gather of what the rank computed."""
+        cfg = self.cfg
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        if self.kv_sharded:
+            hq, kvl = q.shape[1], k.shape[1]
+            g = self.model.all_gather(torch.cat([q, k, v], 1)[:, None], 1)
+            return (g[:, :, :hq].reshape(q.shape[0], cfg.n_heads, -1),
+                    g[:, :, hq:hq + kvl].reshape(k.shape[0],
+                                                 cfg.n_kv_heads, -1),
+                    g[:, :, hq + kvl:].reshape(v.shape[0],
+                                               cfg.n_kv_heads, -1))
+        if self.tp_heads:
+            q = self.model.all_gather(q, axis=1)
+        return q, k, v
+
+    def decode_step(self, max_seq: int) -> Callable:
+        cfg = self.cfg
+        h, hd = cfg.n_heads, cfg.d_head
+        chunk = self._seq_chunk(max_seq)
+        start = self.mi * chunk if chunk < max_seq else 0
+
+        @torch.inference_mode()
+        def decode_step(params, cache, tokens, pos):
+            if not torch.is_tensor(pos) and not 0 <= pos < max_seq:
+                raise ValueError(f"decode position {pos} outside [0, "
+                                 f"{max_seq})")
+            b = tokens.shape[0]
+            posv = torch.as_tensor(pos, device=tokens.device).reshape(())
+            x = self.embed(params, tokens[:, 0])
+            bl = x.shape[0]
+            positions = posv.to(torch.int32).reshape(1, 1).expand(bl, 1)
+            # The row at ``pos`` lives on one rank; every rank runs the
+            # same fixed-shape write, a no-op where ``own`` is false.
+            local = (posv - start).clamp(0, chunk - 1).reshape(1)
+            own = (posv >= start) & (posv < start + chunk)
+            for i, lp in enumerate(_layer_params(params, cfg)):
+                lp = self.layer(lp)
+                hn = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+                q, k, v = self._decode_heads(
+                    *_qkv(hn[:, None], lp, cfg, positions))
+                for name, new in (("k", k), ("v", v)):
+                    c = cache[name][i]                  # (B, KV, chunk, hd)
+                    old = c.index_select(2, local)
+                    c.index_copy_(2, local,
+                                  torch.where(own, new[:, :, None], old))
+                # The chunk in flash_decode_local's (B, C, KV, hd) view.
+                o, m, l = layers.flash_decode_local(
+                    q, cache["k"][i].transpose(1, 2),
+                    cache["v"][i].transpose(1, 2), posv + 1, start)
+                if chunk < max_seq:
+                    o = layers.combine_decode_partials(o, m, l, self.model)
+                else:
+                    o = o / l[..., None]
+                o = o.reshape(bl, h * hd).to(x.dtype)
+                x = x + self._out_proj(o, lp, True)
+                x, _ = self.mlp(x, lp, b, want_aux=False)
+            x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return self.logits(params, x, b), cache
+
+        return decode_step

@@ -60,6 +60,20 @@ held cut; a restore lands ``pos`` where it was.  A fault that escapes a
 prefill resolves every in-flight request ``error`` and frees its slot.
 ``journal=`` journals accepted submits and their outcomes
 (:class:`~repro_torch.serving.recovery.RequestJournal`).
+
+With ``rules`` (a :class:`~repro_torch.distributed.sharding.Rules` whose
+data axes have size 1) the server is sharded over ``model``, one process
+a rank: ``params`` are the rank's shards (``param_specs``), the cache is
+the rank's sequence chunk of every slot (``cache_specs``), and the decode
+step is the sharded one, run eager (a step of host-side collectives is
+not captured).  Every rank runs the same loop on the same calls — the
+same submits, ticks and drains, and the same fault plan — and the tokens
+are the same on every rank, since every rank reads the whole logits.
+Every decision that reads the clock reads rank 0's (``clock`` is
+replaced by one that broadcasts it), so the ranks shed, admit and time
+alike, and rank 0's metrics are the server's.  Faults, restores and
+journals behave as on one device; a snapshot holds each rank's cache
+shard.
 """
 
 from __future__ import annotations
@@ -85,6 +99,19 @@ from repro_torch.serving.recovery import CheckpointSet, KVCheckpointer
 from repro_torch.serving.scheduler import Request, shed_expired_requests
 
 
+class _RankZeroClock:
+    """Rank 0's reading of ``clock`` on every rank: one small sum over
+    every mesh axis a call (each rank calls it at the same points)."""
+
+    def __init__(self, clock: Callable[[], float], comm, device):
+        self.clock, self.comm, self.device = clock, comm, device
+
+    def __call__(self) -> float:
+        now = self.clock() if self.comm.index == 0 else 0.0
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        return float(self.comm.psum(t)[0])
+
+
 @dataclasses.dataclass
 class LMServer:
     cfg: transformer.LMConfig
@@ -108,9 +135,24 @@ class LMServer:
     # Migration hook: called with the in-flight [(Request, Sequence)] when
     # restores are spent; True means another server adopted them all.
     evacuate: Callable[[list], bool] | None = None
+    # Sharding over the model axis (one process a rank); None: one device.
+    rules: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.rules is not None:
+            if self.capture:
+                raise ValueError("the sharded decode step runs eager: "
+                                 "capture=True needs rules=None")
+            self.capture = False
+            if self.rules.dp != 1:
+                raise ValueError(f"LMServer shards over the model axis "
+                                 f"only; the batch axes have "
+                                 f"{self.rules.dp} ranks")
+            if self.rules.n_devices > 1:
+                self.clock = _RankZeroClock(
+                    self.clock, self.rules.comm(
+                        tuple(self.rules.mesh.axis_names)), self.device)
         if self.capture is None:
             self.capture = self.device.type == "cuda"
         elif self.capture and self.device.type != "cuda":
@@ -120,13 +162,15 @@ class LMServer:
         if where.type != self.device.type:
             raise ValueError(f"params on {where}, server on {self.device}")
         self.cache = transformer.init_cache(self.cfg, self.n_slots,
-                                            self.max_seq, self.device)
+                                            self.max_seq, self.device,
+                                            rules=self.rules)
         self.manager = KVCacheManager(self.n_slots, self.max_seq)
         with torch.inference_mode():
             self.tokens = torch.zeros((self.n_slots, 1), dtype=torch.int64,
                                       device=self.device)
         self.pos = 0
-        self._decode = transformer.make_decode_step(self.cfg, self.max_seq)
+        self._decode = transformer.make_decode_step(self.cfg, self.max_seq,
+                                                    rules=self.rules)
         self._waiting: deque[Request] = deque()
         self.dropped = 0          # deadline-shed requests (overload stat)
         self._by_seq: dict[int, tuple[Request, Any]] = {}

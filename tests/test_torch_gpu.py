@@ -926,6 +926,56 @@ def test_moe_decode_on_card(cuda, arch):
     assert (got.cpu().float() - want.float()).abs().max() <= 2e-2 * scale
 
 
+def sharded_lm_rank(rank, device, cfg, cpu, toks, teacher):
+    """One of 2 ranks sharing the card: the SMOKE-size LM's shards, its
+    sharded prefill (K7 on the rank's 2 heads) and decode steps."""
+    from repro_torch.distributed.sharding import rules_for_mesh, shard_tree
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(data=1, model=2, device=device)
+    rules = rules_for_mesh(mesh)
+    params = tree.tree_map(lambda t: t.to(device), shard_tree(
+        cpu, transformer.param_specs(cfg, rules), rules))
+    k7.flash_attention.launches = 0
+    logits, cache = transformer.make_prefill_step(cfg, 160, rules)(
+        params, toks.to(device))
+    launches = k7.flash_attention.launches
+    decode = transformer.make_decode_step(cfg, 160, rules)
+    steps = [logits.float().cpu()]
+    for i, tok in enumerate(teacher):
+        logits, cache = decode(params, cache, tok.to(device), 128 + i)
+        steps.append(logits.float().cpu())
+    return (mesh.backend, mesh.staged, launches,
+            k7.flash_attention.launches, torch.stack(steps))
+
+
+def test_sharded_lm_on_card(cuda, lm_params):
+    """2 ranks on cuda:0 (gloo, collectives through pinned host memory):
+    the sharded prefill and 4 decode steps against the one-device path on
+    the card, within the chip smoke's 4e-2 of the logits' scale; K7 once
+    a layer a rank at prefill, never at decode."""
+    from repro_torch.launch.mesh import spawn
+
+    cfg, cpu, card = lm_params
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab, (2, 128)))
+    teacher = torch.from_numpy(RNG.integers(0, cfg.vocab, (4, 2, 1)))
+    logits, cache = transformer.make_prefill_step(cfg, 160)(card,
+                                                            toks.to(cuda))
+    want = [logits.float().cpu()]
+    decode = transformer.make_decode_step(cfg, 160)
+    for i, tok in enumerate(teacher):
+        logits, cache = decode(card, cache, tok.to(cuda), 128 + i)
+        want.append(logits.float().cpu())
+    want = torch.stack(want)
+    ranks = spawn(sharded_lm_rank, 2, cfg, cpu, toks, teacher,
+                  device="cuda", timeout_s=300)
+    for backend, staged, prefill_k7, total_k7, got in ranks:
+        assert (backend, staged) == ("gloo", True)
+        assert prefill_k7 == total_k7 == cfg.n_layers
+        assert (got - want).abs().max() <= 4e-2 * want.abs().max()
+        assert torch.equal(got, ranks[0][-1])
+
+
 def test_lm_server_on_card(cuda, lm_params):
     """LMServer on the card serves every request; decoding launches no K7."""
     cfg, _, card = lm_params
