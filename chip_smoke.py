@@ -335,8 +335,36 @@ Phases, each fatal on failure:
               answering 8 requests with the same tokens on every rank; ms a
               prefill and a decode step sharded and on one device, each
               rank's peak memory (times of host-staged collectives on one
-              card, not of 4 cards over NVLink).  It runs last, after the
-              timing phase, and its K7 launches join the ``kernels`` line.
+              card, not of 4 cards over NVLink).  It runs after the
+              timing phase, and its K7 launches join the ``kernels`` line;
+10. shard train — the sharded LM train step
+              (``transformer.make_train_step(cfg, rules)``: FSDP and DP over
+              ``data``, TP and EP over ``model``, every gradient collective
+              a differentiable op of ``distributed.sharding``) over 4 ranks
+              sharing the card as in [shard], float32 weights drawn once
+              here and handed over through CUDA IPC: lm-100m at full width
+              and depth on (2, 2), B 8 x S 512, 4 steps, a checkpoint after
+              step 2 (gathered on every rank, written by rank 0) and a
+              resume on (4, 1) from it (the file equal to each rank's saved
+              slices and to its restored ones bit for bit, the resumed
+              step's loss within 2e-4 of the uninterrupted run's);
+              granite-moe-3b-a800m at full width on (1, 4), its depth cut
+              to 4 of 32 layers, capacity factor E/k, B 4 x S 512, 2 steps.
+              Step 0 of each against the one-device step on the same
+              weights and batch (the balance loss over the same 4 token
+              shards): loss within 2e-4, gradient norm within 5e-3, every
+              gathered gradient leaf within 3% (lm-100m) or 5% (granite;
+              2% is below the bf16 noise of a 12-layer TP step, see
+              ``SHARD_TRAIN_LEAF_TOL``), the one-device floor
+              from two half batches printed beside and held to the same
+              limit; the bytes each rank hands to collectives a step equal
+              to ``shard_train_bytes``' arithmetic; K7 twice and K7b once a
+              layer a step on each rank's heads (B 4, S 512, H 6, KV 2, hd
+              64, also among the [kernels] K7 cases and the [train] K7b
+              cases), every rank's launches joining the ``kernels`` line;
+              ms a step sharded and on one device, each rank's peak memory
+              (host-staged gloo collectives on one card, not 4 cards over
+              NVLink).
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -351,6 +379,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -562,6 +591,10 @@ TRAIN_LAYERS = [
     ("ViT-H/14 cls_384 train layer, ragged", 64, 730, 730, 16, 16, 80,
      False),
     ("DiT-XL/2 train_256 train layer", 256, 256, 256, 16, 16, 72, False),
+    # the [shard train] phase's layer on one rank: lm-100m's on (2, 2) and
+    # granite-moe-3b-a800m's on (1, 4) both give B 4, H 6, KV 2, hd 64
+    ("lm-100m / granite train layer, a tp rank's heads", 4, 512, 512, 6,
+     2, 64, True),
 ]
 FLASH_CASES = [
     FLASH_PREFILL,
@@ -2584,6 +2617,43 @@ K7B_TOL = 2e-2
 # lm-100m at full width (launch/train.py's LM_100M, examples/
 # train_lm_100m.py's batch and sequence), TRAIN_STEPS AdamW steps.
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
+# The [shard train] phase: (arch, mesh (data, model), global batch, steps)
+# at S TRAIN_SEQ.  lm-100m at full width and depth on (2, 2): DP, FSDP and
+# TP at once, the [train] phase's B 8 x S 512, remat "nothing" (its
+# config's); a checkpoint after step SHARD_TRAIN_CRASH_AFTER, then a
+# resume on SHARD_TRAIN_RESUME from it.  granite-moe-3b-a800m at full
+# width on (1, 4): EP with the tokens cut over ``model``, capacity factor
+# E/k (nothing drops), its depth cut to SHARD_TRAIN_MOE_LAYERS of 32 (the
+# full model's float32 state, ~3.3 B params x 16 B, would not fit beside
+# the host-staged sums in the phase's time), B 4 x S 512.
+SHARD_TRAIN_JOBS = (("lm-100m", (2, 2), TRAIN_BATCH, 4),
+                    ("granite-moe-3b-a800m", (1, 4), 4, 2))
+SHARD_TRAIN_CRASH_AFTER = 2
+SHARD_TRAIN_RESUME = (4, 1)
+SHARD_TRAIN_MOE_LAYERS = 4
+SHARD_TRAIN_LR = 3e-4
+# Step 0 sharded against the one-device step on the same weights and
+# batch (the balance loss over the mesh's token shards: the mean of each
+# shard's, as ``_moe_local`` takes it): the loss within 2e-4 relative and
+# the gradient norm within 5e-3 (tightened from the [zoo] phase's 2e-3 and
+# 1e-2: an H100 80GB HBM3 at 700 W read at most 2.2e-5 and 7.9e-4,
+# PERF.md §6), the resumed step's loss within 2e-4 of the uninterrupted
+# run's (read: 7.4e-6).  Each
+# gathered gradient leaf within SHARD_TRAIN_LEAF_TOL relative L2, by
+# model.  A sharded forward sums a row-parallel product's float32 parts
+# in another order than cuBLAS does, which moves a rare bf16 rounding;
+# twelve random-init layers grow that to ~1% of the hidden state and 2%
+# of a leaf (on the CPU the sharded and the one-device bf16 gradients are
+# each 2.3-3.1% from the float32 one, and 1.8% from each other), so 2%
+# is not met: lm-100m reads 1.67-2.14%, held to 3%;
+# granite-moe-3b-a800m 2.63-3.76%, whose one-device floor (the same
+# gradient from two half batches: other bucket shapes) reads 1.4-1.8%,
+# held to 5% (tests/test_torch_train.py's GRAD_TOL).  A missing sum or a
+# share taken twice moves a leaf by 30% or more.  The floor is held to the
+# same limit: past it, the check fails rather than loosen.
+SHARD_TRAIN_LOSS_TOL = 2e-4
+SHARD_TRAIN_GNORM_TOL = 5e-3
+SHARD_TRAIN_LEAF_TOL = {"lm-100m": 3e-2, "granite-moe-3b-a800m": 5e-2}
 TRAIN_ARGS = ["--arch", "lm-100m", "--batch", str(TRAIN_BATCH), "--seq-len",
               str(TRAIN_SEQ), "--device", "cuda"]
 # Step 0 with K7/K7b against the same step with their plain versions: the
@@ -3501,6 +3571,468 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     return launches, numbers
+
+# --------------------------------------------------------------------------
+# [shard train]: the sharded LM train step, 4 ranks sharing the card
+# --------------------------------------------------------------------------
+
+class _MeshShape:
+    """A stand-in mesh of axis sizes alone (``Rules``' arithmetic)."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, dp: int, tp: int):
+        self.shape = {"data": dp, "model": tp}
+
+
+def shard_train_bytes(cfg, dp: int, tp: int, batch: int, seq: int) -> int:
+    """Bytes one rank hands to collectives in one sharded train step
+    (``transformer.make_train_step(cfg, rules)``) of a global (batch, seq)
+    on a (dp, tp) mesh, from the shapes alone (``transformer._Sharded``'s
+    and ``chunked_ce``'s collectives, their differentiable backwards,
+    ``sync_grads`` and the global norm).  float32 masters, so every FSDP
+    gather and reduce-scatter moves float32; activations move in bf16,
+    their sums in float32.  Each layer's forward collectives run again in
+    the remat's recompute, but for the row-parallel sums under "dots" and
+    for the MoE's last two (its output's gather and the balance loss's
+    mean): the recompute stops once it has remade every tensor the
+    backward saved (``torch.utils.checkpoint``'s early stop)."""
+    from repro_torch.distributed import sharding
+
+    rules = sharding.Rules(mesh=_MeshShape(dp, tp))
+    specs = transformer.param_specs(cfg, rules)
+    full = transformer.abstract_params(cfg, ep=tp, vocab_pad_to=tp)
+    d, hd = cfg.d_model, cfg.d_head
+    tp_heads = tp > 1 and cfg.n_heads % tp == 0
+    kv_sharded = tp_heads and cfg.n_kv_heads % tp == 0
+    t = batch // dp * seq                       # the rank's tokens
+    f32, bf16 = 4, 2
+
+    def local(name, lay=True):
+        spec = specs["layers"][name] if lay else specs[name]
+        shape = full["layers"][name].shape if lay else full[name].shape
+        n = math.prod(shape[1:] if lay else shape)
+        for e in (list(spec)[1:] if lay else spec):
+            n //= rules.axis_size(e) if e else 1
+        return n
+
+    lay = specs["layers"]
+    fsdp = [n for n in lay if "data" in lay[n]]
+    fwd = bwd = tail = 0
+    if dp > 1:                                  # a layer's FSDP gather
+        fwd += sum(local(n) for n in fsdp) * f32
+        bwd += sum(local(n) for n in fsdp) * dp * f32
+    gathered = [(n, dim) for n, dim, keep in (
+        ("wq", cfg.qkv_dim, tp_heads), ("wk", cfg.kv_dim, kv_sharded),
+        ("wv", cfg.kv_dim, kv_sharded)) if not keep and lay[n][2] and tp > 1]
+    for _, dim in gathered:
+        fwd += d * dim // tp * f32
+        if tp_heads:                            # reduce-scattered back
+            bwd += d * dim * f32
+    row = 0
+    if lay["wo"][1] and tp > 1:
+        row += t * d * f32                      # wo row-parallel
+        if not tp_heads:                        # o's columns gathered back
+            bwd += t * cfg.qkv_dim // tp * bf16
+    if tp_heads:
+        bwd += t * d * f32                      # q/k/v input cotangent
+        if cfg.qk_norm:
+            bwd += 2 * hd * f32
+    if cfg.moe:
+        world = dp * tp
+        split = (batch * seq) % world == 0 and tp > 1
+        t_local = t // tp if split else t
+        e_pad = cfg.padded_experts(tp)
+        cap = moe.capacity(t_local, cfg.top_k, e_pad, cfg.capacity_factor)
+        if tp > 1:
+            fwd += 2 * e_pad * cap * d * bf16   # the two all_to_all
+            bwd += 2 * e_pad * cap * d * bf16
+        if world > 1:
+            tail += f32                         # the balance loss's mean
+        if split:
+            tail += t_local * d * bf16          # the output gathered
+            bwd += t_local * d * bf16 + d * e_pad * f32   # x, router
+    elif lay["w_up"][2] and tp > 1:
+        row += t * d * f32                      # w_down row-parallel
+        bwd += t * d * f32                      # the MLP input cotangent
+    fwd += row
+    recompute = fwd - (row if cfg.remat_policy == "dots" else 0)
+    total = cfg.n_layers * (fwd + recompute + bwd + tail)
+    # the embedding, and the head (the embedding again where tied)
+    table = local("embed", False)
+    head = table if cfg.tie_embeddings else local("lm_head", False)
+    if dp > 1:
+        total += (table + head) * f32 * (1 + dp)
+    if tp > 1:
+        total += t * d * bf16                   # the masked lookup's sum
+        total += t * d * f32                    # the CE input cotangent
+        total += 3 * t * f32                    # each chunk's max, sums
+    if dp > 1:
+        total += 2 * f32                        # the CE sums over data
+        replicated = [n for n in lay if "data" not in lay[n]]
+        total += (cfg.n_layers * sum(local(n) for n in replicated)
+                  + d) * f32                    # sync_grads
+    groups = {tuple(a for a in ("data", "model") if a in spec)
+              for spec in [*lay.values(), specs["embed"], specs["final_norm"]]
+              + ([specs["lm_head"]] if "lm_head" in specs else [])}
+    total += sum(f32 for g in groups if g and rules.axis_size(g) > 1)
+    return total
+
+
+def _token_shard_balance(n: int):
+    """``moe.moe_apply``'s balance loss as a mesh of ``n`` token shards
+    takes it (the mean of each shard's loss: ``_moe_local``'s pmean),
+    for the one-device step the sharded one is held to."""
+    real = moe.moe_apply
+
+    def moe_apply(x, router, wg, wu, wd, **kw):
+        out, _ = real(x, router, wg, wu, wd, **kw)
+        auxs = []
+        for xs in x.reshape(n, -1, x.shape[-1]):
+            _, ids, probs = moe._route(xs, router, n_real=kw["n_experts"],
+                                       top_k=kw["top_k"])
+            onehot = (ids[..., None] == torch.arange(
+                router.shape[1], device=x.device)).float()
+            auxs.append(kw["n_experts"] * (onehot.sum(1).mean(0)
+                                           * probs.mean(0)).sum())
+        return out, torch.stack(auxs).mean()
+
+    return contextlib.nullcontext() if n == 1 else _patched(
+        moe, "moe_apply", moe_apply)
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _state_specs(cfg, rules):
+    from repro_torch.distributed.sharding import P
+    specs = transformer.param_specs(cfg, rules)
+    return {"params": specs, "opt": optim.OptState(P(), specs, specs)}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def shard_train_model(rank: int, device, job: dict, ckpt_dir: str) -> dict:
+    """One model on one rank: its slices of the parent's weights (through
+    CUDA IPC); step 0's gradient leaves gathered against the one-device
+    step's; ``job["steps"]`` steps of ``make_train_step(cfg, rules)``
+    counted (bytes into collectives, ms, launches, peak); with
+    ``job["crash_after"]`` the state checkpointed after that step, and a
+    resume on ``job["resume"]`` from it: the restored state against the
+    file and the state saved, and the next step's loss."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg = job["cfg"]
+    dp, tp = job["mesh"]
+    rules = sharding.rules_for_mesh(mesh_lib.make_host_mesh(
+        data=dp, model=tp, device=device))
+    world = rules.comm(("data", "model"))
+    specs = transformer.param_specs(cfg, rules)
+    params = sharding.shard_tree(job["params"], specs, rules)
+    pipe = data.TokenPipeline(seed=0, batch=job["batch"], seq_len=job["seq"],
+                              vocab=cfg.vocab, rules=rules)
+    out = dict(weight_bytes=sum(t.numel() * t.element_size()
+                                for t in tree.leaves(params)))
+    (_, _), grads = tree.value_and_grad(transformer.loss_fn, params,
+                                        pipe.batch_at(0), cfg, rules)
+    grads = sharding.sync_grads(grads, specs, rules)
+    errs = []
+    for (path, g), s, want in zip(tree.flatten_with_paths(grads),
+                                  tree.leaves(specs),
+                                  tree.leaves(job["grads"])):
+        g = sharding.gather(g, s, rules).float()
+        errs.append((((g - want).norm() / want.norm()).item(), path))
+    out["leaf_errs"] = errs
+    del grads
+    opt = optim.adamw_init(params)
+    step = transformer.make_train_step(cfg, rules, lr=SHARD_TRAIN_LR)
+    gc.collect()
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    world.psum(torch.zeros(1, device=device))                   # align
+    reset_launches()
+    losses, norms, step_ms, sent = [], [], [], []
+    kept = None
+    for i in range(job["steps"]):
+        batch = pipe.batch_at(i)
+        before = sharding.Collective.payload_bytes
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sent.append(sharding.Collective.payload_bytes - before)
+        if i == job.get("crash_after"):
+            kept = tree.tree_map(lambda x: x.cpu(),
+                                 {"params": params, "opt": opt})
+            ckpt = CheckpointManager(ckpt_dir, rules=rules,
+                                     specs=_state_specs(cfg, rules))
+            t0 = time.perf_counter()
+            ckpt.save_async(i, {"params": params, "opt": opt})
+            ckpt.wait()
+            out["save_s"] = time.perf_counter() - t0
+    out.update(launches=read_launches(), losses=losses, norms=norms,
+               step_ms=step_ms, sent=sent,
+               peak_bytes=torch.cuda.max_memory_allocated()
+               if device.type == "cuda" else 0)
+    if kept is None:
+        return out
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The crash: a restart on another mesh from the checkpoint.
+    old = rules
+    rdp, rtp = job["resume"]
+    rules = sharding.rules_for_mesh(mesh_lib.make_host_mesh(
+        data=rdp, model=rtp, device=device))
+    abstract = transformer.abstract_params(cfg, ep=rules.tp,
+                                           vocab_pad_to=rules.tp,
+                                           dtype=torch.float32)
+    like = {"params": abstract, "opt": optim.OptState(
+        torch.empty((), dtype=torch.int32, device="meta"), abstract,
+        abstract)}
+    ckpt = CheckpointManager(ckpt_dir, rules=rules,
+                             specs=_state_specs(cfg, rules))
+    t0 = time.perf_counter()
+    at, state = ckpt.restore_latest(like)
+    out["restore_s"] = time.perf_counter() - t0
+    saved_equal = restored_equal = True
+    with np.load(os.path.join(ckpt_dir, f"step_{at}.npz")) as f:
+        for (key, got), mine, s_old, s_new in zip(
+                tree.flatten_with_paths(state), tree.leaves(kept),
+                tree.leaves(_state_specs(cfg, old)),
+                tree.leaves(_state_specs(cfg, rules))):
+            arr = torch.from_numpy(f[key])
+            saved_equal &= torch.equal(sharding.local_shard(arr, s_old, old),
+                                       mine)
+            restored_equal &= torch.equal(
+                sharding.local_shard(arr, s_new, rules), got.cpu())
+    del kept
+    pipe = data.TokenPipeline(seed=0, batch=job["batch"], seq_len=job["seq"],
+                              vocab=cfg.vocab, rules=rules)
+    step = transformer.make_train_step(cfg, rules, lr=SHARD_TRAIN_LR)
+    reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    _, _, m = step(state["params"], state["opt"], pipe.batch_at(at + 1))
+    out.update(resume=dict(
+        step=at, saved_equal=saved_equal, restored_equal=restored_equal,
+        loss=m["loss"].item(), ms=(time.perf_counter() - t0) * 1e3,
+        launches=read_launches()))
+    return out
+
+
+def shard_train_rank(rank, device, jobs, ckpt_dir):
+    """One rank of the [shard train] phase: each job's model in turn."""
+    out = {"rank": rank}
+    for job in jobs:
+        out[job["cfg"].name] = shard_train_model(rank, device, job, ckpt_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_train_single(cfg, params, batch_size: int, shards: int) -> dict:
+    """The one-device step on the same weights and batches: step 0's loss,
+    gradient norm and gradient leaves (the balance loss over the mesh's
+    ``shards`` token shards), and ms a step (steps 1-2 of three)."""
+    device = params["embed"].device
+    pipe = data.TokenPipeline(seed=0, batch=batch_size, seq_len=TRAIN_SEQ,
+                              vocab=cfg.vocab, device=device)
+    step = transformer.make_train_step(cfg, lr=SHARD_TRAIN_LR)
+    with _token_shard_balance(shards):
+        (loss, _), grads = tree.value_and_grad(transformer.loss_fn, params,
+                                               pipe.batch_at(0), cfg)
+    # The floor: the same gradient as a batch split takes it, from each
+    # half's rows (other matmul shapes, so other bf16 roundings).
+    halves = []
+    with _token_shard_balance(max(1, shards // 2)):
+        for half in (slice(0, batch_size // 2), slice(batch_size // 2, None)):
+            b = {k: v[half] for k, v in pipe.batch_at(0).items()}
+            halves.append(tree.value_and_grad(transformer.loss_fn, params, b,
+                                              cfg)[1])
+    floor = [(((a + c) / 2 - w).norm() / w.norm()).item()
+             for a, c, w in zip(tree.leaves(halves[0]), tree.leaves(halves[1]),
+                                tree.leaves(grads))]
+    del halves
+    with _token_shard_balance(shards):
+        p, opt, ms, metrics = params, optim.adamw_init(params), [], []
+        for i in range(3):
+            _sync(device)
+            t0 = time.perf_counter()
+            p, opt, m = step(p, opt, pipe.batch_at(i))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    del p, opt
+    # the balance loss of all the tokens at once, for the record
+    (plain, _), _ = tree.value_and_grad(transformer.loss_fn, params,
+                                        pipe.batch_at(0), cfg)
+    return dict(grads=grads, floor=floor, loss=metrics[0][0],
+                grad_norm=metrics[0][1],
+                vg_loss=loss.item(), step_ms=ms[1:], plain_loss=plain.item(),
+                losses=[m[0] for m in metrics])
+
+
+def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
+    """The sharded train step (``make_train_step(cfg, rules)``) over
+    ``SHARD_RANKS`` ranks sharing the card (gloo, collectives staged
+    through pinned host memory), each model's float32 weights drawn once
+    here and handed to the ranks through CUDA IPC: lm-100m at full width
+    and depth on (2, 2) (DP, FSDP and TP at once), ``SHARD_TRAIN_STEPS``
+    steps, a checkpoint after step ``SHARD_TRAIN_CRASH_AFTER`` and a
+    resume on (4, 1); granite-moe-3b-a800m at full width, 4 of its 32
+    layers, on (1, 4) (EP with the tokens cut over ``model``), capacity
+    factor E/k.  Returns (the ranks' launches summed, numbers)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    jobs, singles, numbers = [], {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, mesh_shape, batch, steps in SHARD_TRAIN_JOBS:
+        cfg = train.LM_100M if arch == "lm-100m" else configs.get(arch).full
+        if cfg.moe:
+            cfg = dataclasses.replace(
+                cfg, n_layers=SHARD_TRAIN_MOE_LAYERS,
+                capacity_factor=max(cfg.capacity_factor,
+                                    cfg.n_experts / cfg.top_k))
+        dp, tp = mesh_shape
+        params = transformer.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device,
+            dtype=torch.float32, ep=tp, vocab_pad_to=tp)
+        single = shard_train_single(cfg, params, batch,
+                                    dp * tp if cfg.moe else 1)
+        job = dict(cfg=cfg, mesh=mesh_shape, batch=batch, seq=TRAIN_SEQ,
+                   steps=steps, params=params, grads=single.pop("grads"))
+        if arch == "lm-100m":
+            job.update(crash_after=SHARD_TRAIN_CRASH_AFTER,
+                       resume=SHARD_TRAIN_RESUME)
+        jobs.append(job)
+        singles[cfg.name] = single
+        del params
+    _sync(device)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as ckpt:
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(shard_train_rank, SHARD_RANKS, jobs, ckpt,
+                               device=device.type,
+                               timeout_s=SHARD_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+    log(f"[shard train] {SHARD_RANKS} ranks spawned, both models trained "
+        f"and joined in {spawn_s:.3f} s; gloo collectives staged through "
+        f"pinned host memory, 4 ranks sharing one card (not 4 cards over "
+        f"NVLink) ({smi})")
+    launches = launch_counts()
+    for job in jobs:
+        cfg = job["cfg"]
+        dp, tp = job["mesh"]
+        single = singles[cfg.name]
+        want_bytes = shard_train_bytes(cfg, dp, tp, job["batch"], TRAIN_SEQ)
+        runs = [rank[cfg.name] for rank in ranks]
+        r0 = runs[0]
+        k7_want = launch_counts(
+            flash_attention=2 * cfg.n_layers * job["steps"],
+            flash_attention_bwd=cfg.n_layers * job["steps"])
+        for rank, r in zip(ranks, runs):
+            log(f"[shard train] {cfg.name} rank {rank['rank']} of "
+                f"(data {dp}, model {tp}): {r['weight_bytes']} B of "
+                f"weights; {job['steps']} steps of B {job['batch']} x S "
+                f"{TRAIN_SEQ}: ms a step "
+                + " ".join(f"{x:.3f}" for x in r["step_ms"])
+                + f" wall; {r['sent'][0]} B into collectives a step; peak "
+                f"device memory {r['peak_bytes']} B; K7 "
+                f"{r['launches']['flash_attention']}, K7b "
+                f"{r['launches']['flash_attention_bwd']} launches ({smi})")
+            if r["launches"] != k7_want or set(r["sent"]) != {want_bytes} \
+                    or r["losses"] != r0["losses"] \
+                    or not np.isfinite(r["losses"]).all():
+                raise AssertionError(
+                    f"[shard train] {cfg.name} rank {rank['rank']}: "
+                    f"launches {r['launches']} (want {k7_want}), bytes "
+                    f"{set(r['sent'])} (arithmetic {want_bytes}), losses "
+                    f"{r['losses']} against rank 0's {r0['losses']}")
+            for name in ("flash_attention", "flash_attention_bwd"):
+                launches[name] += r["launches"][name]
+        worst, path = max(r0["leaf_errs"])
+        leaf_tol = SHARD_TRAIN_LEAF_TOL[cfg.name]
+        log(f"[shard train] {cfg.name} step 0, each gathered gradient leaf "
+            f"against one device (relative L2; the one-device floor from "
+            f"two half batches in brackets): "
+            + ", ".join(f"{p} {e:.3e} ({f:.3e})" for (e, p), f in
+                        zip(r0["leaf_errs"], single["floor"])))
+        loss_gap = abs(r0["losses"][0] - single["loss"]) / single["loss"]
+        norm_gap = abs(r0["norms"][0] - single["grad_norm"]) \
+            / single["grad_norm"]
+        log(f"[shard train] {cfg.name} step 0 sharded against one device: "
+            f"loss {r0['losses'][0]:.6f} / {single['loss']:.6f} (gap "
+            f"{loss_gap:.3e}), gradient norm {r0['norms'][0]:.6f} / "
+            f"{single['grad_norm']:.6f} (gap {norm_gap:.3e}), worst leaf "
+            f"{path} at {worst:.3e} relative L2 (limits "
+            f"{SHARD_TRAIN_LOSS_TOL}, {SHARD_TRAIN_GNORM_TOL}, "
+            f"{leaf_tol}); one device's step 0 with the balance "
+            f"loss of all tokens at once: {single['plain_loss']:.6f}; one "
+            f"device ms a step "
+            + " ".join(f"{x:.3f}" for x in single["step_ms"])
+            + f"; bytes a step {want_bytes} by arithmetic = counted ({smi})")
+        if loss_gap > SHARD_TRAIN_LOSS_TOL \
+                or norm_gap > SHARD_TRAIN_GNORM_TOL \
+                or worst > leaf_tol or max(single["floor"]) > leaf_tol:
+            raise AssertionError(f"[shard train] {cfg.name} step 0 off the "
+                                 f"one-device step: {loss_gap}, {norm_gap},"
+                                 f" {path} {worst}, floor "
+                                 f"{max(single['floor'])}")
+        out = dict(mesh=job["mesh"], batch=job["batch"],
+                   bytes_a_step=want_bytes, loss_gap=loss_gap,
+                   norm_gap=norm_gap, worst_leaf=(path, worst),
+                   single=single,
+                   ranks=[{k: v for k, v in r.items() if k != "leaf_errs"}
+                          for r in runs])
+        if "resume" in job:
+            want_resume = launch_counts(
+                flash_attention=2 * cfg.n_layers,
+                flash_attention_bwd=cfg.n_layers)
+            base = r0["losses"][job["crash_after"] + 1]
+            for rank, r in zip(ranks, runs):
+                res = r["resume"]
+                gap = abs(res["loss"] - base) / base
+                log(f"[shard train] {cfg.name} rank {rank['rank']}: "
+                    f"checkpoint of step {res['step']} written in "
+                    f"{r['save_s']:.3f} s, restored on (data "
+                    f"{job['resume'][0]}, model {job['resume'][1]}) in "
+                    f"{r['restore_s']:.3f} s; the file equal to the state "
+                    f"saved: {res['saved_equal']}, the restored slices to "
+                    f"the file: {res['restored_equal']}; step "
+                    f"{res['step'] + 1} there: loss {res['loss']:.6f} "
+                    f"against {base:.6f} uninterrupted (gap {gap:.3e}, limit "
+                    f"{SHARD_TRAIN_LOSS_TOL}), {res['ms']:.3f} ms wall")
+                if not (res["saved_equal"] and res["restored_equal"]) \
+                        or gap > SHARD_TRAIN_LOSS_TOL \
+                        or res["launches"] != want_resume:
+                    raise AssertionError(f"[shard train] {cfg.name} resume "
+                                         f"on rank {rank['rank']}: {res}")
+                for name in ("flash_attention", "flash_attention_bwd"):
+                    launches[name] += res["launches"][name]
+        numbers[cfg.name] = out
+    numbers["spawn_s"] = spawn_s
+    del jobs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"shard_train": launches}, numbers
+
 
 def zoo_memory(tag: str) -> int:
     """Device memory allocated before a model, printed; peak reset."""
@@ -5520,6 +6052,8 @@ def main() -> int:
     # records (the card-to-host clock mapping drifts), and [shard] uses no
     # profiler; its launches join the kernels line here.
     shard_launches, numbers["shard"] = phase_shard(device, smi)
+    train_launches, numbers["shard_train"] = phase_shard_train(device, smi)
+    shard_launches.update(train_launches)
     for k in kernels:
         k["launches"] += sum(v[k["name"]] for v in shard_launches.values())
         k["launches_per_forward"].update(

@@ -31,7 +31,15 @@ under zlib, which writes 100 MB of them in 5.5 s on one CPU core, and
 lm-100m's {params, opt} hold 1.2 GB.
 
 ``CheckpointManager.save_async`` copies the tree to host memory on the
-caller's thread and writes it in the background.
+caller's thread and writes it in the background.  A manager with
+``rules`` and ``specs`` is one rank's (every rank makes one and calls it
+alike): ``save`` / ``save_async`` gather every leaf on every rank and rank
+0 writes, in the background for ``save_async``; ``wait`` also waits for
+every rank; ``restore_latest`` gives each rank its slices under the
+current mesh (a restart on another mesh resumes: the reference's elastic
+re-mesh).  Its ``like`` holds the current mesh's full shapes (its expert
+and vocab padding), so a checkpoint padded otherwise raises
+``ValueError``, as the reference's restore does.
 """
 
 from __future__ import annotations
@@ -65,6 +73,28 @@ def _flatten(t: Any) -> dict[str, np.ndarray]:
     return {path: _host(leaf) for path, leaf in tree.flatten_with_paths(t)}
 
 
+def _writer(rules) -> bool:
+    return rules is None or rules.comm(tuple(rules.mesh.axis_names)) \
+        .index == 0
+
+
+def _barrier(rules) -> None:
+    rules.comm(tuple(rules.mesh.axis_names)).psum(
+        torch.zeros(1, device=rules.device))
+
+
+def _gathered_host(t: Any, rules, specs: Any) -> Any:
+    """Each leaf of ``t`` put back together from the ranks' slices (every
+    rank takes part, a leaf at a time), as host arrays on rank 0; None on
+    the other ranks."""
+    first = _writer(rules)
+    out = []
+    for x, s in zip(tree.leaves(t), tree.leaves(specs)):
+        full = sharding.gather(x, s, rules)
+        out.append(_host(full) if first else None)
+    return tree.unflatten(t, out) if first else None
+
+
 def save(directory: str | os.PathLike, step: int, t: Any, rules=None,
          specs: Any = None) -> str:
     """Atomically write one checkpoint.  Returns the final path.  With
@@ -72,14 +102,9 @@ def save(directory: str | os.PathLike, step: int, t: Any, rules=None,
     leaves are gathered, rank 0 writes, and every rank returns once the
     file is in place."""
     if rules is not None:
-        full = [sharding.gather(x, s, rules)
-                for x, s in zip(tree.leaves(t), tree.leaves(specs))]
-        world = rules.comm(tuple(rules.mesh.axis_names))
-        path = None
-        if world.index == 0:
-            path = save(directory, step, tree.unflatten(t, full))
-        del full
-        world.psum(torch.zeros(1, device=rules.device))    # a barrier
+        host = _gathered_host(t, rules, specs)
+        path = save(directory, step, host) if host is not None else None
+        _barrier(rules)
         return path or str(pathlib.Path(directory) / f"step_{step}.npz")
     d = pathlib.Path(directory)
     d.mkdir(parents=True, exist_ok=True)
@@ -134,8 +159,14 @@ def restore(directory: str | os.PathLike, step: int, like: Any,
 
 @dataclasses.dataclass
 class CheckpointManager:
+    """Checkpoints of one job under ``directory``, the last ``keep``
+    kept.  With ``rules`` and ``specs`` (the spec tree of the trees it
+    saves: e.g. ``{"params": specs, "opt": OptState(P(), specs,
+    specs)}``) it is one rank's manager (see the module's docstring)."""
     directory: str
     keep: int = 3
+    rules: Any = None
+    specs: Any = None
 
     def __post_init__(self):
         self._thread: threading.Thread | None = None
@@ -143,16 +174,23 @@ class CheckpointManager:
 
     # ---- sync ----------------------------------------------------------
     def save(self, step: int, t: Any) -> str:
-        path = save(self.directory, step, t)
-        self._retain()
+        path = save(self.directory, step, t, self.rules, self.specs)
+        if _writer(self.rules):
+            self._retain()
         return path
 
     # ---- async ---------------------------------------------------------
     def save_async(self, step: int, t: Any) -> None:
         """Copy to host now, write in the background (one write in flight
-        at a time; an error surfaces at the next ``wait``)."""
+        at a time; an error surfaces at the next ``wait``).  With
+        ``rules``: gathered on every rank now, written by rank 0."""
         self.wait()
-        host = tree.unflatten(t, [_host(x) for x in tree.leaves(t)])
+        if self.rules is not None:
+            host = _gathered_host(t, self.rules, self.specs)
+            if host is None:
+                return
+        else:
+            host = tree.unflatten(t, [_host(x) for x in tree.leaves(t)])
 
         def work():
             try:
@@ -165,9 +203,13 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
+        """Until the write in flight is done (with ``rules``: on every
+        rank, so that each may then exit)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.rules is not None:
+            _barrier(self.rules)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -178,11 +220,14 @@ class CheckpointManager:
 
     def restore_latest(self, like: Any,
                        device: str | torch.device | None = None):
-        """(step, tree) of the newest checkpoint, or (None, None)."""
+        """(step, tree) of the newest checkpoint, or (None, None).  With
+        ``rules``: this rank's slices under the current mesh, ``like``
+        holding the full shapes (``sharding.full_like``)."""
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, restore(self.directory, step, like, device)
+        return step, restore(self.directory, step, like, device,
+                             rules=self.rules, specs=self.specs)
 
     def _retain(self) -> None:
         d = pathlib.Path(self.directory)

@@ -8,7 +8,9 @@ Counterpart of ``repro.data.pipeline``:
   restarted from step ``i`` regenerates the identical stream with no
   loader state in the checkpoint;
 * **placement** — with ``device`` set, each array becomes a tensor on that
-  device (the reference's ``sharding``); without it the batch stays numpy;
+  device (the reference's ``sharding``); without it the batch stays numpy.
+  ``TokenPipeline(rules=)`` draws the same batch and moves only this
+  rank's rows (``rules.batch_spec``) to its device (default: the rank's);
 * **prefetch** — a background thread keeps ``prefetch`` batches ahead.
 """
 
@@ -75,16 +77,33 @@ def _place(arrays: dict, device) -> dict:
 
 @dataclasses.dataclass
 class TokenPipeline(_Base):
-    """LM batches: {tokens, labels} (B, S) int32, labels = next-token."""
+    """LM batches: {tokens, labels} (B, S) int32, labels = next-token.
+    With ``rules`` (a mesh's ``Rules``) each batch is this rank's rows of
+    that batch, as a sharded train step takes them: B must divide over
+    every batch axis."""
     batch: int = 8
     seq_len: int = 128
     vocab: int = 256
     device: Any = None
+    rules: Any = None
+
+    def __post_init__(self):
+        if self.rules is not None:
+            n = self.rules.dp
+            if self.batch % n:
+                raise ValueError(f"batch {self.batch} does not split over "
+                                 f"the batch axes {self.rules.batch} ({n})")
+            if self.device is None:
+                self.device = self.rules.device
 
     def batch_at(self, step: int) -> dict:
         rng = np.random.default_rng((self.seed, step))
         toks = rng.integers(0, self.vocab,
                             (self.batch, self.seq_len + 1), dtype=np.int32)
+        if self.rules is not None:
+            rows = self.batch // self.rules.dp
+            lo = self.rules.coordinate(self.rules.batch) * rows
+            toks = toks[lo:lo + rows]
         out = {"tokens": np.ascontiguousarray(toks[:, :-1]),
                "labels": np.ascontiguousarray(toks[:, 1:])}
         return _place(out, self.device)

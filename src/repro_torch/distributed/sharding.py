@@ -36,6 +36,7 @@ the single-device forward's bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Sequence
 
 import torch
@@ -96,18 +97,35 @@ class Collective:
     ``size`` ranks, this one at ``index``.  Over one rank each is the
     identity.  ``staged``: the group's backend cannot read CUDA memory
     (gloo on ranks that share a card), so a CUDA tensor goes through
-    pinned host memory and back."""
+    pinned host memory and back.
+
+    These are the forward ops alone: autograd does not see them.  A tensor
+    that requires a gradient (with grad mode on) is refused, naming the
+    differentiable op of this module to use instead (``copy_to_model``,
+    ``reduce_from_model``, ``gather_fsdp``, ``gather_model``,
+    ``split_model``, ``all_to_all``, ``pmean``), so that no path can drop
+    a gradient silently."""
 
     # Bytes of the tensors this process has handed to collectives of more
-    # than one rank (each call's input once), for the smoke's accounting.
+    # than one rank (each call's input once), and the count of those
+    # calls, for the smoke's accounting and the remat tests.
     payload_bytes = 0
+    calls = 0
 
     def __init__(self, group, size: int, index: int, staged: bool = False):
         self.group, self.size, self.index = group, size, index
         self.staged = staged
 
+    @staticmethod
+    def _refuse_grad(x: torch.Tensor, op: str) -> None:
+        if x.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"Collective.{op} on a tensor that requires grad: autograd "
+                f"would not see the collective; use {_DIFFERENTIABLE[op]}")
+
     def _host(self, x: torch.Tensor) -> torch.Tensor:
         Collective.payload_bytes += x.numel() * x.element_size()
+        Collective.calls += 1
         x = x.contiguous()
         if not (self.staged and x.is_cuda):
             return x
@@ -129,7 +147,8 @@ class Collective:
         return h if h.device == like.device else h.to(like.device,
                                                       non_blocking=True)
 
-    def _reduce(self, x, op) -> torch.Tensor:
+    def _reduce(self, x, op, name: str) -> torch.Tensor:
+        self._refuse_grad(x, name)
         if self.size == 1:
             return x
         h = self._host(x)
@@ -139,17 +158,18 @@ class Collective:
         return self._back(h, x)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.SUM)
+        return self._reduce(x, dist.ReduceOp.SUM, "psum")
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MAX)
+        return self._reduce(x, dist.ReduceOp.MAX, "pmax")
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
-        return self.psum(x) / self.size
+        return self._reduce(x, dist.ReduceOp.SUM, "pmean") / self.size
 
     def all_gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``axis`` in rank order
         (``lax.all_gather(..., tiled=True)``)."""
+        self._refuse_grad(x, "all_gather")
         if self.size == 1:
             return x
         h = self._host(x)
@@ -157,12 +177,25 @@ class Collective:
         dist.all_gather(list(buf.unbind(0)), h, group=self.group)
         return torch.cat(self._back(buf, x).unbind(0), dim=axis)
 
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """x (size, ...) -> this rank's block summed over the ranks: the
+        transpose of a gather.  One ``all_to_all`` of the blocks, then a
+        sum in rank order (gloo's reduce-scatter is not in every torch)."""
+        self._refuse_grad(x, "reduce_scatter")
+        if self.size == 1:
+            return x[0]
+        h = self._host(x)
+        out = self._like(h, h.shape)
+        dist.all_to_all_single(out, h, group=self.group)
+        return self._back(out, x).sum(0)
+
     def all_to_all(self, x: torch.Tensor, split_axis: int,
                    concat_axis: int) -> torch.Tensor:
         """``lax.all_to_all(x, split_axis, concat_axis, tiled=True)``:
         ``split_axis`` cut into ``size`` blocks, block j sent to rank j,
         the blocks received concatenated along ``concat_axis`` in rank
         order."""
+        self._refuse_grad(x, "all_to_all")
         if self.size == 1:
             return x
         n = self.size
@@ -183,6 +216,256 @@ class Collective:
         merged = shape[:concat_axis] + [n * shape[concat_axis + 1]] \
             + shape[concat_axis + 2:]
         return out.reshape(merged)
+
+
+_DIFFERENTIABLE = {
+    "psum": "reduce_from_model (psum forward, identity backward) or "
+            "copy_to_model (identity forward, psum backward)",
+    "pmax": "it on a detached tensor (a max shift has no gradient)",
+    "pmean": "pmean (the mean forward, its share backward)",
+    "all_gather": "gather_fsdp (reduce-scatter backward) or gather_model "
+                  "(the rank's own block backward)",
+    "reduce_scatter": "gather_fsdp",
+    "all_to_all": "all_to_all (the inverse all_to_all backward)",
+}
+
+
+# --------------------------------------------------------------------------
+# Differentiable collectives
+# --------------------------------------------------------------------------
+#
+# The port runs one process a rank, so every collective that XLA inserts
+# into the reference's gradient is written out here.  Every rank's loss is
+# the global loss, so each op's backward is the transpose of its forward
+# given the cotangent it really receives: a tensor replicated over
+# ``model`` has the same, whole cotangent on every model rank; a tensor
+# that differs by ``data`` rank (each rank's own batch rows) has its own.
+# Each op takes a ``Collective`` (or anything with its methods), never a
+# tensor's gradient through ``Collective`` itself.
+
+def _sum_wide(comm, x: torch.Tensor) -> torch.Tensor:
+    """psum in float32, rounded back once to x's dtype."""
+    if x.dtype in (torch.float32, torch.float64):
+        return comm.psum(x)
+    return comm.psum(x.float()).to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_wide(ctx.comm, g), None
+
+
+def copy_to_model(x: torch.Tensor, comm) -> torch.Tensor:
+    """Identity forward, psum backward (in float32): the input of a
+    column-parallel product (and the vocab-parallel head), whole on every
+    rank, whose ranks each take a part of its cotangent.  Also a
+    replicated parameter read by rank-local work (``q_norm`` on the
+    rank's heads, the router on the rank's tokens)."""
+    if comm.size == 1:
+        return x
+    return _CopyToModel.apply(x, comm)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_model(x: torch.Tensor, comm) -> torch.Tensor:
+    """psum forward, identity backward: a sum of the ranks' parts whose
+    result every rank holds and reads alike (a row-parallel sum, the
+    masked embedding lookup, the vocab-parallel CE's partials)."""
+    if comm.size == 1:
+        return x
+    return _ReduceFrom.apply(x, comm)
+
+
+# The loss's sums over the batch axes: each rank's rows in, the global sum
+# out on every rank, whose cotangent is each rank's own.
+psum = reduce_from_model
+
+
+class _Pmean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, copies):
+        ctx.share = copies / comm.size
+        return comm.psum(x) / comm.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.share, None, None
+
+
+def pmean(x: torch.Tensor, comm, copies: int = 1) -> torch.Tensor:
+    """The mean over ``comm``'s ranks; backward each rank's share of the
+    cotangent.  ``copies``: how many ranks hold the same value (a value
+    replicated over ``model`` is averaged ``tp`` times over; its
+    cotangent is the share of one of the distinct values, ``copies /
+    size``)."""
+    if comm.size == 1:
+        return x
+    return _Pmean.apply(x, comm, copies)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis, ctx.n = comm, axis, x.shape[axis]
+        return comm.all_gather(x, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.axis, ctx.comm.index * ctx.n, ctx.n), None,
+                None)
+
+
+def gather_model(x: torch.Tensor, comm, axis: int = 0) -> torch.Tensor:
+    """all_gather forward; backward the rank's own block of the cotangent:
+    a gather whose result every rank reads alike (weights gathered for
+    work run whole on every model rank, the MoE's output)."""
+    if comm.size == 1:
+        return x
+    return _GatherModel.apply(x, comm, axis % x.dim())
+
+
+class _SplitModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        n = x.shape[axis] // comm.size
+        return x.narrow(axis, comm.index * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, axis=ctx.axis), None, None
+
+
+def split_model(x: torch.Tensor, comm, axis: int = 0) -> torch.Tensor:
+    """The rank's block of x forward (x whole on every rank); all_gather
+    backward, so that x's cotangent is whole again."""
+    if comm.size == 1:
+        return x
+    if x.shape[axis] % comm.size:
+        raise ValueError(f"dim {axis} of {tuple(x.shape)} does not split "
+                         f"over {comm.size}")
+    return _SplitModel.apply(x, comm, axis % x.dim())
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, split_axis, concat_axis):
+        ctx.comm, ctx.axes = comm, (split_axis, concat_axis)
+        return comm.all_to_all(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (ctx.comm.all_to_all(g.contiguous(), concat_axis, split_axis),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, comm, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``Collective.all_to_all`` forward, the inverse all_to_all
+    backward."""
+    if comm.size == 1:
+        return x
+    return _AllToAll.apply(x, comm, split_axis, concat_axis)
+
+
+class _GatherFsdp(torch.autograd.Function):
+    """Leaves all_gathered along their dims in one flat collective; the
+    backward reduce-scatters their cotangents in one flat collective."""
+
+    @staticmethod
+    def forward(ctx, comm, dims, *xs):
+        ctx.comm, ctx.dims = comm, dims
+        ctx.shapes = [x.movedim(d, 0).shape for x, d in zip(xs, dims)]
+        flat = torch.cat([x.movedim(d, 0).reshape(-1)
+                          for x, d in zip(xs, dims)])
+        full = comm.all_gather(flat, axis=0).view(comm.size, -1)
+        out, lo = [], 0
+        for shape, d in zip(ctx.shapes, dims):
+            k = math.prod(shape)
+            part = full[:, lo:lo + k].reshape(comm.size * shape[0],
+                                               *shape[1:])
+            out.append(part.movedim(0, d).contiguous())
+            lo += k
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = ctx.comm.size
+        flat = torch.cat([g.movedim(d, 0).reshape(n, -1)
+                          for g, d in zip(gs, ctx.dims)], dim=1)
+        mine = ctx.comm.reduce_scatter(flat)
+        out, lo = [], 0
+        for shape, d in zip(ctx.shapes, ctx.dims):
+            k = math.prod(shape)
+            out.append(mine[lo:lo + k].reshape(shape).movedim(0, d))
+            lo += k
+        return (None, None, *out)
+
+
+def gather_fsdp(xs: Sequence[torch.Tensor], dims: Sequence[int | None],
+                comm) -> list[torch.Tensor]:
+    """Each ``xs[i]`` all_gathered along ``dims[i]`` over ``comm`` (None:
+    left as it is), one flat collective a dtype; backward the transpose,
+    a reduce-scatter (sum) of the cotangents: each rank's cotangent is its
+    own rows' part of the gradient.  FSDP's gather of a layer's leaves a
+    layer at a time, and any gather whose ranks read different parts of
+    the result (``wk`` / ``wv`` gathered for the KV heads each rank's q
+    heads read)."""
+    out = list(xs)
+    if comm.size == 1:
+        return out
+    by_dtype: dict = {}
+    for i, (x, d) in enumerate(zip(xs, dims)):
+        if d is not None:
+            by_dtype.setdefault(x.dtype, []).append(i)
+    for idx in by_dtype.values():
+        got = _GatherFsdp.apply(comm, tuple(dims[i] % xs[i].dim()
+                                            for i in idx),
+                                *(xs[i] for i in idx))
+        for i, t in zip(idx, got):
+            out[i] = t
+    return out
+
+
+@torch.no_grad()
+def sync_grads(grads: Any, specs: Any, rules) -> Any:
+    """Sum each gradient leaf over the batch axes its spec does not cut it
+    on (a leaf replicated over them holds only its rank's rows' part;
+    a leaf cut over ``fsdp`` was summed by ``gather_fsdp``'s backward):
+    one flat psum for all the leaves of one set of axes and one dtype."""
+    leaves, spec_leaves = tree.leaves(grads), tree.leaves(specs)
+    out = list(leaves)
+    groups: dict = {}
+    for i, (g, s) in enumerate(zip(leaves, spec_leaves)):
+        cut = {a for e in s for a in _axes(e)}
+        axes = tuple(a for a in rules.batch if a not in cut)
+        if axes and rules.axis_size(axes) > 1:
+            groups.setdefault((axes, g.dtype), []).append(i)
+    for (axes, _), idx in groups.items():
+        flat = rules.comm(axes).psum(torch.cat([leaves[i].reshape(-1)
+                                                for i in idx]))
+        lo = 0
+        for i in idx:
+            k = leaves[i].numel()
+            out[i] = flat[lo:lo + k].view_as(leaves[i])
+            lo += k
+    return tree.unflatten(grads, out)
 
 
 # --------------------------------------------------------------------------
@@ -313,6 +596,16 @@ def gather(local: torch.Tensor, spec, rules: Rules,
             continue
         out = rules.comm(names).all_gather(out, axis=dim)
     return out
+
+
+def full_like(local: Any, specs: Any, rules: Rules) -> Any:
+    """Meta tensors of the full shapes (and the dtypes) of which ``local``
+    holds this rank's slices under ``specs``: the ``like`` of an elastic
+    restore, at the current mesh's padding."""
+    def one(x, spec):
+        shape = [n * rules.axis_size(_axes(e)) for n, e in zip(x.shape, spec)]
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+    return tree.tree_map(one, local, specs)
 
 
 def shard_tree(full: Any, specs: Any, rules: Rules) -> Any:

@@ -20,6 +20,7 @@ axis, never a gather of the cache).
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -198,13 +199,69 @@ def resize_grid(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# The row-parallel product
+# --------------------------------------------------------------------------
+
+# The collectives ``row_parallel`` has been handed, by the handle its op
+# takes (an op's schema holds no Python object); weak, so that a mesh's
+# collectives go when their last user does.
+_ROW_COMMS: "weakref.WeakValueDictionary[int, object]" = \
+    weakref.WeakValueDictionary()
+
+
+@torch.library.custom_op("repro_torch::row_parallel", mutates_args=())
+def _row_parallel_op(a: torch.Tensor, w: torch.Tensor,
+                     comm: int) -> torch.Tensor:
+    w = w.to(COMPUTE_DTYPE)
+    if a.is_cuda:
+        p = torch.mm(a, w, out_dtype=torch.float32)
+    else:
+        p = a.float() @ w.float()
+    return _ROW_COMMS[comm].psum(p).to(COMPUTE_DTYPE)
+
+
+def _row_parallel_setup(ctx, inputs, output):
+    a, w, _ = inputs
+    ctx.save_for_backward(a, w)
+
+
+def _row_parallel_backward(ctx, g):
+    a, w = ctx.saved_tensors
+    g = g.to(COMPUTE_DTYPE)
+    return g @ w.to(COMPUTE_DTYPE).T, (a.T @ g).to(w.dtype), None
+
+
+_row_parallel_op.register_autograd(_row_parallel_backward,
+                                   setup_context=_row_parallel_setup)
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, comm) -> torch.Tensor:
+    """``a @ w`` (to bf16) with w's rows, a's columns, cut over ``comm``'s
+    ranks: each rank's bf16 product accumulated and kept in float32,
+    summed over the ranks, and rounded to bf16 once, as the one-device
+    product rounds its float32 accumulation (the CPU's matmul has no
+    bf16-in, float32-out form, so there the operands are widened: bf16
+    products are exact in float32, the same function).  The backward is
+    the two bf16 products of the cotangent, which every rank holds whole,
+    as autograd of the one-device product gives them (and no collective:
+    the sum's transpose on a cotangent replicated over the ranks).  One
+    op (``repro_torch::row_parallel``), so that the "dots" policy keeps
+    its output and a layer's recompute makes no second sum."""
+    _ROW_COMMS[id(comm)] = comm
+    a2 = a.reshape(-1, a.shape[-1])
+    return _row_parallel_op(a2, w, id(comm)).reshape(*a.shape[:-1], -1)
+
+
+# --------------------------------------------------------------------------
 # Layer stacking with per-layer remat
 # --------------------------------------------------------------------------
 
 #: The matrix products "dots" keeps: whatever ``@``, ``einsum`` and
-#: ``F.linear`` lower to.
+#: ``F.linear`` lower to, and the row-parallel product (its sum over the
+#: mesh included).
 DOT_OPS = frozenset({torch.ops.aten.mm, torch.ops.aten.addmm,
-                     torch.ops.aten.bmm, torch.ops.aten.baddbmm})
+                     torch.ops.aten.bmm, torch.ops.aten.baddbmm,
+                     torch.ops.repro_torch.row_parallel})
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 
 
@@ -124,8 +125,9 @@ def _moe_body(x, router, wg, wu, wd, *, n_real: int, top_k: int,
         y = _expert_ffn(buckets, wg, wu, wd, act)
     else:
         # EP exchange: keep E_pad/ep experts, receive from all ep peers.
-        recv = ep.all_to_all(buckets, 0, 1)            # (El, ep*C, D)
-        y = ep.all_to_all(_expert_ffn(recv, wg, wu, wd, act), 1, 0)
+        recv = sharding.all_to_all(buckets, ep, 0, 1)  # (El, ep*C, D)
+        y = sharding.all_to_all(_expert_ffn(recv, wg, wu, wd, act), ep, 1,
+                                0)
 
     back = y.reshape(e_pad * cap, d)
     picked = back.index_select(0, dest.clamp_max(e_pad * cap - 1))
@@ -141,15 +143,26 @@ def _moe_body(x, router, wg, wu, wd, *, n_real: int, top_k: int,
 
 
 def _moe_local(x, router, wg, wu, wd, *, n_real: int, top_k: int,
-               cap: int, ep, all_axes, act: str):
+               cap: int, ep, all_axes, act: str, copies: int = 1):
     """The per-shard EP body, the reference's ``_moe_local``: x (T_local,
     D) this shard's tokens, router (D, E_pad) whole, wg/wu/wd the rank's
     E_pad/ep experts; ``ep`` the collectives over the model axis,
     ``all_axes`` over every axis.  Returns (out (T_local, D), aux averaged
-    over every shard)."""
+    over every shard; ``copies`` shards hold each value alike)."""
     out, aux = _moe_body(x, router, wg, wu, wd, n_real=n_real, top_k=top_k,
                          cap=cap, act=act, ep=ep)
-    return out, all_axes.pmean(aux)
+    return out, sharding.pmean(aux, all_axes, copies)
+
+
+class _ShareGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, share):
+        ctx.share = share
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.share, None
 
 
 def moe_apply(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
@@ -164,7 +177,15 @@ def moe_apply(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
     With ``rules``: expert-parallel over ``rules.model``; x is this rank's
     rows of the tokens cut over the batch axes of ``token_axes`` (whole
     over ``model``), the expert weights the rank's E_pad/ep experts, and
-    the output comes back in x's layout."""
+    the output comes back in x's layout.  Differentiable (each rank's
+    loss the global one): the tokens are cut over ``model`` by
+    ``split_model`` and the output gathered by ``gather_model``; the
+    router, read on the rank's tokens alone there, passes through
+    ``copy_to_model``.  Where the tokens are not cut over ``model``,
+    every model rank routes the same tokens, so each expert receives
+    ``ep`` alike copies of its bucket: its weights take 1/ep of the
+    summed cotangent, and the balance loss, alike on the model ranks,
+    takes the share of one copy."""
     e_pad = router.shape[1]
     if rules is None:
         cap = capacity(x.shape[0], top_k, e_pad, capacity_factor)
@@ -182,19 +203,21 @@ def moe_apply(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
         if x.shape[0] % ep:
             raise ValueError(f"{x.shape[0]} tokens do not split over "
                              f"{rules.model} ({ep})")
-        t_local = x.shape[0] // ep
-        x = x[model.index * t_local:(model.index + 1) * t_local]
+        x = sharding.split_model(x, model, 0)
+        router = sharding.copy_to_model(router, model)
+    elif ep > 1 and torch.is_grad_enabled():
+        wg, wu, wd = (_ShareGrad.apply(w, 1.0 / ep) for w in (wg, wu, wd))
     cap = capacity(x.shape[0], top_k, e_pad, capacity_factor)
     if want_aux:
         out, aux = _moe_local(
             x, router, wg, wu, wd, n_real=n_experts, top_k=top_k, cap=cap,
             ep=model, all_axes=rules.comm(tuple(rules.mesh.axis_names)),
-            act=act)
+            act=act, copies=1 if split else ep)
     else:
         out, aux = _moe_body(x, router, wg, wu, wd, n_real=n_experts,
                              top_k=top_k, cap=cap, act=act, ep=model)[0], None
     if split:
-        out = model.all_gather(out, axis=0)
+        out = sharding.gather_model(out, model, 0)
     return out, aux
 
 

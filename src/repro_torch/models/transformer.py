@@ -40,11 +40,14 @@ sharded, one process a rank: ``param_specs`` and ``cache_specs`` are the
 reference's layouts, each rank holds exactly the slice its spec names
 (``init_params`` / ``params_from_numpy`` with ``rules`` return it), and
 the reference's GSPMD partitioning is written out as explicit collectives
-(see "Sharded serving" below).  Tokens go in whole on every rank, and the
-logits come out whole on every rank; the KV cache stays the rank's
-shard.  ``rules=None`` is the one-device path, unchanged.
+(see ``_Sharded``).  Tokens go in whole on every rank, and the logits
+come out whole on every rank; the KV cache stays the rank's shard.
+``loss_fn`` and ``make_train_step`` take ``rules`` too: each rank its
+slices and its rows of the batch, every gradient collective a
+differentiable op of ``distributed.sharding``.  ``rules=None`` is the
+one-device path, unchanged.
 
-Not ported yet: the dry-run analytics, and the sharded train step.
+Not ported yet: the dry-run analytics.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import P, gather, local_shard
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import P, local_shard
 from repro_torch.models import layers, moe as moe_lib
 from repro_torch.optim import adamw_update
 from repro_torch.tree import value_and_grad
@@ -399,15 +403,19 @@ def _qkv(hnorm, lp, cfg: LMConfig, positions):
 
 
 def _attention(x, lp, cfg: LMConfig, positions, *, kv_index=None,
-               out_proj=None):
+               out_proj=None, col_in=None):
     """Causal self-attention over the full sequence (prefill).  Returns
     (x + attention, k, v); k and v are what the cache keeps.  On one
     device the reference takes one q chunk of the whole sequence and a
     masked KV scan; K7 computes the same function on its triangle.  A
     rank of a mesh gives the KV heads its q heads read (``kv_index``,
-    into k's heads) and its out-projection (``out_proj(o, lp)``)."""
+    into k's heads), its out-projection (``out_proj(o, lp)``) and what
+    the normed input of its column-parallel q / k / v products passes
+    through (``col_in``: ``copy_to_model``)."""
     b, s, _ = x.shape
     hnorm = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if col_in is not None:
+        hnorm = col_in(hnorm)
     q, k, v = _qkv(hnorm, lp, cfg, positions)
     ka, va = k, v
     if kv_index is not None:
@@ -430,15 +438,18 @@ def _mlp_hidden(hnorm, lp, cfg: LMConfig):
 
 
 def _mlp_or_moe(x, lp, cfg: LMConfig, *, down=None, experts=None,
-                want_aux: bool = True):
+                want_aux: bool = True, col_in=None):
     """x + the MLP or the MoE layer of the normed x; returns (x, aux), aux
     None for a dense MLP (and where ``want_aux`` is false).  An MoE layer
     routes the call's tokens flat: B·S of them over (B, S, D), B over a
     decode step's (B, D).  A rank of a mesh gives the MLP's down
-    projection (``down(h, w_down)``) and the MoE layer
-    (``experts(tokens (T, D), lp) -> (out, aux)``)."""
+    projection (``down(h, w_down)``), what the normed input of its
+    column-parallel products passes through (``col_in``), and the MoE
+    layer (``experts(tokens (T, D), lp) -> (out, aux)``)."""
     hnorm = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if not cfg.moe:
+        if col_in is not None:
+            hnorm = col_in(hnorm)
         h = _mlp_hidden(hnorm, lp, cfg)
         return x + (h @ lp["w_down"].to(layers.COMPUTE_DTYPE) if down is None
                     else down(h, lp["w_down"])), None
@@ -475,18 +486,30 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-                   rules=None) -> tuple[torch.Tensor, torch.Tensor]:
+                   rules=None, *, local_rows: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers + final norm.  Returns (x (B, S, D), aux); aux
     is the MoE balance loss averaged over the layers, 0 for a dense
     model.  Differentiable: under autograd each layer is checkpointed
     (``layers.scan_layers`` under ``cfg.remat_policy``) and attention runs
-    through K7, again in the recompute, and its backward, K7b.  With
-    ``rules``: the rank's batch rows of x (whole over ``model``), aux
-    averaged over every shard too (``moe_apply``)."""
-    plan = _plan(cfg, rules)
+    through K7, again in the recompute, and its backward, K7b.
+
+    With ``rules``: the rank's batch rows of x (whole over ``model``), aux
+    averaged over every shard too (``moe_apply``).  ``tokens`` are whole
+    on every rank, or with ``local_rows`` the rank's rows already
+    (``batch_spec``: the train step's batch).  Differentiable there too:
+    under autograd every collective runs through the differentiable ops
+    of ``distributed.sharding`` (FSDP gathers whose backward
+    reduce-scatters, ``copy_to_model`` into each column-parallel product,
+    the row-parallel sums, the MoE's two ``all_to_all``), so the gradient
+    of each rank's leaves is its part of the one-device gradient but for
+    the sums over the batch axes (``sharding.sync_grads``)."""
+    plan = _plan(cfg, rules, local_rows)
     b, s = tokens.shape
     x = plan.embed(params, tokens)
     positions = torch.arange(s, device=tokens.device)[None]
+    if local_rows:
+        b *= rules.dp
 
     def layer_body(x, lp):
         lp = plan.layer(lp)
@@ -537,53 +560,102 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                vocab: int, z_loss: float = 1e-4,
-               n_chunks: int = 8) -> torch.Tensor:
+               n_chunks: int = 8, rules=None) -> torch.Tensor:
     """Sequence-chunked head matmul + cross-entropy, the reference's: the
     head and the CE are taken a chunk of positions at a time (the chunk
     count cut down until it divides S), padded vocab columns masked to
-    -1e30, the sums divided by B·S at the end."""
+    -1e30, the sums divided by B·S at the end.
+
+    With ``rules``, vocab-parallel: x and ``labels`` are the rank's batch
+    rows (x whole over ``model``), ``head`` the rank's vocab columns
+    (``param_specs`` cuts them over ``model``), x through
+    ``copy_to_model``.  Each chunk takes the
+    ``pmax`` of its max (no gradient: the shift cancels), one ``psum`` of
+    Σ exp and of the gold logit (a label outside the rank's columns reads
+    0), padded columns masked at their global index; the sums are summed
+    over the batch axes and divided by the global B·S.  The full logits
+    are never gathered."""
     b, s, _ = x.shape
     width = head.shape[1]
     n_chunks = max(1, min(n_chunks, s))
     while s % n_chunks:
         n_chunks -= 1
     cs = s // n_chunks
-    pad_mask = (torch.arange(width, device=x.device) < vocab
-                if width != vocab else None)
+    model = rules.comm(rules.model) if rules is not None else None
+    lo = model.index * width if model is not None else 0
+    if model is not None:
+        x = sharding.copy_to_model(x, model)
+    full = width * (model.size if model is not None else 1)
+    pad_mask = (lo + torch.arange(width, device=x.device) < vocab
+                if full != vocab else None)
     total = torch.zeros((), device=x.device)
     ztotal = torch.zeros((), device=x.device)
     for i in range(n_chunks):
         lg = (x[:, i * cs:(i + 1) * cs] @ head).float()
         if pad_mask is not None:
             lg = torch.where(pad_mask, lg, -1e30)
-        lse = _log_partition(lg)
         lc = labels[:, i * cs:(i + 1) * cs].long()
-        gold = torch.take_along_dim(lg, lc[..., None], dim=-1)[..., 0]
+        if model is None:
+            lse = _log_partition(lg)
+            gold = torch.take_along_dim(lg, lc[..., None], dim=-1)[..., 0]
+        else:
+            m = model.pmax(lg.detach().amax(-1, keepdim=True))
+            idx = lc - lo
+            inside = (idx >= 0) & (idx < width)
+            gold = torch.take_along_dim(lg, idx.clamp(0, width - 1)[..., None],
+                                        dim=-1)[..., 0]
+            both = sharding.reduce_from_model(torch.stack(
+                [torch.exp(lg - m).sum(-1), torch.where(inside, gold, 0)]),
+                model)
+            lse = m[..., 0] + torch.log(both[0])
+            gold = both[1]
         total = total + (lse - gold).sum()
         ztotal = ztotal + lse.square().sum()
     n_tok = b * s
+    if rules is not None:
+        batch = rules.comm(rules.batch)
+        total, ztotal = sharding.psum(torch.stack([total, ztotal]), batch)
+        n_tok *= batch.size
     return total / n_tok + z_loss * ztotal / n_tok
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+def loss_fn(params: dict, batch: dict, cfg: LMConfig, rules=None,
             aux_weight: float = 0.01):
     """(CE + ``aux_weight`` · MoE balance loss, {"ce", "aux"}) of one batch
-    of ``tokens`` and next-token ``labels`` (B, S)."""
-    x, aux = forward_hidden(params, batch["tokens"], cfg)
-    ce = chunked_ce(x, _head(params, cfg), batch["labels"], cfg.vocab)
+    of ``tokens`` and next-token ``labels`` (B, S).  With ``rules``:
+    the rank's ``param_specs`` slices and the rank's rows of the batch
+    (``batch_spec`` cuts a global batch that every batch axis divides:
+    ``TokenPipeline(rules=)`` places them); the loss is the global one,
+    the same on every rank (vocab-parallel ``chunked_ce``)."""
+    if rules is None:
+        x, aux = forward_hidden(params, batch["tokens"], cfg)
+        head = _head(params, cfg)
+    else:
+        x, aux = forward_hidden(params, batch["tokens"], cfg, rules,
+                                local_rows=True)
+        head = _Sharded(cfg, rules).head(params)
+    ce = chunked_ce(x, head, batch["labels"], cfg.vocab, rules=rules)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def make_train_step(cfg: LMConfig, *, lr=3e-4) -> Callable:
+def make_train_step(cfg: LMConfig, rules=None, *, lr=3e-4) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     loss's gradient over every leaf (attention's through K7b), then one
     AdamW step with the reference's defaults.  ``lr`` is a float or a
-    schedule."""
+    schedule.  With ``rules`` (every rank calls it, on its slices and its
+    rows; the optimiser state mirrors the params' slices): the gradient
+    summed over the batch axes where a leaf is replicated over them
+    (``sharding.sync_grads``), clipped by the global norm over every
+    rank's leaves, and the update elementwise on the rank's slices."""
+    specs = param_specs(cfg, rules) if rules is not None else None
 
     def train_step(params, opt_state, batch):
-        (loss, parts), grads = value_and_grad(loss_fn, params, batch, cfg)
+        (loss, parts), grads = value_and_grad(loss_fn, params, batch, cfg,
+                                              rules)
+        if rules is not None:
+            grads = sharding.sync_grads(grads, specs, rules)
         params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             lr=lr)
+                                             lr=lr, rules=rules, specs=specs)
         return params, opt_state, {"loss": loss, **parts, **om}
 
     return train_step
@@ -730,8 +802,9 @@ class _OneDevice:
         return _mask_pad_vocab(lg, self.cfg) if mask else lg
 
 
-def _plan(cfg: LMConfig, rules):
-    return _OneDevice(cfg) if rules is None else _Sharded(cfg, rules)
+def _plan(cfg: LMConfig, rules, local_rows: bool = False):
+    return (_OneDevice(cfg) if rules is None
+            else _Sharded(cfg, rules, local_rows))
 
 
 def _axes_of(spec) -> tuple[str, ...]:
@@ -741,12 +814,13 @@ def _axes_of(spec) -> tuple[str, ...]:
 
 
 class _Sharded(_OneDevice):
-    """One rank's part of the reference's partitioned serving program, its
-    collectives written out: the hooks of the shared loops, and the decode
-    step.  Parameters are the rank's ``param_specs`` slices; a leaf cut
-    over ``fsdp`` is all-gathered a layer at a time where it is used.  The
-    residual stream is the rank's batch rows (``batch_spec``), whole over
-    ``model``.
+    """One rank's part of the reference's partitioned program, its
+    collectives written out: the hooks of the shared loops (serving and,
+    under autograd, the train step's forward) and the decode step.
+    Parameters are the rank's ``param_specs`` slices; the leaves cut over
+    ``fsdp`` are all-gathered a layer at a time where they are used, in
+    one flat collective (``sharding.gather_fsdp``).  The residual stream
+    is the rank's batch rows (``batch_spec``), whole over ``model``.
 
     * Attention: with ``n_heads % tp == 0`` the Q heads are cut over
       ``model`` (``wq`` column-parallel, ``wo`` row-parallel); K/V are
@@ -757,28 +831,42 @@ class _Sharded(_OneDevice):
       rank's heads.
     * Dense MLP: ``d_ff`` cut over ``model`` when it divides (column,
       then row); else whole.  A row-parallel product sums the ranks'
-      float32 products and rounds once (``_row_parallel``).
+      float32 products and rounds once (``layers.row_parallel``).
     * MoE: ``moe_apply`` expert-parallel, the tokens cut as
       ``tokens_spec(B·S)`` (``tokens_spec(B)`` at decode) says.  The
       serving steps read no balance loss, so they leave out its
       reduction over the shards.
     * Vocab: the embedding is looked up masked on the rank's rows and
       summed over ``model``; the head's logits are all-gathered over the
-      vocab shards and the batch axes, so every rank holds them whole.
+      vocab shards and the batch axes, so every rank holds them whole
+      (the train step's CE stays on the rank's columns: ``chunked_ce``).
     * Cache: sequence-sharded over ``model`` (``cache_specs``).  Prefill
       moves each layer's head-sharded K/V to the cache's sequence chunks
       with one ``all_to_all``.  Decode writes the new K/V row on the rank
       that owns ``pos`` (a fixed-shape masked write that reads nothing on
       the host), takes ``flash_decode`` partials over the rank's chunk and
       combines them over ``model`` with two reductions.
+    * Gradients: every collective of the forward is one of
+      ``distributed.sharding``'s differentiable ops, each with the
+      transpose backward: an FSDP gather reduce-scatters its cotangent,
+      the normed input of a column-parallel product (and ``q_norm`` /
+      ``k_norm``, read on the rank's heads) passes through
+      ``copy_to_model``, a row-parallel sum and the embedding's sum pass
+      their cotangent through, a weight gathered for work run whole on
+      every rank takes back its own block.  A batch cut over fewer than
+      all batch axes (whole rows on several ranks) is left to serving:
+      its recut tokens go through ``Collective`` itself, which refuses a
+      tensor that requires grad.
     """
 
-    def __init__(self, cfg: LMConfig, rules):
+    def __init__(self, cfg: LMConfig, rules, local_rows: bool = False):
         super().__init__(cfg)
         self.rules = rules
+        self.local_rows = local_rows
         self.specs = param_specs(cfg, rules)
         self.tp = rules.tp
         self.model = rules.comm(rules.model)
+        self.fsdp = rules.comm(rules.fsdp)
         self.mi = self.model.index
         h, kv = cfg.n_heads, cfg.n_kv_heads
         self.tp_heads = self.tp > 1 and h % self.tp == 0
@@ -801,8 +889,12 @@ class _Sharded(_OneDevice):
             and self.tp > 1
 
     # ---- layouts ------------------------------------------------------------
-    def _fsdp(self, t, spec):
-        return gather(t, spec, self.rules, axes=(self.rules.fsdp,))
+    def _fsdp(self, ts, specs):
+        """The leaves ``ts`` whole over ``fsdp``: each leaf's dim that its
+        spec cuts over it gathered, all in one flat collective."""
+        dims = [next((d for d, e in enumerate(spec)
+                      if e == self.rules.fsdp), None) for spec in specs]
+        return sharding.gather_fsdp(ts, dims, self.fsdp)
 
     def _batch_axes(self, b: int) -> tuple[str, ...]:
         return _axes_of(self.rules.batch_spec(b))
@@ -812,20 +904,11 @@ class _Sharded(_OneDevice):
         n = t.shape[0] // c.size
         return t[c.index * n:(c.index + 1) * n]
 
+    def _col_in(self, h):
+        return sharding.copy_to_model(h, self.model)
+
     def _row_parallel(self, a, w):
-        """a @ w with w's rows (a's columns) cut over ``model``: each
-        rank's bf16 product accumulated and kept in float32, summed, and
-        rounded to bf16 once, as the one-device product rounds its float32
-        accumulation.  The CPU's matmul has no bf16-in, float32-out form,
-        so there the operands are widened (bf16 products are exact in
-        float32: the same function)."""
-        cd = layers.COMPUTE_DTYPE
-        a2 = a.reshape(-1, a.shape[-1])
-        if a2.is_cuda:
-            p = torch.mm(a2, w.to(cd), out_dtype=torch.float32)
-        else:
-            p = a2.float() @ w.float()
-        return self.model.psum(p).to(cd).reshape(*a.shape[:-1], -1)
+        return layers.row_parallel(a, w, self.model)
 
     def _out_proj(self, o, lp, whole_heads: bool):
         """o (..., heads·hd) @ wo: the rank's rows of wo against its
@@ -833,8 +916,7 @@ class _Sharded(_OneDevice):
         if not self.wo_rows:
             return o @ lp["wo"].to(layers.COMPUTE_DTYPE)
         if whole_heads or not self.tp_heads:
-            w = self.cfg.qkv_dim // self.tp
-            o = o[..., self.mi * w:(self.mi + 1) * w]
+            o = sharding.split_model(o, self.model, -1)
         return self._row_parallel(o, lp["wo"])
 
     def _experts(self, tok, lp, n_tokens: int, b: int, want_aux: bool):
@@ -856,33 +938,61 @@ class _Sharded(_OneDevice):
 
     # ---- hooks --------------------------------------------------------------
     def embed(self, params, tokens):
-        tok = self._cut(tokens, self._batch_axes(tokens.shape[0]))
-        table = self._fsdp(params["embed"], self.specs["embed"])
+        tok = (tokens if self.local_rows
+               else self._cut(tokens, self._batch_axes(tokens.shape[0])))
+        table = self._fsdp([params["embed"]], [self.specs["embed"]])[0]
         if not self.vocab_sharded:
             return table[tok].to(layers.COMPUTE_DTYPE)
         vl = table.shape[0]
         idx = tok - self.mi * vl
         inside = (idx >= 0) & (idx < vl)
         e = torch.where(inside[..., None], table[idx.clamp(0, vl - 1)], 0)
-        return self.model.psum(e.to(layers.COMPUTE_DTYPE))
+        return sharding.reduce_from_model(e.to(layers.COMPUTE_DTYPE),
+                                          self.model)
+
+    def head(self, params):
+        """The rank's vocab columns of the head, (D, Vp / tp) in bf16,
+        whole over ``fsdp``."""
+        if self.cfg.tie_embeddings:
+            head = self._fsdp([params["embed"]], [self.specs["embed"]])[0].T
+        else:
+            head = self._fsdp([params["lm_head"]],
+                              [self.specs["lm_head"]])[0]
+        return head.to(layers.COMPUTE_DTYPE)
 
     def layer(self, lp):
-        """Layer leaves as the rank uses them: whole over ``fsdp``, and
-        wq / wk / wv whole over ``model`` where the rank reads all their
-        heads (their columns gathered)."""
+        """Layer leaves as the rank uses them: whole over ``fsdp``, wq / wk
+        / wv whole over ``model`` where the rank reads all their heads
+        (their columns gathered), and the q / k norm scales, read on the
+        rank's heads, through ``copy_to_model``."""
         lay = self.specs["layers"]
-        lp = {name: self._fsdp(t, P(*list(lay[name])[1:]))
-              for name, t in lp.items()}
-        for name, keep in (("wq", self.tp_heads), ("wk", self.kv_sharded),
-                           ("wv", self.kv_sharded)):
-            if not keep and lay[name][2] is not None:
-                lp[name] = self.model.all_gather(lp[name], axis=-1)
+        names = list(lp)
+        lp = dict(zip(names, self._fsdp(
+            [lp[n] for n in names],
+            [P(*list(lay[n])[1:]) for n in names])))
+        gathered = [name for name, keep in (
+            ("wq", self.tp_heads), ("wk", self.kv_sharded),
+            ("wv", self.kv_sharded))
+            if not keep and lay[name][2] is not None]
+        if self.tp_heads:
+            # Each rank reads the KV heads of its own q heads: its
+            # cotangent is its part of the gathered leaves' gradient.
+            got = sharding.gather_fsdp([lp[n] for n in gathered],
+                                       [-1] * len(gathered), self.model)
+            lp.update(zip(gathered, got))
+            for name in ("q_norm", "k_norm"):
+                if name in lp:
+                    lp[name] = self._col_in(lp[name])
+        else:
+            for name in gathered:
+                lp[name] = sharding.gather_model(lp[name], self.model, -1)
         return lp
 
     def attention(self, x, lp, positions):
         return _attention(x, lp, self.cfg, positions, kv_index=self.kv_sel,
                           out_proj=lambda o, lp: self._out_proj(o, lp,
-                                                                False))
+                                                                False),
+                          col_in=self._col_in if self.tp_heads else None)
 
     def mlp(self, x, lp, batch: int, want_aux: bool = True):
         n_tokens = batch * (x.shape[1] if x.dim() == 3 else 1)
@@ -890,7 +1000,8 @@ class _Sharded(_OneDevice):
             x, lp, self.cfg,
             down=self._row_parallel if self.ff_cols else None,
             experts=lambda tok, lp: self._experts(tok, lp, n_tokens, batch,
-                                                  want_aux))
+                                                  want_aux),
+            col_in=self._col_in if self.ff_cols else None)
 
     def _seq_chunk(self, max_seq: int) -> int:
         """Cache positions a rank holds: max_seq / tp, or all of them
@@ -918,12 +1029,8 @@ class _Sharded(_OneDevice):
         """Whole (batch, ..., Vp) logits of the rank's rows x on every
         rank; padded vocab columns masked unless ``mask=False`` (the
         prefill's, which the reference leaves unmasked)."""
-        cfg, cd = self.cfg, layers.COMPUTE_DTYPE
-        if cfg.tie_embeddings:
-            head = self._fsdp(params["embed"], self.specs["embed"]).T
-        else:
-            head = self._fsdp(params["lm_head"], self.specs["lm_head"])
-        lg = x @ head.to(cd)
+        cfg = self.cfg
+        lg = x @ self.head(params)
         if self.vocab_sharded:
             lg = self.model.all_gather(lg, axis=-1)
         if mask:

@@ -53,16 +53,33 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
 # Grad utilities
 # --------------------------------------------------------------------------
 
-def global_norm(grads: Any) -> torch.Tensor:
-    """The float32 L2 norm over every leaf."""
-    return torch.stack([g.float().square().sum()
-                        for g in tree.leaves(grads)]).sum().sqrt()
+def global_norm(grads: Any, rules=None, specs: Any = None) -> torch.Tensor:
+    """The float32 L2 norm over every leaf.  With ``rules`` and ``specs``
+    (a spec tree of the grads' structure) each rank holds its slices:
+    each leaf's sum of squares is summed over the mesh axes its spec
+    cuts it on, so a replicated leaf counts once; one scalar psum for
+    each set of axes that some leaf is cut on."""
+    sums = [g.float().square().sum() for g in tree.leaves(grads)]
+    if rules is None:
+        return torch.stack(sums).sum().sqrt()
+    groups: dict = {}
+    for x, spec in zip(sums, tree.leaves(specs)):
+        axes = tuple(a for a in rules.mesh.axis_names
+                     if any(a == e or (isinstance(e, tuple) and a in e)
+                            for e in spec))
+        groups.setdefault(axes, []).append(x)
+    total = torch.zeros((), dtype=torch.float32, device=sums[0].device)
+    for axes, xs in groups.items():
+        part = torch.stack(xs).sum()
+        total = total + (rules.comm(axes).psum(part) if axes else part)
+    return total.sqrt()
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
+def clip_by_global_norm(grads: Any, max_norm: float, rules=None,
+                        specs: Any = None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before scaling)."""
-    norm = global_norm(grads)
+    before scaling); ``rules`` and ``specs`` as ``global_norm``'s."""
+    norm = global_norm(grads, rules, specs)
     scale = (max_norm / norm.clamp_min(1e-9)).clamp_max(1.0)
     return tree.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -96,13 +113,17 @@ def adamw_init(params: Any) -> OptState:
 def adamw_update(params: Any, grads: Any, state: OptState, *,
                  lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, max_grad_norm: float = 1.0,
-                 clip_latent_paths: Callable[[str], bool] | None = None):
+                 clip_latent_paths: Callable[[str], bool] | None = None,
+                 rules=None, specs: Any = None):
     """One AdamW step.  ``lr`` is a float or a schedule fn(step) -> lr.
+    With ``rules`` and ``specs`` (the params' spec tree) each rank passes
+    its slices: the clipping norm is the global one (``global_norm``),
+    the update elementwise on the slices.
 
     Returns (new_params, new_state, metrics dict with ``grad_norm`` and
     ``lr``, float32 tensors).
     """
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, rules, specs)
     step = state.step + 1
     lr_t = _lr_at(lr, step)
     b1t = 1 - b1 ** step.to(torch.float32)
@@ -143,13 +164,15 @@ def sgdm_init(params: Any) -> OptState:
 @torch.no_grad()
 def sgdm_update(params: Any, grads: Any, state: OptState, *,
                 lr, momentum: float = 0.9, weight_decay: float = 1e-4,
-                max_grad_norm: float = 0.0):
+                max_grad_norm: float = 0.0, rules=None, specs: Any = None):
     """One SGD-momentum step; the weight decay is added to the gradient,
-    as the reference does.  Returns (new_params, new_state, metrics)."""
+    as the reference does.  ``rules`` and ``specs`` as ``adamw_update``'s.
+    Returns (new_params, new_state, metrics)."""
     if max_grad_norm:
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, rules,
+                                           specs)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, rules, specs)
     step = state.step + 1
     lr_t = _lr_at(lr, step)
 

@@ -976,6 +976,64 @@ def test_sharded_lm_on_card(cuda, lm_params):
         assert torch.equal(got, ranks[0][-1])
 
 
+def sharded_train_rank(rank, device, cfg, cpu, batch):
+    """One of 2 ranks sharing the card: the narrow LM's gradient and one
+    train step on (1, 2) (TP: the row-parallel products' backward on
+    CUDA, K7b on the rank's 2 heads)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rules = sharding.rules_for_mesh(make_host_mesh(data=1, model=2,
+                                                   device=device))
+    specs = transformer.param_specs(cfg, rules)
+    params = tree.tree_map(lambda t: t.to(device),
+                           sharding.shard_tree(cpu, specs, rules))
+    batch = {k: v.to(device) for k, v in batch.items()}
+    (_, _), grads = tree.value_and_grad(transformer.loss_fn, params, batch,
+                                        cfg, rules)
+    grads = sharding.sync_grads(grads, specs, rules)
+    full = [sharding.gather(g, s, rules).cpu()
+            for g, s in zip(tree.leaves(grads), tree.leaves(specs))]
+    k7.flash_attention_bwd.launches = 0
+    _, _, m = transformer.make_train_step(cfg, rules, lr=1e-3)(
+        params, optim.adamw_init(params), batch)
+    return (m["loss"].item(), m["grad_norm"].item(), full,
+            k7.flash_attention_bwd.launches)
+
+
+def test_sharded_train_step_on_card(cuda, lm_params):
+    """2 ranks on cuda:0 (gloo, staged): the sharded gradient and train
+    step of the narrow LM (float32 masters) against the one-device step on
+    the card: the loss within 2e-3, the gradient norm within 1e-2 and
+    every gathered gradient leaf within 2e-2 relative L2 (the chip
+    smoke's limits); K7b once a layer a rank."""
+    from repro_torch.launch.mesh import spawn
+
+    cfg = lm_params[0]
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu", dtype=torch.float32)
+    card = tree.tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab, (2, 129))
+                            .astype(np.int32))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    (_, _), want = tree.value_and_grad(transformer.loss_fn, card, on_card,
+                                       cfg)
+    _, _, m = transformer.make_train_step(cfg, lr=1e-3)(
+        card, optim.adamw_init(card), on_card)
+    loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+    ranks = spawn(sharded_train_rank, 2, cfg, cpu, batch, device="cuda",
+                  timeout_s=300)
+    for got_loss, got_norm, grads, k7b in ranks:
+        assert abs(got_loss - loss) <= 2e-3 * loss
+        assert abs(got_norm - gnorm) <= 1e-2 * gnorm
+        assert k7b == cfg.n_layers
+        for g, w in zip(grads, tree.leaves(want)):
+            w = w.float().cpu()
+            assert (g - w).norm() <= 2e-2 * w.norm()
+
+
 def test_lm_server_on_card(cuda, lm_params):
     """LMServer on the card serves every request; decoding launches no K7."""
     cfg, _, card = lm_params

@@ -35,7 +35,8 @@ holds, and why:
   with exit code 17 at ``--fail-at 6`` and the rerun restores step 5 and
   resumes from 6 (``tests/test_system.py``'s case); its losses from 6 on
   equal an uninterrupted run's; ``--device cuda`` without a card raises;
-  a mesh wider than one device and a non-LM arch are refused.
+  a mesh that is not the world's size (``--data 2`` or ``--model 2`` in
+  one process) and a non-LM arch are refused.
 """
 
 import os
@@ -434,9 +435,10 @@ def test_train_crash_resume(tmp_path):
 
 
 def test_driver_refusals():
-    with pytest.raises(SystemExit, match="sharded LM"):
+    # a mesh that is not the world (one process without torchrun)
+    with pytest.raises(SystemExit, match="mesh of 2 ranks; the world has 1"):
         t_train.main(["--device", "cpu", "--data", "2", "--steps", "1"])
-    with pytest.raises(SystemExit, match="sharded LM"):
+    with pytest.raises(SystemExit, match="mesh of 2 ranks; the world has 1"):
         t_train.main(["--device", "cpu", "--model", "2", "--steps", "1"])
     with pytest.raises(SystemExit, match="LM archs"):
         t_train.main(["--device", "cpu", "--arch", "vit-b16", "--steps",
