@@ -364,7 +364,33 @@ Phases, each fatal on failure:
               cases), every rank's launches joining the ``kernels`` line;
               ms a step sharded and on one device, each rank's peak memory
               (host-staged gloo collectives on one card, not 4 cards over
-              NVLink).
+              NVLink);
+11. shard zoo — the vision and diffusion zoo under ``rules``
+              (``models.zoo_mesh``) over the same 4 ranks, float32 weights
+              drawn once here: ViT-H/14, DiT-XL/2 and ConvNeXt-B each
+              train 2 steps on (2, 2) at a cut batch of 8 (cls_224,
+              train_256: DP, FSDP and TP at once, DiT's residual cut by
+              tokens over ``model``) and serve on (1, 4) (a forward of 8;
+              DiT one DDIM step of 4 at 512², 1,024 tokens), EfficientNet-B7
+              trains 2 steps on (2, 2) at 4 × 600² with its batch norm
+              synced over ``data`` (the running statistics equal on every
+              data rank, bit for bit); the bytes each rank hands to
+              collectives equal to ``shard_zoo_bytes``' arithmetic; K7
+              twice and K7b once a layer a step, K7 once a layer a serving
+              call, on each rank's heads (``SHARD_ZOO_LAYERS``, also among
+              the [kernels] and [train] cases); step 0's loss and gathered
+              gradient leaves and the serving output against one device,
+              bf16 through K7/K7b beside the one-device floor from two
+              half batches, and the float32 check; ms a step and a
+              serving call sharded and on one device, each rank's peak.
+
+[shard], [shard train] and [shard zoo] each hold a float32 step-0 check
+beside their bf16 runs (``float32_check``: float32 compute on both
+sides, TF32 off, attention through K7's and K7b's plain versions; an MoE
+model's experts pinned to the one-device run's choice, ``moe_routing``):
+logits or a forward's output within 1e-3 of one device's with argmax
+agreement >= 0.99, every gathered gradient leaf within 1e-3 relative L2,
+the loss within 1e-5 (``F32_CHECK``).
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -596,6 +622,29 @@ TRAIN_LAYERS = [
     ("lm-100m / granite train layer, a tp rank's heads", 4, 512, 512, 6,
      2, 64, True),
 ]
+# The zoo's attention layers on one rank of a mesh ([shard zoo]: non-causal,
+# H = KV, each rank's H/tp heads over all the tokens): ViT-H/14 at cls_224
+# on a tp-2 rank (B 4 of 8) and serving on a tp-4 rank (B 8), DiT-XL/2 at
+# train_256 on tp 2 and 4 (B 4) and at gen_fast's 512² (S 1024) on tp 4
+# (B 4), and the other two zoo attention archs' tp-4 layers: ViT-L/16 (hd
+# 64, S 197) and DiT-L/2 (hd 64).
+SHARD_ZOO_LAYERS = [
+    ("ViT-H/14 cls_224 layer, a tp-2 rank's heads", 4, 257, 257, 8, 8, 80,
+     False),
+    ("ViT-H/14 serving layer, a tp-4 rank's heads", 8, 257, 257, 4, 4, 80,
+     False),
+    ("ViT-L/16 layer, a tp-4 rank's heads", 8, 197, 197, 4, 4, 64, False),
+    ("DiT-XL/2 train_256 layer, a tp-2 rank's heads", 4, 256, 256, 8, 8,
+     72, False),
+    ("DiT-XL/2 train_256 layer, a tp-4 rank's heads", 4, 256, 256, 4, 4,
+     72, False),
+    ("DiT-XL/2 gen_fast layer, a tp-4 rank's heads", 4, 1024, 1024, 4, 4,
+     72, False),
+    ("DiT-L/2 train_256 layer, a tp-4 rank's heads", 4, 256, 256, 4, 4, 64,
+     False),
+    ("DiT-L/2 gen_fast layer, a tp-4 rank's heads", 4, 1024, 1024, 4, 4,
+     64, False),
+]
 FLASH_CASES = [
     FLASH_PREFILL,
     FLASH_PREFILL_64,
@@ -619,7 +668,7 @@ FLASH_CASES = [
     # hd 72 (the padded hd-128 instantiation over zero-filled columns)
     # ragged inside one tile
     ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
-] + TRAIN_LAYERS
+] + TRAIN_LAYERS + SHARD_ZOO_LAYERS
 # K7 against its plain version, |kernel - plain| <= tol·(1 + |plain|):
 # both round p to bf16, under different running maxima (the kernel's
 # 128-key tiles against the plain version's 512-key blocks), and round the
@@ -692,6 +741,25 @@ SHARD_WARM_SEQ = 256
 SHARD_SLOTS, SHARD_SERVER_MAX_SEQ = 8, 64
 SHARD_REQUESTS = [(1, 2)] * 8
 SHARD_TIMEOUT_S = 600
+# The float32 step-0 check of [shard], [shard train] and [shard zoo]: both
+# sides (the sharded path and the one-device path) with
+# ``layers.COMPUTE_DTYPE`` float32, TF32 off for cuBLAS and cuDNN, and
+# attention through K7's and K7b's plain versions (the kernels take bf16
+# only); what is left between the two is float32 sums in other orders, so
+# no bf16 rounding can flip.  Limits: logits (or a forward's output)
+# within 1e-3 of max |one device| with argmax agreement >= 0.99, each
+# gathered gradient leaf within 1e-3 relative L2, the loss within 1e-5
+# relative.  [shard] runs it on the first SHARD_F32_SEQ tokens of the
+# prompt and SHARD_F32_STEPS teacher-forced decode steps.  An MoE model's
+# routing is pinned to the one-device run's top-k there (``moe_routing``:
+# a near-tie that float32 sums in another order resolve the other way
+# moves a token to another expert, a discontinuity, not a rounding), and
+# the tokens whose own choice differed are printed.  The bf16 runs
+# through K7/K7b and their limits stay as they are beside it.
+F32_CHECK = dict(out=1e-3, agreement=0.99, leaf=1e-3, loss=1e-5)
+F32_ROUTE = ("float32 compute, TF32 off, attention through the plain "
+             "versions of K7/K7b")
+SHARD_F32_SEQ, SHARD_F32_STEPS = 512, 4
 # K4: the main path's shapes (batch 8 and 1), then every C kernel path
 # (Cw 1-4 and above) at pixel counts that are no multiple of a block's
 # 256 pixels.
@@ -2606,7 +2674,7 @@ K7B_CASES = [
 ] + ZOO_FLASH_LAYERS + [(name, 1, *rest)
                           for name, _, *rest in ZOO_GEN_1024] + [
     ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
-] + TRAIN_LAYERS
+] + TRAIN_LAYERS + SHARD_ZOO_LAYERS
 # K7b against its plain version, |kernel - plain| <= tol·(1 + |plain|) for
 # each of dq, dk and dv: both round p and dS to bf16 before their products
 # and round each output once, but sum in other orders (16-wide wgmma steps
@@ -2654,6 +2722,31 @@ SHARD_TRAIN_LR = 3e-4
 SHARD_TRAIN_LOSS_TOL = 2e-4
 SHARD_TRAIN_GNORM_TOL = 5e-3
 SHARD_TRAIN_LEAF_TOL = {"lm-100m": 3e-2, "granite-moe-3b-a800m": 5e-2}
+# The [shard zoo] phase: the zoo under ``rules`` at full width and depth
+# over the same 4 ranks sharing the card.  Each arch's train cell
+# (SHARD_ZOO_STEPS steps on SHARD_ZOO_TRAIN_MESH: DP, FSDP and TP at once)
+# and serving cell (a forward, DiT's a DDIM sample step, on
+# SHARD_ZOO_SERVE_MESH: TP over 4, DiT's sequence-sharded residual) as
+# (shape, the batch it runs at).  Batches cut from the published ones
+# (configs/shapes.py: cls_224 256, train_256 256, serve_b128 128,
+# gen_fast 16): a gloo round trip costs 7-8 ms among 4 ranks there, and a
+# step's weight gathers go through the host (PERF.md §5); EfficientNet-B7
+# trains at its native 600², which no published cell of the zoo's runs.
+SHARD_ZOO_ARCHS = ("vit-h14", "dit-xl2", "convnext-b", "efficientnet-b7")
+SHARD_ZOO_CELLS = {
+    "vit-h14": (("cls_224", 8), ("serve_b128", 8)),
+    "dit-xl2": (("train_256", 8), ("gen_fast", 4)),
+    "convnext-b": (("cls_224", 8), ("serve_b128", 8)),
+    "efficientnet-b7": (("native_600", 4), None),
+}
+SHARD_ZOO_TRAIN_MESH, SHARD_ZOO_SERVE_MESH = (2, 2), (1, 4)
+SHARD_ZOO_STEPS = 2
+# A gathered gradient leaf's relative L2 against one device is taken
+# against max(its norm, SHARD_ZOO_FLOOR of the whole tree's): a leaf whose
+# gradient is 0 in exact arithmetic (EfficientNet's proj_bn_b, a bias
+# before the next train-mode BN) reads O(1) relative noise otherwise
+# (tests/test_torch_vision.py's GRAD_FLOOR rule, at a 50× smaller share).
+SHARD_ZOO_FLOOR = 1e-3
 TRAIN_ARGS = ["--arch", "lm-100m", "--batch", str(TRAIN_BATCH), "--seq-len",
               str(TRAIN_SEQ), "--device", "cuda"]
 # Step 0 with K7/K7b against the same step with their plain versions: the
@@ -2787,6 +2880,81 @@ def attention_path(plain: bool):
         yield
     finally:
         layers.flash_attention = saved
+
+
+@contextlib.contextmanager
+def float32_check():
+    """The float32 step-0 check's setting (``F32_CHECK``): float32 compute,
+    TF32 off for cuBLAS and cuDNN, attention through K7's and K7b's plain
+    versions; everything restored after."""
+    saved = (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    layers.COMPUTE_DTYPE = torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with attention_path(True):
+            yield
+    finally:
+        (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def moe_routing(routers: torch.Tensor, record: dict | None = None,
+                pinned: dict | None = None, tokens: int = 0,
+                shard: int = 0):
+    """The float32 check's MoE routing (``moe._route``) with each call's
+    top-k experts recorded or pinned, keyed by (layer, the layer's n-th
+    call): MoE routing is discontinuous, so a near-tie between the k-th
+    and the (k+1)-th expert that float32 sums in another order resolve the
+    other way moves a token to another expert, and the gradient by far
+    more than the check's limit (granite-moe-3b-a800m's one-device step
+    on the card against the same step on the CPU: 5.1e-3, PERF.md §6).
+    ``routers``: the stacked router weights (L, D, E), whose [l, 0, :8]
+    tells the layer.  ``record``: the one-device run's calls (over
+    ``tokens`` tokens where given: the train step's balance loss routes
+    shard by shard again, calls not counted).  ``pinned``: the sharded run's calls take the recorded
+    experts, the rank's ``shard`` of them where it routes fewer tokens
+    (combine weights renormalised from its own probabilities, as
+    ``_route`` takes them), and ``pinned["flips"]`` counts the tokens
+    whose own choice differed."""
+    real = moe._route
+    keys = [tuple(r) for r in routers[:, 0, :8].float().tolist()]
+    calls: collections.Counter = collections.Counter()
+
+    def route(x, router, *, n_real, top_k):
+        w, ids, probs = real(x, router, n_real=n_real, top_k=top_k)
+        layer = keys.index(tuple(router[0, :8].float().tolist()))
+        if record is not None and tokens in (0, x.shape[0]):
+            record[layer, calls[layer]] = ids.clone()
+            calls[layer] += 1
+        elif pinned is not None:
+            want = pinned[layer, calls[layer]]
+            calls[layer] += 1
+            n = x.shape[0]
+            if want.shape[0] != n:
+                want = want[shard * n:(shard + 1) * n]
+            pinned["flips"] = pinned.get("flips", 0) + int(
+                (ids.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            w = torch.take_along_dim(probs, want, dim=-1)
+            w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+            ids = want
+        return w, ids, probs
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def _routing(cfg, params, **kw):
+    """``moe_routing`` over an MoE model's routers (nothing for a dense
+    one)."""
+    if not cfg.moe:
+        return contextlib.nullcontext()
+    return moe_routing(params["layers"]["router"], **kw)
 
 
 def loss_and_grad_norm(loss_fn, params, *args,
@@ -3278,7 +3446,7 @@ def shard_bytes(cfg, rules_tp: int, batch: int, seq: int, max_seq: int,
 
 
 def shard_model(rules, device, cfg, full, tokens, teacher,
-                requests) -> dict:
+                requests, routes) -> dict:
     """One model on one rank: its slices of ``full`` (the parent's weights,
     received through CUDA IPC), the sharded prefill and decode steps, then
     a sharded ``LMServer``.  Returns the rank's counts and times, and on
@@ -3320,6 +3488,11 @@ def shard_model(rules, device, cfg, full, tokens, teacher,
                          and torch.isfinite(cache["v"]).all())
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     del cache
+    pinned = dict(routes)
+    f32 = shard_f32_logits(prefill, decode, cfg, params, tokens, teacher,
+                           dict(pinned=pinned, shard=world.index))
+    out["f32_logits"] = f32 if world.index == 0 else None
+    out["flips32"] = pinned.get("flips", 0)
     server = LMServer(cfg, params, n_slots=SHARD_SLOTS,
                       max_seq=SHARD_SERVER_MAX_SEQ, device=device,
                       rules=rules)
@@ -3334,6 +3507,43 @@ def shard_model(rules, device, cfg, full, tokens, teacher,
         served=server.metrics()["served"])
     out["logits"] = torch.stack(steps) if world.index == 0 else None
     return out
+
+
+def shard_f32_logits(prefill, decode, cfg, params, tokens, teacher,
+                     routing: dict) -> torch.Tensor:
+    """The float32 check's logits (``F32_CHECK``): the prefill of the
+    prompt's first SHARD_F32_SEQ tokens, then SHARD_F32_STEPS
+    teacher-forced decode steps, each step's (B, Vp) on the host.
+    ``routing``: ``moe_routing``'s arguments (an MoE model's experts
+    recorded on one device, pinned on a rank)."""
+    with float32_check(), torch.inference_mode(), _routing(
+            cfg, params, **routing):
+        logits, cache = prefill(params, tokens[:, :SHARD_F32_SEQ])
+        steps = [logits.float().cpu()]
+        for i in range(SHARD_F32_STEPS):
+            logits, cache = decode(params, cache, teacher[i],
+                                   SHARD_F32_SEQ + i)
+            steps.append(logits.float().cpu())
+    return torch.stack(steps)
+
+
+def f32_logit_check(tag: str, got: torch.Tensor, want: torch.Tensor,
+                    vocab: int) -> dict:
+    """The sharded float32 logits against one device's (``F32_CHECK``):
+    max |sharded - single| / max |single| over the real vocab's columns
+    and the argmax agreement, printed; fails past the limits."""
+    got, want = got[..., :vocab], want[..., :vocab]
+    err = rel_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"{tag} float32 step-0 check ({F32_ROUTE}; prompt cut to "
+        f"{SHARD_F32_SEQ} tokens, then {SHARD_F32_STEPS} decode steps: "
+        f"{got.shape[0] * got.shape[1]} rows): max |sharded - single| / max "
+        f"|single| {err:.4e} (limit {F32_CHECK['out']}), argmax agreement "
+        f"{agree:.4f} (limit {F32_CHECK['agreement']})")
+    if not err <= F32_CHECK["out"] or agree < F32_CHECK["agreement"]:
+        raise AssertionError(f"{tag}: float32 logits off by {err:.4e}, "
+                             f"agreement {agree:.4f}")
+    return dict(rel_err=err, agreement=agree)
 
 
 def shard_rank(rank, device, jobs):
@@ -3448,6 +3658,11 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
         single_numbers["rowwise_agreement"] = float(
             (rows.argmax(-1) == single[..., :cfg.vocab].argmax(-1))
             .float().mean())
+        routes: dict = {}
+        single_numbers["f32_logits"] = shard_f32_logits(
+            transformer.make_prefill_step(cfg, LM_MAX_SEQ),
+            transformer.make_decode_step(cfg, LM_MAX_SEQ), cfg, params,
+            tokens, teacher, dict(record=routes))
         numbers[arch] = dict(single=single_numbers)
         if cfg.moe:
             drops = numbers[arch]["drops"] = shard_drops(
@@ -3456,7 +3671,7 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
                 raise AssertionError(f"[shard] {arch}: drops at factor "
                                      f"{cfg.capacity_factor}")
         singles[arch] = (cfg, single, requests)
-        jobs.append((arch, cfg, params, tokens, teacher, requests))
+        jobs.append((arch, cfg, params, tokens, teacher, requests, routes))
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3558,6 +3773,14 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
         if not err <= bound or agree < bar:
             raise AssertionError(f"[shard] {cfg.name}: sharded logits off "
                                  f"by {err:.4e}, agreement {agree:.4f}")
+        out["f32"] = f32_logit_check(f"[shard] {cfg.name}",
+                                     ranks[0][arch].pop("f32_logits"),
+                                     sn.pop("f32_logits"), cfg.vocab)
+        if cfg.moe:
+            out["f32"]["flips"] = [r[arch]["flips32"] for r in ranks]
+            log(f"[shard] {cfg.name} float32 check: routing pinned to one "
+                f"device's top-k; the ranks' own choice differed for "
+                f"{out['f32']['flips']} tokens (each rank's)")
         launches[f"shard_prefill_{arch}"] = ranks[0][arch]["prefill_launches"]
         out.update(rel_err=err, rel_err_steps=err_steps, agreement=agree,
                    bound=bound, bar=bar,
@@ -3756,6 +3979,20 @@ def shard_train_model(rank: int, device, job: dict, ckpt_dir: str) -> dict:
         errs.append((((g - want).norm() / want.norm()).item(), path))
     out["leaf_errs"] = errs
     del grads
+    pinned = dict(job["routes"])
+    with float32_check(), _routing(cfg, params, pinned=pinned,
+                                   shard=rules.coordinate(("data", "model"))):
+        (loss32, _), grads = tree.value_and_grad(
+            transformer.loss_fn, params, pipe.batch_at(0), cfg, rules)
+        grads = sharding.sync_grads(grads, specs, rules)
+    out["loss32"] = loss32.item()
+    out["flips32"] = pinned.get("flips", 0)
+    out["leaf_errs32"] = [
+        (((sharding.gather(g, s, rules) - want).norm() / want.norm()).item(),
+         path) for (path, g), s, want in zip(
+            tree.flatten_with_paths(grads), tree.leaves(specs),
+            tree.leaves(job["grads32"]))]
+    del grads
     opt = optim.adamw_init(params)
     step = transformer.make_train_step(cfg, rules, lr=SHARD_TRAIN_LR)
     gc.collect()
@@ -3838,6 +4075,24 @@ def shard_train_model(rank: int, device, job: dict, ckpt_dir: str) -> dict:
     return out
 
 
+def f32_step_check(tag: str, loss: float, want_loss: float,
+                   leaf_errs: list, what: str = "relative L2") -> dict:
+    """A sharded float32 step 0 against one device's (``F32_CHECK``): the
+    loss's relative gap and each gathered leaf's error (``leaf_errs``:
+    (error, path); ``what`` says how it is taken), printed; fails past the
+    limits."""
+    gap = abs(loss - want_loss) / abs(want_loss)
+    worst, path = max(leaf_errs)
+    log(f"{tag} float32 step-0 check ({F32_ROUTE}): loss {loss:.8f} / "
+        f"{want_loss:.8f} (gap {gap:.3e}, limit {F32_CHECK['loss']}), each "
+        f"gathered gradient leaf ({what}, limit {F32_CHECK['leaf']}): "
+        + ", ".join(f"{p} {e:.3e}" for e, p in leaf_errs))
+    if not gap <= F32_CHECK["loss"] or not worst <= F32_CHECK["leaf"]:
+        raise AssertionError(f"{tag}: float32 step 0 off one device: loss "
+                             f"{gap:.3e}, {path} {worst:.3e}")
+    return dict(loss_gap=gap, worst_leaf=(path, worst))
+
+
 def shard_train_rank(rank, device, jobs, ckpt_dir):
     """One rank of the [shard train] phase: each job's model in turn."""
     out = {"rank": rank}
@@ -3871,6 +4126,11 @@ def shard_train_single(cfg, params, batch_size: int, shards: int) -> dict:
              for a, c, w in zip(tree.leaves(halves[0]), tree.leaves(halves[1]),
                                 tree.leaves(grads))]
     del halves
+    routes: dict = {}
+    with float32_check(), _token_shard_balance(shards), _routing(
+            cfg, params, record=routes, tokens=batch_size * TRAIN_SEQ):
+        (loss32, _), grads32 = tree.value_and_grad(
+            transformer.loss_fn, params, pipe.batch_at(0), cfg)
     with _token_shard_balance(shards):
         p, opt, ms, metrics = params, optim.adamw_init(params), [], []
         for i in range(3):
@@ -3883,7 +4143,9 @@ def shard_train_single(cfg, params, batch_size: int, shards: int) -> dict:
     # the balance loss of all the tokens at once, for the record
     (plain, _), _ = tree.value_and_grad(transformer.loss_fn, params,
                                         pipe.batch_at(0), cfg)
-    return dict(grads=grads, floor=floor, loss=metrics[0][0],
+    return dict(grads=grads, grads32=grads32, routes=routes,
+                loss32=loss32.item(),
+                floor=floor, loss=metrics[0][0],
                 grad_norm=metrics[0][1],
                 vg_loss=loss.item(), step_ms=ms[1:], plain_loss=plain.item(),
                 losses=[m[0] for m in metrics])
@@ -3918,7 +4180,9 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
         single = shard_train_single(cfg, params, batch,
                                     dp * tp if cfg.moe else 1)
         job = dict(cfg=cfg, mesh=mesh_shape, batch=batch, seq=TRAIN_SEQ,
-                   steps=steps, params=params, grads=single.pop("grads"))
+                   steps=steps, params=params, grads=single.pop("grads"),
+                   grads32=single.pop("grads32"),
+                   routes=single.pop("routes"))
         if arch == "lm-100m":
             job.update(crash_after=SHARD_TRAIN_CRASH_AFTER,
                        resume=SHARD_TRAIN_RESUME)
@@ -3995,11 +4259,19 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
                                  f"one-device step: {loss_gap}, {norm_gap},"
                                  f" {path} {worst}, floor "
                                  f"{max(single['floor'])}")
+        f32 = f32_step_check(
+            f"[shard train] {cfg.name}", r0["loss32"], single["loss32"],
+            r0["leaf_errs32"], "relative L2" + (
+                f"; routing pinned to one device's top-k, the ranks' own "
+                f"choice differed for {[r['flips32'] for r in runs]} tokens "
+                f"(each rank's, summed over the forward and the recompute)"
+                if cfg.moe else ""))
         out = dict(mesh=job["mesh"], batch=job["batch"],
                    bytes_a_step=want_bytes, loss_gap=loss_gap,
-                   norm_gap=norm_gap, worst_leaf=(path, worst),
+                   norm_gap=norm_gap, worst_leaf=(path, worst), f32=f32,
                    single=single,
-                   ranks=[{k: v for k, v in r.items() if k != "leaf_errs"}
+                   ranks=[{k: v for k, v in r.items()
+                           if k not in ("leaf_errs", "leaf_errs32")}
                           for r in runs])
         if "resume" in job:
             want_resume = launch_counts(
@@ -4032,6 +4304,670 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     return {"shard_train": launches}, numbers
+
+
+# --------------------------------------------------------------------------
+# [shard zoo]: the vision and diffusion zoo under rules, 4 ranks sharing
+# the card
+# --------------------------------------------------------------------------
+
+def _zoo_module(arch: str):
+    from repro_torch.models import convnext, dit, efficientnet, vit
+    return {"vit": vit, "dit": dit, "convnext": convnext,
+            "efficientnet": efficientnet}[arch.split("-")[0]]
+
+
+def _local_numel(t, spec, rules) -> int:
+    n = t.numel()
+    for e in spec:
+        n //= rules.axis_size(e) if e else 1
+    return n
+
+
+def _zoo_tail_bytes(params, specs, rules, dp: int) -> int:
+    """What every train step adds after its backward: the loss's sum over
+    the batch axes, ``sync_grads``' one flat psum of the leaves replicated
+    over them (float32 masters), and the global norm's one scalar psum a
+    set of axes that some leaf is cut on."""
+    f32 = 4
+    total = f32 if dp > 1 else 0
+    if dp > 1:
+        total += sum(_local_numel(t, s, rules) for t, s in zip(
+            tree.leaves(params), tree.leaves(specs))
+            if "data" not in s) * f32
+    sets = {tuple(a for a in ("data", "model") if a in s)
+            for s in tree.leaves(specs)}
+    return total + f32 * sum(1 for a in sets
+                             if a and rules.axis_size(a) > 1)
+
+
+def shard_zoo_bytes(arch: str, cfg, dp: int, tp: int, batch: int, res: int,
+                    train: bool) -> int:
+    """Bytes one rank hands to collectives in one sharded train step (or,
+    with ``train=False``, one serving forward or DDIM sample step) of a
+    global ``batch`` at ``res`` on a (dp, tp) mesh, from the shapes alone:
+    the ``param_specs`` cut of each leaf and ``models.zoo_mesh`` /
+    ``vit.py`` / ``dit.py`` / ``convnext.py`` / ``efficientnet.py``'s
+    collectives and their differentiable backwards (float32 masters, so
+    weight gathers and their reduce-scatters move float32; activations
+    move in bf16, their sums in float32).  Each checkpointed layer's
+    forward collectives run again in the backward's recompute, but for
+    the row-parallel products under "dots" (kept, sum included)."""
+    from repro_torch.distributed import sharding
+
+    mod = _zoo_module(arch)
+    rules = sharding.Rules(mesh=_MeshShape(dp, tp))
+    f32, bf16 = 4, 2
+    b = batch // dp if rules.batch_spec(batch) else batch
+    if arch.startswith("efficientnet"):
+        return _effnet_bytes(cfg, rules, dp, tp, train)
+    specs = mod.param_specs(cfg, rules)
+    full = mod.abstract_params(cfg)
+
+    def loc(name, lay=True):
+        t = full["layers"][name] if lay else full[name]
+        s = specs["layers"][name] if lay else specs[name]
+        return _local_numel(t, s, rules) // (cfg.n_layers if lay and
+                                             "layers" in full else 1)
+
+    def fsdp(names, lay=True):
+        """(forward, backward) bytes of one flat FSDP gather of ``names``
+        and its reduce-scatter."""
+        tab = specs["layers"] if lay else specs
+        n = sum(loc(x, lay) for x in names if "data" in tab[x])
+        return (n * f32, n * dp * f32) if dp > 1 else (0, 0)
+
+    if arch.startswith("convnext"):
+        return _convnext_bytes(cfg, rules, specs, full, dp, tp, b, res,
+                               train)
+    lay = specs["layers"]
+    d, h, s_tok = cfg.d_model, cfg.n_heads, cfg.n_tokens(res)
+    cols = tp > 1 and lay["wqkv"][2] is not None
+    heads = cols and h % tp == 0
+    wo_rows = tp > 1 and lay["wo"][1] is not None
+    ff_cols = tp > 1 and lay["w1"][2] is not None
+    fs_fwd, fs_bwd = fsdp(list(lay))
+    qkv = (loc("wqkv") * (dp if "data" in lay["wqkv"] else 1)
+           + (loc("bqkv") if "bqkv" in lay else 0)) * f32
+    mg_fwd = qkv if cols else 0
+    mg_bwd = qkv * tp if heads else 0
+    act = b * s_tok * d
+    if arch.startswith("vit"):
+        rows = (wo_rows + ff_cols) * act * f32
+        fwd = fs_fwd + mg_fwd + rows
+        bwd = (fs_bwd + mg_bwd + (heads + ff_cols) * act * f32
+               + (act // tp * bf16 if wo_rows and not heads else 0))
+        layer = fwd + (fwd + bwd if train else 0)
+        top_fwd = (_local_numel(full["patch_w"], specs["patch_w"], rules)
+                   * f32 if specs["patch_w"][0] and tp > 1 else 0)
+        head_fwd, head_bwd = fsdp(["head_w"], lay=False)
+        total = cfg.n_layers * layer + top_fwd + head_fwd
+        if not train:
+            return total + (b * cfg.n_classes * bf16 if dp > 1 else 0)
+        return total + head_bwd + _zoo_tail_bytes(full, specs, rules, dp)
+    # DiT
+    ada = tp > 1 and lay["ada_w"][2] is not None
+    if not rules.batch_spec(batch):
+        raise ValueError(f"shard_zoo_bytes: DiT's batch {batch} does not "
+                         f"cut over {rules.batch}")
+    seq = (cfg.seq_shard and tp > 1 and s_tok % tp == 0 and heads
+           and wo_rows and ff_cols and ada)
+    mods_fwd = b * 6 * d // tp * bf16 if ada else 0
+    mods_bwd = ((b * 6 * d * bf16 if seq else 0) + b * d * f32) if ada else 0
+    if seq:
+        enter_fwd, enter_bwd = act // tp * bf16, act * bf16
+        out_fwd, out_bwd = act * f32, act // tp * bf16
+        ada_b_bwd = 6 * d * f32
+    else:
+        enter_fwd, enter_bwd = 0, act * f32
+        out_fwd, out_bwd = act * f32, 0
+        ada_b_bwd = 0
+    enter_bwd *= heads + ff_cols
+    fwd = (fs_fwd + mg_fwd + mods_fwd + (heads + ff_cols) * enter_fwd
+           + (wo_rows + ff_cols) * out_fwd)
+    recompute = fwd - ((wo_rows + ff_cols) * out_fwd
+                       if cfg.remat_policy == "dots" else 0)
+    bwd = (fs_bwd + mg_bwd + mods_bwd + enter_bwd
+           + (wo_rows + ff_cols) * out_bwd + ada_b_bwd
+           + (act // tp * bf16 if wo_rows and not heads else 0))
+    layer = fwd + (recompute + bwd if train else 0)
+    top = ["patch_w", "t_mlp1", "t_mlp2", "label_emb", "final_ada_w",
+           "final_w"]
+    top_fwd, top_bwd = fsdp(top, lay=False)
+    ends = act // tp * bf16 if seq else 0       # the residual gathered
+    total = cfg.n_layers * layer + top_fwd + ends
+    if not train:
+        pd = cfg.patch_dim
+        return total + (b * s_tok * 2 * pd * bf16 if dp > 1 else 0)
+    return (total + top_bwd + ends                # the split's backward
+            + _zoo_tail_bytes(full, specs, rules, dp))
+
+
+def _convnext_bytes(cfg, rules, specs, full, dp, tp, b, res, train) -> int:
+    f32 = 4
+    cut = tp > 1
+
+    def loc(t, s):
+        return _local_numel(t, s, rules)
+
+    total = loc(full["stem_w"], specs["stem_w"]) * f32 if (
+        cut and specs["stem_w"][0]) else 0
+    hw = res // 4
+    for i, (st, sp, depth, dim) in enumerate(zip(
+            full["stages"], specs["stages"], cfg.depths, cfg.dims)):
+        if i:
+            hw //= 2
+        if "down_w" in sp and cut and sp["down_w"][0]:
+            total += loc(st["down_w"], sp["down_w"]) * f32
+        bl, bs = st["blocks"], sp["blocks"]
+        ff_cols = cut and bs["w1"][2] is not None
+        fs = (loc(bl["w1"], bs["w1"]) + loc(bl["w2"], bs["w2"])) // depth
+        fwd = (fs * f32 if dp > 1 else 0)
+        if cut and bs["dw_w"][1]:
+            fwd += loc(bl["dw_w"], bs["dw_w"]) // depth * f32
+        act = b * hw * hw * dim
+        fwd += act * f32 if ff_cols else 0
+        bwd = (fs * dp * f32 if dp > 1 else 0)
+        bwd += (act * f32 + 4 * dim // tp * f32) if ff_cols else 0
+        recompute = 0 if cfg.unroll else fwd
+        total += depth * (fwd + (recompute + bwd if train else 0))
+    head = loc(full["head_w"], specs["head_w"])
+    if dp > 1:
+        total += head * f32 + (head * dp * f32 if train else 0)
+    if not train:
+        return total + (b * cfg.n_classes * 2 if dp > 1 else 0)
+    return total + _zoo_tail_bytes(full, specs, rules, dp)
+
+
+def _effnet_bytes(cfg, rules, dp, tp, train) -> int:
+    from repro_torch.models import efficientnet
+    f32 = 4
+    pspecs, _ = efficientnet.param_specs(cfg, rules)
+    full, _ = efficientnet.abstract_params(cfg)
+
+    def cut_numel(t, s, strip=0):
+        """The local numel of ``t``'s leaves cut over ``model`` (a
+        block's one flat gather), ``strip``: a stacked block's layer
+        dim."""
+        n = 0
+        for x, spec in zip(tree.leaves(t), tree.leaves(s)):
+            if tp > 1 and any(list(spec)[strip:]):
+                k = _local_numel(x, spec, rules)
+                n += k // (x.shape[0] if strip else 1)
+        return n
+
+    def bn(c):           # a synced BN's two sums, forward or backward
+        return 2 * c * f32 if dp > 1 else 0
+
+    if not train:
+        raise ValueError("shard_zoo_bytes: EfficientNet's cell trains")
+    top = {k: full[k] for k in ("stem_w", "stem_bn_s", "stem_bn_b", "head_w",
+                                "head_bn_s", "head_bn_b", "fc_w", "fc_b")}
+    total = cut_numel(top, {k: pspecs[k] for k in top}) * f32
+    total += 2 * (bn(cfg.stem_ch) + bn(cfg.head_ch))
+    for (e, k, s, c_in, c_out, r), st, sp in zip(
+            cfg.stages(), full["stages"], pspecs["stages"]):
+        for part, n, cin in (("head", 1, c_in), ("rest", r - 1, c_out)):
+            if n == 0:
+                continue
+            mid = cin * e
+            chans = ([mid] if e != 1 else []) + [mid, c_out]
+            fwd = cut_numel(st[part], sp[part], 1 if part == "rest" else 0
+                            ) * f32 + sum(bn(c) for c in chans)
+            bwd = sum(bn(c) for c in chans)
+            again = fwd if part == "rest" and not cfg.unroll else 0
+            total += n * (fwd + again + bwd)
+    return total + _zoo_tail_bytes(full, pspecs, rules, dp)
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(device) -> int:
+    """Peak device memory since the last reset (0 off the card)."""
+    if torch.device(device).type != "cuda":
+        return 0
+    return torch.cuda.max_memory_allocated(device)
+
+
+def _zoo_pipe(arch: str, cfg, batch: int, res: int, device, seed: int = 0):
+    if arch.startswith("dit"):
+        return data.LatentPipeline(seed=seed, batch=batch,
+                                   latent_res=cfg.latent_res(res),
+                                   n_classes=cfg.n_classes, device=device,
+                                   prefetch=0)
+    return data.ImagePipeline(seed=seed, batch=batch, img_res=res,
+                              n_classes=cfg.n_classes, device=device,
+                              prefetch=0)
+
+
+def _zoo_rows(arch: str, batch: dict, rules) -> dict:
+    """A train step's batch as the rank takes it: its rows (DiT: the
+    whole batch, which it cuts itself)."""
+    if rules is None or arch.startswith("dit"):
+        return batch
+    n = len(batch["labels"]) // rules.dp
+    lo = rules.coordinate(rules.batch) * n
+    return {k: v[lo:lo + n] for k, v in batch.items()}
+
+
+def _zoo_vg(arch: str, cfg, params, state, batch, rules=None):
+    """(loss, gradient) of the train step's loss."""
+    mod = _zoo_module(arch)
+    if arch.startswith("efficientnet"):
+        (loss, _), grads = tree.value_and_grad(mod.loss_fn, params, state,
+                                               batch, cfg, rules)
+    else:
+        fn = mod.train_loss if arch.startswith("dit") else mod.loss_fn
+        (loss, _), grads = tree.value_and_grad(fn, params, batch, cfg, rules)
+    return loss.item(), grads
+
+
+def _zoo_steps(arch: str, step, params, state, pipe, n: int, rules=None):
+    """``n`` train steps from fresh optimiser state: (losses, ms each)."""
+    eff = arch.startswith("efficientnet")
+    opt = optim.sgdm_init(params) if eff else optim.adamw_init(params)
+    losses, ms = [], []
+    for i in range(n):
+        batch = _zoo_rows(arch, pipe.batch_at(i), rules)
+        _sync(pipe.device)
+        t0 = time.perf_counter()
+        if eff:
+            params, state, opt, m = step(params, state, opt, batch)
+        else:
+            params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        _sync(pipe.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _zoo_serve_fn(arch: str, cfg, job: dict, rules=None):
+    """The serving cell's call: a forward of the images, or one DDIM
+    sample step of the latents."""
+    mod = _zoo_module(arch)
+    x = job["serve_x"]
+    if arch.startswith("dit"):
+        step = mod.make_sample_step(cfg, rules)
+        return lambda p: step(p, x, job["serve_t"], job["serve_t"] - 20,
+                              job["serve_labels"])
+    return lambda p: mod.forward(p, x, cfg, rules)
+
+
+def _zoo_leaf_errs(grads, want, specs, rules, floor: float) -> list:
+    """(relative L2, path) of each gathered gradient leaf against one
+    device's ``want`` (its full leaves), each held to max(its norm,
+    ``floor`` of the tree's): every rank sums its slice's squares, a
+    slice held by c ranks counted 1/c times, one psum over the mesh."""
+    from repro_torch.distributed import sharding
+
+    world = rules.comm(("data", "model"))
+    rows, paths = [], []
+    for (path, g), s, w in zip(tree.flatten_with_paths(grads),
+                               tree.leaves(specs), tree.leaves(want)):
+        wl = sharding.local_shard(w, s, rules).float()
+        copies = world.size // math.prod(
+            rules.axis_size(e) if e else 1 for e in s)
+        rows.append(torch.stack([(g.float() - wl).square().sum(),
+                                 wl.square().sum()]) / copies)
+        paths.append(path)
+    sums = world.psum(torch.stack(rows)).double().cpu()
+    top = floor * float(sums[:, 1].sum().sqrt())
+    return [(float(d.sqrt()) / max(float(w.sqrt()), top, 1e-30), p)
+            for (d, w), p in zip(sums, paths)]
+
+
+def shard_zoo_model(rank: int, device, job: dict) -> dict:
+    """One arch on one rank: its slices of the parent's float32 weights
+    (through CUDA IPC) on SHARD_ZOO_TRAIN_MESH; step 0's gradient leaves
+    against the one-device step's, bf16 through K7/K7b and float32
+    (``float32_check``); SHARD_ZOO_STEPS counted train steps; then on
+    SHARD_ZOO_SERVE_MESH the serving cell's call counted, bf16 and
+    float32."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    arch, cfg = job["arch"], job["cfg"]
+    mod = _zoo_module(arch)
+    eff = arch.startswith("efficientnet")
+    dp, tp = SHARD_ZOO_TRAIN_MESH
+    rules = sharding.rules_for_mesh(mesh_lib.make_host_mesh(
+        data=dp, model=tp, device=device))
+    world = rules.comm(("data", "model"))
+    specs = mod.param_specs(cfg, rules)
+    pspecs = specs[0] if eff else specs
+    params = sharding.shard_tree(job["params"], pspecs, rules)
+    state = sharding.shard_tree(job["state"], specs[1], rules) if eff \
+        else None
+    out = dict(weight_bytes=sum(t.numel() * t.element_size()
+                                for t in tree.leaves(params)))
+    pipe = _zoo_pipe(arch, cfg, job["batch"], job["res"], device)
+    b0 = _zoo_rows(arch, pipe.batch_at(0), rules)
+    for key, ctx in (("bf16", contextlib.nullcontext()),
+                     ("f32", float32_check())):
+        with ctx:
+            loss, grads = _zoo_vg(arch, cfg, params, state, b0, rules)
+            grads = sharding.sync_grads(grads, pspecs, rules)
+            out[key] = dict(loss=loss, errs=_zoo_leaf_errs(
+                grads, job["grads_" + key], pspecs, rules, SHARD_ZOO_FLOOR))
+        del grads
+    step = mod.make_train_step(cfg, rules)
+    gc.collect()
+    _sync(device)
+    _reset_peak(device)
+    world.psum(torch.zeros(1, device=device))                   # align
+    reset_launches()
+    sent, ms, losses = [], [], []
+    opt = optim.sgdm_init(params) if eff else optim.adamw_init(params)
+    for i in range(SHARD_ZOO_STEPS):
+        batch = _zoo_rows(arch, pipe.batch_at(i), rules)
+        before = sharding.Collective.payload_bytes
+        _sync(device)
+        t0 = time.perf_counter()
+        if eff:
+            params, state, opt, m = step(params, state, opt, batch)
+        else:
+            params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        sent.append(sharding.Collective.payload_bytes - before)
+    out.update(launches=read_launches(), losses=losses, ms=ms, sent=sent,
+               peak_bytes=_peak(device))
+    if eff:       # each rank's block of the running statistics
+        out["state"] = [t.cpu() for t in tree.leaves(state)]
+    del params, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if job["serve"] is None:
+        return out
+    dp, tp = SHARD_ZOO_SERVE_MESH
+    rules = sharding.rules_for_mesh(mesh_lib.make_host_mesh(
+        data=dp, model=tp, device=device))
+    params = sharding.shard_tree(job["params"], mod.param_specs(cfg, rules),
+                                 rules)
+    fn = _zoo_serve_fn(arch, cfg, job, rules)
+    fn(params)                                                  # warm
+    _sync(device)
+    _reset_peak(device)
+    reset_launches()
+    before = sharding.Collective.payload_bytes
+    t0 = time.perf_counter()
+    y = fn(params)
+    _sync(device)
+    serve = dict(ms=(time.perf_counter() - t0) * 1e3,
+                 sent=sharding.Collective.payload_bytes - before,
+                 launches=read_launches(), peak_bytes=_peak(device),
+                 finite=bool(torch.isfinite(y.float()).all()))
+    with float32_check():
+        y32 = fn(params)
+    if rank == 0:
+        serve.update(out=y.float().cpu(), out32=y32.float().cpu())
+    out["serve"] = serve
+    return out
+
+
+def shard_zoo_rank(rank, device, jobs):
+    """One rank of the [shard zoo] phase: each arch in turn."""
+    out = {"rank": rank}
+    for job in jobs:
+        t0 = time.perf_counter()
+        out[job["arch"]] = shard_zoo_model(rank, device, job)
+        out[job["arch"]]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_floor_errs(halves, grads, floor: float) -> list:
+    """Each leaf of the mean of two half batches' gradients against the
+    whole batch's, with ``_zoo_leaf_errs``' floor: the one-device noise
+    of a batch cut in two (other matmul shapes, other bf16 roundings)."""
+    wants = [w.float() for w in tree.leaves(grads)]
+    top = floor * float(torch.stack([w.square().sum() for w in wants])
+                        .sum().sqrt())
+    return [float(((a.float() + c.float()) / 2 - w).norm())
+            / max(float(w.norm()), top, 1e-30)
+            for a, c, w in zip(tree.leaves(halves[0]),
+                               tree.leaves(halves[1]), wants)]
+
+
+def shard_zoo_job(arch: str, device, rec=None) -> tuple[dict, dict]:
+    """An arch's job for the ranks (float32 weights, the one-device step
+    0's gradients, bf16 and float32, the serving cell's inputs) and the
+    one-device numbers: step 0's loss and gradients, the floor from two
+    half batches, ms a train step, the serving call's outputs and ms.
+    ``rec``: the arch's configs record (default ``configs.get(arch)``;
+    FULL config and shapes)."""
+    rec = rec or configs.get(arch)
+    cfg = rec.full
+    mod = _zoo_module(arch)
+    (tname, tb), serve = SHARD_ZOO_CELLS[arch]
+    eff, is_dit = arch.startswith("efficientnet"), arch.startswith("dit")
+    res = cfg.img_res if eff else rec.shape(tname).img_res
+    g = torch.Generator(device=device).manual_seed(0)
+    state = None
+    if is_dit:
+        params = zoo_dit_params(cfg, g, device, torch.float32)
+    elif eff:
+        params, state = mod.init_params(cfg, g, device, dtype=torch.float32)
+    else:
+        params = mod.init_params(cfg, g, device, dtype=torch.float32)
+    job = dict(arch=arch, cfg=cfg, params=params, state=state, batch=tb,
+               res=res, serve=serve)
+    pipe = _zoo_pipe(arch, cfg, tb, res, device)
+    b0 = pipe.batch_at(0)
+    single = {}
+    single["loss"], job["grads_bf16"] = _zoo_vg(arch, cfg, params, state, b0)
+    if not eff:     # train-mode BN: a half batch is another function
+        halves = [_zoo_vg(arch, cfg, params, state,
+                          {k: v[sl] for k, v in b0.items()})[1]
+                  for sl in (slice(0, tb // 2), slice(tb // 2, None))]
+        single["floor"] = _zoo_floor_errs(halves, job["grads_bf16"],
+                                          SHARD_ZOO_FLOOR)
+        del halves
+    with float32_check():
+        single["loss32"], job["grads_f32"] = _zoo_vg(arch, cfg, params,
+                                                     state, b0)
+    losses, ms = _zoo_steps(arch, mod.make_train_step(cfg), params, state,
+                            pipe, SHARD_ZOO_STEPS + 1)
+    single.update(losses=losses[:SHARD_ZOO_STEPS], ms=ms[1:])
+    if serve is not None:
+        sname, sb = serve
+        sres = rec.shape(sname).img_res
+        if is_dit:
+            r = cfg.latent_res(sres)
+            job["serve_x"] = torch.randn((sb, r, r, cfg.latent_channels),
+                                         device=device, generator=g)
+            job["serve_t"] = torch.full((sb,), cfg.n_train_timesteps // 2,
+                                        device=device)
+            job["serve_labels"] = torch.randint(0, cfg.n_classes, (sb,),
+                                                device=device, generator=g)
+        else:
+            job["serve_x"] = torch.rand((sb, sres, sres, 3), device=device,
+                                        generator=g)
+        job["serve_res"] = sres
+        fn = _zoo_serve_fn(arch, cfg, job)
+        fn(params)
+        _sync(device)
+        t0 = time.perf_counter()
+        y = fn(params)
+        _sync(device)
+        single["serve_ms"] = (time.perf_counter() - t0) * 1e3
+        single["out"] = y.float().cpu()
+        # the floor: the same call a half batch at a time
+        halves = {k: job[k] for k in ("serve_x", "serve_t", "serve_labels")
+                  if k in job}
+        parts = []
+        for sl in (slice(0, sb // 2), slice(sb // 2, None)):
+            part = dict(job, **{k: v[sl] for k, v in halves.items()})
+            parts.append(_zoo_serve_fn(arch, cfg, part)(params).float()
+                         .cpu())
+        single["out_floor"] = rel_err(torch.cat(parts), single["out"])
+        with float32_check():
+            single["out32"] = fn(params).float().cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return job, single
+
+
+def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
+    """ViT-H/14, DiT-XL/2, ConvNeXt-B and EfficientNet-B7 under ``rules``
+    over SHARD_RANKS ranks sharing the card (gloo, collectives staged
+    through pinned host memory), full width and depth, float32 weights
+    drawn once here and handed to the ranks through CUDA IPC: each arch's
+    train cell (SHARD_ZOO_STEPS steps on SHARD_ZOO_TRAIN_MESH) and serving
+    cell (on SHARD_ZOO_SERVE_MESH), counted: bytes into collectives equal
+    to ``shard_zoo_bytes``, K7 / K7b launches on each rank's heads; step 0
+    and the serving output against one device, float32 within
+    ``F32_CHECK`` and bf16 beside the one-device floor.  Returns (the
+    ranks' launches summed, numbers)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs, singles = [], {}
+    for arch in SHARD_ZOO_ARCHS:
+        t0 = time.perf_counter()
+        job, singles[arch] = shard_zoo_job(arch, device)
+        jobs.append(job)
+        log(f"[shard zoo] {arch}: one device's step 0, {SHARD_ZOO_STEPS + 1}"
+            f" steps and the serving cell in {time.perf_counter() - t0:.1f}"
+            f" s")
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(shard_zoo_rank, SHARD_RANKS, jobs,
+                           device=device.type, timeout_s=SHARD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    log(f"[shard zoo] {SHARD_RANKS} ranks spawned, the four archs run and "
+        f"joined in {spawn_s:.3f} s; gloo collectives staged through pinned "
+        f"host memory, 4 ranks sharing one card ({smi})")
+    launches, numbers = launch_counts(), {"spawn_s": spawn_s}
+    for job in jobs:
+        arch, cfg = job["arch"], job["cfg"]
+        single = singles[arch]
+        runs = [rank[arch] for rank in ranks]
+        r0 = runs[0]
+        l_n = getattr(cfg, "n_layers", 0)
+        attn = arch.startswith(("vit", "dit"))
+        dp, tp = SHARD_ZOO_TRAIN_MESH
+        want_bytes = shard_zoo_bytes(arch, cfg, dp, tp, job["batch"],
+                                     job["res"], True)
+        want_launch = launch_counts(
+            flash_attention=2 * l_n * SHARD_ZOO_STEPS if attn else 0,
+            flash_attention_bwd=l_n * SHARD_ZOO_STEPS if attn else 0)
+        for rank, r in zip(ranks, runs):
+            log(f"[shard zoo] {arch} rank {rank['rank']} of (data {dp}, "
+                f"model {tp}): {r['weight_bytes']} B of weights; "
+                f"{SHARD_ZOO_STEPS} steps of B {job['batch']} at "
+                f"{job['res']}²: ms a step "
+                + " ".join(f"{x:.3f}" for x in r["ms"])
+                + f" wall; {r['sent'][0]} B into collectives a step; peak "
+                f"device memory {r['peak_bytes']} B; K7 "
+                f"{r['launches']['flash_attention']}, K7b "
+                f"{r['launches']['flash_attention_bwd']} launches; arch "
+                f"{r['s']:.1f} s on the rank ({smi})")
+            if r["launches"] != want_launch or set(r["sent"]) != {
+                    want_bytes} or r["losses"] != r0["losses"] \
+                    or not np.isfinite(r["losses"]).all():
+                raise AssertionError(
+                    f"[shard zoo] {arch} rank {rank['rank']}: launches "
+                    f"{r['launches']} (want {want_launch}), bytes "
+                    f"{set(r['sent'])} (arithmetic {want_bytes}), losses "
+                    f"{r['losses']} against rank 0's {r0['losses']}")
+            for name in ("flash_attention", "flash_attention_bwd"):
+                launches[name] += r["launches"][name]
+        bf = r0["bf16"]
+        worst, path = max(bf["errs"])
+        floor = single.get("floor")
+        log(f"[shard zoo] {arch} step 0 bf16 through K7/K7b against one "
+            f"device: loss {bf['loss']:.6f} / {single['loss']:.6f} (gap "
+            f"{abs(bf['loss'] - single['loss']) / abs(single['loss']):.3e})"
+            f", worst gathered leaf {path} {worst:.3e} relative L2 (a leaf "
+            f"held to max(its norm, {SHARD_ZOO_FLOOR} of the tree's)); the "
+            f"one-device floor from two half batches: "
+            + (f"worst {max(floor):.3e}" if floor else
+               "none (train-mode BN: a half batch is another function)")
+            + f"; one device ms a step "
+            + " ".join(f"{x:.3f}" for x in single["ms"])
+            + f"; bytes a step {want_bytes} by arithmetic = counted ({smi})")
+        f32 = f32_step_check(
+            f"[shard zoo] {arch}", r0["f32"]["loss"], single["loss32"],
+            r0["f32"]["errs"], f"relative L2 of max(the leaf's norm, "
+            f"{SHARD_ZOO_FLOOR} of the tree's)")
+        out = dict(train_mesh=SHARD_ZOO_TRAIN_MESH, batch=job["batch"],
+                   res=job["res"], bytes_a_step=want_bytes,
+                   bf16_loss_gap=abs(bf["loss"] - single["loss"])
+                   / abs(single["loss"]), bf16_worst_leaf=(path, worst),
+                   floor_worst=max(floor) if floor else None, f32=f32,
+                   single_ms=single["ms"],
+                   ranks=[dict(ms=r["ms"], sent=r["sent"],
+                               peak_bytes=r["peak_bytes"],
+                               launches=r["launches"], s=r["s"])
+                          for r in runs])
+        if arch.startswith("efficientnet"):
+            # the running statistics: each rank's block equal to its data
+            # peer's, bit for bit (ranks r and r + tp share a model block)
+            for a, c in ((0, 2), (1, 3)):
+                if not all(torch.equal(x, y) for x, y in zip(
+                        runs[a]["state"], runs[c]["state"])):
+                    raise AssertionError(f"[shard zoo] {arch}: the running "
+                                         f"statistics of ranks {a} and {c} "
+                                         f"differ")
+            log(f"[shard zoo] {arch}: the synced BN's running statistics "
+                f"equal on every data rank after {SHARD_ZOO_STEPS} steps, "
+                f"bit for bit")
+        if job["serve"] is not None:
+            sname, sb = job["serve"]
+            sdp, stp = SHARD_ZOO_SERVE_MESH
+            want_serve = shard_zoo_bytes(arch, cfg, sdp, stp, sb,
+                                         job["serve_res"], False)
+            for rank, r in zip(ranks, runs):
+                sv = r["serve"]
+                log(f"[shard zoo] {arch} {sname} rank {rank['rank']} of "
+                    f"(data {sdp}, model {stp}): B {sb} at "
+                    f"{job['serve_res']}², {sv['ms']:.3f} ms wall, "
+                    f"{sv['sent']} B into collectives, peak device memory "
+                    f"{sv['peak_bytes']} B, K7 "
+                    f"{sv['launches']['flash_attention']} ({smi})")
+                if sv["launches"] != launch_counts(
+                        flash_attention=l_n if attn else 0) \
+                        or sv["sent"] != want_serve or not sv["finite"]:
+                    raise AssertionError(
+                        f"[shard zoo] {arch} {sname} rank {rank['rank']}: "
+                        f"launches {sv['launches']}, bytes {sv['sent']} "
+                        f"(arithmetic {want_serve}), finite {sv['finite']}")
+                for name in ("flash_attention", "flash_attention_bwd"):
+                    launches[name] += sv["launches"][name]
+            sv = r0["serve"]
+            err16 = rel_err(sv["out"], single["out"])
+            err32 = rel_err(sv["out32"], single["out32"])
+            log(f"[shard zoo] {arch} {sname}: one device {single['serve_ms']:.3f}"
+                f" ms; bf16 through K7 against one device: max |sharded - "
+                f"single| / max |single| {err16:.4e}, the one-device floor "
+                f"(two half batches) {single['out_floor']:.4e}; float32 "
+                f"check ({F32_ROUTE}): {err32:.4e} (limit "
+                f"{F32_CHECK['out']}); bytes {want_serve} by arithmetic = "
+                f"counted")
+            if not err32 <= F32_CHECK["out"]:
+                raise AssertionError(f"[shard zoo] {arch} {sname}: float32 "
+                                     f"output off by {err32:.4e}")
+            out["serve"] = dict(batch=sb, res=job["serve_res"],
+                                bytes=want_serve, bf16_err=err16,
+                                floor=single["out_floor"], f32_err=err32,
+                                single_ms=single["serve_ms"],
+                                ranks=[dict(ms=r["serve"]["ms"],
+                                            peak_bytes=r["serve"]["peak_bytes"])
+                                       for r in runs])
+        numbers[arch] = out
+    del jobs
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers["s"] = time.perf_counter() - t_phase
+    log(f"[shard zoo] phase took {numbers['s']:.1f} s")
+    return {"shard_zoo": launches}, numbers
 
 
 def zoo_memory(tag: str) -> int:
@@ -6054,6 +6990,8 @@ def main() -> int:
     shard_launches, numbers["shard"] = phase_shard(device, smi)
     train_launches, numbers["shard_train"] = phase_shard_train(device, smi)
     shard_launches.update(train_launches)
+    zoo_launches, numbers["shard_zoo"] = phase_shard_zoo(device, smi)
+    shard_launches.update(zoo_launches)
     for k in kernels:
         k["launches"] += sum(v[k["name"]] for v in shard_launches.values())
         k["launches_per_forward"].update(

@@ -1,5 +1,6 @@
-"""Mesh-axis sharding rules for the LM stack, their collectives, and the
-data-parallel serving placement (DESIGN.md §13).
+"""Mesh-axis sharding rules for the LM stack and the vision and diffusion
+zoo, their collectives, and the data-parallel serving placement
+(DESIGN.md §13).
 
 Counterpart of ``repro.distributed.sharding``.  One :class:`Rules` object
 says how a mesh's axes are used, with the reference's arithmetic and its
@@ -225,7 +226,8 @@ _DIFFERENTIABLE = {
     "pmean": "pmean (the mean forward, its share backward)",
     "all_gather": "gather_fsdp (reduce-scatter backward) or gather_model "
                   "(the rank's own block backward)",
-    "reduce_scatter": "gather_fsdp",
+    "reduce_scatter": "gather_fsdp (its backward) or "
+                      "reduce_scatter_model",
     "all_to_all": "all_to_all (the inverse all_to_all backward)",
 }
 
@@ -384,13 +386,72 @@ def all_to_all(x: torch.Tensor, comm, split_axis: int,
     return _AllToAll.apply(x, comm, split_axis, concat_axis)
 
 
-class _GatherFsdp(torch.autograd.Function):
-    """Leaves all_gathered along their dims in one flat collective; the
-    backward reduce-scatters their cotangents in one flat collective."""
+def _reduce_scatter(comm, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x summed over ``comm``'s ranks, this rank's block along ``axis``:
+    sums of the rank-ordered blocks at least in float32, rounded once to
+    x's dtype."""
+    n = x.shape[axis] // comm.size
+    blocks = x.unflatten(axis, (comm.size, n)).movedim(axis, 0)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    return comm.reduce_scatter(blocks.to(wide)).to(x.dtype)
+
+
+class _ReduceScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return _reduce_scatter(comm, x, axis)
 
     @staticmethod
-    def forward(ctx, comm, dims, *xs):
-        ctx.comm, ctx.dims = comm, dims
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g.contiguous(), axis=ctx.axis), None, None
+
+
+def reduce_scatter_model(x: torch.Tensor, comm, axis: int) -> torch.Tensor:
+    """Each rank's partial sum x summed over ``comm`` (float32, rounded
+    once), the rank's block along ``axis`` forward; all_gather backward
+    (the transpose: each rank's cotangent is its own block's).  The
+    Megatron-SP block boundary, DiT's sequence-sharded residual: its
+    fused form with the row-parallel product is ``layers.row_parallel(...,
+    scatter_axis=)``."""
+    if comm.size == 1:
+        return x
+    if x.shape[axis] % comm.size:
+        raise ValueError(f"dim {axis} of {tuple(x.shape)} does not split "
+                         f"over {comm.size}")
+    return _ReduceScatterModel.apply(x, comm, axis % x.dim())
+
+
+class _SumStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.psum(g), None
+
+
+def sum_stats(x: torch.Tensor, comm) -> torch.Tensor:
+    """psum forward and psum backward: a statistic summed over the batch
+    axes whose sum every rank then reads on its own rows (train-mode batch
+    norm's per-channel sums).  Each rank's cotangent is its rows' part, so
+    the transpose of the all-reduce is the all-reduce."""
+    if comm.size == 1:
+        return x
+    return _SumStats.apply(x, comm)
+
+
+class _GatherFsdp(torch.autograd.Function):
+    """Leaves all_gathered along their dims in one flat collective; the
+    backward reduce-scatters their cotangents in one flat collective, or,
+    with ``own``, takes each leaf's own block of them (every rank read the
+    result alike)."""
+
+    @staticmethod
+    def forward(ctx, comm, dims, own, *xs):
+        ctx.comm, ctx.dims, ctx.own = comm, dims, own
         ctx.shapes = [x.movedim(d, 0).shape for x, d in zip(xs, dims)]
         flat = torch.cat([x.movedim(d, 0).reshape(-1)
                           for x, d in zip(xs, dims)])
@@ -407,6 +468,11 @@ class _GatherFsdp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         n = ctx.comm.size
+        if ctx.own:
+            i = ctx.comm.index
+            return (None, None, None, *(
+                g.narrow(d, i * s[0], s[0])
+                for g, d, s in zip(gs, ctx.dims, ctx.shapes)))
         flat = torch.cat([g.movedim(d, 0).reshape(n, -1)
                           for g, d in zip(gs, ctx.dims)], dim=1)
         mine = ctx.comm.reduce_scatter(flat)
@@ -415,7 +481,7 @@ class _GatherFsdp(torch.autograd.Function):
             k = math.prod(shape)
             out.append(mine[lo:lo + k].reshape(shape).movedim(0, d))
             lo += k
-        return (None, None, *out)
+        return (None, None, None, *out)
 
 
 def gather_fsdp(xs: Sequence[torch.Tensor], dims: Sequence[int | None],
@@ -427,6 +493,20 @@ def gather_fsdp(xs: Sequence[torch.Tensor], dims: Sequence[int | None],
     layer at a time, and any gather whose ranks read different parts of
     the result (``wk`` / ``wv`` gathered for the KV heads each rank's q
     heads read)."""
+    return _gather_leaves(xs, dims, comm, own=False)
+
+
+def gather_model_leaves(xs: Sequence[torch.Tensor],
+                        dims: Sequence[int | None], comm) -> list:
+    """:func:`gather_model` of many leaves in one flat collective a
+    dtype: each ``xs[i]`` all_gathered along ``dims[i]`` (None: left as
+    it is), backward each rank's own block of the cotangents.  Weights
+    gathered for work every rank of ``comm`` runs alike (the zoo's
+    convolutions over whole channels)."""
+    return _gather_leaves(xs, dims, comm, own=True)
+
+
+def _gather_leaves(xs, dims, comm, own: bool) -> list:
     out = list(xs)
     if comm.size == 1:
         return out
@@ -436,7 +516,7 @@ def gather_fsdp(xs: Sequence[torch.Tensor], dims: Sequence[int | None],
             by_dtype.setdefault(x.dtype, []).append(i)
     for idx in by_dtype.values():
         got = _GatherFsdp.apply(comm, tuple(dims[i] % xs[i].dim()
-                                            for i in idx),
+                                            for i in idx), own,
                                 *(xs[i] for i in idx))
         for i, t in zip(idx, got):
             out[i] = t

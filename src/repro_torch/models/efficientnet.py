@@ -1,5 +1,5 @@
-"""EfficientNet-B7 (Tan & Le, arXiv:1905.11946; width 2.0, depth 3.1) on
-one device.
+"""EfficientNet-B7 (Tan & Le, arXiv:1905.11946; width 2.0, depth 3.1), on
+one device or on a mesh.
 
 Counterpart of ``repro.models.efficientnet``: MBConv blocks (1×1 expand,
 k×k depthwise, squeeze-excite, 1×1 project) with batch norm and SiLU; the
@@ -28,6 +28,19 @@ convs on latent float weights (the depthwise convs and SE stay float).
 Layouts: images and activations NHWC; conv kernels stored (O, I, KH, KW)
 (a depthwise (k, k, 1, C) as (C, 1, k, k)).  The squeeze-excite and the
 head run in float32, as the reference's.
+
+On a mesh (``rules``): ``param_specs`` is the reference's, every conv's
+output channels (and every other leaf's last dim, the BN state's too) cut
+over ``model``.  The batch runs over the batch axes.  The layout over
+``model`` is the port's: activations keep their channels whole on every
+model rank and each block gathers its leaves whole (their gradient each
+rank's own block), so no activation crosses ``model`` (a channel-cut
+1×1 conv would move a whole feature map a block).  Train-mode batch norm
+is synced: each channel's mean, then its variance about it, is summed
+over the batch axes (``sharding.sum_stats``, whose backward sums the
+cotangents likewise), the statistics of the reference's global batch;
+the running statistics come out equal on every data rank, each rank
+keeping its block of them.
 """
 
 from __future__ import annotations
@@ -41,7 +54,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.binarize import ste_sign
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import P
 from repro_torch.models import layers
+from repro_torch.models.zoo_mesh import Layout, dim_of, shard_params
 from repro_torch.optim import sgdm_update
 from repro_torch.tree import value_and_grad
 
@@ -218,40 +234,118 @@ def init_params(cfg: EffNetConfig, generator: torch.Generator,
     return layers.store(make(params), dtype, FLOAT32_LEAVES), make(state)
 
 
+def _map_named(fn, t, name=""):
+    if isinstance(t, dict):
+        return {k: _map_named(fn, v, k) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_map_named(fn, v, name) for v in t]
+    return fn(name, t)
+
+
+def param_specs(cfg: EffNetConfig, rules):
+    """(params' specs, state's specs): the reference's, each conv's output
+    channels (the (O, I, KH, KW) kernel's O) and every other leaf's last
+    dim over ``rules.model`` where it divides."""
+    def spec(name, leaf):
+        shape = leaf[1]
+        dim = len(shape) - 4 if name in CONV_LEAVES else len(shape) - 1
+        entries = [None] * len(shape)
+        entries[dim] = rules.shard_if(shape[dim], rules.model)
+        return P(*entries)
+
+    params, state = _trees(cfg)
+    return _map_named(spec, params), _map_named(spec, state)
+
+
+def abstract_params(cfg: EffNetConfig, dtype: torch.dtype = torch.float32):
+    """(params, state) of full shapes and dtypes as meta tensors (no
+    memory)."""
+    return init_params(cfg, None, "meta", dtype)
+
+
 @torch.no_grad()
 def params_from_numpy(tree, cfg: EffNetConfig,
                       device: str | torch.device = "cuda",
-                      dtype: torch.dtype = torch.float32):
+                      dtype: torch.dtype = torch.float32, rules=None):
     """(params, state) from the reference's ``init_params`` pair as numpy
     arrays: the same values, conv kernels in (O, I, KH, KW), stored as
-    :func:`init_params` stores them."""
-    del cfg
+    :func:`init_params` stores them; with ``rules`` this rank's slices of
+    :func:`param_specs`."""
     device = resolve_device(device)
     params, state = tree
-    return (layers.tree_from_numpy(params, device, dtype, CONV_LEAVES,
+    full = (layers.tree_from_numpy(params, device, dtype, CONV_LEAVES,
                                    FLOAT32_LEAVES),
             layers.tree_from_numpy(state, device, torch.float32))
+    return shard_params(full, rules and param_specs(cfg, rules), rules)
 
 
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
 
-def _bn(x, scale, bias, stats, train: bool):
+def _bn(x, scale, bias, stats, train: bool, mesh=None):
     """Batch norm over N, H, W in float32.  Returns (y in x's dtype,
-    new_stats)."""
+    new_stats).  ``mesh`` (a block's :class:`_Mesh`): the statistics
+    summed over the batch axes, ``stats`` and the new ones the rank's
+    block of the channels."""
     xf = x.float()
-    if train:
+    if train and mesh is not None and mesh.sync.size > 1:
+        n = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.sync.size
+        mean = sharding.sum_stats(xf.sum(dim=(0, 1, 2)), mesh.sync) / n
+        var = sharding.sum_stats((xf - mean).square().sum(dim=(0, 1, 2)),
+                                 mesh.sync) / n
+    elif train:
         mean = xf.mean(dim=(0, 1, 2))
         var = xf.var(dim=(0, 1, 2), correction=0)
-        new = {"mean": _BN_MOM * stats["mean"] + (1 - _BN_MOM) * mean,
-               "var": _BN_MOM * stats["var"] + (1 - _BN_MOM) * var}
+    if train:
+        own = mesh.own if mesh is not None else (lambda t: t)
+        new = {"mean": _BN_MOM * stats["mean"] + (1 - _BN_MOM) * own(mean),
+               "var": _BN_MOM * stats["var"] + (1 - _BN_MOM) * own(var)}
     else:
         mean, var = stats["mean"], stats["var"]
         new = stats
     y = (xf - mean) * torch.rsqrt(var + _BN_EPS) * scale.float() \
         + bias.float()
     return y.to(x.dtype), new
+
+
+class _Mesh:
+    """A rank's hooks for one block under ``rules``: its leaves whole,
+    the batch statistics' sum, each statistic's own block."""
+
+    def __init__(self, lay: Layout, pspecs, sspecs, strip: int = 0):
+        self.lay, self.pspecs, self.sspecs = lay, pspecs, sspecs
+        self.strip = strip            # 1: a stacked block's layer dim
+        self.sync = lay.batch
+        self.model = lay.model
+
+    def params(self, p: dict) -> dict:
+        names = list(p)
+        got = self.lay.whole([p[n] for n in names],
+                             [P(*list(self.pspecs[n])[self.strip:])
+                              for n in names])
+        return dict(zip(names, got))
+
+    def state(self, s: dict, train: bool) -> dict:
+        """Train mode keeps the rank's block (it moves only that);
+        eval mode reads the running statistics whole."""
+        if train:
+            return s
+        out = {}
+        for name, st in s.items():
+            spec = self.sspecs[name]["mean"]
+            dim = dim_of(P(*list(spec)[self.strip:]),
+                         self.lay.rules.model)
+            out[name] = {k: v if dim is None
+                         else self.model.all_gather(v, axis=dim)
+                         for k, v in st.items()}
+        return out
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        if t.shape[-1] % self.model.size or self.model.size == 1:
+            return t
+        n = t.shape[-1] // self.model.size
+        return t[..., self.model.index * n:(self.model.index + 1) * n]
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -290,17 +384,21 @@ def _pointwise_binary(x, w, binary: bool):
     return _pointwise(ste_sign(x.float()).to(x.dtype), ste_sign(w))
 
 
-def _mb_block(x, p, s, *, expand, stride, train, binary):
-    """One MBConv block.  Returns (y, new_state)."""
+def _mb_block(x, p, s, *, expand, stride, train, binary, mesh=None):
+    """One MBConv block.  Returns (y, new_state).  ``mesh``: the rank's
+    hooks under ``rules`` (its slices in, its blocks of the state out)."""
+    if mesh is not None:
+        p, s = mesh.params(p), mesh.state(s, train)
     ns = dict(s)
     h = x
     if expand != 1:
         h = _pointwise_binary(h, p["exp_w"], binary)
         h, ns["exp_bn"] = _bn(h, p["exp_bn_s"], p["exp_bn_b"], s["exp_bn"],
-                              train)
+                              train, mesh)
         h = layers.silu(h, exact=binary)
     h = conv_same(h, p["dw_w"], stride=stride, groups=h.shape[-1])
-    h, ns["dw_bn"] = _bn(h, p["dw_bn_s"], p["dw_bn_b"], s["dw_bn"], train)
+    h, ns["dw_bn"] = _bn(h, p["dw_bn_s"], p["dw_bn_b"], s["dw_bn"], train,
+                         mesh)
     h = layers.silu(h, exact=binary)
     # squeeze-excite, float32
     se = h.float().mean(dim=(1, 2), keepdim=True)
@@ -310,31 +408,51 @@ def _mb_block(x, p, s, *, expand, stride, train, binary):
     h = h * se.to(h.dtype)
     h = _pointwise_binary(h, p["proj_w"], binary)
     h, ns["proj_bn"] = _bn(h, p["proj_bn_s"], p["proj_bn_b"], s["proj_bn"],
-                           train)
+                           train, mesh)
     if stride == 1 and x.shape[-1] == h.shape[-1]:
         h = h + x
     return h, ns
 
 
-def _apply(params, state, images, cfg: EffNetConfig, train: bool):
+def _apply(params, state, images, cfg: EffNetConfig, train: bool,
+           rules=None):
     cd = layers.COMPUTE_DTYPE
+    lay = Layout(rules)
+    if lay.on:
+        pspecs, sspecs = param_specs(cfg, rules)
+        top = _Mesh(lay, pspecs, sspecs)
+
+        def mesh(i, part):
+            st_p, st_s = pspecs["stages"][i][part], sspecs["stages"][i][part]
+            return _Mesh(lay, st_p, st_s, 1 if part == "rest" else 0)
+        names = ["stem_w", "stem_bn_s", "stem_bn_b", "head_w", "head_bn_s",
+                 "head_bn_b", "fc_w", "fc_b"]
+        params = {**params, **top.params({n: params[n] for n in names})}
+        state = {**state, **top.state({n: state[n] for n in
+                                       ("stem_bn", "head_bn")}, train)}
+    else:
+        top = None
+
+        def mesh(i, part):
+            return None
     new_state: dict = {"stages": []}
     x = conv_same(images.to(cd), params["stem_w"], stride=2)
     x, new_state["stem_bn"] = _bn(x, params["stem_bn_s"],
                                   params["stem_bn_b"], state["stem_bn"],
-                                  train)
+                                  train, top)
     x = layers.silu(x, exact=cfg.binary_pointwise)
-    for (e, k, s, c_in, c_out, r), sp, ss in zip(
-            cfg.stages(), params["stages"], state["stages"]):
+    for i, ((e, k, s, c_in, c_out, r), sp, ss) in enumerate(zip(
+            cfg.stages(), params["stages"], state["stages"])):
         x, head_ns = _mb_block(x, sp["head"], ss["head"], expand=e,
                                stride=s, train=train,
-                               binary=cfg.binary_pointwise)
+                               binary=cfg.binary_pointwise,
+                               mesh=mesh(i, "head"))
         stage_ns = {"head": head_ns}
         if r > 1:
             # ``e`` bound now, for the recompute (as ConvNeXt's ``dim``)
-            def body(x, ps, e=e):
+            def body(x, ps, e=e, m=mesh(i, "rest")):
                 return _mb_block(x, *ps, expand=e, stride=1, train=train,
-                                 binary=cfg.binary_pointwise)
+                                 binary=cfg.binary_pointwise, mesh=m)
 
             x, stage_ns["rest"] = layers.scan_layers(
                 body, x, (sp["rest"], ss["rest"]), n_layers=r - 1,
@@ -343,40 +461,62 @@ def _apply(params, state, images, cfg: EffNetConfig, train: bool):
     x = _pointwise(x, params["head_w"])
     x, new_state["head_bn"] = _bn(x, params["head_bn_s"],
                                   params["head_bn_b"], state["head_bn"],
-                                  train)
+                                  train, top)
     x = layers.silu(x).float().mean(dim=(1, 2))
     return x @ params["fc_w"].float() + params["fc_b"].float(), new_state
 
 
 def apply(params, state, images: torch.Tensor, cfg: EffNetConfig, *,
-          train: bool):
+          train: bool, rules=None):
     """images (B, R, R, 3) float -> (logits (B, n_classes) float32,
     new_state).  ``train=True`` uses the batch's statistics under autograd;
-    ``train=False`` the running ones, under ``torch.inference_mode``."""
+    ``train=False`` the running ones, under ``torch.inference_mode``.
+    With ``rules``: train mode takes the rank's rows (of a batch cut over
+    every batch axis) and gives its rows' logits and its blocks of the
+    state; eval mode takes the whole images on every rank and gives the
+    whole logits."""
     if train:
-        return _apply(params, state, images, cfg, True)
+        return _apply(params, state, images, cfg, True, rules)
     with torch.inference_mode():
-        return _apply(params, state, images, cfg, False)
+        lay = Layout(rules)
+        out, new = _apply(params, state, lay.rows(images), cfg, False, rules)
+        return lay.gather_rows(out, images.shape[0]), new
 
 
-def loss_fn(params, state, batch: dict, cfg: EffNetConfig):
-    """(mean cross entropy of the batch in train mode, new BN state)."""
-    lg, new_state = apply(params, state, batch["images"], cfg, train=True)
+def loss_fn(params, state, batch: dict, cfg: EffNetConfig, rules=None):
+    """(mean cross entropy of the batch in train mode, new BN state).
+    With ``rules``: the rank's rows; the loss is the global mean, the same
+    on every rank."""
+    lg, new_state = apply(params, state, batch["images"], cfg, train=True,
+                          rules=rules)
     lg = lg.float()
     gold = torch.take_along_dim(lg, batch["labels"].long()[:, None],
                                 dim=-1)[:, 0]
-    return (torch.logsumexp(lg, dim=-1) - gold).mean(), new_state
+    ce = torch.logsumexp(lg, dim=-1) - gold
+    if rules is None:
+        return ce.mean(), new_state
+    lay = Layout(rules)
+    lay.train_rows(ce.shape[0])
+    return lay.mean_over_batch(ce.sum(), ce.shape[0]), new_state
 
 
-def make_train_step(cfg: EffNetConfig, *, lr=0.016) -> Callable:
+def make_train_step(cfg: EffNetConfig, rules=None, *, lr=0.016
+                    ) -> Callable:
     """(params, state, opt_state, batch) -> (params, state, opt_state,
     metrics): the loss's gradient in train mode, the moved BN state, then
-    one SGD-momentum step with the reference's defaults."""
+    one SGD-momentum step with the reference's defaults.  With ``rules``
+    (every rank on its slices and rows): the gradient summed over the
+    batch axes, the norm over every rank's leaves, the state the rank's
+    blocks."""
+    specs = param_specs(cfg, rules)[0] if rules is not None else None
+    lay = Layout(rules)
 
     def train_step(params, state, opt_state, batch):
         (loss, new_state), grads = value_and_grad(loss_fn, params, state,
-                                                  batch, cfg)
-        params, opt_state, om = sgdm_update(params, grads, opt_state, lr=lr)
+                                                  batch, cfg, rules)
+        grads = lay.sync(grads, specs)
+        params, opt_state, om = sgdm_update(params, grads, opt_state, lr=lr,
+                                            rules=rules, specs=specs)
         return params, new_state, opt_state, {"loss": loss, **om}
 
     return train_step

@@ -210,46 +210,75 @@ _ROW_COMMS: "weakref.WeakValueDictionary[int, object]" = \
 
 
 @torch.library.custom_op("repro_torch::row_parallel", mutates_args=())
-def _row_parallel_op(a: torch.Tensor, w: torch.Tensor,
-                     comm: int) -> torch.Tensor:
+def _row_parallel_op(a: torch.Tensor, w: torch.Tensor, comm: int,
+                     lead: int) -> torch.Tensor:
     w = w.to(COMPUTE_DTYPE)
-    if a.is_cuda:
+    wide = torch.promote_types(a.dtype, torch.float32)
+    if a.is_cuda and a.dtype != wide:
         p = torch.mm(a, w, out_dtype=torch.float32)
     else:
-        p = a.float() @ w.float()
-    return _ROW_COMMS[comm].psum(p).to(COMPUTE_DTYPE)
+        p = a.to(wide) @ w.to(wide)
+    group = _ROW_COMMS[comm]
+    if not lead:
+        return group.psum(p).to(COMPUTE_DTYPE)
+    # the (lead, rows, D) sums' block of this rank along rows
+    p = p.view(lead, group.size, -1, p.shape[-1]).movedim(1, 0)
+    return group.reduce_scatter(p).reshape(-1, p.shape[-1]).to(
+        COMPUTE_DTYPE)
 
 
 def _row_parallel_setup(ctx, inputs, output):
-    a, w, _ = inputs
+    a, w, comm, lead = inputs
     ctx.save_for_backward(a, w)
+    ctx.comm, ctx.lead = comm, lead
 
 
 def _row_parallel_backward(ctx, g):
     a, w = ctx.saved_tensors
     g = g.to(COMPUTE_DTYPE)
-    return g @ w.to(COMPUTE_DTYPE).T, (a.T @ g).to(w.dtype), None
+    if ctx.lead:          # the scatter's transpose: the cotangent gathered
+        g = _ROW_COMMS[ctx.comm].all_gather(
+            g.reshape(ctx.lead, -1, g.shape[-1]).contiguous(), axis=1)
+        g = g.reshape(-1, g.shape[-1])
+    return g @ w.to(COMPUTE_DTYPE).T, (a.T @ g).to(w.dtype), None, None
 
 
 _row_parallel_op.register_autograd(_row_parallel_backward,
                                    setup_context=_row_parallel_setup)
 
 
-def row_parallel(a: torch.Tensor, w: torch.Tensor, comm) -> torch.Tensor:
+def row_parallel(a: torch.Tensor, w: torch.Tensor, comm,
+                 scatter_axis: int | None = None) -> torch.Tensor:
     """``a @ w`` (to bf16) with w's rows, a's columns, cut over ``comm``'s
     ranks: each rank's bf16 product accumulated and kept in float32,
     summed over the ranks, and rounded to bf16 once, as the one-device
     product rounds its float32 accumulation (the CPU's matmul has no
     bf16-in, float32-out form, so there the operands are widened: bf16
-    products are exact in float32, the same function).  The backward is
-    the two bf16 products of the cotangent, which every rank holds whole,
-    as autograd of the one-device product gives them (and no collective:
-    the sum's transpose on a cotangent replicated over the ranks).  One
-    op (``repro_torch::row_parallel``), so that the "dots" policy keeps
-    its output and a layer's recompute makes no second sum."""
+    products are exact in float32, the same function; float32 operands,
+    the float32-compute check, take the plain float32 product).  The
+    backward is the two bf16 products of the cotangent, which every rank
+    holds whole, as autograd of the one-device product gives them (and no
+    collective: the sum's transpose on a cotangent replicated over the
+    ranks).  One op (``repro_torch::row_parallel``), so that the "dots"
+    policy keeps its output and a layer's recompute makes no second sum.
+
+    ``scatter_axis``: the sum reduce-scattered instead, each rank keeping
+    its block of ``a``'s dim ``scatter_axis`` (a Megatron-SP block
+    boundary: ``sharding.reduce_scatter_model`` fused with the product);
+    the backward then all-gathers the cotangent along it first."""
     _ROW_COMMS[id(comm)] = comm
+    lead = 0
+    shape = list(a.shape[:-1])
+    if scatter_axis is not None and comm.size > 1:
+        axis = scatter_axis % a.dim()
+        if shape[axis] % comm.size:
+            raise ValueError(f"row_parallel: dim {axis} of "
+                             f"{tuple(a.shape)} does not split over "
+                             f"{comm.size}")
+        lead = math.prod(shape[:axis])
+        shape[axis] //= comm.size
     a2 = a.reshape(-1, a.shape[-1])
-    return _row_parallel_op(a2, w, id(comm)).reshape(*a.shape[:-1], -1)
+    return _row_parallel_op(a2, w, id(comm), lead).reshape(*shape, -1)
 
 
 # --------------------------------------------------------------------------
