@@ -286,31 +286,38 @@ class LMReplicaGroup:
     across lanes.  The evacuated lane is quarantined with a doubling probe
     interval.
 
-    The reference's signature has ``rules`` (mesh sharding rules) after
-    ``cfg``; the port's ``LMServer`` takes none, so neither does this.
-    Keyword arguments become every lane's ``LMServer`` defaults
-    (``device=`` included)."""
+    ``rules``: every lane's ``LMServer(rules=)``, sharded over the mesh's
+    ``model`` axis (``None``: one device).  Every rank builds every lane
+    and makes the same calls, so the group reads rank 0's clock, as each
+    lane does: routing, quarantine and the evacuation target come out the
+    same on every rank.  Keyword arguments become every lane's
+    ``LMServer`` defaults (``device=`` included)."""
 
-    def __init__(self, cfg, params, *, n_slots: int, max_seq: int,
+    def __init__(self, cfg, rules, params, *, n_slots: int, max_seq: int,
                  n_lanes: int = 2, names: Sequence[str] | None = None,
                  clock: Callable[[], float] = time.monotonic,
                  probe_after_s: float = 30.0, probe_backoff: float = 2.0,
                  **lane_kw):
-        from repro_torch.serving.lm_server import LMServer
+        from repro_torch.serving.lm_server import LMServer, _RankZeroClock
 
         names = tuple(names if names is not None
                       else (f"lm{i}" for i in range(n_lanes)))
         self.clock = clock
+        if rules is not None and rules.n_devices > 1:
+            self.clock = _RankZeroClock(
+                clock, rules.comm(tuple(rules.mesh.axis_names)),
+                rules.device)
         self.probe_backoff = probe_backoff
         self.migrations = 0     # sequences adopted across lanes
         self._rr = 0
         kw = dict(lane_kw)
-        kw.setdefault("clock", clock)
+        kw.setdefault("clock", clock)       # each lane reads rank 0's
         kw.setdefault("checkpoint_every", 4)
         self.lanes: dict[str, LMLane] = {}
         for name in names:
-            server = LMServer(cfg=cfg, params=params, n_slots=n_slots,
-                              max_seq=max_seq, tenant=name, **kw)
+            server = LMServer(cfg=cfg, rules=rules, params=params,
+                              n_slots=n_slots, max_seq=max_seq,
+                              tenant=name, **kw)
             lane = LMLane(name, server, probe_after_s)
             server.evacuate = (
                 lambda items, _lane=lane: self._adopt(_lane, items))

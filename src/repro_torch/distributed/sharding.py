@@ -36,6 +36,7 @@ the single-device forward's bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Sequence
@@ -112,10 +113,36 @@ class Collective:
     # calls, for the smoke's accounting and the remat tests.
     payload_bytes = 0
     calls = 0
+    # While :meth:`recording` holds it, a list that gets one record a call
+    # of more than one rank: the reference's HLO kind ("all-reduce",
+    # "all-gather", "reduce-scatter", "all-to-all"), the operand's and the
+    # result's bytes, the group's size and its members' global ranks (the
+    # dry-run's link class).
+    recorder: list | None = None
 
     def __init__(self, group, size: int, index: int, staged: bool = False):
         self.group, self.size, self.index = group, size, index
         self.staged = staged
+        self._ranks = None
+
+    @classmethod
+    @contextlib.contextmanager
+    def recording(cls):
+        """Record every collective of more than one rank run inside the
+        block into the list it yields."""
+        saved, cls.recorder = cls.recorder, []
+        try:
+            yield cls.recorder
+        finally:
+            cls.recorder = saved
+
+    @property
+    def ranks(self) -> tuple[int, ...]:
+        """The group's global ranks, in its order."""
+        if self._ranks is None:
+            self._ranks = tuple(dist.get_process_group_ranks(
+                self.group if self.group is not None else dist.group.WORLD))
+        return self._ranks
 
     @staticmethod
     def _refuse_grad(x: torch.Tensor, op: str) -> None:
@@ -124,9 +151,18 @@ class Collective:
                 f"Collective.{op} on a tensor that requires grad: autograd "
                 f"would not see the collective; use {_DIFFERENTIABLE[op]}")
 
-    def _host(self, x: torch.Tensor) -> torch.Tensor:
-        Collective.payload_bytes += x.numel() * x.element_size()
+    def _host(self, x: torch.Tensor, kind: str, out_n: float = 1.0
+              ) -> torch.Tensor:
+        """``x`` as the group's backend reads it (counted, and recorded
+        as ``kind`` with a result ``out_n`` times its size)."""
+        nbytes = x.numel() * x.element_size()
+        Collective.payload_bytes += nbytes
         Collective.calls += 1
+        if Collective.recorder is not None:
+            Collective.recorder.append(dict(
+                kind=kind, operand_bytes=nbytes,
+                out_bytes=int(nbytes * out_n), group=self.size,
+                ranks=self.ranks))
         x = x.contiguous()
         if not (self.staged and x.is_cuda):
             return x
@@ -152,7 +188,7 @@ class Collective:
         self._refuse_grad(x, name)
         if self.size == 1:
             return x
-        h = self._host(x)
+        h = self._host(x, "all-reduce")
         if h is x:
             h = x.clone()
         dist.all_reduce(h, op=op, group=self.group)
@@ -173,7 +209,7 @@ class Collective:
         self._refuse_grad(x, "all_gather")
         if self.size == 1:
             return x
-        h = self._host(x)
+        h = self._host(x, "all-gather", self.size)
         buf = self._like(h, (self.size, *h.shape))
         dist.all_gather(list(buf.unbind(0)), h, group=self.group)
         return torch.cat(self._back(buf, x).unbind(0), dim=axis)
@@ -185,7 +221,7 @@ class Collective:
         self._refuse_grad(x, "reduce_scatter")
         if self.size == 1:
             return x[0]
-        h = self._host(x)
+        h = self._host(x, "reduce-scatter", 1 / self.size)
         out = self._like(h, h.shape)
         dist.all_to_all_single(out, h, group=self.group)
         return self._back(out, x).sum(0)
@@ -205,7 +241,7 @@ class Collective:
             raise ValueError(f"all_to_all: dim {split_axis} of "
                              f"{tuple(x.shape)} does not split over {n}")
         blocks = moved.reshape(n, moved.shape[0] // n, *moved.shape[1:])
-        h = self._host(blocks)
+        h = self._host(blocks, "all-to-all")
         out = self._like(h, h.shape)
         dist.all_to_all_single(out, h, group=self.group)
         out = self._back(out, x)

@@ -46,6 +46,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -144,19 +145,40 @@ def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 512,
                         block_k: int = 512, with_lse: bool = True):
     """K7's launch: (out, lse or None), the lse (B, H, Sq) float32 only
     ``with_lse``.  The plain version for CPU tensors, K7 for CUDA tensors
-    (bf16, hd in ``KERNEL_HEAD_DIMS``); anything else raises."""
+    (bf16, hd in ``KERNEL_HEAD_DIMS``) through the op
+    ``repro_torch::flash_attention_fwd``; anything else raises."""
     if q.device.type == "cpu":
         if with_lse:
             return flash_attention_plain(q, k, v, causal, block_q, block_k,
                                          return_lse=True)
         return flash_attention_plain(q, k, v, causal, block_q, block_k), None
     _check_shapes(q, k, v, causal)
+    _check_kernel_contract(q)
+    out, lse = _fwd_op(q, k, v, causal, block_q, block_k, with_lse)
+    return out, (lse if with_lse else None)
+
+
+# K7 and K7b are ops (``torch.library.custom_op``) so that a trace under
+# ``FakeTensorMode`` gets their outputs' shapes from their fakes, never
+# reaching the library or a ``data_ptr``, and ``FlopCounterMode`` counts
+# them by the bound's formula.  On a CPU tensor an op runs the plain
+# version (the wrappers call that directly, ``opcheck`` calls the op).
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            block_q: int, block_k: int, with_lse: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        out, lse = flash_attention_plain(q, k, v, causal, block_q, block_k,
+                                         return_lse=True)
+        return out.contiguous(), lse if with_lse else lse.new_empty(0)
+    _check_shapes(q, k, v, causal)
     _check_kernel_operands(dict(q=q, k=k, v=v))
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    lse = torch.empty((b, h, sq) if with_lse else 0, dtype=torch.float32,
+                      device=q.device)
     lib = build.library()
     flash_attention.launches += 1
     build.check(lib.launch_flash_attention(
@@ -167,16 +189,42 @@ def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 512,
     return out, lse
 
 
-def _check_kernel_operands(operands: dict) -> None:
-    """What the CUDA kernels take: bf16, hd in ``KERNEL_HEAD_DIMS``,
-    contiguous, on the first operand's card, 16-byte aligned (rows load in
-    16-byte chunks)."""
-    q = next(iter(operands.values()))
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, block_q, block_k, with_lse):
+    _check_shapes(q, k, v, causal)
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq) if with_lse else 0, dtype=torch.float32))
+
+
+def attention_pairs(sq: int, skv: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes: S(S+1)/2 causal, Sq·Skv
+    otherwise (the bounds' count)."""
+    return sq * (sq + 1) // 2 if causal else sq * skv
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    """K7: the two products, 4·B·H·hd a pair."""
+    b, sq, h, hd = q_shape
+    return 4 * b * h * hd * attention_pairs(sq, k_shape[1], causal)
+
+
+def _check_kernel_contract(q) -> None:
+    """What the CUDA kernels take, by q's metadata alone (a fake tensor
+    has it too): bf16, hd in ``KERNEL_HEAD_DIMS``, on a card."""
     if q.dtype != torch.bfloat16 or q.shape[3] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel takes bf16 with hd in "
                          f"{KERNEL_HEAD_DIMS}, got {q.dtype} hd {q.shape[3]}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _check_kernel_operands(operands: dict) -> None:
+    """The contract, and each operand contiguous, on the first operand's
+    card, 16-byte aligned (rows load in 16-byte chunks)."""
+    q = next(iter(operands.values()))
+    _check_kernel_contract(q)
     for name, t in operands.items():
         build.require(t, name, q.dtype, 4, q.device)
         if t.data_ptr() % 16:
@@ -280,17 +328,31 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     """K7b: (dq, dk, dv) of ``flash_attention(q, k, v, causal)`` at the
     upstream gradient ``dout``, from the forward's ``out`` and ``lse``.
 
-    Launches the CUDA kernels for CUDA tensors (bf16, hd in
+    Launches the CUDA kernels for CUDA tensors through the op
+    ``repro_torch::flash_attention_bwd`` (bf16, hd in
     ``KERNEL_HEAD_DIMS``: the D pre-pass, which also zeroes the dq order
     counters, and the main kernel, counted as one launch of this wrapper,
-    with the float32 dq workspace and the counters allocated here); CPU
-    tensors take the plain version.  Anything else raises.
+    with the float32 dq workspace and the counters allocated by the op);
+    CPU tensors take the plain version.  Anything else raises.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
                                          block_q, block_k)
     _check_shapes(q, k, v, causal)
-    dout = dout.contiguous()
+    _check_kernel_contract(q)
+    return _bwd_op(q, k, v, out, lse, dout.contiguous(), causal, block_q,
+                   block_k)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+            causal: bool, block_q: int, block_k: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return tuple(g.contiguous() for g in flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, causal, block_q, block_k))
+    _check_shapes(q, k, v, causal)
     _check_kernel_operands(dict(q=q, k=k, v=v, out=out, dout=dout))
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -316,6 +378,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
         int(causal), 1.0 / math.sqrt(hd), build.stream_ptr(q.device)),
         "flash_attention_bwd")
     return dq, dk, dv
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, out, lse, dout, causal, block_q, block_k):
+    _check_shapes(q, k, v, causal)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape,
+               causal, *args, **kwargs) -> int:
+    """K7b: the five products (s recomputed, dV, dP, dK, dQ), 10·B·H·hd a
+    pair."""
+    b, sq, h, hd = q_shape
+    return 10 * b * h * hd * attention_pairs(sq, k_shape[1], causal)
 
 
 flash_attention_bwd.launches = 0

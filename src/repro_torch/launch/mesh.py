@@ -18,20 +18,26 @@ mesh:
 * ``gloo`` when ranks share a card (NCCL refuses two ranks on one card):
   every collective on a CUDA tensor then goes through pinned host memory,
   copied there and back by the port itself (``Mesh.staged``);
-* ``gloo`` on the CPU.
+* ``gloo`` on the CPU;
+* ``fake`` for the dry-run (:func:`make_production_mesh`,
+  :func:`fake_group`): one process plays one rank of a group whose
+  collectives move nothing (``torch.distributed``'s fake process group),
+  and the tensors are fakes (``FakeTensorMode``) that only claim a
+  device.
 
 A rank's device is ``cuda:(local_rank % device_count)`` unless the caller
-asks for the CPU.  The production meshes (16×16, 2×16×16) belong to the
-reference's dry-run tools and are not ported.
+asks for the CPU; on a fake group it is only a name.
 
-Three ways in: :func:`init_from_env` under ``torchrun``; :func:`spawn`,
+Four ways in: :func:`init_from_env` under ``torchrun``; :func:`spawn`,
 which starts N ranks on this host with a ``file://`` rendezvous (tests
-and the chip smoke); and one process with no group, whose mesh has every
+and the chip smoke); :func:`fake_group` (the dry-run's production meshes,
+16×16 and 2×16×16); and one process with no group, whose mesh has every
 axis of size 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -164,9 +170,11 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
     names = ("pod", "data", "model") if pod else ("data", "model")
     sizes = (pod, data, model) if pod else (data, model)
     world = math.prod(sizes)
-    if device is None:
-        device = rank_device("cuda")
-    device = rank_device(device)
+    fake = dist.is_initialized() and dist.get_backend() == "fake"
+    if fake:                      # a name: the tensors are fakes
+        device = torch.device("cuda" if device is None else device)
+    else:
+        device = rank_device("cuda" if device is None else device)
     if not dist.is_initialized():
         if world != 1:
             raise RuntimeError(f"a {sizes} mesh needs {world} ranks: "
@@ -193,6 +201,56 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
     staged = backend == "gloo" and device.type == "cuda"
     return Mesh(names, sizes, dist.get_rank(), device, backend, staged, dm,
                 groups)
+
+
+@contextlib.contextmanager
+def fake_group(world: int, rank: int = 0):
+    """This process as rank ``rank`` of a process group of ``world`` ranks
+    whose collectives move nothing (backend ``fake``), destroyed on
+    leaving the block.  For tracing one rank's program under
+    ``FakeTensorMode``: what each collective is handed is recorded
+    (``Collective.recording``), nothing is sent."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_group: a process group is already "
+                           "initialised in this process")
+    _init_fake(world, rank)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _init_fake(world: int, rank: int) -> None:
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+
+
+#: The reference's production meshes (``repro.launch.mesh``): one pod of
+#: 16×16 chips, or two.
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                         device: str | torch.device = "cuda") -> Mesh:
+    """Rank ``rank``'s view of the 16×16 ``(data, model)`` mesh or, with
+    ``multi_pod``, the 2×16×16 ``(pod, data, model)`` one, over a fake
+    process group of 256 or 512 ranks in this one process (the one
+    :func:`fake_group` opened, or one this opens and leaves open when no
+    group is initialised).  Collectives are not staged, as under NCCL
+    with one card a rank.  ``device`` names where the fake tensors claim
+    to live: ``cuda`` routes attention through K7's and K7b's fakes,
+    ``cpu`` through their plain versions."""
+    sizes, names = PRODUCTION_MESHES[multi_pod]
+    world = math.prod(sizes)
+    if not dist.is_initialized():
+        _init_fake(world, rank)
+    if dist.get_backend() != "fake" or dist.get_world_size() != world:
+        raise RuntimeError(f"make_production_mesh: needs a fake process "
+                           f"group of {world} ranks")
+    return make_host_mesh(**dict(zip(names, sizes)), device=device)
 
 
 def _subset_group(names, sizes, axes):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import tree
 from repro_torch.kernels.flash_attention import flash_attention
@@ -218,13 +219,36 @@ def _row_parallel_op(a: torch.Tensor, w: torch.Tensor, comm: int,
         p = torch.mm(a, w, out_dtype=torch.float32)
     else:
         p = a.to(wide) @ w.to(wide)
+    return _row_sum(p, comm, lead)
+
+
+def _row_sum(p: torch.Tensor, comm: int, lead: int) -> torch.Tensor:
+    """The ranks' float32 products summed over ``_ROW_COMMS[comm]`` (with
+    ``lead``, reduce-scattered: the (lead, rows, D) sums' block of this
+    rank along rows), rounded to bf16 once."""
     group = _ROW_COMMS[comm]
     if not lead:
         return group.psum(p).to(COMPUTE_DTYPE)
-    # the (lead, rows, D) sums' block of this rank along rows
     p = p.view(lead, group.size, -1, p.shape[-1]).movedim(1, 0)
     return group.reduce_scatter(p).reshape(-1, p.shape[-1]).to(
         COMPUTE_DTYPE)
+
+
+@_row_parallel_op.register_fake
+def _row_parallel_fake(a, w, comm, lead):
+    """The product's shape, and the same collective on it, so that a
+    traced step hands the group what a run would (fake process groups
+    record it, ``Collective`` counts it)."""
+    wide = torch.promote_types(a.dtype, torch.float32)
+    return _row_sum(a.new_empty((a.shape[0], w.shape[1]), dtype=wide),
+                    comm, lead)
+
+
+@register_flop_formula(torch.ops.repro_torch.row_parallel)
+def _row_parallel_flops(a_shape, w_shape, *args, **kwargs) -> int:
+    """The rank's product, 2·M·K·N (the sum over the ranks is not
+    counted)."""
+    return 2 * a_shape[0] * a_shape[1] * w_shape[1]
 
 
 def _row_parallel_setup(ctx, inputs, output):
@@ -338,11 +362,10 @@ def scan_layers(body, carry, layer_params, *, n_layers: int,
     ``torch.utils.checkpoint.checkpoint`` (non-reentrant, which
     ``torch.autograd.grad`` needs) under ``REMAT_POLICIES[remat_policy]``:
     the backward recomputes what the policy did not keep, so the loss and
-    the gradients are those of the plain loop.  K7 is called through
-    ``ctypes``, which no dispatch mode sees, so its forward runs again in
-    the backward under either policy (a second launch a layer); so does
-    the reference's attention, which its ``chunked_attention``
-    checkpoints on its own.  The recompute calls ``body`` again in the
+    the gradients are those of the plain loop.  K7's op is not among
+    ``DOT_OPS``, so its forward runs again in the backward under either
+    policy (a second launch a layer); so does the reference's attention,
+    which its ``chunked_attention`` checkpoints on its own.  The recompute calls ``body`` again in the
     backward, so it must read nothing that changes after the call (bind
     a loop variable as a default argument) and draw no random numbers:
     the checkpoint does not save and restore the RNG state, which no

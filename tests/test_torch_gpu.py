@@ -1439,7 +1439,7 @@ def test_lm_lanes_migrate_on_card(cuda, lm_params):
     from repro_torch.serving import faults
 
     cfg, _, params = lm_params
-    grp = LMReplicaGroup(cfg, params, n_slots=2, max_seq=64, device=cuda,
+    grp = LMReplicaGroup(cfg, None, params, n_slots=2, max_seq=64, device=cuda,
                          checkpoint_every=2, max_restore_attempts=1)
     assert all(ln.server.capture_count == 1 for ln in grp.lanes.values())
     r = grp.submit([1, 2, 3], max_new=12, lane="lm0")

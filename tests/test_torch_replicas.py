@@ -446,7 +446,7 @@ def lm():
 def _lm_group(side, lm, **kw):
     kw = dict(n_slots=2, max_seq=32, n_lanes=2, clock=FakeClock(), **kw)
     if side == "port":
-        return LMReplicaGroup(lm["tcfg"], lm["tp"], device="cpu", **kw)
+        return LMReplicaGroup(lm["tcfg"], None, lm["tp"], device="cpu", **kw)
     return JLMReplicaGroup(lm["jcfg"], lm["rules"], lm["jp"], **kw)
 
 
@@ -534,3 +534,59 @@ def test_lanes_share_params_and_own_caches(lm):
     assert a.cache is not b.cache
     assert a.tenant == "lm0" and b.tenant == "lm1"
     assert a.evacuate is not None and b.evacuate is not None
+
+
+# --------------------------------------------------------------------------
+# LMReplicaGroup(rules=): lanes sharded over a (1, 4) mesh
+# --------------------------------------------------------------------------
+
+def _evacuation(grp, mod) -> dict:
+    """lm0 serves one request 3 ticks, then its decode faults past its
+    restore: the flight migrates to lm1 and is served."""
+    r = grp.submit([1, 2, 3], max_new=8, lane="lm0")
+    for _ in range(3):
+        grp.serve_tick()
+    prefix = list(next(iter(
+        grp.lanes["lm0"].server.manager.active.values())).tokens)
+    with mod.inject([mod.FaultSpec("lm.step", "device_fault", times=1000,
+                                   match={"tenant": "lm0"})]):
+        grp.drain()
+    return dict(outcome=r.outcome, tokens=[int(t) for t in r.result],
+                prefix=prefix, migrations=grp.migrations,
+                quarantined=grp.lanes["lm0"].quarantined(grp.clock()))
+
+
+def sharded_lanes_rank(rank, device, cfg, jp_np):
+    """One rank of a (1, 4) mesh: a two-lane group over the rank's slices,
+    through the forced evacuation."""
+    from repro_torch.distributed import sharding as t_sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    rules = t_sharding.rules_for_mesh(mesh_lib.make_host_mesh(
+        data=1, model=4, device=device))
+    params = t_tf.params_from_numpy(jp_np, cfg, "cpu", rules=rules)
+    grp = LMReplicaGroup(cfg, rules, params, n_slots=2, max_seq=32,
+                         n_lanes=2, clock=FakeClock(), device="cpu",
+                         checkpoint_every=1, max_restore_attempts=1)
+    return _evacuation(grp, faults)
+
+
+def test_sharded_lanes_evacuate_as_one_device_and_reference(lm, tmp_path):
+    """``LMReplicaGroup(cfg, rules, params)`` on 4 gloo ranks over (1, 4):
+    every rank serves the same tokens and migrations as the one-device
+    group and the reference's group built with ``lm["rules"]``."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    kw = dict(checkpoint_every=1, max_restore_attempts=1)
+    one = _evacuation(_lm_group("port", lm, **kw), faults)
+    with lm["mesh"]:
+        ref = _evacuation(_lm_group("jax", lm, **kw), j_faults)
+    ranks = mesh_lib.spawn(sharded_lanes_rank, 4, lm["tcfg"],
+                           jax.tree.map(np.asarray, lm["jp"]),
+                           device="cpu", threads=1, timeout_s=240,
+                           workdir=str(tmp_path))
+    assert one == ref
+    assert one["outcome"] == "served" and one["migrations"] == 1
+    assert one["tokens"][:len(one["prefix"])] == one["prefix"]
+    for got in ranks:
+        assert got == one
