@@ -663,6 +663,22 @@ SHARD_ZOO_LAYERS = [
     ("DiT-L/2 gen_fast layer, a tp-4 rank's heads", 4, 1024, 1024, 4, 4,
      64, False),
 ]
+# The attention layers a rank runs where the batch axes hold LM slots or
+# do not divide the batch: [shard]'s minitron-8b prefill on (2, 2)
+# (one row a data rank, a tp-2 rank's 16 q and 4 KV heads; K7 alone: a
+# prefill has no backward), [shard train]'s lm-100m at B 6 whole on each
+# (4, 1) rank and 3 rows a rank of (2, 2, 1), [shard zoo]'s ViT-H/14 at a
+# batch of 3 whole on each (2, 2) rank over a tp-2 rank's heads.
+BATCH_AXES_PREFILL = ("minitron prefill layer, a (2, 2) rank: 1 row, tp-2 "
+                      "heads", 1, 2048, 2048, 16, 4, 128, True)
+BATCH_AXES_LAYERS = [
+    ("lm-100m train layer, B 6 whole on a (4, 1) rank", 6, 512, 512, 12,
+     4, 64, True),
+    ("lm-100m train layer, 3 rows a (2, 2, 1) rank", 3, 512, 512, 12, 4,
+     64, True),
+    ("ViT-H/14 cls_224 layer, batch 3 whole on a tp-2 rank", 3, 257, 257,
+     8, 8, 80, False),
+]
 FLASH_CASES = [
     FLASH_PREFILL,
     FLASH_PREFILL_64,
@@ -686,7 +702,9 @@ FLASH_CASES = [
     # hd 72 (the padded hd-128 instantiation over zero-filled columns)
     # ragged inside one tile
     ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
-] + TRAIN_LAYERS + SHARD_ZOO_LAYERS
+]
+FLASH_CASES += (TRAIN_LAYERS + SHARD_ZOO_LAYERS + [BATCH_AXES_PREFILL]
+                + BATCH_AXES_LAYERS)
 # K7 against its plain version, |kernel - plain| <= tol·(1 + |plain|):
 # both round p to bf16, under different running maxima (the kernel's
 # 128-key tiles against the plain version's 512-key blocks), and round the
@@ -765,6 +783,15 @@ SHARD_LANE_REQUESTS = [("lm0", 2, 3), ("lm1", 2, 6)]
 SHARD_LANE_FAULT_AFTER = 2
 SHARD_REQUESTS = [(1, 2)] * 8
 SHARD_TIMEOUT_S = 600
+# [shard]'s data ranks: SHARD_DP_ARCH over (data, model) =
+# SHARD_DP_MESH, the weights replicated over ``data`` (serving's rules,
+# ``fsdp=None``, as the reference's decode cells take them): the same
+# prefill of B LM_BATCH, one row a data rank, SHARD_DP_DECODE_STEPS of the
+# teacher-forced decode steps against the one-device path within
+# SHARD_LIMITS, the float32 check, an LMServer of SHARD_SLOTS slots
+# (SHARD_SLOTS / 2 a data rank) answering SHARD_REQUESTS with the same
+# tokens on every rank, and the two-lane group (one slot a data rank).
+SHARD_DP_ARCH, SHARD_DP_MESH, SHARD_DP_DECODE_STEPS = "minitron-8b", (2, 2), 8
 # The float32 step-0 check of [shard], [shard train] and [shard zoo]: both
 # sides (the sharded path and the one-device path) with
 # ``layers.COMPUTE_DTYPE`` float32, TF32 off for cuBLAS and cuDNN, and
@@ -2243,7 +2270,7 @@ def phase_faults(chain_wl) -> dict:
     hook = chain_wl.preprocess_hook
     rng = np.random.default_rng(20)
     imgs = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
-            for _ in range(BATCH * (2 * FAULT_GROUPS + 1) + 4)]
+            for _ in range(BATCH * (2 * FAULT_GROUPS + 3) + 4)]
     feed = iter(imgs)
     served: list[tuple[list, list]] = []
 
@@ -2380,6 +2407,7 @@ def phase_faults(chain_wl) -> dict:
     out.update(retries=m["retries"], degraded=m["degraded"],
                served=m["served"] + guarded.metrics()["served"],
                captures=engine.capture_count)
+    out["no_ladder"] = faults_without_ladder(engine, feed, hook)
     log(f"[faults] watchdog: a {SPIKE_S} s spike at server.device past "
         f"watchdog_s {WATCHDOG_S} resolved error (WatchdogTimeout, "
         f"retry=None) in {out['watchdog_s']:.3f} s; the next batch served")
@@ -2401,6 +2429,64 @@ def phase_faults(chain_wl) -> dict:
         f"{counted} (2 cuda_chain buckets and the demoted rung captured, "
         f"{calls} calls each); phase {out['phase_s']:.3f} s")
     return out
+
+
+def faults_without_ladder(engine, feed, hook) -> dict:
+    """``InferenceServer(degrade=False)`` on the top rung (``cuda_chain``,
+    the buckets captured above): three dispatch faults at bucket 8 spend
+    the batch's attempts and it resolves ``error`` with no demotion
+    (``health`` None, ``degraded`` 0, the mode the engine's); the next
+    batch is served on the same captured rung, each row equal to
+    ``cross_check``, and nothing is built or captured."""
+    from repro_torch.serving import InferenceServer
+
+    server = InferenceServer(engine, preprocess=hook, max_batch=BATCH,
+                             buckets=(1, BATCH), degrade=False,
+                             retry=RetryPolicy(max_attempts=3,
+                                               backoff_base_s=0.001,
+                                               jitter=0.0))
+    captures = engine.capture_count
+    reset_launches()
+    t0 = time.perf_counter()
+    with faults.inject([FaultSpec("server.dispatch", "device_fault",
+                                  times=3, match={"mode": "cuda_chain",
+                                                  "bucket": BATCH})],
+                       sleep=time.sleep) as plan:
+        failed = [server.submit(next(feed)) for _ in range(BATCH)]
+        server.drain()
+    batch = [next(feed) for _ in range(BATCH)]
+    reqs = [server.submit(im) for im in batch]
+    server.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = read_launches()
+    m = server.metrics()
+    ref = engine.cross_check(torch.stack([hook(p) for p in batch])).cpu()
+    rows_equal = all(r.outcome == "served"
+                     and np.array_equal(r.result, row.numpy())
+                     for r, row in zip(reqs, ref))
+    if server.health is not None \
+            or [r.outcome for r in failed] != ["error"] * BATCH \
+            or [r.attempts for r in failed] != [3] * BATCH \
+            or len(plan.log) != 3 or m["degraded"] or m["errors"] != BATCH \
+            or m["mode"] != "cuda_chain" or not rows_equal \
+            or any(f.get("kind") for f in server.flight.dump()) \
+            or engine.capture_count != captures \
+            or launched != launch_counts():
+        raise AssertionError(f"[faults] degrade=False: outcomes "
+                             f"{[r.outcome for r in failed]}, metrics {m}, "
+                             f"rows equal {rows_equal}, captures "
+                             f"{engine.capture_count} (were {captures}), "
+                             f"launches {launched}")
+    log(f"[faults] InferenceServer(degrade=False) on cuda_chain: three "
+        f"server.dispatch faults at bucket {BATCH} spent the batch's 3 "
+        f"attempts and its {BATCH} requests resolved error with no demotion "
+        f"(health None, degraded 0, errors {m['errors']}, retries "
+        f"{m['retries']}, mode {m['mode']}); the next batch served on the "
+        f"same captured rung, rows == cross_check, nothing built or "
+        f"captured; {wall_s:.3f} s")
+    return dict(errors=m["errors"], retries=m["retries"],
+                degraded=m["degraded"], wall_s=wall_s)
 
 
 # A fresh interpreter that boots AlexNet servers from artifacts and serves
@@ -2698,7 +2784,7 @@ K7B_CASES = [
 ] + ZOO_FLASH_LAYERS + [(name, 1, *rest)
                           for name, _, *rest in ZOO_GEN_1024] + [
     ("hd 72, ragged S 100", 1, 100, 100, 16, 16, 72, False),
-] + TRAIN_LAYERS + SHARD_ZOO_LAYERS
+] + TRAIN_LAYERS + SHARD_ZOO_LAYERS + BATCH_AXES_LAYERS
 # K7b against its plain version, |kernel - plain| <= tol·(1 + |plain|) for
 # each of dq, dk and dv: both round p and dS to bf16 before their products
 # and round each output once, but sum in other orders (16-wide wgmma steps
@@ -2720,6 +2806,15 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
 # the host-staged sums in the phase's time), B 4 x S 512.
 SHARD_TRAIN_JOBS = (("lm-100m", (2, 2), TRAIN_BATCH, 4),
                     ("granite-moe-3b-a800m", (1, 4), 4, 2))
+# lm-100m on a batch the batch axes do not divide: B 6 on (4, 1),
+# where ``batch_spec(6)`` keeps no axis and every rank holds the 6 rows,
+# and on the three-axis (pod 2, data 2, model 1), where the rows are cut
+# over ``data`` alone and whole over ``pod``: (mesh, global batch,
+# steps), the same checks as SHARD_TRAIN_JOBS' (step 0 against one device
+# at the same batch, bf16 and float32, K7/K7b counted, bytes against
+# ``shard_train_bytes``).
+SHARD_TRAIN_UNEVEN = (({"data": 4, "model": 1}, 6, 2),
+                      ({"pod": 2, "data": 2, "model": 1}, 6, 2))
 SHARD_TRAIN_CRASH_AFTER = 2
 SHARD_TRAIN_RESUME = (4, 1)
 SHARD_TRAIN_MOE_LAYERS = 4
@@ -2764,7 +2859,22 @@ SHARD_ZOO_CELLS = {
     "efficientnet-b7": (("native_600", 4), None),
 }
 SHARD_ZOO_TRAIN_MESH, SHARD_ZOO_SERVE_MESH = (2, 2), (1, 4)
-SHARD_ZOO_STEPS = 2
+# Counted train steps a cell after step 0's checks (cut from 2 to 1 to
+# make room in the smoke's time for the batch-axes cells; PERF.md §4
+# lists the cut).
+SHARD_ZOO_STEPS = 1
+# A train cell on a batch the batch axes do not divide: ViT-H/14
+# at cls_224 with a batch of 3 on SHARD_ZOO_TRAIN_MESH (every rank the 3
+# rows, K7/K7b on its tp-2 heads), (arch, shape, batch, steps): step 0
+# against one device, float32 within F32_CHECK and bf16 within
+# SHARD_ZOO_UNEVEN_BF16_LIMITS (worst leaf, loss gap), its steps counted
+# as the other cells'.  The bf16 leaf limit is ViT-H/14's; its loss, a
+# mean of 3 rows where the batch-8 cell's averages 8, read a gap of
+# 1.735e-3 on an NVIDIA H100 80GB HBM3 at 700 W (the batch-8 cell:
+# 3.2e-4; its worst leaf 1.287e-2 beside a floor of 1.193e-2), held to
+# 5e-3; the float32 check bounds the math.
+SHARD_ZOO_UNEVEN = ("vit-h14", "cls_224", 3, 1)
+SHARD_ZOO_UNEVEN_BF16_LIMITS = (3e-2, 5e-3, None)
 # A gathered gradient leaf's relative L2 against one device is taken
 # against max(its norm, SHARD_ZOO_FLOOR of the whole tree's): a leaf whose
 # gradient is 0 in exact arithmetic (EfficientNet's proj_bn_b, a bias
@@ -3393,7 +3503,10 @@ def phase_train(device, errs: dict) -> tuple[dict, dict]:
 # 50 DDIM steps, gen_fast all 4.
 ZOO_ARCHS = ("vit-l16", "vit-h14", "dit-l2", "dit-xl2", "convnext-b",
              "efficientnet-b7")
-ZOO_TRAIN_STEPS = 3
+# Train steps a cell: step 0 the warm-up, then the timed ones (cut from 3
+# to 2 to make room in the smoke's time for the batch-axes cells;
+# PERF.md §4 lists the cut).
+ZOO_TRAIN_STEPS = 2
 ZOO_VISION_TRAIN = ("cls_224", "cls_384")
 ZOO_DIT_TRAIN = ("train_256", "train_1024")
 ZOO_GEN_1024_STEPS = 2
@@ -3449,12 +3562,16 @@ ZOO_CUTS = {("dit-xl2", "train_1024"): 16}
 # --------------------------------------------------------------------------
 
 def shard_bytes(cfg, rules_tp: int, batch: int, seq: int, max_seq: int,
-                decode: bool) -> int:
+                decode: bool, dp: int = 1) -> int:
     """Bytes one rank hands to collectives in a sharded prefill of (batch,
-    seq) or one decode step of ``batch`` slots on a (1, tp) mesh, from
-    the shapes alone (``transformer._Sharded``'s collectives: bf16 data
-    movement, float32 sums)."""
+    seq) or one decode step of ``batch`` slots on a (dp, tp) mesh whose
+    weights are whole over ``data`` (serving's ``fsdp=None``), from the
+    shapes alone (``transformer._Sharded``'s collectives: bf16 data
+    movement, float32 sums).  The rows are cut over ``data`` where dp
+    divides the batch, and the logits all-gathered over it."""
     tp = rules_tp
+    rows_dp = dp if batch % dp == 0 else 1
+    batch //= rows_dp
     d, hd = cfg.d_model, cfg.d_head
     h, kv = cfg.n_heads, cfg.n_kv_heads
     tp_heads = tp > 1 and h % tp == 0
@@ -3490,6 +3607,8 @@ def shard_bytes(cfg, rules_tp: int, batch: int, seq: int, max_seq: int,
     elif cfg.d_ff % tp == 0:
         per_layer += rows * d * 4                         # MLP row-parallel
     logits = batch * (v_pad // tp) * 2
+    if rows_dp > 1:                                       # over the rows
+        logits += batch * v_pad * 2
     return total + cfg.n_layers * per_layer + logits
 
 
@@ -3637,9 +3756,10 @@ def f32_logit_check(tag: str, got: torch.Tensor, want: torch.Tensor,
     return dict(rel_err=err, agreement=agree)
 
 
-def shard_rank(rank, device, jobs):
+def shard_rank(rank, device, jobs, dp_job):
     """One rank of the [shard] phase: a (1, SHARD_RANKS) mesh, then each
-    job's model in turn (``shard_model``)."""
+    job's model in turn (``shard_model``); then ``dp_job`` on
+    SHARD_DP_MESH, the weights whole over ``data``."""
     from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as mesh_lib
 
@@ -3650,6 +3770,11 @@ def shard_rank(rank, device, jobs):
         out[arch] = shard_model(rules, device, *job)
         gc.collect()
         torch.cuda.empty_cache()
+    dp, tp = SHARD_DP_MESH
+    mesh = mesh_lib.make_host_mesh(data=dp, model=tp, device=device)
+    rules = dataclasses.replace(sharding.rules_for_mesh(mesh), fsdp=None)
+    out["dp_mesh"] = mesh.describe()
+    out["dp"] = shard_model(rules, device, *dp_job[1:])
     return out
 
 
@@ -3754,6 +3879,10 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
             transformer.make_prefill_step(cfg, LM_MAX_SEQ),
             transformer.make_decode_step(cfg, LM_MAX_SEQ), cfg, params,
             tokens, teacher, dict(record=routes))
+        if arch == SHARD_DP_ARCH:
+            dp_job = (arch, cfg, params, tokens,
+                      teacher[:SHARD_DP_DECODE_STEPS], requests, routes)
+            dp_f32 = single_numbers["f32_logits"]
         numbers[arch] = dict(single=single_numbers)
         if cfg.moe:
             drops = numbers[arch]["drops"] = shard_drops(
@@ -3768,10 +3897,10 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(shard_rank, SHARD_RANKS, jobs, device="cuda",
-                           timeout_s=SHARD_TIMEOUT_S)
+    ranks = mesh_lib.spawn(shard_rank, SHARD_RANKS, jobs, dp_job,
+                           device="cuda", timeout_s=SHARD_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
-    del jobs
+    del jobs, dp_job
     log(f"[shard] {ranks[0]['mesh']}; {SHARD_RANKS} ranks spawned, both "
         f"models run and joined in {spawn_s:.3f} s ({smi})")
     for arch in SHARD_ARCHS:
@@ -3873,7 +4002,8 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
                 f"device's top-k; the ranks' own choice differed for "
                 f"{out['f32']['flips']} tokens (each rank's)")
         if "lanes" in ranks[0][arch]:
-            out["lanes"] = check_shard_lanes(cfg, ranks, arch, smi)
+            out["lanes"] = check_shard_lanes(
+                cfg, ranks, arch, smi, f"(data 1, model {SHARD_RANKS})")
         launches[f"shard_prefill_{arch}"] = ranks[0][arch]["prefill_launches"]
         out.update(rel_err=err, rel_err_steps=err_steps, agreement=agree,
                    bound=bound, bar=bar,
@@ -3883,12 +4013,103 @@ def phase_shard(device, smi: str) -> tuple[dict, dict]:
                           | {"served": rank[arch]["server"]["served"],
                              "server_wall_s": rank[arch]["server"]["wall_s"]}
                           for rank in ranks])
+    cfg, single, requests = singles[SHARD_DP_ARCH]
+    numbers["dp"] = check_shard_dp(cfg, ranks, single, dp_f32, requests, smi)
+    launches[f"shard_prefill_{SHARD_DP_ARCH}_dp"] = \
+        ranks[0]["dp"]["prefill_launches"]
     numbers["spawn_s"] = spawn_s
     gc.collect()
     torch.cuda.empty_cache()
     return launches, numbers
 
-def check_shard_lanes(cfg, ranks, arch: str, smi: str) -> dict:
+
+def check_shard_dp(cfg, ranks, single, f32_single, requests,
+                   smi: str) -> dict:
+    """[shard]'s SHARD_DP_MESH run: every rank's prefill (K7 on its row
+    and heads), decode and LMServer counted, its bytes equal to
+    ``shard_bytes``; rank 0's logits against one device's first
+    SHARD_DP_DECODE_STEPS steps within SHARD_LIMITS, the float32 check,
+    the server's tokens equal on every rank, the lanes' migration."""
+    dp, tp = SHARD_DP_MESH
+    steps = SHARD_DP_DECODE_STEPS
+    got = ranks[0]["dp"].pop("logits")[..., :cfg.vocab]
+    want = single[:steps + 1, ..., :cfg.vocab]
+    err_steps = [rel_err(g, w) for g, w in zip(got, want)]
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    err = max(err_steps)
+    want_prefill = shard_bytes(cfg, tp, LM_BATCH, LM_SEQ, LM_MAX_SEQ,
+                               decode=False, dp=dp)
+    want_step = shard_bytes(cfg, tp, LM_BATCH, 1, LM_MAX_SEQ, decode=True,
+                            dp=dp)
+    r0 = ranks[0]["dp"]
+    for rank in ranks:
+        r, srv = rank["dp"], rank["dp"]["server"]
+        pl, dl = r["prefill_launches"], r["decode_launches"]
+        log(f"[shard] {cfg.name} on {rank['dp_mesh']} rank {rank['rank']}: "
+            f"{r['weight_bytes']} B of weights; prefill B {LM_BATCH} x S "
+            f"{LM_SEQ} (one row a data rank) {r['prefill_ms']:.3f} ms wall, "
+            f"K7 {pl['flash_attention']} launches, {r['prefill_bytes']} B "
+            f"into collectives; decode step median "
+            f"{float(np.median(r['decode_ms'])):.3f} ms wall (min "
+            f"{min(r['decode_ms']):.3f}, max {max(r['decode_ms']):.3f}), "
+            f"{r['decode_bytes'][0]} B a step; cache shard "
+            f"{r['cache_shape']}; peak device memory {r['peak_bytes']} B; "
+            f"LMServer of {SHARD_SLOTS} slots ({SHARD_SLOTS // dp} a data "
+            f"rank) {srv['served']} served in {srv['steps']} steps, "
+            f"{srv['wall_s']:.3f} s ({smi})")
+        if pl != launch_counts(flash_attention=cfg.n_layers) \
+                or dl != launch_counts() \
+                or srv["launches"] != launch_counts() or not r["finite"] \
+                or r["cache_shape"][1] != LM_BATCH // dp:
+            raise AssertionError(f"[shard] {cfg.name} on {SHARD_DP_MESH} "
+                                 f"rank {rank['rank']}: launches {pl}, {dl}, "
+                                 f"{srv['launches']}, cache "
+                                 f"{r['cache_shape']}, finite {r['finite']}")
+        if r["prefill_bytes"] != want_prefill \
+                or set(r["decode_bytes"]) != {want_step}:
+            raise AssertionError(
+                f"[shard] {cfg.name} on {SHARD_DP_MESH} rank "
+                f"{rank['rank']}: collective bytes {r['prefill_bytes']} / "
+                f"{set(r['decode_bytes'])}, arithmetic {want_prefill} / "
+                f"{want_step}")
+        if srv["outcomes"] != ["served"] * len(requests) \
+                or srv["tokens"] != r0["server"]["tokens"] \
+                or [len(t) for t in srv["tokens"]] \
+                != [m for _, m in requests]:
+            raise AssertionError(f"[shard] {cfg.name} on {SHARD_DP_MESH} "
+                                 f"rank {rank['rank']}: LMServer {srv}")
+    same = r0["server"]["tokens"] == \
+        ranks[0][SHARD_DP_ARCH]["server"]["tokens"]
+    bound, bar = SHARD_LIMITS[SHARD_DP_ARCH]
+    log(f"[shard] {cfg.name} on {SHARD_DP_MESH}: sharded against one device "
+        f"over the prefill's last logits and {steps} decode steps: max "
+        f"|sharded - single| / max |single| {err:.4e} (by step "
+        + " ".join(f"{e:.3e}" for e in err_steps)
+        + f"), argmax agreement {agree:.4f} (limits {bound}, {bar}); "
+        f"collective bytes a rank: prefill {want_prefill}, decode step "
+        f"{want_step} (arithmetic = counted); the LMServer's tokens equal "
+        f"on every rank, and to the (1, {SHARD_RANKS}) server's: {same}")
+    if not err <= bound or agree < bar:
+        raise AssertionError(f"[shard] {cfg.name} on {SHARD_DP_MESH}: "
+                             f"logits off by {err:.4e}, agreement "
+                             f"{agree:.4f}")
+    f32 = f32_logit_check(f"[shard] {cfg.name} on {SHARD_DP_MESH}",
+                          r0.pop("f32_logits"), f32_single, cfg.vocab)
+    lanes = check_shard_lanes(cfg, ranks, "dp", smi,
+                              f"(data {dp}, model {tp})")
+    return dict(mesh=SHARD_DP_MESH, rel_err=err, rel_err_steps=err_steps,
+                agreement=agree, f32=f32, lanes=lanes,
+                prefill_bytes=want_prefill, step_bytes=want_step,
+                server_tokens_as_1x4=same,
+                ranks=[{k: v for k, v in rank["dp"].items()
+                        if k not in ("server", "lanes", "logits",
+                                     "f32_logits")}
+                       | {"served": rank["dp"]["server"]["served"],
+                          "server_wall_s": rank["dp"]["server"]["wall_s"]}
+                       for rank in ranks])
+
+
+def check_shard_lanes(cfg, ranks, arch: str, smi: str, where: str) -> dict:
     """Every rank's two-lane group served every request in full, migrated
     at least one sequence with its emitted prefix kept verbatim,
     quarantined lm1, and agrees with rank 0 on the tokens and the
@@ -3908,7 +4129,7 @@ def check_shard_lanes(cfg, ranks, arch: str, smi: str) -> dict:
             raise AssertionError(f"[shard] {cfg.name} lanes, rank "
                                  f"{rank['rank']}: {ln}")
     log(f"[shard] {cfg.name} LMReplicaGroup(cfg, rules, params), 2 lanes on "
-        f"(data 1, model {SHARD_RANKS}): lm1's decode faulted from its step "
+        f"{where}: lm1's decode faulted from its step "
         f"{SHARD_LANE_FAULT_AFTER + 1} past its restore; {r0['migrations']} "
         f"sequence(s) migrated to lm0 on every rank with their emitted "
         f"prefixes ({r0['prefixes']} tokens) kept verbatim, every request "
@@ -3923,20 +4144,36 @@ def check_shard_lanes(cfg, ranks, arch: str, smi: str) -> dict:
 # --------------------------------------------------------------------------
 
 class _MeshShape:
-    """A stand-in mesh of axis sizes alone (``Rules``' arithmetic)."""
+    """A stand-in mesh of axis sizes alone (``Rules``' arithmetic); with
+    ``pod`` the three-axis one."""
 
-    axis_names = ("data", "model")
-
-    def __init__(self, dp: int, tp: int):
+    def __init__(self, dp: int, tp: int, pod: int = 0):
         self.shape = {"data": dp, "model": tp}
+        self.axis_names = ("data", "model")
+        if pod:
+            self.shape = {"pod": pod, **self.shape}
+            self.axis_names = ("pod", "data", "model")
 
 
-def shard_train_bytes(cfg, dp: int, tp: int, batch: int, seq: int) -> int:
+def _mesh_dict(shape) -> dict:
+    """A job's mesh as axis sizes: (data, model) or a dict."""
+    return dict(shape) if isinstance(shape, dict) else dict(
+        data=shape[0], model=shape[1])
+
+
+def _mesh_name(shape) -> str:
+    return ", ".join(f"{a} {n}" for a, n in _mesh_dict(shape).items())
+
+
+def shard_train_bytes(cfg, dp: int, tp: int, batch: int, seq: int,
+                      pod: int = 0) -> int:
     """Bytes one rank hands to collectives in one sharded train step
     (``transformer.make_train_step(cfg, rules)``) of a global (batch, seq)
-    on a (dp, tp) mesh, from the shapes alone (``transformer._Sharded``'s
-    and ``chunked_ce``'s collectives, their differentiable backwards,
-    ``sync_grads`` and the global norm).  float32 masters, so every FSDP
+    on a (dp, tp) mesh, or (pod, dp, tp) with ``pod``, from the shapes
+    alone (``transformer._Sharded``'s and ``chunked_ce``'s collectives,
+    their differentiable backwards, ``sync_grads`` and the global norm).
+    The rank's rows are ``batch_spec(batch)``'s cut (every row where it
+    keeps no axis).  float32 masters, so every FSDP
     gather and reduce-scatter moves float32; activations move in bf16,
     their sums in float32.  Each layer's forward collectives run again in
     the remat's recompute, but for the row-parallel sums under "dots" and
@@ -3945,13 +4182,18 @@ def shard_train_bytes(cfg, dp: int, tp: int, batch: int, seq: int) -> int:
     backward saved (``torch.utils.checkpoint``'s early stop)."""
     from repro_torch.distributed import sharding
 
-    rules = sharding.Rules(mesh=_MeshShape(dp, tp))
+    rules = sharding.Rules(mesh=_MeshShape(dp, tp, pod),
+                           batch=("pod", "data") if pod else ("data",))
     specs = transformer.param_specs(cfg, rules)
     full = transformer.abstract_params(cfg, ep=tp, vocab_pad_to=tp)
     d, hd = cfg.d_model, cfg.d_head
     tp_heads = tp > 1 and cfg.n_heads % tp == 0
     kv_sharded = tp_heads and cfg.n_kv_heads % tp == 0
-    t = batch // dp * seq                       # the rank's tokens
+    parts = rules.axis_size(rules.batch_spec(batch))
+    if cfg.moe and parts != rules.dp:
+        raise ValueError("shard_train_bytes: an MoE step's rows must cut "
+                         "over every batch axis (no recut counted)")
+    t = batch // parts * seq                    # the rank's tokens
     f32, bf16 = 4, 2
 
     def local(name, lay=True):
@@ -4013,11 +4255,14 @@ def shard_train_bytes(cfg, dp: int, tp: int, batch: int, seq: int) -> int:
         total += t * d * bf16                   # the masked lookup's sum
         total += t * d * f32                    # the CE input cotangent
         total += 3 * t * f32                    # each chunk's max, sums
-    if dp > 1:
-        total += 2 * f32                        # the CE sums over data
+    if rules.dp > 1:
+        total += 2 * f32                        # the CE sums, batch axes
         replicated = [n for n in lay if "data" not in lay[n]]
         total += (cfg.n_layers * sum(local(n) for n in replicated)
                   + d) * f32                    # sync_grads
+    if pod > 1:                                 # FSDP leaves over "pod"
+        total += (cfg.n_layers * sum(local(n) for n in fsdp) + table
+                  + (0 if cfg.tie_embeddings else head)) * f32
     groups = {tuple(a for a in ("data", "model") if a in spec)
               for spec in [*lay.values(), specs["embed"], specs["final_norm"]]
               + ([specs["lm_head"]] if "lm_head" in specs else [])}
@@ -4080,19 +4325,20 @@ def shard_train_model(rank: int, device, job: dict, ckpt_dir: str) -> dict:
     from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as mesh_lib
 
-    cfg = job["cfg"]
-    dp, tp = job["mesh"]
+    cfg, b = job["cfg"], job["batch"]
     rules = sharding.rules_for_mesh(mesh_lib.make_host_mesh(
-        data=dp, model=tp, device=device))
-    world = rules.comm(("data", "model"))
+        device=device, **_mesh_dict(job["mesh"])))
+    world = rules.comm(tuple(rules.mesh.axis_names))
     specs = transformer.param_specs(cfg, rules)
     params = sharding.shard_tree(job["params"], specs, rules)
-    pipe = data.TokenPipeline(seed=0, batch=job["batch"], seq_len=job["seq"],
+    pipe = data.TokenPipeline(seed=0, batch=b, seq_len=job["seq"],
                               vocab=cfg.vocab, rules=rules)
     out = dict(weight_bytes=sum(t.numel() * t.element_size()
-                                for t in tree.leaves(params)))
+                                for t in tree.leaves(params)),
+               rows=len(pipe.batch_at(0)["tokens"]))
     (_, _), grads = tree.value_and_grad(transformer.loss_fn, params,
-                                        pipe.batch_at(0), cfg, rules)
+                                        pipe.batch_at(0), cfg, rules,
+                                        batch_size=b)
     grads = sharding.sync_grads(grads, specs, rules)
     errs = []
     for (path, g), s, want in zip(tree.flatten_with_paths(grads),
@@ -4106,7 +4352,8 @@ def shard_train_model(rank: int, device, job: dict, ckpt_dir: str) -> dict:
     with float32_check(), _routing(cfg, params, pinned=pinned,
                                    shard=rules.coordinate(("data", "model"))):
         (loss32, _), grads = tree.value_and_grad(
-            transformer.loss_fn, params, pipe.batch_at(0), cfg, rules)
+            transformer.loss_fn, params, pipe.batch_at(0), cfg, rules,
+            batch_size=b)
         grads = sharding.sync_grads(grads, specs, rules)
     out["loss32"] = loss32.item()
     out["flips32"] = pinned.get("flips", 0)
@@ -4117,7 +4364,8 @@ def shard_train_model(rank: int, device, job: dict, ckpt_dir: str) -> dict:
             tree.leaves(job["grads32"]))]
     del grads
     opt = optim.adamw_init(params)
-    step = transformer.make_train_step(cfg, rules, lr=SHARD_TRAIN_LR)
+    step = transformer.make_train_step(cfg, rules, lr=SHARD_TRAIN_LR,
+                                       batch_size=b)
     gc.collect()
     _sync(device)
     if device.type == "cuda":
@@ -4220,7 +4468,7 @@ def shard_train_rank(rank, device, jobs, ckpt_dir):
     """One rank of the [shard train] phase: each job's model in turn."""
     out = {"rank": rank}
     for job in jobs:
-        out[job["cfg"].name] = shard_train_model(rank, device, job, ckpt_dir)
+        out[job["key"]] = shard_train_model(rank, device, job, ckpt_dir)
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -4283,7 +4531,9 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
     steps, a checkpoint after step ``SHARD_TRAIN_CRASH_AFTER`` and a
     resume on (4, 1); granite-moe-3b-a800m at full width, 4 of its 32
     layers, on (1, 4) (EP with the tokens cut over ``model``), capacity
-    factor E/k.  Returns (the ranks' launches summed, numbers)."""
+    factor E/k; then lm-100m on the batches the batch axes do not divide
+    (``SHARD_TRAIN_UNEVEN``).  Returns (the ranks' launches summed,
+    numbers)."""
     from repro_torch.launch import mesh as mesh_lib
 
     jobs, singles, numbers = [], {}, {}
@@ -4302,16 +4552,34 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
             dtype=torch.float32, ep=tp, vocab_pad_to=tp)
         single = shard_train_single(cfg, params, batch,
                                     dp * tp if cfg.moe else 1)
-        job = dict(cfg=cfg, mesh=mesh_shape, batch=batch, seq=TRAIN_SEQ,
-                   steps=steps, params=params, grads=single.pop("grads"),
-                   grads32=single.pop("grads32"),
+        job = dict(key=cfg.name, cfg=cfg, mesh=mesh_shape, batch=batch,
+                   seq=TRAIN_SEQ, steps=steps, params=params,
+                   grads=single.pop("grads"), grads32=single.pop("grads32"),
                    routes=single.pop("routes"))
         if arch == "lm-100m":
             job.update(crash_after=SHARD_TRAIN_CRASH_AFTER,
                        resume=SHARD_TRAIN_RESUME)
+            dense = job
         jobs.append(job)
         singles[cfg.name] = single
         del params
+    # The uneven batches: lm-100m's weights again (tp 1 pads nothing that
+    # tp 2 did not), one device's step at each batch.
+    for mesh_shape, batch, steps in SHARD_TRAIN_UNEVEN:
+        cfg, key = dense["cfg"], f"{dense['cfg'].name} {_mesh_name(mesh_shape)}"
+        if batch not in singles:
+            singles[batch] = shard_train_single(cfg, dense["params"], batch,
+                                                1)
+        single = singles[batch]
+        singles[key] = single
+        jobs.append(dict(key=key, cfg=cfg, mesh=mesh_shape, batch=batch,
+                         seq=TRAIN_SEQ, steps=steps,
+                         params=dense["params"], grads=single["grads"],
+                         grads32=single["grads32"],
+                         routes=single["routes"]))
+    for mesh_shape, batch, steps in SHARD_TRAIN_UNEVEN:
+        for name in ("grads", "grads32", "routes"):
+            singles[batch].pop(name, None)
     _sync(device)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as ckpt:
         t0 = time.perf_counter()
@@ -4325,20 +4593,22 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
         f"NVLink) ({smi})")
     launches = launch_counts()
     for job in jobs:
-        cfg = job["cfg"]
-        dp, tp = job["mesh"]
-        single = singles[cfg.name]
-        want_bytes = shard_train_bytes(cfg, dp, tp, job["batch"], TRAIN_SEQ)
-        runs = [rank[cfg.name] for rank in ranks]
+        cfg, key = job["cfg"], job["key"]
+        shape = _mesh_dict(job["mesh"])
+        dp, tp = shape["data"], shape["model"]
+        single = singles[key]
+        want_bytes = shard_train_bytes(cfg, dp, tp, job["batch"], TRAIN_SEQ,
+                                       shape.get("pod", 0))
+        runs = [rank[key] for rank in ranks]
         r0 = runs[0]
         k7_want = launch_counts(
             flash_attention=2 * cfg.n_layers * job["steps"],
             flash_attention_bwd=cfg.n_layers * job["steps"])
         for rank, r in zip(ranks, runs):
-            log(f"[shard train] {cfg.name} rank {rank['rank']} of "
-                f"(data {dp}, model {tp}): {r['weight_bytes']} B of "
+            log(f"[shard train] {key} rank {rank['rank']} of "
+                f"({_mesh_name(shape)}): {r['weight_bytes']} B of "
                 f"weights; {job['steps']} steps of B {job['batch']} x S "
-                f"{TRAIN_SEQ}: ms a step "
+                f"{TRAIN_SEQ} ({r['rows']} rows on the rank): ms a step "
                 + " ".join(f"{x:.3f}" for x in r["step_ms"])
                 + f" wall; {r['sent'][0]} B into collectives a step; peak "
                 f"device memory {r['peak_bytes']} B; K7 "
@@ -4348,7 +4618,7 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
                     or r["losses"] != r0["losses"] \
                     or not np.isfinite(r["losses"]).all():
                 raise AssertionError(
-                    f"[shard train] {cfg.name} rank {rank['rank']}: "
+                    f"[shard train] {key} rank {rank['rank']}: "
                     f"launches {r['launches']} (want {k7_want}), bytes "
                     f"{set(r['sent'])} (arithmetic {want_bytes}), losses "
                     f"{r['losses']} against rank 0's {r0['losses']}")
@@ -4356,7 +4626,7 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
                 launches[name] += r["launches"][name]
         worst, path = max(r0["leaf_errs"])
         leaf_tol = SHARD_TRAIN_LEAF_TOL[cfg.name]
-        log(f"[shard train] {cfg.name} step 0, each gathered gradient leaf "
+        log(f"[shard train] {key} step 0, each gathered gradient leaf "
             f"against one device (relative L2; the one-device floor from "
             f"two half batches in brackets): "
             + ", ".join(f"{p} {e:.3e} ({f:.3e})" for (e, p), f in
@@ -4364,7 +4634,7 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
         loss_gap = abs(r0["losses"][0] - single["loss"]) / single["loss"]
         norm_gap = abs(r0["norms"][0] - single["grad_norm"]) \
             / single["grad_norm"]
-        log(f"[shard train] {cfg.name} step 0 sharded against one device: "
+        log(f"[shard train] {key} step 0 sharded against one device: "
             f"loss {r0['losses'][0]:.6f} / {single['loss']:.6f} (gap "
             f"{loss_gap:.3e}), gradient norm {r0['norms'][0]:.6f} / "
             f"{single['grad_norm']:.6f} (gap {norm_gap:.3e}), worst leaf "
@@ -4378,12 +4648,12 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
         if loss_gap > SHARD_TRAIN_LOSS_TOL \
                 or norm_gap > SHARD_TRAIN_GNORM_TOL \
                 or worst > leaf_tol or max(single["floor"]) > leaf_tol:
-            raise AssertionError(f"[shard train] {cfg.name} step 0 off the "
+            raise AssertionError(f"[shard train] {key} step 0 off the "
                                  f"one-device step: {loss_gap}, {norm_gap},"
                                  f" {path} {worst}, floor "
                                  f"{max(single['floor'])}")
         f32 = f32_step_check(
-            f"[shard train] {cfg.name}", r0["loss32"], single["loss32"],
+            f"[shard train] {key}", r0["loss32"], single["loss32"],
             r0["leaf_errs32"], "relative L2" + (
                 f"; routing pinned to one device's top-k, the ranks' own "
                 f"choice differed for {[r['flips32'] for r in runs]} tokens "
@@ -4404,7 +4674,7 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
             for rank, r in zip(ranks, runs):
                 res = r["resume"]
                 gap = abs(res["loss"] - base) / base
-                log(f"[shard train] {cfg.name} rank {rank['rank']}: "
+                log(f"[shard train] {key} rank {rank['rank']}: "
                     f"checkpoint of step {res['step']} written in "
                     f"{r['save_s']:.3f} s, restored on (data "
                     f"{job['resume'][0]}, model {job['resume'][1]}) in "
@@ -4417,11 +4687,11 @@ def phase_shard_train(device, smi: str) -> tuple[dict, dict]:
                 if not (res["saved_equal"] and res["restored_equal"]) \
                         or gap > SHARD_TRAIN_LOSS_TOL \
                         or res["launches"] != want_resume:
-                    raise AssertionError(f"[shard train] {cfg.name} resume "
+                    raise AssertionError(f"[shard train] {key} resume "
                                          f"on rank {rank['rank']}: {res}")
                 for name in ("flash_attention", "flash_attention_bwd"):
                     launches[name] += res["launches"][name]
-        numbers[cfg.name] = out
+        numbers[key] = out
     numbers["spawn_s"] = spawn_s
     del jobs
     gc.collect()
@@ -4667,13 +4937,12 @@ def _zoo_pipe(arch: str, cfg, batch: int, res: int, device, seed: int = 0):
 
 
 def _zoo_rows(arch: str, batch: dict, rules) -> dict:
-    """A train step's batch as the rank takes it: its rows (DiT: the
-    whole batch, which it cuts itself)."""
+    """A train step's batch as the rank takes it: its rows
+    (``rules.batch_cut``; DiT: the whole batch, which it cuts itself)."""
     if rules is None or arch.startswith("dit"):
         return batch
-    n = len(batch["labels"]) // rules.dp
-    lo = rules.coordinate(rules.batch) * n
-    return {k: v[lo:lo + n] for k, v in batch.items()}
+    cut = rules.batch_cut(len(batch["labels"]))
+    return {k: cut.take(v) for k, v in batch.items()}
 
 
 def _zoo_vg(arch: str, cfg, params, state, batch, rules=None):
@@ -4746,7 +5015,7 @@ def shard_zoo_model(rank: int, device, job: dict) -> dict:
     """One arch on one rank: its slices of the parent's float32 weights
     (through CUDA IPC) on SHARD_ZOO_TRAIN_MESH; step 0's gradient leaves
     against the one-device step's, bf16 through K7/K7b and float32
-    (``float32_check``); SHARD_ZOO_STEPS counted train steps; then on
+    (``float32_check``); the job's counted train steps; then on
     SHARD_ZOO_SERVE_MESH the serving cell's call counted, bf16 and
     float32."""
     from repro_torch.distributed import sharding
@@ -4755,7 +5024,7 @@ def shard_zoo_model(rank: int, device, job: dict) -> dict:
     arch, cfg = job["arch"], job["cfg"]
     mod = _zoo_module(arch)
     eff = arch.startswith("efficientnet")
-    dp, tp = SHARD_ZOO_TRAIN_MESH
+    dp, tp = job["mesh"]
     rules = sharding.rules_for_mesh(mesh_lib.make_host_mesh(
         data=dp, model=tp, device=device))
     world = rules.comm(("data", "model"))
@@ -4784,7 +5053,7 @@ def shard_zoo_model(rank: int, device, job: dict) -> dict:
     reset_launches()
     sent, ms, losses = [], [], []
     opt = optim.sgdm_init(params) if eff else optim.adamw_init(params)
-    for i in range(SHARD_ZOO_STEPS):
+    for i in range(job["steps"]):
         batch = _zoo_rows(arch, pipe.batch_at(i), rules)
         before = sharding.Collective.payload_bytes
         _sync(device)
@@ -4837,37 +5106,47 @@ def shard_zoo_rank(rank, device, jobs):
     out = {"rank": rank}
     for job in jobs:
         t0 = time.perf_counter()
-        out[job["arch"]] = shard_zoo_model(rank, device, job)
-        out[job["arch"]]["s"] = time.perf_counter() - t0
+        out[job["key"]] = shard_zoo_model(rank, device, job)
+        out[job["key"]]["s"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def _zoo_floor_errs(halves, grads, floor: float) -> list:
-    """Each leaf of the mean of two half batches' gradients against the
-    whole batch's, with ``_zoo_leaf_errs``' floor: the one-device noise
-    of a batch cut in two (other matmul shapes, other bf16 roundings)."""
+def _zoo_floor_errs(halves, grads, floor: float, rows=(1, 1)) -> list:
+    """Each leaf of the mean of two half batches' gradients (of ``rows``
+    rows each: their mean weighted by them) against the whole batch's,
+    with ``_zoo_leaf_errs``' floor: the one-device noise of a batch cut in
+    two (other matmul shapes, other bf16 roundings)."""
     wants = [w.float() for w in tree.leaves(grads)]
     top = floor * float(torch.stack([w.square().sum() for w in wants])
                         .sum().sqrt())
-    return [float(((a.float() + c.float()) / 2 - w).norm())
+    n, m = rows
+
+    def mean(a, c):
+        if n == m:
+            return (a.float() + c.float()) / 2
+        return (n * a.float() + m * c.float()) / (n + m)
+    return [float((mean(a, c) - w).norm())
             / max(float(w.norm()), top, 1e-30)
             for a, c, w in zip(tree.leaves(halves[0]),
                                tree.leaves(halves[1]), wants)]
 
 
-def shard_zoo_job(arch: str, device, rec=None) -> tuple[dict, dict]:
+def shard_zoo_job(arch: str, device, rec=None, cell=None, steps: int =
+                  SHARD_ZOO_STEPS) -> tuple[dict, dict]:
     """An arch's job for the ranks (float32 weights, the one-device step
     0's gradients, bf16 and float32, the serving cell's inputs) and the
     one-device numbers: step 0's loss and gradients, the floor from two
     half batches, ms a train step, the serving call's outputs and ms.
     ``rec``: the arch's configs record (default ``configs.get(arch)``;
-    FULL config and shapes)."""
+    FULL config and shapes); ``cell``: ((train shape, batch), serving
+    cell or None) in place of SHARD_ZOO_CELLS'; ``steps``: the ranks'
+    counted train steps."""
     rec = rec or configs.get(arch)
     cfg = rec.full
     mod = _zoo_module(arch)
-    (tname, tb), serve = SHARD_ZOO_CELLS[arch]
+    (tname, tb), serve = cell or SHARD_ZOO_CELLS[arch]
     eff, is_dit = arch.startswith("efficientnet"), arch.startswith("dit")
     res = cfg.img_res if eff else rec.shape(tname).img_res
     g = torch.Generator(device=device).manual_seed(0)
@@ -4878,8 +5157,11 @@ def shard_zoo_job(arch: str, device, rec=None) -> tuple[dict, dict]:
         params, state = mod.init_params(cfg, g, device, dtype=torch.float32)
     else:
         params = mod.init_params(cfg, g, device, dtype=torch.float32)
-    job = dict(arch=arch, cfg=cfg, params=params, state=state, batch=tb,
-               res=res, serve=serve)
+    job = dict(arch=arch, key=arch if cell is None else f"{arch} b{tb}",
+               cfg=cfg, params=params, state=state, batch=tb, res=res,
+               serve=serve, steps=steps, mesh=SHARD_ZOO_TRAIN_MESH,
+               bf16_limits=SHARD_ZOO_BF16_LIMITS[arch] if cell is None
+               else SHARD_ZOO_UNEVEN_BF16_LIMITS)
     pipe = _zoo_pipe(arch, cfg, tb, res, device)
     b0 = pipe.batch_at(0)
     single = {}
@@ -4889,14 +5171,15 @@ def shard_zoo_job(arch: str, device, rec=None) -> tuple[dict, dict]:
                           {k: v[sl] for k, v in b0.items()})[1]
                   for sl in (slice(0, tb // 2), slice(tb // 2, None))]
         single["floor"] = _zoo_floor_errs(halves, job["grads_bf16"],
-                                          SHARD_ZOO_FLOOR)
+                                          SHARD_ZOO_FLOOR,
+                                          (tb // 2, tb - tb // 2))
         del halves
     with float32_check():
         single["loss32"], job["grads_f32"] = _zoo_vg(arch, cfg, params,
                                                      state, b0)
     losses, ms = _zoo_steps(arch, mod.make_train_step(cfg), params, state,
-                            pipe, SHARD_ZOO_STEPS + 1)
-    single.update(losses=losses[:SHARD_ZOO_STEPS], ms=ms[1:])
+                            pipe, steps + 1)
+    single.update(losses=losses[:steps], ms=ms[1:])
     if serve is not None:
         sname, sb = serve
         sres = rec.shape(sname).img_res
@@ -4953,38 +5236,43 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     jobs, singles = [], {}
-    for arch in SHARD_ZOO_ARCHS:
+    arch, tname, tb, steps = SHARD_ZOO_UNEVEN
+    runs_of = [(a, None, SHARD_ZOO_STEPS) for a in SHARD_ZOO_ARCHS] + [
+        (arch, ((tname, tb), None), steps)]
+    for arch, cell, steps in runs_of:
         t0 = time.perf_counter()
-        job, singles[arch] = shard_zoo_job(arch, device)
+        job, single = shard_zoo_job(arch, device, cell=cell, steps=steps)
+        singles[job["key"]] = single
         jobs.append(job)
-        log(f"[shard zoo] {arch}: one device's step 0, {SHARD_ZOO_STEPS + 1}"
+        log(f"[shard zoo] {job['key']}: one device's step 0, {steps + 1}"
             f" steps and the serving cell in {time.perf_counter() - t0:.1f}"
             f" s")
     t0 = time.perf_counter()
     ranks = mesh_lib.spawn(shard_zoo_rank, SHARD_RANKS, jobs,
                            device=device.type, timeout_s=SHARD_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
-    log(f"[shard zoo] {SHARD_RANKS} ranks spawned, the four archs run and "
-        f"joined in {spawn_s:.3f} s; gloo collectives staged through pinned "
-        f"host memory, 4 ranks sharing one card ({smi})")
+    log(f"[shard zoo] {SHARD_RANKS} ranks spawned, the {len(jobs)} cells "
+        f"run and joined in {spawn_s:.3f} s; gloo collectives staged "
+        f"through pinned host memory, 4 ranks sharing one card ({smi})")
     launches, numbers = launch_counts(), {"spawn_s": spawn_s}
     for job in jobs:
-        arch, cfg = job["arch"], job["cfg"]
-        single = singles[arch]
-        runs = [rank[arch] for rank in ranks]
+        arch, cfg, key, steps = job["arch"], job["cfg"], job["key"], \
+            job["steps"]
+        single = singles[key]
+        runs = [rank[key] for rank in ranks]
         r0 = runs[0]
         l_n = getattr(cfg, "n_layers", 0)
         attn = arch.startswith(("vit", "dit"))
-        dp, tp = SHARD_ZOO_TRAIN_MESH
+        dp, tp = job["mesh"]
         want_bytes = shard_zoo_bytes(arch, cfg, dp, tp, job["batch"],
                                      job["res"], True)
         want_launch = launch_counts(
-            flash_attention=2 * l_n * SHARD_ZOO_STEPS if attn else 0,
-            flash_attention_bwd=l_n * SHARD_ZOO_STEPS if attn else 0)
+            flash_attention=2 * l_n * steps if attn else 0,
+            flash_attention_bwd=l_n * steps if attn else 0)
         for rank, r in zip(ranks, runs):
-            log(f"[shard zoo] {arch} rank {rank['rank']} of (data {dp}, "
+            log(f"[shard zoo] {key} rank {rank['rank']} of (data {dp}, "
                 f"model {tp}): {r['weight_bytes']} B of weights; "
-                f"{SHARD_ZOO_STEPS} steps of B {job['batch']} at "
+                f"{steps} steps of B {job['batch']} at "
                 f"{job['res']}²: ms a step "
                 + " ".join(f"{x:.3f}" for x in r["ms"])
                 + f" wall; {r['sent'][0]} B into collectives a step; peak "
@@ -4996,7 +5284,7 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
                     want_bytes} or r["losses"] != r0["losses"] \
                     or not np.isfinite(r["losses"]).all():
                 raise AssertionError(
-                    f"[shard zoo] {arch} rank {rank['rank']}: launches "
+                    f"[shard zoo] {key} rank {rank['rank']}: launches "
                     f"{r['launches']} (want {want_launch}), bytes "
                     f"{set(r['sent'])} (arithmetic {want_bytes}), losses "
                     f"{r['losses']} against rank 0's {r0['losses']}")
@@ -5005,7 +5293,7 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
         bf = r0["bf16"]
         worst, path = max(bf["errs"])
         floor = single.get("floor")
-        log(f"[shard zoo] {arch} step 0 bf16 through K7/K7b against one "
+        log(f"[shard zoo] {key} step 0 bf16 through K7/K7b against one "
             f"device: loss {bf['loss']:.6f} / {single['loss']:.6f} (gap "
             f"{abs(bf['loss'] - single['loss']) / abs(single['loss']):.3e})"
             f", worst gathered leaf {path} {worst:.3e} relative L2 (a leaf "
@@ -5016,24 +5304,24 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
             + f"; one device ms a step "
             + " ".join(f"{x:.3f}" for x in single["ms"])
             + f"; bytes a step {want_bytes} by arithmetic = counted ({smi})")
-        leaf_lim, loss_lim, out_lim = SHARD_ZOO_BF16_LIMITS[arch]
+        leaf_lim, loss_lim, out_lim = job["bf16_limits"]
         gap = abs(bf["loss"] - single["loss"]) / abs(single["loss"])
-        log(f"[shard zoo] {arch} bf16 limits: worst leaf "
+        log(f"[shard zoo] {key} bf16 limits: worst leaf "
             + (f"{worst:.3e} <= {leaf_lim} (floor "
                f"{max(floor):.3e})" if leaf_lim is not None
                else "not bounded (train-mode BN, ROADMAP caveat (i))")
             + f", loss gap {gap:.3e} <= {loss_lim}")
         if (leaf_lim is not None and not worst <= leaf_lim) \
                 or not gap <= loss_lim:
-            raise AssertionError(f"[shard zoo] {arch} bf16 step 0: worst "
+            raise AssertionError(f"[shard zoo] {key} bf16 step 0: worst "
                                  f"leaf {path} {worst:.3e} (limit "
                                  f"{leaf_lim}), loss gap {gap:.3e} (limit "
                                  f"{loss_lim})")
         f32 = f32_step_check(
-            f"[shard zoo] {arch}", r0["f32"]["loss"], single["loss32"],
+            f"[shard zoo] {key}", r0["f32"]["loss"], single["loss32"],
             r0["f32"]["errs"], f"relative L2 of max(the leaf's norm, "
             f"{SHARD_ZOO_FLOOR} of the tree's)")
-        out = dict(train_mesh=SHARD_ZOO_TRAIN_MESH, batch=job["batch"],
+        out = dict(train_mesh=job["mesh"], batch=job["batch"],
                    res=job["res"], bytes_a_step=want_bytes,
                    bf16_loss_gap=abs(bf["loss"] - single["loss"])
                    / abs(single["loss"]), bf16_worst_leaf=(path, worst),
@@ -5049,11 +5337,11 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
             for a, c in ((0, 2), (1, 3)):
                 if not all(torch.equal(x, y) for x, y in zip(
                         runs[a]["state"], runs[c]["state"])):
-                    raise AssertionError(f"[shard zoo] {arch}: the running "
+                    raise AssertionError(f"[shard zoo] {key}: the running "
                                          f"statistics of ranks {a} and {c} "
                                          f"differ")
-            log(f"[shard zoo] {arch}: the synced BN's running statistics "
-                f"equal on every data rank after {SHARD_ZOO_STEPS} steps, "
+            log(f"[shard zoo] {key}: the synced BN's running statistics "
+                f"equal on every data rank after {steps} steps, "
                 f"bit for bit")
         if job["serve"] is not None:
             sname, sb = job["serve"]
@@ -5062,7 +5350,7 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
                                          job["serve_res"], False)
             for rank, r in zip(ranks, runs):
                 sv = r["serve"]
-                log(f"[shard zoo] {arch} {sname} rank {rank['rank']} of "
+                log(f"[shard zoo] {key} {sname} rank {rank['rank']} of "
                     f"(data {sdp}, model {stp}): B {sb} at "
                     f"{job['serve_res']}², {sv['ms']:.3f} ms wall, "
                     f"{sv['sent']} B into collectives, peak device memory "
@@ -5072,7 +5360,7 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
                         flash_attention=l_n if attn else 0) \
                         or sv["sent"] != want_serve or not sv["finite"]:
                     raise AssertionError(
-                        f"[shard zoo] {arch} {sname} rank {rank['rank']}: "
+                        f"[shard zoo] {key} {sname} rank {rank['rank']}: "
                         f"launches {sv['launches']}, bytes {sv['sent']} "
                         f"(arithmetic {want_serve}), finite {sv['finite']}")
                 for name in ("flash_attention", "flash_attention_bwd"):
@@ -5080,17 +5368,17 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
             sv = r0["serve"]
             err16 = rel_err(sv["out"], single["out"])
             err32 = rel_err(sv["out32"], single["out32"])
-            log(f"[shard zoo] {arch} {sname}: one device {single['serve_ms']:.3f}"
+            log(f"[shard zoo] {key} {sname}: one device {single['serve_ms']:.3f}"
                 f" ms; bf16 through K7 against one device: max |sharded - "
                 f"single| / max |single| {err16:.4e}, the one-device floor "
                 f"(two half batches) {single['out_floor']:.4e}; float32 "
                 f"check ({F32_ROUTE}): {err32:.4e} (limit "
                 f"{F32_CHECK['out']}); bytes {want_serve} by arithmetic = "
                 f"counted")
-            log(f"[shard zoo] {arch} {sname} bf16 limit: {err16:.4e} <= "
+            log(f"[shard zoo] {key} {sname} bf16 limit: {err16:.4e} <= "
                 f"{out_lim} (floor {single['out_floor']:.4e})")
             if not err32 <= F32_CHECK["out"] or not err16 <= out_lim:
-                raise AssertionError(f"[shard zoo] {arch} {sname}: output "
+                raise AssertionError(f"[shard zoo] {key} {sname}: output "
                                      f"off by {err32:.4e} in float32, "
                                      f"{err16:.4e} in bf16 (limit "
                                      f"{out_lim})")
@@ -5101,7 +5389,7 @@ def phase_shard_zoo(device, smi: str) -> tuple[dict, dict]:
                                 ranks=[dict(ms=r["serve"]["ms"],
                                             peak_bytes=r["serve"]["peak_bytes"])
                                        for r in runs])
-        numbers[arch] = out
+        numbers[key] = out
     del jobs
     gc.collect()
     torch.cuda.empty_cache()
@@ -7495,6 +7783,22 @@ def phase_timing(device, launches: dict, per_forward: dict,
     return kernels
 
 
+class PhaseClock:
+    """Each phase's wall seconds, printed as it ends (``[time]`` lines)
+    and kept for the numbers line."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.s: dict[str, float] = {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.last
+        log(f"[time] {name} {now - self.last:.1f} s (run {now - self.t0:.1f}"
+            f" s)")
+        self.last = now
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dryrun-jobs"]:      # a [dryrun] worker
         return dryrun_worker(*sys.argv[2:4])
@@ -7509,8 +7813,11 @@ def main() -> int:
     cache_dir = tempfile.TemporaryDirectory(prefix="chip-smoke-autotune-")
     os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name,
                                                       "autotune.json")
+    clock = PhaseClock()
     smi = phase_build()
+    clock.mark("build")
     errs = phase_kernels(device)
+    clock.mark("kernels")
     rng = np.random.default_rng(0)
     launches, per_forward, numbers = {}, {}, {}
     chain_inputs = Inputs(device, seed=6)
@@ -7524,6 +7831,7 @@ def main() -> int:
                 wl.engine.engine, chain_inputs)
         if mode == "cuda_direct_pool":
             numbers["trace_names"] = phase_traced_serve(wl, rng)
+    clock.mark("serve")
     images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
               for hw in [(375, 500), (416, 416)]]
     rows = {}
@@ -7539,41 +7847,57 @@ def main() -> int:
         raise AssertionError("[detect] the paths' rows differ on the same "
                              "images")
     log(f"[detect] the same images on {list(rows)}: rows equal bit for bit")
+    clock.mark("detect")
     numbers["multiplex"] = phase_multiplex(rng)
+    clock.mark("multiplex")
     numbers["faults"] = phase_faults(chain_wl)
     del chain_wl
+    clock.mark("faults")
     placed, placed_forward, numbers["placement"] = phase_placement(rng, device)
     launches.update(placed)
     per_forward.update(placed_forward)
+    clock.mark("placement")
     for name, counts in phase_trained(device).items():
         launches[f"trained_{name}"] = per_forward[f"trained_{name}"] = counts
     train_launches, numbers["train"] = phase_train(device, errs)
     launches.update(train_launches)
     per_forward.update(train_launches)
+    clock.mark("trained, train")
     zoo_launches, zoo_per_step, numbers["zoo"] = phase_zoo(device, smi)
     launches.update(zoo_launches)
     per_forward.update(zoo_per_step)
+    clock.mark("zoo")
     lm_launches, numbers["lm"] = phase_lm(device)
     launches.update(lm_launches)
     per_forward.update(lm_launches)
+    clock.mark("lm")
     moe_launches, numbers["moe"] = phase_moe(device)
     launches.update(moe_launches)
     per_forward.update(moe_launches)
+    clock.mark("moe")
     auto = phase_autotune(device)
     launches.update(auto["launches"])
     per_forward.update(auto["launches"])
+    clock.mark("autotune")
     numbers["artifact"] = phase_artifact(rng)
     cache_dir.cleanup()
+    clock.mark("artifact")
     kernels = phase_timing(device, launches, per_forward, errs)
+    clock.mark("timing")
     # Last: a torch.profiler session late in a long run loses its device
     # records (the card-to-host clock mapping drifts), and [shard] uses no
     # profiler; its launches join the kernels line here.
     shard_launches, numbers["shard"] = phase_shard(device, smi)
+    clock.mark("shard")
     train_launches, numbers["shard_train"] = phase_shard_train(device, smi)
     shard_launches.update(train_launches)
+    clock.mark("shard train")
     zoo_launches, numbers["shard_zoo"] = phase_shard_zoo(device, smi)
     shard_launches.update(zoo_launches)
+    clock.mark("shard zoo")
     numbers["dryrun"] = phase_dryrun(numbers, smi)
+    clock.mark("dryrun")
+    numbers["phase_s"] = clock.s
     for k in kernels:
         k["launches"] += sum(v[k["name"]] for v in shard_launches.values())
         k["launches_per_forward"].update(

@@ -10,8 +10,11 @@ Counterpart of ``repro.data.pipeline``:
 * **placement** — with ``device`` set, each array becomes a tensor on that
   device (the reference's ``sharding``); without it the batch stays numpy.
   ``TokenPipeline(rules=)`` draws the same batch and moves only this
-  rank's rows (``rules.batch_spec``) to its device (default: the rank's);
-* **prefetch** — a background thread keeps ``prefetch`` batches ahead.
+  rank's rows (``rules.batch_cut``: the reference's ``batch_spec``, which
+  cuts the rows over fewer batch axes, or none, where the batch does not
+  divide) to its device (default: the rank's);
+* **prefetch** — a background thread keeps ``prefetch`` batches ahead;
+  closing the iterator stops and joins it.
 """
 
 from __future__ import annotations
@@ -65,7 +68,10 @@ class _Base:
             while True:
                 yield q.get()
         finally:
+            # Joined, not left running: a thread still drawing a batch
+            # when its process exits can abort the process.
             stop.set()
+            t.join()
 
 
 def _place(arrays: dict, device) -> dict:
@@ -79,8 +85,9 @@ def _place(arrays: dict, device) -> dict:
 class TokenPipeline(_Base):
     """LM batches: {tokens, labels} (B, S) int32, labels = next-token.
     With ``rules`` (a mesh's ``Rules``) each batch is this rank's rows of
-    that batch, as a sharded train step takes them: B must divide over
-    every batch axis."""
+    that batch, as a sharded train step takes them: any B, cut over the
+    batch axes ``rules.batch_spec(B)`` keeps and whole on the ranks of the
+    ones it leaves out (``make_train_step(..., batch_size=B)``)."""
     batch: int = 8
     seq_len: int = 128
     vocab: int = 256
@@ -88,11 +95,9 @@ class TokenPipeline(_Base):
     rules: Any = None
 
     def __post_init__(self):
+        self._cut = None
         if self.rules is not None:
-            n = self.rules.dp
-            if self.batch % n:
-                raise ValueError(f"batch {self.batch} does not split over "
-                                 f"the batch axes {self.rules.batch} ({n})")
+            self._cut = self.rules.batch_cut(self.batch)
             if self.device is None:
                 self.device = self.rules.device
 
@@ -100,10 +105,8 @@ class TokenPipeline(_Base):
         rng = np.random.default_rng((self.seed, step))
         toks = rng.integers(0, self.vocab,
                             (self.batch, self.seq_len + 1), dtype=np.int32)
-        if self.rules is not None:
-            rows = self.batch // self.rules.dp
-            lo = self.rules.coordinate(self.rules.batch) * rows
-            toks = toks[lo:lo + rows]
+        if self._cut is not None:
+            toks = self._cut.take(toks)
         out = {"tokens": np.ascontiguousarray(toks[:, :-1]),
                "labels": np.ascontiguousarray(toks[:, 1:])}
         return _place(out, self.device)

@@ -74,7 +74,8 @@ class Replica:
     @property
     def healthy(self) -> bool:
         # Demoted: the lane's worst bucket sits below the engine's mode.
-        demoted = self.server.health.mode != self.server.engine.matmul_mode
+        h = self.server.health
+        demoted = h is not None and h.mode != self.server.engine.matmul_mode
         return not demoted and not self.slow
 
 
@@ -235,7 +236,9 @@ class ReplicaGroup:
             "routing": {name: {
                 "healthy": rep.healthy,
                 "slow": rep.slow,
-                "mode": rep.server.health.mode,
+                "mode": (rep.server.health.mode
+                         if rep.server.health is not None
+                         else rep.server.engine.matmul_mode),
                 "devices": [str(d) for d in rep.devices],
                 "mean_step_s": round(rep.monitor.mean_step_time, 6),
             } for name, rep in self.replicas.items()},
@@ -286,8 +289,8 @@ class LMReplicaGroup:
     across lanes.  The evacuated lane is quarantined with a doubling probe
     interval.
 
-    ``rules``: every lane's ``LMServer(rules=)``, sharded over the mesh's
-    ``model`` axis (``None``: one device).  Every rank builds every lane
+    ``rules``: every lane's ``LMServer(rules=)``, sharded over the mesh
+    (``None``: one device).  Every rank builds every lane
     and makes the same calls, so the group reads rank 0's clock, as each
     lane does: routing, quarantine and the evacuation target come out the
     same on every rank.  Keyword arguments become every lane's

@@ -589,6 +589,34 @@ def sync_grads(grads: Any, specs: Any, rules) -> Any:
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class BatchCut:
+    """One rank's place in a batch cut as ``Rules.batch_spec`` says:
+    the batch axes the rows are cut over (``()``: every rank holds every
+    row), this rank's block among ``parts`` blocks, and ``copies``, the
+    replication factor: the size of the batch axes the spec leaves out,
+    so that ``parts * copies`` is the batch axes' size."""
+    axes: tuple[str, ...]
+    index: int
+    parts: int
+    copies: int
+
+    def take(self, x):
+        """This rank's block of ``x`` along its first dim (a view of a
+        tensor or an array whose first dim ``parts`` divides; ``x``
+        itself when the rows are not cut)."""
+        if self.parts == 1:
+            return x
+        n = x.shape[0] // self.parts
+        return x[self.index * n:(self.index + 1) * n]
+
+    def local(self, i: int, size: int) -> int | None:
+        """Where row ``i`` of a batch of ``size`` rows sits in this rank's
+        block, or None when another rank's block holds it."""
+        n = size // self.parts
+        return i - self.index * n if i // n == self.index else None
+
+
+@dataclasses.dataclass(frozen=True)
 class Rules:
     """Axis-usage rules for one mesh: the reference's, on any object with
     ``.shape`` (axis name -> size) and ``.axis_names``.  The runtime
@@ -639,6 +667,15 @@ class Rules:
                 return axes if len(axes) > 1 else axes[0]
             axes = axes[1:]
         return None
+
+    def batch_cut(self, batch_size: int) -> BatchCut:
+        """This rank's rows of a global batch of ``batch_size`` under
+        :meth:`batch_spec`: cut over the axes it keeps (every row when it
+        keeps none), replicated over the ones it leaves out."""
+        axes = _axes(self.batch_spec(batch_size))
+        parts = self.axis_size(axes)
+        return BatchCut(axes, self.coordinate(axes) if parts > 1 else 0,
+                        parts, self.dp // parts)
 
     def tokens_spec(self, n_tokens: int):
         """Token dim over batch axes + model axis (flattened (B*S, D))."""

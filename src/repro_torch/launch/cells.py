@@ -122,7 +122,8 @@ def _lm_cell(rec, shape: Shape, rules: Rules, smoke: bool) -> CellBuild:
                                          dtype=torch.float32)
 
     if shape.kind == "train":
-        step = _lazy(lambda: transformer.make_train_step(cfg, rules))
+        step = _lazy(lambda: transformer.make_train_step(cfg, rules,
+                                                         batch_size=b))
         opt = optim.adamw_init(params)
         batch = {"tokens": _sds((b, s), torch.int32),
                  "labels": _sds((b, s), torch.int32)}

@@ -17,8 +17,10 @@ the servers' protocol (submit / poll / drain and ``metrics()``):
 * ``--mode lm`` — continuous-batching decode through
   :class:`~repro_torch.serving.lm_server.LMServer` (the reference's demo
   config, weights drawn from a numpy seed); under ``torchrun`` with N
-  ranks, sharded over a ``(1, N)`` mesh (``launch.mesh``), every rank
-  serving the same requests on its shards and rank 0 printing;
+  ranks, sharded over a ``(1, N)`` mesh (``launch.mesh``), or ``(D, N /
+  D)`` with ``--data D`` (each data rank the cache rows of its slots),
+  every rank serving the same requests on its shards and rank 0
+  printing;
 * ``--export-artifact PATH`` / ``--artifact PATH`` — export each
   bucket's frozen executor, or boot the server from such a directory with
   no tuning, planning or building;
@@ -186,8 +188,10 @@ def serve_bnn(args) -> dict:
         from repro_torch.serving import faults
 
         faults.uninstall()
+        demotions = (len(server.health.demotions)
+                     if server.health is not None else 0)
         print(f"[bnn] storm: {len(plan.log)} faults injected, "
-              f"{len(server.health.demotions)} demotions")
+              f"{demotions} demotions")
     if journal is not None:
         journal.close()
     m = server.metrics()
@@ -281,14 +285,19 @@ def lm_params(cfg: transformer.LMConfig, seed: int, device,
 
 def serve_lm(args) -> dict:
     """The demo LM behind ``LMServer``: on one device, or under torchrun on
-    a ``(1, world)`` mesh, as the reference's ``serve_lm``."""
+    a ``(1, world)`` mesh, as the reference's ``serve_lm``, or on
+    ``(args.data, world / args.data)``."""
     cfg = LM_DEMO
     device = mesh_lib.init_from_env(args.device)
     rules = None
     lead = True
     if torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+        if world % args.data:
+            raise SystemExit(f"--data {args.data} does not divide the "
+                             f"world of {world} ranks")
         mesh = mesh_lib.make_host_mesh(
-            data=1, model=torch.distributed.get_world_size(), device=device)
+            data=args.data, model=world // args.data, device=device)
         rules = rules_for_mesh(mesh)
         lead = mesh.rank == 0
         if lead:
@@ -371,6 +380,10 @@ def main(argv=None):
                     help="install the seeded fault plan (transient device "
                          "faults and latency spikes) to show retry and "
                          "degradation; bnn mode only")
+    ap.add_argument("--data", type=int, default=1,
+                    help="lm mode under torchrun: the mesh's data axis "
+                         "(the slots' rows cut over it), the model axis "
+                         "the rest of the ranks")
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--export-artifact", default=None, metavar="PATH",

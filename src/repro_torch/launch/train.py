@@ -35,7 +35,10 @@ Under ``torchrun`` the ranks form a ``(data, model)`` mesh
 not the world size is an error): FSDP and DP over ``data``, TP and EP
 over ``model`` (``transformer.make_train_step(cfg, rules)``), each rank
 holding its slices of the params and the optimiser state and its rows of
-each batch; rank 0 alone logs.  Without ``torchrun`` it is one process on
+each batch; rank 0 alone logs.  ``--batch`` is any size, as the
+reference's: the rows are cut over the batch axes ``batch_spec`` keeps
+(fewer of them, or none, where the batch does not divide) and whole on
+the ranks of the others (``TokenPipeline(rules=)``).  Without ``torchrun`` it is one process on
 one device, the one-device step.
 
 The ``lm-100m`` arch is the end-to-end example config (~100M params).
@@ -127,7 +130,8 @@ def main(argv=None) -> dict:
                                      ep=tp, vocab_pad_to=tp, rules=rules)
     opt = adamw_init(params)
     lr = cosine_schedule(args.lr, args.warmup, args.steps)
-    step_fn = transformer.make_train_step(cfg, rules, lr=lr)
+    step_fn = transformer.make_train_step(cfg, rules, lr=lr,
+                                          batch_size=args.batch)
 
     specs = None
     if rules is not None:
@@ -182,6 +186,7 @@ def main(argv=None) -> dict:
             sys.stdout.flush()
             sys.stderr.flush()
             os._exit(17)
+    it.close()                            # the prefetch thread joined
     if ckpt is not None:
         ckpt.wait()                       # the last async write first
         ckpt.save(args.steps - 1, {"params": params, "opt": opt})

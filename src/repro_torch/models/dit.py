@@ -259,18 +259,13 @@ class _Plan:
         self.seq = (cfg.seq_shard and self.tok_axis is None and tp > 1
                     and s % tp == 0 and self.tp_heads and self.wo_rows
                     and self.ff_cols and self.ada_cols)
-        rows = rules.comm(self.row_axes)
-        self.rows = (rows.index, rows.size)
+        self.rows = rules.batch_cut(b)
         if self.tok_axis is not None:
             self.tok_comm = rules.comm(self.tok_axis)
 
     # ---- the rank's part of the batch ---------------------------------------
     def cut_rows(self, t: torch.Tensor) -> torch.Tensor:
-        if not self.row_axes:
-            return t
-        i, n = self.rows
-        k = t.shape[0] // n
-        return t[i * k:(i + 1) * k]
+        return self.rows.take(t) if self.lay.on else t
 
     def cut_tokens(self, t: torch.Tensor) -> torch.Tensor:
         """(b, S, ...) -> the rank's tokens (over the last batch axis)."""
@@ -456,7 +451,10 @@ def train_loss(params: dict, batch: dict, cfg: DiTConfig, rules=None):
     """batch: latents (B, H, W, C), labels (B,), t (B,), noise (B, H, W,
     C).  (MSE of the predicted ε against the noise, {}).  With ``rules``:
     the whole batch on every rank, each rank's part of the error summed
-    over the mesh; the loss is the global one, the same on every rank."""
+    over the batch axes; the loss is the global one, the same on every
+    rank.  Where neither the rows nor the tokens cut over every batch
+    axis, the ranks of the axes left out hold the same part: the sum
+    counts it once a copy and is divided by the copies too."""
     t = batch["t"].long()
     acp = alphas_cumprod(cfg, t.device)[t][:, None, None, None]
     noisy = acp.sqrt() * batch["latents"] + (1 - acp).sqrt() * batch["noise"]
@@ -466,19 +464,15 @@ def train_loss(params: dict, batch: dict, cfg: DiTConfig, rules=None):
     b, hl = noisy.shape[:2]
     grid = hl // cfg.patch
     plan = _Plan(cfg, rules, b, grid * grid)
-    axes = plan.loss_axes()
-    if plan.lay.rules.axis_size(axes) != plan.lay.dp:
-        raise ValueError(f"a batch of {b} latents of {grid * grid} tokens "
-                         f"cuts neither its rows nor its tokens over "
-                         f"{rules.batch}")
+    copies = plan.lay.dp // rules.axis_size(plan.loss_axes())
     out = _tokens(params, plan.cut_rows(noisy), plan.cut_rows(t),
                   plan.cut_rows(batch["labels"]), cfg, plan)
     pd = cfg.patch_dim
     noise = plan.cut_tokens(patchify(plan.cut_rows(batch["noise"]),
                                      cfg.patch))
     part = (out[..., :pd].float() - noise.float()).square().sum()
-    total = sharding.psum(part, rules.comm(axes))
-    return total / batch["noise"].numel(), {}
+    total = sharding.psum(part, plan.lay.batch)
+    return total / (batch["noise"].numel() * copies), {}
 
 
 def make_train_step(cfg: DiTConfig, rules=None, *, lr=1e-4) -> Callable:

@@ -471,8 +471,8 @@ def apply(params, state, images: torch.Tensor, cfg: EffNetConfig, *,
     """images (B, R, R, 3) float -> (logits (B, n_classes) float32,
     new_state).  ``train=True`` uses the batch's statistics under autograd;
     ``train=False`` the running ones, under ``torch.inference_mode``.
-    With ``rules``: train mode takes the rank's rows (of a batch cut over
-    every batch axis) and gives its rows' logits and its blocks of the
+    With ``rules``: train mode takes the rank's rows
+    (``rules.batch_cut``) and gives its rows' logits and its blocks of the
     state; eval mode takes the whole images on every rank and gives the
     whole logits."""
     if train:
@@ -495,9 +495,7 @@ def loss_fn(params, state, batch: dict, cfg: EffNetConfig, rules=None):
     ce = torch.logsumexp(lg, dim=-1) - gold
     if rules is None:
         return ce.mean(), new_state
-    lay = Layout(rules)
-    lay.train_rows(ce.shape[0])
-    return lay.mean_over_batch(ce.sum(), ce.shape[0]), new_state
+    return Layout(rules).mean_over_batch(ce.sum(), ce.shape[0]), new_state
 
 
 def make_train_step(cfg: EffNetConfig, rules=None, *, lr=0.016

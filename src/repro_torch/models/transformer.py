@@ -43,11 +43,10 @@ the reference's GSPMD partitioning is written out as explicit collectives
 (see ``_Sharded``).  Tokens go in whole on every rank, and the logits
 come out whole on every rank; the KV cache stays the rank's shard.
 ``loss_fn`` and ``make_train_step`` take ``rules`` too: each rank its
-slices and its rows of the batch, every gradient collective a
+slices and its rows of the batch (``rules.batch_cut``: any batch, as the
+reference's ``batch_spec`` places it), every gradient collective a
 differentiable op of ``distributed.sharding``.  ``rules=None`` is the
 one-device path, unchanged.
-
-Not ported yet: the dry-run analytics.
 """
 
 from __future__ import annotations
@@ -486,7 +485,8 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-                   rules=None, *, local_rows: bool = False
+                   rules=None, *, local_rows: bool = False,
+                   batch_size: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers + final norm.  Returns (x (B, S, D), aux); aux
     is the MoE balance loss averaged over the layers, 0 for a dense
@@ -496,20 +496,21 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig,
 
     With ``rules``: the rank's batch rows of x (whole over ``model``), aux
     averaged over every shard too (``moe_apply``).  ``tokens`` are whole
-    on every rank, or with ``local_rows`` the rank's rows already
-    (``batch_spec``: the train step's batch).  Differentiable there too:
-    under autograd every collective runs through the differentiable ops
-    of ``distributed.sharding`` (FSDP gathers whose backward
-    reduce-scatters, ``copy_to_model`` into each column-parallel product,
-    the row-parallel sums, the MoE's two ``all_to_all``), so the gradient
-    of each rank's leaves is its part of the one-device gradient but for
-    the sums over the batch axes (``sharding.sync_grads``)."""
+    on every rank, or with ``local_rows`` the rank's rows already of a
+    global batch of ``batch_size`` rows (``rules.batch_cut``: the train
+    step's batch; by default a cut over every batch axis).  Differentiable
+    there too: under autograd every collective runs through the
+    differentiable ops of ``distributed.sharding`` (FSDP gathers whose
+    backward reduce-scatters, ``copy_to_model`` into each column-parallel
+    product, the row-parallel sums, the MoE's two ``all_to_all``), so the
+    gradient of each rank's leaves is its part of the one-device gradient
+    but for the sums over the batch axes (``sharding.sync_grads``)."""
     plan = _plan(cfg, rules, local_rows)
     b, s = tokens.shape
     x = plan.embed(params, tokens)
     positions = torch.arange(s, device=tokens.device)[None]
     if local_rows:
-        b *= rules.dp
+        b = batch_size if batch_size is not None else b * rules.dp
 
     def layer_body(x, lp):
         lp = plan.layer(lp)
@@ -620,30 +621,37 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig, rules=None,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, *, batch_size: int | None = None):
     """(CE + ``aux_weight`` · MoE balance loss, {"ce", "aux"}) of one batch
     of ``tokens`` and next-token ``labels`` (B, S).  With ``rules``:
-    the rank's ``param_specs`` slices and the rank's rows of the batch
-    (``batch_spec`` cuts a global batch that every batch axis divides:
-    ``TokenPipeline(rules=)`` places them); the loss is the global one,
-    the same on every rank (vocab-parallel ``chunked_ce``)."""
+    the rank's ``param_specs`` slices and the rank's rows of a global
+    batch of ``batch_size`` rows (``rules.batch_cut``, as
+    ``TokenPipeline(rules=)`` places them; by default a batch cut over
+    every batch axis); the loss is the global one, the same on every rank
+    (vocab-parallel ``chunked_ce``).  Rows held by ``copies`` ranks (a
+    batch that does not divide over every batch axis) are summed once a
+    copy and divided by the copies too: the global mean, and each copy's
+    gradient its share of the rows' gradient, which the sums over the
+    batch axes (``sync_grads``, ``gather_fsdp``'s backward) add up."""
     if rules is None:
         x, aux = forward_hidden(params, batch["tokens"], cfg)
         head = _head(params, cfg)
     else:
         x, aux = forward_hidden(params, batch["tokens"], cfg, rules,
-                                local_rows=True)
+                                local_rows=True, batch_size=batch_size)
         head = _Sharded(cfg, rules).head(params)
     ce = chunked_ce(x, head, batch["labels"], cfg.vocab, rules=rules)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def make_train_step(cfg: LMConfig, rules=None, *, lr=3e-4) -> Callable:
+def make_train_step(cfg: LMConfig, rules=None, *, lr=3e-4,
+                    batch_size: int | None = None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     loss's gradient over every leaf (attention's through K7b), then one
     AdamW step with the reference's defaults.  ``lr`` is a float or a
     schedule.  With ``rules`` (every rank calls it, on its slices and its
-    rows; the optimiser state mirrors the params' slices): the gradient
+    rows of a global batch of ``batch_size`` rows, ``loss_fn``'s; the
+    optimiser state mirrors the params' slices): the gradient
     summed over the batch axes where a leaf is replicated over them
     (``sharding.sync_grads``), clipped by the global norm over every
     rank's leaves, and the update elementwise on the rank's slices."""
@@ -651,7 +659,7 @@ def make_train_step(cfg: LMConfig, rules=None, *, lr=3e-4) -> Callable:
 
     def train_step(params, opt_state, batch):
         (loss, parts), grads = value_and_grad(loss_fn, params, batch, cfg,
-                                              rules)
+                                              rules, batch_size=batch_size)
         if rules is not None:
             grads = sharding.sync_grads(grads, specs, rules)
         params, opt_state, om = adamw_update(params, grads, opt_state,
@@ -853,10 +861,13 @@ class _Sharded(_OneDevice):
       ``k_norm``, read on the rank's heads) passes through
       ``copy_to_model``, a row-parallel sum and the embedding's sum pass
       their cotangent through, a weight gathered for work run whole on
-      every rank takes back its own block.  A batch cut over fewer than
-      all batch axes (whole rows on several ranks) is left to serving:
-      its recut tokens go through ``Collective`` itself, which refuses a
-      tensor that requires grad.
+      every rank takes back its own block.
+    * Batch: the rank's rows are ``rules.batch_cut(B)``'s (whole on the
+      ranks of the batch axes ``batch_spec`` leaves out).  Where the MoE's
+      ``tokens_spec`` cuts the tokens over other batch axes than the rows,
+      they are recut (gathered over the rows' axes, cut over the tokens'
+      ones, and back), each gather a ``gather_fsdp``: the ranks read
+      different parts of it, so its backward sums their cotangents.
     """
 
     def __init__(self, cfg: LMConfig, rules, local_rows: bool = False):
@@ -899,10 +910,13 @@ class _Sharded(_OneDevice):
     def _batch_axes(self, b: int) -> tuple[str, ...]:
         return _axes_of(self.rules.batch_spec(b))
 
-    def _cut(self, t, axes):
-        c = self.rules.comm(axes)
-        n = t.shape[0] // c.size
-        return t[c.index * n:(c.index + 1) * n]
+    def _cut(self, t, b: int):
+        """The rank's block of ``t``'s first dim as the rows of a batch
+        of ``b`` are cut (``rules.batch_cut``)."""
+        return self.rules.batch_cut(b).take(t)
+
+    def _gather(self, t, axes):
+        return sharding.gather_fsdp([t], [0], self.rules.comm(axes))[0]
 
     def _col_in(self, h):
         return sharding.copy_to_model(h, self.model)
@@ -926,20 +940,20 @@ class _Sharded(_OneDevice):
         want = tuple(a for a in taxes if a != rules.model)
         have = self._batch_axes(b)
         if want != have:         # recut the tokens as token_axes says
-            tok = self._cut(rules.comm(have).all_gather(tok, 0), want)
+            tok = self._cut(self._gather(tok, have), n_tokens)
         out, aux = moe_lib.moe_apply(
             tok, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
             n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
             rules=rules, token_axes=taxes, want_aux=want_aux)
         if want != have:
-            out = self._cut(rules.comm(want).all_gather(out, 0), have)
+            out = self._cut(self._gather(out, want), b)
         return out, aux
 
     # ---- hooks --------------------------------------------------------------
     def embed(self, params, tokens):
         tok = (tokens if self.local_rows
-               else self._cut(tokens, self._batch_axes(tokens.shape[0])))
+               else self._cut(tokens, tokens.shape[0]))
         table = self._fsdp([params["embed"]], [self.specs["embed"]])[0]
         if not self.vocab_sharded:
             return table[tok].to(layers.COMPUTE_DTYPE)

@@ -336,8 +336,8 @@ def forward(params: dict, images: torch.Tensor, cfg: ViTConfig,
 
 def loss_fn(params: dict, batch: dict, cfg: ViTConfig, rules=None):
     """(mean cross entropy of ``batch["images"]`` against
-    ``batch["labels"]``, {}).  With ``rules``: the rank's rows of a batch
-    cut over every batch axis; the loss is the global mean, the same on
+    ``batch["labels"]``, {}).  With ``rules``: the rank's rows of the
+    batch (``rules.batch_cut``); the loss is the global mean, the same on
     every rank."""
     lg = logits(params, batch["images"], cfg, rules).float()
     gold = torch.take_along_dim(lg, batch["labels"].long()[:, None],
@@ -345,9 +345,7 @@ def loss_fn(params: dict, batch: dict, cfg: ViTConfig, rules=None):
     ce = torch.logsumexp(lg, dim=-1) - gold
     if rules is None:
         return ce.mean(), {}
-    lay = Layout(rules)
-    lay.train_rows(ce.shape[0])
-    return lay.mean_over_batch(ce.sum(), ce.shape[0]), {}
+    return Layout(rules).mean_over_batch(ce.sum(), ce.shape[0]), {}
 
 
 def make_train_step(cfg: ViTConfig, rules=None, *, lr=1e-3) -> Callable:

@@ -8,8 +8,14 @@ specs imply, each one of ``distributed.sharding``'s differentiable ops,
 and the four models call its hooks; without ``rules`` the models take
 their one-device path, the same ops as before they took ``rules``.
 
-* Batch: each rank's rows (``rules.batch_spec``); a train step's batch
-  is the rank's rows already.
+* Batch: each rank's rows (``rules.batch_cut``: cut over the batch axes
+  ``batch_spec`` keeps, whole on the ranks of the ones it leaves out); a
+  train step's batch is the rank's rows already.  The loss's sum over the
+  batch axes is divided by the rows of every batch rank, which counts a
+  replicated row once a copy in both, so the loss is the global mean,
+  each copy's gradient is its share, and the sums over the batch axes
+  (``sync_grads``, ``gather_fsdp``'s backward, the synced BN's
+  ``sum_stats``) need no scaling.
 * FSDP: the leaves cut over ``rules.fsdp`` are all-gathered where they
   are used, a layer's in one flat collective whose backward
   reduce-scatters the cotangents (``gather_fsdp``).
@@ -104,13 +110,11 @@ class Layout:
         return axes_of(self.rules.batch_spec(b)) if self.on else ()
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The rank's rows of a whole batch (serving)."""
-        axes = self.batch_axes(x.shape[0])
-        if not axes:
+        """The rank's rows of a whole batch (serving, and a train step's
+        batch before it is placed)."""
+        if not self.on:
             return x
-        c = self.rules.comm(axes)
-        n = x.shape[0] // c.size
-        return x[c.index * n:(c.index + 1) * n]
+        return self.rules.batch_cut(x.shape[0]).take(x)
 
     def gather_rows(self, y: torch.Tensor, b: int) -> torch.Tensor:
         """A serving output of the rank's rows whole again on every
@@ -120,17 +124,11 @@ class Layout:
             return y
         return self.rules.comm(axes).all_gather(y, axis=0)
 
-    def train_rows(self, b: int) -> None:
-        """A train step's batch must be cut over every batch axis (the
-        rank's rows), as ``TokenPipeline(rules=)`` cuts it."""
-        if self.on and self.batch_axes(b * self.dp) != tuple(
-                self.rules.batch):
-            raise ValueError(f"a local batch of {b} rows is not a cut of "
-                             f"the batch over {self.rules.batch}")
-
     def mean_over_batch(self, total: torch.Tensor, n: int) -> torch.Tensor:
         """A loss sum of the rank's ``n`` rows as the mean over the global
-        batch, the same on every rank."""
+        batch, the same on every rank: the sum over every batch rank over
+        their rows, so a row held by ``copies`` ranks counts ``copies``
+        times in both."""
         return sharding.psum(total, self.batch) / (n * self.batch.size)
 
     def sync(self, grads, specs):

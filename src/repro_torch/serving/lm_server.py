@@ -61,19 +61,23 @@ prefill resolves every in-flight request ``error`` and frees its slot.
 ``journal=`` journals accepted submits and their outcomes
 (:class:`~repro_torch.serving.recovery.RequestJournal`).
 
-With ``rules`` (a :class:`~repro_torch.distributed.sharding.Rules` whose
-data axes have size 1) the server is sharded over ``model``, one process
-a rank: ``params`` are the rank's shards (``param_specs``), the cache is
-the rank's sequence chunk of every slot (``cache_specs``), and the decode
-step is the sharded one, run eager (a step of host-side collectives is
-not captured).  Every rank runs the same loop on the same calls — the
-same submits, ticks and drains, and the same fault plan — and the tokens
-are the same on every rank, since every rank reads the whole logits.
-Every decision that reads the clock reads rank 0's (``clock`` is
-replaced by one that broadcasts it), so the ranks shed, admit and time
-alike, and rank 0's metrics are the server's.  Faults, restores and
+With ``rules`` (a :class:`~repro_torch.distributed.sharding.Rules` over
+any mesh) the server is sharded, one process a rank: ``params`` are the
+rank's shards (``param_specs``), the cache is the rank's shard
+(``cache_specs``: its sequence chunk over ``model`` of the slots its
+data coordinate holds, ``rules.batch_cut(n_slots)``; every slot on every
+data rank when ``n_slots`` does not divide over the batch axes), and the
+decode step is the sharded one, run eager (a step of host-side
+collectives is not captured): each rank decodes its slots' rows and the
+logits are all-gathered over ``model`` and the batch axes, so every
+rank reads every slot's next token.  Every rank runs the same loop on
+the same calls — the same submits, ticks and drains, and the same fault
+plan — so its manager, admissions, ticks, sheds and journal see the same
+tokens.  Every decision that reads the clock reads rank 0's (``clock``
+is replaced by one that broadcasts it), so the ranks shed, admit and
+time alike, and rank 0's metrics are the server's.  Faults, restores and
 journals behave as on one device; a snapshot holds each rank's cache
-shard.
+shard, and a restore copies back the slots the rank holds.
 """
 
 from __future__ import annotations
@@ -135,7 +139,7 @@ class LMServer:
     # Migration hook: called with the in-flight [(Request, Sequence)] when
     # restores are spent; True means another server adopted them all.
     evacuate: Callable[[list], bool] | None = None
-    # Sharding over the model axis (one process a rank); None: one device.
+    # Sharding over a mesh (one process a rank); None: one device.
     rules: Any = None
 
     def __post_init__(self):
@@ -145,10 +149,6 @@ class LMServer:
                 raise ValueError("the sharded decode step runs eager: "
                                  "capture=True needs rules=None")
             self.capture = False
-            if self.rules.dp != 1:
-                raise ValueError(f"LMServer shards over the model axis "
-                                 f"only; the batch axes have "
-                                 f"{self.rules.dp} ranks")
             if self.rules.n_devices > 1:
                 self.clock = _RankZeroClock(
                     self.clock, self.rules.comm(
@@ -164,6 +164,9 @@ class LMServer:
         self.cache = transformer.init_cache(self.cfg, self.n_slots,
                                             self.max_seq, self.device,
                                             rules=self.rules)
+        # The slots this rank's cache rows hold (every one off a mesh).
+        self._slots = (self.rules.batch_cut(self.n_slots)
+                       if self.rules is not None else None)
         self.manager = KVCacheManager(self.n_slots, self.max_seq)
         with torch.inference_mode():
             self.tokens = torch.zeros((self.n_slots, 1), dtype=torch.int64,
@@ -224,6 +227,13 @@ class LMServer:
         self._pos_buf.fill_(pos)
         self._graph.replay()
         return self._logits
+
+    def _row(self, slot: int) -> int | None:
+        """``slot``'s row of this rank's cache, None where another data
+        rank holds it."""
+        if self._slots is None:
+            return slot
+        return self._slots.local(slot, self.n_slots)
 
     def _next_tokens(self, logits: torch.Tensor) -> torch.Tensor:
         """Each slot's greedy next token (computed inside the captured
@@ -418,7 +428,7 @@ class LMServer:
         snapshot drops it (the old cut predates a prefill or a restore)."""
         try:
             self.checkpointer.take(self.cache, self.manager, self.pos,
-                                   reason=reason)
+                                   reason=reason, row=self._row)
         except Exception as e:          # noqa: BLE001 — the kv.snapshot site
             if reason != "cadence":
                 self.checkpointer.invalidate()
@@ -459,9 +469,11 @@ class LMServer:
         for t in self.cache.values():
             t.zero_()
         for seq, c, _ in replay:
-            k, v = c.materialize()
-            self.cache["k"][:, seq.slot].copy_(k, non_blocking=True)
-            self.cache["v"][:, seq.slot].copy_(v, non_blocking=True)
+            row = self._row(seq.slot)
+            if row is not None:
+                k, v = c.materialize()
+                self.cache["k"][:, row].copy_(k, non_blocking=True)
+                self.cache["v"][:, row].copy_(v, non_blocking=True)
             self.tokens[seq.slot, 0] = c.register
         self.pos = ck.pos
         # Tick i writes the register's K/V at pos and loads the token the

@@ -63,7 +63,9 @@ __all__ = ["SequenceCheckpoint", "CheckpointSet", "KVCheckpointer",
 class SequenceCheckpoint:
     """One sequence's share of a consistent cut: its bookkeeping and its
     slot's full KV pages, copies of shape (L, KV, S, hd) (pinned host
-    tensors on the card, their copies marked done by ``event``)."""
+    tensors on the card, their copies marked done by ``event``).  On a
+    mesh, the pages of this rank's cache shard: its sequence chunk, and
+    None where another data rank holds the slot."""
 
     seq_id: int
     slot: int
@@ -73,8 +75,8 @@ class SequenceCheckpoint:
     tokens: list
     prompt: list
     register: int           # last generated token, K/V not yet written
-    k_pages: torch.Tensor
-    v_pages: torch.Tensor
+    k_pages: torch.Tensor | None
+    v_pages: torch.Tensor | None
     event: Any = None       # torch.cuda.Event, None on the CPU
 
     def materialize(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -118,10 +120,13 @@ class KVCheckpointer:
         self._timing: tuple | None = None
 
     def take(self, cache: dict, manager, pos: int,
-             reason: str = "cadence") -> CheckpointSet:
+             reason: str = "cadence", row=None) -> CheckpointSet:
         """Snapshot every active sequence at global position ``pos``.
-        Raises (the held set untouched) if the ``kv.snapshot`` site
-        fires; the caller decides keep or drop."""
+        ``row(slot)``: the slot's row of ``cache`` (this rank's shard on
+        a mesh), None where another rank holds it (its bookkeeping is
+        kept, its pages are not); default the slot itself.  Raises (the
+        held set untouched) if the ``kv.snapshot`` site fires; the caller
+        decides keep or drop."""
         if _inject._PLAN is not None:
             try:
                 _inject.maybe_fault("kv.snapshot", pos=pos,
@@ -140,9 +145,13 @@ class KVCheckpointer:
         seqs: dict[int, SequenceCheckpoint] = {}
         nbytes = 0
         for seq_id, seq in manager.active.items():
+            r = seq.slot if row is None else row(seq.slot)
             pages = []
             for name in ("k", "v"):
-                src = cache[name][:, seq.slot]
+                if r is None:
+                    pages.append(None)
+                    continue
+                src = cache[name][:, r]
                 if timing is None:
                     dst = src.clone()
                 else:

@@ -88,7 +88,9 @@ captured one graph a stage on the card; ``kind == "data"``
 buckets up to a multiple of its shard count, as the reference does, and
 builds each through ``engine.compile(..., data_parallel=devices)``: one
 row shard a device, rows gathered on the first.  The reference's
-``mesh=`` has no counterpart (the port has no mesh).  The failure
+``mesh=`` (a jax mesh and its data axis) has no counterpart: the port's
+meshes (``launch.mesh``) run one process a rank, and the image server
+names its devices through ``DataParallel`` instead.  The failure
 protocol applies to a placed server unchanged.
 """
 
@@ -96,7 +98,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -110,6 +112,20 @@ from repro_torch.runtime import executor as _executor
 from repro_torch.serving.faults import (BucketHealth, RetryPolicy,
                                         WatchdogTimeout, ladder_floor)
 from repro_torch.serving.scheduler import BatchScheduler, Request
+
+
+@runtime_checkable
+class Server(Protocol):
+    """What a serving front end looks like, image or LM (the
+    reference's)."""
+
+    def submit(self, payload: Any, **kw) -> Request: ...
+
+    def poll(self, request: Request) -> bool: ...
+
+    def drain(self) -> list[Request]: ...
+
+    def metrics(self) -> dict: ...
 
 
 class _InFlight:
@@ -174,6 +190,15 @@ class InferenceServer:
                      ``Request.not_before`` on the server's clock.
     max_queue:       submits beyond this queue depth resolve ``rejected``
                      (None: unbounded).
+    validate:        check each payload at ``submit`` (numeric, finite,
+                     the engine's input shape when no ``preprocess``
+                     rewrites it); False lets it through, and a bad row
+                     then fails alone at staging.
+    degrade:         keep a ladder a bucket and demote it after
+                     ``demote_after`` consecutive failures (False:
+                     ``health`` is None, a failing bucket retries on its
+                     mode and resolves ``error``, and ``metrics()["mode"]``
+                     is the engine's).
     demote_after:    consecutive failures that demote a bucket one rung
                      down its ladder (to the engine device's floor).
     probe_after_s:   a quarantined mode is re-probed after this long
@@ -193,6 +218,8 @@ class InferenceServer:
                  clock: Callable[[], float] = time.monotonic,
                  retry: RetryPolicy | None = RetryPolicy(),
                  max_queue: int | None = None,
+                 validate: bool = True,
+                 degrade: bool = True,
                  demote_after: int = 2,
                  probe_after_s: float = 30.0,
                  watchdog_s: float | None = None,
@@ -230,16 +257,18 @@ class InferenceServer:
         self.journal = journal
         self.retry = retry
         self.max_queue = max_queue
+        self.validate = validate
         self.watchdog_s = watchdog_s
         self._sleep = sleep if sleep is not None \
             else (lambda s: time.sleep(min(s, 0.05)))
         # One ladder a bucket: a pathological bucket demotes only itself;
         # ``health.mode`` is the worst bucket's rung.  On the card the
-        # ladder ends at the last hand-written rung.
+        # ladder ends at the last hand-written rung.  ``degrade=False``:
+        # no ladder, a failing bucket retries on its mode and errors.
         self.health = BucketHealth(
             engine.matmul_mode, demote_after=demote_after,
             probe_after_s=probe_after_s,
-            floor=ladder_floor(engine.device))
+            floor=ladder_floor(engine.device)) if degrade else None
         self._pending: _InFlight | None = None
         # Requests resolved ``error`` since the last step() returned:
         # terminal completions, handed back beside the served ones.
@@ -337,9 +366,10 @@ class InferenceServer:
         # Arrival is stamped from the server's clock so latency samples
         # stay in one clock domain when a fake clock is injected.
         now = self.clock() if now is None else now
-        err = self._payload_error(payload)
-        if err is not None:
-            return self._reject(payload, err, now, deadline_s, jid)
+        if self.validate:
+            err = self._payload_error(payload)
+            if err is not None:
+                return self._reject(payload, err, now, deadline_s, jid)
         if self.max_queue is not None \
                 and len(self.scheduler) >= self.max_queue:
             return self._reject(
@@ -398,10 +428,11 @@ class InferenceServer:
         """A whole dispatched or scattered batch failed: update the
         bucket's ladder (perhaps demoting it; other buckets are
         untouched), then retry or fail each request."""
-        if probing:
-            self.health.probe_failed(bucket, mode, now)
-        elif self.health.record_failure(bucket, now) is not None:
-            self._note_demotion(now, bucket)
+        if self.health is not None:
+            if probing:
+                self.health.probe_failed(bucket, mode, now)
+            elif self.health.record_failure(bucket, now) is not None:
+                self._note_demotion(now, bucket)
         requeue: list[Request] = []
         for r in batch:
             self._retry_or_fail(r, exc, now, requeue)
@@ -494,7 +525,8 @@ class InferenceServer:
         if not kept:
             return None, failures
         if _inject._PLAN is not None:
-            _inject.maybe_fault("server.dispatch", bucket=bucket, mode=mode,
+            _inject.maybe_fault("server.dispatch", bucket=bucket,
+                                mode=mode or self.engine.matmul_mode,
                                 tenant=self.tenant)
         with _trace.span("serve.dispatch", "serve", bucket=bucket,
                          mode=mode):
@@ -512,12 +544,14 @@ class InferenceServer:
         (its ladder, or a due re-probe of a quarantined mode), batch-level
         retry on failure, per-row failures resolved alone."""
         bucket = len(payloads)
-        # The ladder exists from a bucket's first dispatch, so the
-        # per-bucket surface covers every bucket that served.
-        self.health.ladder(bucket)
-        probe = self.health.probe_due(bucket, now)
-        mode, probing = ((probe, True) if probe is not None
-                         else (self.health.mode_for(bucket), False))
+        mode, probing = None, False
+        if self.health is not None:
+            # The ladder exists from a bucket's first dispatch, so the
+            # per-bucket surface covers every bucket that served.
+            self.health.ladder(bucket)
+            probe = self.health.probe_due(bucket, now)
+            mode, probing = ((probe, True) if probe is not None
+                             else (self.health.mode_for(bucket), False))
         try:
             flight, failures = self._dispatch(batch, payloads, mode)
         except Exception as e:          # noqa: BLE001 — never kill the loop
@@ -603,7 +637,7 @@ class InferenceServer:
             self.flight.record(kind="promotion", outcome="promoted",
                                to_mode=flight.mode, bucket=flight.bucket,
                                done_s=now)
-        else:
+        elif self.health is not None:
             self.health.record_success(flight.bucket)
         return done
 
@@ -724,7 +758,7 @@ class InferenceServer:
         the placement and the throughput over the busy window (first
         dispatch → last scatter)."""
         extra = {"tenant": self.tenant} if self.tenant is not None else {}
-        if self.health.ladders:
+        if self.health is not None and self.health.ladders:
             extra["bucket_health"] = {
                 b: lad.snapshot(self.clock())
                 for b, lad in sorted(self.health.ladders.items())}
@@ -738,5 +772,7 @@ class InferenceServer:
         return self._metrics.snapshot(
             dropped=self.scheduler.dropped, queue_depth=self.queue_depth,
             async_dispatch=self.async_dispatch,
-            data_parallel=self.data_parallel, mode=self.health.mode,
+            data_parallel=self.data_parallel,
+            mode=(self.health.mode if self.health is not None
+                  else self.engine.matmul_mode),
             buckets=list(self.scheduler.buckets), **extra)
